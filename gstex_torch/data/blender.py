@@ -1,10 +1,10 @@
-"""Blender synthetic dataset cameras from ``transforms_<split>.json``
+"""Blender synthetic datasets from ``transforms_<split>.json``
 (counterpart of ``gstex_tpu/data/blender.py``): focal from
 ``camera_angle_x``, principal point at the image center, poses as given
 (OpenGL c2w), ``scale_factor`` applied to camera origins.
 
-Only the cameras are parsed; the image size comes from the first frame's
-PNG header, so no image library is needed.
+The image size comes from the first frame's PNG header and images are
+decoded by ``data/png.py``, so no image library is needed.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from .png import SIGNATURE, read_png
 
 
 @dataclass
@@ -35,10 +35,16 @@ def png_size(path) -> tuple[int, int]:
     """(height, width) from a PNG file's IHDR chunk."""
     with open(path, "rb") as f:
         head = f.read(24)
-    if head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
         raise ValueError(f"{path} is not a PNG file")
     width, height = struct.unpack(">II", head[16:24])
     return height, width
+
+
+def load_image(path) -> np.ndarray:
+    """A PNG frame as float32 (H, W, C) in [0, 1] (RGBA stays RGBA; the
+    trainer composites it over the background)."""
+    return read_png(path).astype(np.float32) / 255.0
 
 
 def parse_blender(data_dir, split: str = "train",

@@ -121,3 +121,41 @@ def orbit_camera(height: int, width: int, dist: float = 4.0,
         focal = 1.2 * max(height, width)
     return make_camera(focal, focal, width / 2, height / 2, height, width,
                        orbit_c2w(dist, azimuth, elevation), device=device)
+
+
+def write_blender_dataset(out_dir, cfg, params, buffers, views: int,
+                          height: int, width: int, split: str = "train",
+                          dist: float = 4.0, step: int = 3000) -> None:
+    """Render ``views`` orbit views of a scene with the eval path and write
+    them as a Blender-format split: ``transforms_<split>.json`` and RGBA
+    PNGs (straight colour, alpha = the render's alpha)."""
+    import json
+    from pathlib import Path
+
+    from ..models import gstex as model
+    from .png import write_png
+
+    out_dir = Path(out_dir)
+    (out_dir / split).mkdir(parents=True, exist_ok=True)
+    dev = params.means.device
+    focal = 1.2 * max(height, width)
+    frames = []
+    with torch.no_grad():
+        for i, az in enumerate(np.linspace(0, 2 * np.pi, views,
+                                           endpoint=False)):
+            c2w = orbit_c2w(dist, float(az))
+            cam = make_camera(focal, focal, width / 2, height / 2, height,
+                              width, c2w, device=dev)
+            out = model.render(cfg, params, buffers, cam, step,
+                               torch.zeros(3, device=dev), eval_only=True)
+            a = out["alpha"][..., None]
+            rgb = torch.clamp(out["rgb"] / torch.clamp(a, min=1e-6), 0, 1)
+            rgba = torch.cat([rgb, torch.clamp(a, 0, 1)], -1)
+            write_png(out_dir / split / f"r_{i}.png",
+                      (rgba * 255 + 0.5).to(torch.uint8).cpu().numpy())
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": np.concatenate(
+                               [c2w, [[0, 0, 0, 1]]]).tolist()})
+    meta = {"camera_angle_x": 2 * float(np.arctan(0.5 * width / focal)),
+            "frames": frames}
+    (out_dir / f"transforms_{split}.json").write_text(json.dumps(meta))

@@ -1,11 +1,12 @@
-"""GStex model: parameters, chart budgeting and the eval render
+"""GStex model: parameters, chart budgeting, rendering and losses
 (counterpart of ``gstex_tpu/models/gstex.py``).
 
 Parameters are NamedTuples of tensors with the JAX package's field names
-and layouts, so one scene feeds both packages. ``render`` supports the
-forward-only flat path that serves trained scenes; the training forward,
-the dense tile lists, the uv channels, the bf16 texel stream and the
-per-pixel oracle arrive with later slices of the port and raise
+and layouts, so one scene feeds both packages. ``render`` runs the flat
+pair-list path, forward-only for serving (``eval_only=True``) and
+differentiable for training. The dense tile lists, the uv channels, the
+bf16 texel stream, the per-pixel oracle and the depth-estimated normal
+loss arrive with later slices of the port and raise
 ``NotImplementedError`` here, naming their ROADMAP item.
 """
 
@@ -16,13 +17,19 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops import sh as sh_ops
+from ..ops import ssim as ssim_ops
+from ..ops import ssim_fused
 from ..ops.binning import TileGrid, build_tile_bins_flat
 from ..ops.camera import Camera
 from ..ops.cull import make_pair_cull
 from ..ops.prepare import activate_scales, prepare_splats
-from ..ops.rasterize_api import rasterize_pl5_eval
+from ..ops.rasterize_api import rasterize_pl5, rasterize_pl5_eval
+from ..ops.rasterize_bwd import fits as bwd_fits
+from ..ops.surfel import SplatGeom
+from ..utils.device import resolve_device
 
 
 class GStexParams(NamedTuple):
@@ -87,6 +94,25 @@ class GStexConfig:
 # any CPU tensor takes
 FLAT_RENDERERS = ("pallas", "pallas5", "pallas_interpret",
                   "pallas5_interpret")
+
+
+def lean_losses(cfg: GStexConfig) -> bool:
+    """True when the reg and normal loss terms are statically zero (plain
+    0 lambdas, no schedules, no normal loss): the kernels then skip the
+    distortion and normal chains."""
+    def _zero(v):
+        return isinstance(v, (int, float)) and float(v) == 0.0
+
+    return (_zero(cfg.lambda_reg) and _zero(cfg.lambda_normal)
+            and not cfg.use_normal_loss)
+
+
+def schedule_value(v, step: int) -> float:
+    """lambda_normal / lambda_reg: a float or [v0, v1, switch_step]."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    v0, v1, sw = v
+    return float(v1) if int(step) >= sw else float(v0)
 
 
 def active_sh_degree(cfg: GStexConfig, step: int) -> int:
@@ -182,6 +208,72 @@ def build_charts(cfg: GStexConfig, log_scales: torch.Tensor,
     return hw, mappings, scale
 
 
+def resample_charts(texture: torch.Tensor, old_hw: torch.Tensor,
+                    new_hw: torch.Tensor) -> torch.Tensor:
+    """Bilinear-resample every chart from its old active dims to its new
+    ones: new texel (a, b) sits at uv = (a/h', b/w') and samples the old
+    chart (``surfel.chart_sample_bilinear``, batched over gaussians).
+    Texels outside the new active region are zero."""
+    n, ch, cw, _ = texture.shape
+    dev = texture.device
+    aa = torch.arange(ch, device=dev)[None, :, None]
+    bb = torch.arange(cw, device=dev)[None, None, :]
+    nh = new_hw[:, 0, None, None]
+    nw = new_hw[:, 1, None, None]
+    oh = old_hw[:, 0, None, None].long()
+    ow = old_hw[:, 1, None, None].long()
+    hf, wf = oh.to(torch.float32), ow.to(torch.float32)
+    x = torch.minimum(torch.clamp(aa / nh.to(torch.float32) * hf, min=0.0),
+                      hf - 1.0)
+    y = torch.minimum(torch.clamp(bb / nw.to(torch.float32) * wf, min=0.0),
+                      wf - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i, y0i = x0.long(), y0.long()
+    x1i = torch.minimum(x0i + 1, oh - 1)
+    y1i = torch.minimum(y0i + 1, ow - 1)
+    flat = texture.reshape(-1, 3)
+    row = torch.arange(n, device=dev)[:, None, None] * ch
+
+    def at(xi, yi):
+        return flat[(row + xi) * cw + yi]
+
+    vals = ((1 - fx) * ((1 - fy) * at(x0i, y0i) + fy * at(x0i, y1i))
+            + fx * ((1 - fy) * at(x1i, y0i) + fy * at(x1i, y1i)))
+    active = (aa < nh) & (bb < nw)
+    return torch.where(active[..., None], vals, 0.0)
+
+
+def rechart(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers):
+    """The every-``build_chart_every``-steps re-chart: re-budget the
+    charts, resample the texture, refresh the mappings. Shapes stay: dims
+    clamp to the texture's storage pad."""
+    new_hw, mappings, scale = build_charts(
+        cfg, params.log_scales, pad=tuple(params.texture.shape[1:3]))
+    new_texture = resample_charts(params.texture.detach(),
+                                  buffers.texture_hw, new_hw)
+    params = params._replace(texture=new_texture)
+    buffers = buffers._replace(texture_hw=new_hw, mappings=mappings,
+                               pixel_scale=torch.as_tensor(
+                                   scale, dtype=torch.float32,
+                                   device=new_hw.device))
+    return params, buffers
+
+
+def texel_count(buffers: GStexBuffers) -> int:
+    """Σ h·w over the active charts."""
+    hw = buffers.texture_hw.long()
+    return int((hw[:, 0] * hw[:, 1]).sum())
+
+
+def downscale_factor(cfg: GStexConfig, step: int) -> int:
+    """Training-resolution schedule: 2^max(num_downscales − step //
+    resolution_schedule, 0)."""
+    return 2 ** max(cfg.num_downscales - step // cfg.resolution_schedule, 0)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -233,11 +325,13 @@ def init_params(cfg: GStexConfig, means, log_scales2, quats, opacity_logits,
 def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
            cam: Camera, step: int, background: torch.Tensor,
            extra: bool = False, eval_only: bool = False) -> dict:
-    """Forward-only render of one view on the flat pair-list path.
+    """Render one view on the flat pair-list path: forward-only with
+    ``eval_only=True``, else the training forward, differentiable in the
+    params.
 
-    Returns ``rgb`` (composited over ``background`` (3,)), the raw maps,
-    and the binning's ``overflow``, ``total_pairs`` and
-    ``max_tile_count``.
+    Returns ``rgb`` (composited over ``background`` (3,)), the raw maps
+    (plus ``normal`` and ``reg`` when training), and the binning's
+    ``overflow``, ``total_pairs`` and ``max_tile_count``.
     """
     if extra:
         raise NotImplementedError(
@@ -255,30 +349,51 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     if cfg.texel_dtype == "bf16":
         raise NotImplementedError(
             "texel_dtype='bf16' (bf16 chart stream): ROADMAP Queue 1 item 6")
-    if not eval_only:
+    if cfg.use_normal_loss and not eval_only:
         raise NotImplementedError(
-            "the training forward (eval_only=False) comes with slice 2: "
-            "ROADMAP Queue 2 item 1")
-    prep = prepare_splats(
-        params.means, params.log_scales, params.quats, params.opacity_logits,
-        params.features_dc, params.features_rest, buffers.mappings, cam,
-        active_sh_degree=active_sh_degree(cfg, step),
-        sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
-        extent_sigma=cfg.sigma_factor)
+            "use_normal_loss (normals estimated from depth, ops/normals.py): "
+            "ROADMAP Queue 1 item 13")
     grid = cfg.grid(cam.height, cam.width)
-    cull_fn = (make_pair_cull(prep.geom, cam, grid) if cfg.pair_cull
-               else None)
-    bins = build_tile_bins_flat(prep.centers, prep.extents, prep.depths,
-                                prep.valid, grid, pair_cap=cfg.pair_cap,
-                                s_cap=cfg.s_max, cull_fn=cull_fn)
-    # texture albedo: SH2RGB(texture_dc) when sh_degree > 0, else sigmoid
-    if cfg.sh_degree > 0:
-        texture = sh_ops.sh_to_rgb(params.texture)
+    pad = tuple(params.texture.shape[1:3])
+    if not eval_only and not bwd_fits(pad, grid.tile_h * grid.tile_w):
+        raise NotImplementedError(
+            f"charts of pad {pad} do not fit the backward kernel's shared "
+            f"memory; they take the dense fallback: ROADMAP Queue 1 items "
+            f"4 and 6")
+    # the "gstex.*" ranges name the stages in a torch.profiler trace
+    with record_function("gstex.prepare"):
+        prep = prepare_splats(
+            params.means, params.log_scales, params.quats,
+            params.opacity_logits, params.features_dc, params.features_rest,
+            buffers.mappings, cam,
+            active_sh_degree=active_sh_degree(cfg, step),
+            sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
+            extent_sigma=cfg.sigma_factor)
+    with record_function("gstex.cull_binning"):
+        # binning and the cull see detached geometry: no gradient flows
+        # through the pair lists
+        geom_d = SplatGeom(*(x.detach() for x in prep.geom))
+        cull_fn = (make_pair_cull(geom_d, cam, grid) if cfg.pair_cull
+                   else None)
+        bins = build_tile_bins_flat(
+            prep.centers.detach(), prep.extents.detach(),
+            prep.depths.detach(), prep.valid, grid, pair_cap=cfg.pair_cap,
+            s_cap=cfg.s_max, cull_fn=cull_fn)
+    with record_function("gstex.records"):
+        # texture albedo: SH2RGB(texture_dc) when sh_degree > 0, else
+        # sigmoid
+        if cfg.sh_degree > 0:
+            texture = sh_ops.sh_to_rgb(params.texture)
+        else:
+            texture = torch.sigmoid(params.texture)
+    if eval_only:
+        out = rasterize_pl5_eval(prep.geom, texture, buffers.texture_hw,
+                                 bins, cam, grid, s_cap=cfg.s_max,
+                                 background=background)
     else:
-        texture = torch.sigmoid(params.texture)
-    out = rasterize_pl5_eval(prep.geom, texture, buffers.texture_hw, bins,
-                             cam, grid, s_cap=cfg.s_max,
-                             background=background)
+        out = rasterize_pl5(prep.geom, texture, buffers.texture_hw, bins,
+                            cam, grid, s_cap=cfg.s_max,
+                            lean=lean_losses(cfg), background=background)
     out["background"] = background
     out["overflow"] = bins.overflow
     out["total_pairs"] = bins.total_pairs
@@ -286,10 +401,52 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     return out
 
 
+def composite_gt(image: torch.Tensor,
+                 background: torch.Tensor) -> torch.Tensor:
+    """Alpha-composite RGBA ground truth over the background."""
+    if image.shape[-1] == 4:
+        a = image[..., 3:4]
+        return a * image[..., :3] + (1 - a) * background[None, None, :]
+    return image
+
+
+def loss_fn(cfg: GStexConfig, outputs: dict, gt_rgb: torch.Tensor,
+            step: int, mask: Optional[torch.Tensor] = None):
+    """0.8·L1 + 0.2·(1−SSIM) + normal + reg; returns (total, parts)."""
+    pred = outputs["rgb"]
+    gt = gt_rgb
+    if mask is not None:
+        pred = pred * mask
+        gt = gt * mask
+    l1 = (gt - pred).abs().mean()
+    if cfg.fused_ssim and ssim_fused.fused_ssim_supported(tuple(pred.shape)):
+        # gradient with respect to the render only
+        simloss = 1.0 - ssim_fused.fused_ssim(pred, gt, 1.0)
+    else:
+        simloss = 1.0 - ssim_ops.ssim(gt, pred)
+    zero = torch.zeros((), device=pred.device)
+    if lean_losses(cfg):
+        normal_loss = reg_loss = zero
+    else:
+        lam_n = schedule_value(cfg.lambda_normal, step)
+        lam_r = schedule_value(cfg.lambda_reg, step)
+        # normal loss: mean(α − n·n̂) with n̂ = n (use_normal_loss, the
+        # depth-estimated n̂, raises in render)
+        normal_loss = lam_n * (outputs["alpha"] - (
+            outputs["normal"] * outputs["normal"]).sum(-1)).mean()
+        reg_loss = lam_r * outputs["reg"].mean()
+    main = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * simloss
+    total = main + normal_loss + reg_loss
+    return total, {"main_loss": main, "l1": l1, "ssim_loss": simloss,
+                   "normal_loss": normal_loss, "reg_loss": reg_loss}
+
+
 def sample_background(cfg: GStexConfig,
                       generator: Optional[torch.Generator] = None,
                       device=None) -> torch.Tensor:
-    """Per-step training background (3,)."""
+    """Per-step training background (3,), on the card unless ``device``
+    says otherwise (a ``generator`` must live on that device)."""
+    device = resolve_device(device)
     if cfg.background_color == "random":
         return torch.rand(3, generator=generator, device=device)
     if cfg.background_color == "white":

@@ -16,26 +16,34 @@ from ..utils.device import resolve_device
 from . import gstex as model
 
 
-def _check_pad(cfg, hw):
+def _chart_pad(cfg, hw, log_scales):
+    """The dense pad: ``cfg.chart_pad``, which must cover the dump's chart
+    dims, or with ``chart_pad=None`` the scene's ``resolve_chart_pad``
+    grown to cover them."""
+    if cfg.chart_pad is None:
+        auto = model.resolve_chart_pad(
+            cfg, torch.as_tensor(np.asarray(log_scales, np.float32)))
+        up8 = lambda v: -(-int(v) // 8) * 8
+        return (max(auto[0], up8(hw[:, 0].max())),
+                max(auto[1], up8(hw[:, 1].max())))
     ch, cw = cfg.chart_pad
     if hw[:, 0].max() > ch or hw[:, 1].max() > cw:
         raise ValueError(f"chart_pad {cfg.chart_pad} < dump chart dims "
                          f"({hw[:, 0].max()}, {hw[:, 1].max()})")
+    return cfg.chart_pad
 
 
 def params_from_export_npz(cfg: model.GStexConfig, path, seed: int = 0,
                            device=None):
     """(params, buffers) from a ``gstex-export gstex-npz`` dump: raw
-    params, the flat jagged texture and its (h, w, offset) dims.
-    ``cfg.chart_pad`` must cover the dump's chart dims."""
+    params, the flat jagged texture and its (h, w, offset) dims."""
     dev = resolve_device(device)
     with np.load(path) as d:
         d = dict(d)
     n = d["xyz"].shape[0]
     hw = d["texture_dims"][:, :2].astype(np.int32)
     offsets = d["texture_dims"][:, 2].astype(np.int64)
-    _check_pad(cfg, hw)
-    ch, cw = cfg.chart_pad
+    ch, cw = _chart_pad(cfg, hw, d["scaling"])
     # scatter the flat jagged texels into the dense (N, Ch, Cw, 3) layout
     sizes = (hw[:, 0] * hw[:, 1]).astype(np.int64)
     owner = np.repeat(np.arange(n), sizes)
@@ -74,8 +82,7 @@ def params_from_scene_stats(cfg: model.GStexConfig, path, seed: int = 0,
         d = dict(d)
     n = d["xyz"].shape[0]
     hw = d["texture_hw"].astype(np.int32)
-    _check_pad(cfg, hw)
-    ch, cw = cfg.chart_pad
+    ch, cw = _chart_pad(cfg, hw, d["scaling"])
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)

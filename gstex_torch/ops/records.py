@@ -32,8 +32,10 @@ def build_records(geom: SplatGeom, origin: torch.Tensor) -> torch.Tensor:
     om = origin - geom.mean
     b1 = geom.ax1 / geom.l0[:, None]
     b2 = geom.ax2 / geom.l1[:, None]
-    b1u = geom.uv_scale[:, 0:1] * geom.ax1
-    b2u = geom.uv_scale[:, 1:2] * geom.ax2
+    # the chart uv frame is detached: no gradient reaches the scales,
+    # rotations or mappings through fields 12-19, only through ``om``
+    b1u = geom.uv_scale[:, 0:1].detach() * geom.ax1.detach()
+    b2u = geom.uv_scale[:, 1:2].detach() * geom.ax2.detach()
     dot = lambda a, b: (a * b).sum(-1, keepdim=True)
     return torch.cat([
         geom.normal, -dot(om, geom.normal),

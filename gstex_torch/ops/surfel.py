@@ -15,6 +15,9 @@ AA_SIGMA2 = 0.5
 ALPHA_CLAMP = 0.999
 ALPHA_CUTOFF = 1.0 / 255.0
 T_EPS = 1e-4
+# view depth -> [0, 1] mapping of the 2DGS distortion regularizer
+REG_NEAR = 0.2
+REG_FAR = 100.0
 # hard support cutoff in sigma units: the surfel response is zero beyond
 # the ±EXTENT_SIGMA ellipse, consistent with the 3σ screen AABB used for
 # tile binning
@@ -82,6 +85,13 @@ def intersect(geom: SplatGeom, origin: torch.Tensor, dirs: torch.Tensor,
     facing = torch.where(denom > 0.0, -1.0, 1.0)
     n_eff = geom.normal * facing[..., None]
     return {"t": t, "alpha": alpha, "uv": uv, "n_eff": n_eff}
+
+
+def reg_depth_map(t: torch.Tensor) -> torch.Tensor:
+    """Map view depth to [0, 1] for the distortion regularizer
+    (2DGS NDC-style)."""
+    tc = torch.clamp(t, min=REG_NEAR)
+    return (REG_FAR / (REG_FAR - REG_NEAR)) * (1.0 - REG_NEAR / tc)
 
 
 def chart_sample_bilinear(chart: torch.Tensor, h, w,

@@ -20,13 +20,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import struct
-import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..data.png import write_png
 from ..data.synthetic import orbit_c2w, orbit_camera
 from ..models import gstex as model
 from ..models.init_io import load_scene_npz
@@ -76,23 +75,6 @@ def demand_caps(cfg: model.GStexConfig, params, buffers, cams,
             break
         pair_cap, s_cap = min(pair_cap * 2, 1 << 24), s_cap * 2
     return settle_caps(total, hottest)
-
-
-def write_png(path, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[i].tobytes() for i in range(h))
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def _cameras(args, device):

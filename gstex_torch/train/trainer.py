@@ -1,0 +1,226 @@
+"""Trainer: the outer loop with its step hooks (counterpart of
+``gstex_tpu/train/trainer.py``), on one device.
+
+Per step: the next camera of the epoch's random order, one train step,
+the NaN gate, overflow-driven capacity growth, the re-chart every
+``build_chart_every`` steps, a log line every ``log_every`` steps, an
+eval image every ``steps_per_eval_image`` steps, checkpoints every
+``steps_per_save`` steps and at the end. The tile mesh, data parallelism,
+camera optimization, the metric sinks beyond the JSONL log, the
+whole-eval-set cadence, the scanned multi-step dispatch and the
+progressive-resolution schedule raise ``NotImplementedError`` and name
+their ROADMAP item; the viewer is not attached yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ..data.manager import FullImageCache
+from ..models import gstex as model
+from ..ops.binning import settle_caps
+from ..ops.ssim import psnr, ssim
+from ..scripts.render import demand_caps, eval_background
+from ..utils import checkpoint as ckpt_io
+from . import optim
+from . import step as step_mod
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """The JAX package's ``TrainerConfig``, field for field."""
+
+    max_num_iterations: int = 15000
+    steps_per_save: int = 2000
+    steps_per_eval_image: int = 500
+    steps_per_eval_all_images: int = 0
+    save_only_latest_checkpoint: bool = True
+    seed: int = 42
+    output_dir: str = "outputs/unnamed"
+    load_checkpoint: Optional[str] = None
+    log_every: int = 10
+    num_devices: int = 0
+    data_parallel: int = 0
+    check_finite: bool = True
+    # the port dispatches one step at a time
+    steps_per_sync: int = 1
+    # metric sinks beyond the JSONL log (tensorboard / wandb / comet)
+    vis: str = ""
+    demand_size_caps: bool = False
+    camera_opt: str = "off"
+
+
+def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
+    todo = [
+        (tcfg.num_devices > 1 or tcfg.data_parallel > 1,
+         "multi-device training (tile mesh, data parallelism): ROADMAP "
+         "Queue 1 item 14"),
+        (tcfg.camera_opt != "off",
+         "camera pose optimization: ROADMAP Queue 1 item 13"),
+        (tcfg.steps_per_sync > 1,
+         "the scanned multi-step dispatch: ROADMAP Queue 1 item 9"),
+        (bool(tcfg.vis), "metric sinks (tensorboard, wandb, comet): ROADMAP "
+                         "Queue 1 item 12"),
+        (tcfg.steps_per_eval_all_images > 0,
+         "the periodic whole-eval-set pass (eval fps, LPIPS): ROADMAP "
+         "Queue 1 item 12"),
+        (mcfg.num_downscales > 0,
+         "the progressive-resolution schedule (image resize): ROADMAP "
+         "Queue 1 item 10"),
+    ]
+    for cond, what in todo:
+        if cond:
+            raise NotImplementedError(what)
+
+
+class Trainer:
+    def __init__(self, tcfg: TrainerConfig, mcfg: model.GStexConfig,
+                 ocfg: optim.OptimConfig, params, buffers,
+                 train_cache: FullImageCache,
+                 eval_cache: Optional[FullImageCache] = None,
+                 run_config: Optional[dict] = None):
+        _not_yet(tcfg, mcfg)
+        self.tcfg, self.mcfg, self.ocfg = tcfg, mcfg, ocfg
+        self.train_cache = train_cache
+        self.eval_cache = eval_cache
+        self.run_config = run_config or {}
+        self.out_dir = Path(tcfg.output_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.state = step_mod.init_state(mcfg, ocfg, params, buffers,
+                                         seed=tcfg.seed)
+        if tcfg.load_checkpoint:
+            ckpt_io.load_checkpoint(tcfg.load_checkpoint, self.state)
+            print(f"resumed from {tcfg.load_checkpoint} at step "
+                  f"{self.state.step}")
+        if tcfg.demand_size_caps and len(train_cache) > 0:
+            self.mcfg = self._demand_size_caps()
+        self.history: list[dict] = []
+        self._eval_counter = 0
+
+    def _demand_size_caps(self) -> model.GStexConfig:
+        """pair_cap / s_max sized to the first train view's measured
+        demand (``settle_caps``)."""
+        mcfg, st = self.mcfg, self.state
+        cam = self.train_cache.get(0)[0]
+        with torch.no_grad():
+            p, s = demand_caps(mcfg, st.params, st.buffers, [cam],
+                               mcfg.sh_degree * mcfg.sh_degree_interval)
+        if (p, s) != (mcfg.pair_cap, mcfg.s_max):
+            print(f"demand-sized capacities: pair_cap {mcfg.pair_cap}->{p}, "
+                  f"s_max {mcfg.s_max}->{s}")
+        return dataclasses.replace(mcfg, pair_cap=p, s_max=s)
+
+    def train(self) -> list[dict]:
+        """Run to ``max_num_iterations``; returns the per-step metrics."""
+        tcfg, st = self.tcfg, self.state
+        log_path = self.out_dir / "metrics.jsonl"
+        t_last, since_log = time.time(), 0
+        while st.step < tcfg.max_num_iterations:
+            step = st.step
+            idx, (cam, img, mask) = self.train_cache.next_train_idx()
+            metrics = step_mod.train_step(self.mcfg, self.ocfg, st, cam, img,
+                                          mask)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics["step"], metrics["camera"] = step, idx
+            self.history.append(metrics)
+            since_log += 1
+            if tcfg.check_finite and not math.isfinite(metrics["loss"]):
+                self._nan_abort(step, metrics)
+            if metrics["overflow"] > 0:
+                self._grow_capacities(step, metrics)
+            if (self.mcfg.build_chart_every > 0 and step > 0
+                    and step % self.mcfg.build_chart_every == 0):
+                step_mod.rechart_step(self.mcfg, st)
+            if tcfg.log_every > 0 and step % tcfg.log_every == 0:
+                now = time.time()
+                line = dict(metrics, rays_per_sec=cam.height * cam.width
+                            * since_log / max(now - t_last, 1e-6),
+                            texel_count=model.texel_count(st.buffers))
+                t_last, since_log = now, 0
+                print(json.dumps(line), flush=True)
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+            if (tcfg.steps_per_eval_image > 0 and self.eval_cache
+                    and step % tcfg.steps_per_eval_image == 0):
+                self.eval_one(step)
+            if (tcfg.steps_per_save > 0 and step > 0
+                    and step % tcfg.steps_per_save == 0):
+                self.save()
+        self.save()
+        return self.history
+
+    def _grow_capacities(self, step: int, metrics: dict) -> None:
+        """Overflow-driven capacity growth, sized to the step's measured
+        demand with headroom (``settle_caps``), never below the
+        overflowing caps doubled where they bound."""
+        mcfg = self.mcfg
+        total, hottest = int(metrics["total_pairs"]), int(
+            metrics["max_tile_count"])
+        new_p, new_s = settle_caps(total, hottest)
+        if total >= mcfg.pair_cap:
+            new_p = max(new_p, mcfg.pair_cap * 2)
+        if hottest >= mcfg.s_max:
+            new_s = max(new_s, mcfg.s_max * 2)
+        new_p = min(max(new_p, mcfg.pair_cap), 1 << 23)
+        new_s = min(max(new_s, mcfg.s_max), 4096)
+        if (new_p, new_s) == (mcfg.pair_cap, mcfg.s_max):
+            print(f"WARNING step {step}: overflow {int(metrics['overflow'])}"
+                  f" at max capacities (s_max={mcfg.s_max})")
+            return
+        print(f"step {step}: overflow {int(metrics['overflow'])} — growing "
+              f"s_max {mcfg.s_max}->{new_s}, pair_cap {mcfg.pair_cap}->"
+              f"{new_p}")
+        self.mcfg = dataclasses.replace(mcfg, s_max=new_s, pair_cap=new_p)
+
+    def _nan_abort(self, step: int, metrics: dict):
+        """Dump the step, its metrics and per-leaf param stats, and abort."""
+        leaves = {}
+        for name, leaf in self.state.params._asdict().items():
+            x = leaf.detach()
+            finite = torch.isfinite(x)
+            leaves[name] = {
+                "finite_frac": float(finite.float().mean()),
+                "absmax": float(x[finite].abs().max()) if finite.any()
+                else float("nan"),
+            }
+        path = self.out_dir / f"nan_dump_step{step}.json"
+        path.write_text(json.dumps({"step": step, "metrics": metrics,
+                                    "params": leaves}, indent=1))
+        raise FloatingPointError(
+            f"non-finite loss at step {step}; diagnostic at {path}")
+
+    def _eval_metrics(self, i: int) -> dict:
+        cam, img, _ = self.eval_cache.get(i)
+        bg = eval_background(self.mcfg, img.device)
+        out = step_mod.eval_step(self.mcfg, self.state, cam, bg)
+        gt = model.composite_gt(img, bg)
+        return {"psnr": float(psnr(out["rgb"], gt)),
+                "ssim": float(ssim(gt, out["rgb"]))}
+
+    def eval_one(self, step: int) -> dict:
+        """PSNR and SSIM of one eval view, cycling through the eval set."""
+        i = self._eval_counter % len(self.eval_cache)
+        self._eval_counter += 1
+        m = self._eval_metrics(i)
+        print(json.dumps({"step": step, **{f"eval_{k}": v
+                                           for k, v in m.items()}}))
+        return m
+
+    def eval_all(self) -> dict:
+        """Mean PSNR and SSIM over the eval set."""
+        rows = [self._eval_metrics(i) for i in range(len(self.eval_cache))]
+        return {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+
+    def save(self) -> Path:
+        path = ckpt_io.save_checkpoint(
+            self.out_dir / "checkpoints", self.state, self.run_config,
+            keep_only_latest=self.tcfg.save_only_latest_checkpoint)
+        print(f"saved {path}")
+        return path

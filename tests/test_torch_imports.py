@@ -31,8 +31,12 @@ def test_no_jax_import(path):
 
 
 def test_sources_found():
-    assert len(SOURCES) > 20
-    assert any(p.name == "rasterize_eval.py" for p in SOURCES)
+    assert len(SOURCES) > 30
+    names = {p.relative_to(ROOT / "gstex_torch").as_posix() for p in SOURCES
+             if p.is_relative_to(ROOT / "gstex_torch")}
+    assert {"ops/rasterize_eval.py", "ops/rasterize_fwd.py",
+            "ops/rasterize_bwd.py", "ops/ssim_fused.py", "train/trainer.py",
+            "scripts/train.py", "utils/checkpoint.py"} <= names
 
 
 def test_package_turns_tf32_off():

@@ -6,16 +6,33 @@ the port is installed:
 
     python -m pytest --noconftest -o addopts='' tests/test_torch_kernels_cuda.py
 
-The kernel and the plain version run the same float32 operations in the
-same per-pixel order (the kernel is built without FMA contraction), so
-they are held to 1e-4, the tolerance ``chip_smoke.py`` uses.
+The eval and forward kernels and their plain versions run the same
+float32 operations in the same per-pixel order (the kernels are built
+without FMA contraction), so they are held to 1e-4, the tolerance
+``chip_smoke.py`` uses. The backward kernel sums over pixels and tiles in
+another order (shuffles and atomics), so it is held to 1e-4 of each
+field group's largest plain value, and the texture gradient to a sign
+flip fraction of 1e-5. The SSIM kernel and its plain version both run in
+float32 and carry float32 roundoff of ~1.2e-5 of the largest gradient at
+800x800 (the variances are differences of near-equal blurs), so each is
+held to a float64 evaluation: 1e-6 on the value, 3e-5 of the largest
+gradient; and to each other: 1e-6 on the value, twice 3e-5 on the
+gradient.
+
+The chart pads include a non-square one, whose active charts are drawn
+up to the full pad in each direction, and one large enough that each
+chunk of both kernels stages a single splat, as the training main path's
+scene-sized pads do.
 """
 
 import pytest
 import torch
 
 from gstex_torch.data.synthetic import orbit_camera, surface_scene
+from gstex_torch.ops import rasterize_bwd as rbwd
 from gstex_torch.ops import rasterize_eval as reval
+from gstex_torch.ops import rasterize_fwd as rfwd
+from gstex_torch.ops import ssim_fused
 from gstex_torch.ops.binning import TileGrid, build_tile_bins_flat
 from gstex_torch.ops.cull import make_pair_cull
 from gstex_torch.ops.prepare import prepare_splats
@@ -23,23 +40,40 @@ from gstex_torch.ops.records import assemble_records, cam_info
 from gstex_torch.ops.sh import sh_to_rgb
 
 H, W = 96, 128
+CASES = [((8, 8), 32, 1024), ((4, 4), 16, 1024), ((8, 8), 32, 16),
+         ((6, 10), 16, 1024), ((40, 56), 32, 1024)]
+CASE_IDS = ["pad8_tile32", "pad4_tile16", "clamped_s_cap", "pad6x10_tile16",
+            "pad40x56_chunk1"]
+SSIM_LOSS_TOL = 1e-6
+SSIM_GRAD_TOL = 3e-5   # of the float64 gradient's max
+# record fields by what they carry, for the backward's per-group gate
+FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
+                "axis2": [8, 9, 10, 11], "uv": [15, 19], "opacity": [20],
+                "rgb": [21, 22, 23], "xy": [24, 25]}
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    assert not torch.backends.cudnn.allow_tf32
     return torch.device("cuda")
 
 
-def kernel_inputs(device, pad, tile, s_cap, n=2000):
+def kernel_inputs(device, pad, tile, s_cap, n=2000, height=H, width=W):
     s = surface_scene(n, chart_pad=pad, seed=1, device=device)
-    cam = orbit_camera(H, W, dist=3.0, azimuth=0.7, device=device)
+    # active chart dims up to the pad in each direction
+    gen = torch.Generator(device=device).manual_seed(4)
+    s["texture_hw"] = torch.stack([
+        torch.randint(1, pad[0] + 1, (n,), generator=gen, device=device),
+        torch.randint(1, pad[1] + 1, (n,), generator=gen, device=device)],
+        -1).to(torch.int32)
+    cam = orbit_camera(height, width, dist=3.0, azimuth=0.7, device=device)
     prep = prepare_splats(s["means"], s["log_scales"], s["quats"],
                           s["opacity_logits"], s["features_dc"],
                           s["features_rest"], s["mappings"], cam,
                           active_sh_degree=3)
-    grid = TileGrid(height=H, width=W, tile_h=tile, tile_w=tile)
+    grid = TileGrid(height=height, width=width, tile_h=tile, tile_w=tile)
     bins = build_tile_bins_flat(prep.centers, prep.extents, prep.depths,
                                 prep.valid, grid, pair_cap=1 << 18,
                                 s_cap=s_cap,
@@ -50,11 +84,32 @@ def kernel_inputs(device, pad, tile, s_cap, n=2000):
     return inputs, grid, bins
 
 
+def cotangents(device, height=H, width=W, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((rfwd.NG, height, width), generator=gen, device=device)
+    g[6] *= 0.1    # depth
+    g[8:] *= 0.1   # normal, reg
+    return g.contiguous()
+
+
+def backward_errors(d_rec, d_ch, ref_rec, ref_ch):
+    """Max abs error per field group over the plain version's max abs, and
+    the fraction of texture gradient elements whose sign flips."""
+    errs = {}
+    for name, fields in FIELD_GROUPS.items():
+        scale = float(ref_rec[:, fields].abs().max()) + 1e-12
+        errs[name] = float((d_rec[:, fields] - ref_rec[:, fields]).abs()
+                           .max()) / scale
+    scale = float(ref_ch.abs().max()) + 1e-12
+    errs["texture"] = float((d_ch - ref_ch).abs().max()) / scale
+    big = ref_ch.abs() > 1e-6 * scale
+    flips = (torch.sign(d_ch) != torch.sign(ref_ch)) & big
+    errs["texture_flip_frac"] = float(flips.sum()) / max(int(big.sum()), 1)
+    return errs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pad,tile,s_cap", [((8, 8), 32, 1024),
-                                            ((4, 4), 16, 1024),
-                                            ((8, 8), 32, 16)],
-                         ids=["pad8_tile32", "pad4_tile16", "clamped_s_cap"])
+@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
 def test_kernel_matches_plain(cuda, pad, tile, s_cap):
     inputs, grid, bins = kernel_inputs(cuda, pad, tile, s_cap)
     if s_cap == 16:
@@ -69,10 +124,84 @@ def test_kernel_matches_plain(cuda, pad, tile, s_cap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+def test_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
+    inputs, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
+    before = rfwd.rasterize_fwd.launches
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
+    torch.cuda.synchronize()
+    assert rfwd.rasterize_fwd.launches == before + 1
+    ref, ref_ncon = rfwd.rasterize_fwd_reference(*inputs, grid, s_cap,
+                                                 lean=lean)
+    torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    assert torch.equal(ncon, ref_ncon)
+    assert float(maps[7].max()) > 0.3
+    if lean:
+        assert float(maps[8:12].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+def test_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
+    inputs, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
+    if pad == (40, 56):
+        assert rfwd.chunk_size(pad) == 1
+        assert rbwd.chunk_size(pad, tile * tile) == 1
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
+    g = cotangents(cuda)
+    before = rbwd.rasterize_bwd.launches
+    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, s_cap,
+                                     lean=lean)
+    torch.cuda.synchronize()
+    assert rbwd.rasterize_bwd.launches == before + 1
+    ref_rec, ref_ch = rbwd.rasterize_bwd_reference(*inputs, maps, ncon, g,
+                                                   grid, s_cap, lean=lean)
+    errs = backward_errors(d_rec, d_ch, ref_rec, ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+    assert float(ref_rec.abs().max()) > 0
+    assert float(d_rec[:, [12, 13, 14, 16, 17, 18]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 96, 3), (120, 64, 3), (800, 800, 3)])
+def test_ssim_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.rand(shape, generator=gen, device=cuda)
+    b = torch.clamp(a + 0.1 * torch.randn(shape, generator=gen, device=cuda),
+                    0, 1)
+    before = ssim_fused.fused_ssim_value_and_grad.launches
+    value, grad = ssim_fused.fused_ssim_value_and_grad(a, b)
+    torch.cuda.synchronize()
+    assert ssim_fused.fused_ssim_value_and_grad.launches == before + 1
+    assert grad.dtype == torch.float32
+    plain_value, plain_grad = ssim_fused.fused_ssim_reference(a, b)
+    exact_value, exact_grad = ssim_fused.fused_ssim_reference(a.double(),
+                                                              b.double())
+    scale = float(exact_grad.abs().max())
+
+    def errors(v, g, ref_v, ref_g):
+        return (abs(float(v) - float(ref_v)),
+                float((g.double() - ref_g.double()).abs().max()) / scale)
+
+    for v, g in ((value, grad), (plain_value, plain_grad)):
+        loss_err, grad_err = errors(v, g, exact_value, exact_grad)
+        assert loss_err <= SSIM_LOSS_TOL and grad_err <= SSIM_GRAD_TOL
+    loss_err, grad_err = errors(value, grad, plain_value, plain_grad)
+    assert loss_err <= SSIM_LOSS_TOL and grad_err <= 2 * SSIM_GRAD_TOL
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
     inputs, _, _ = kernel_inputs(cuda, (8, 8), 32, 1024, n=200)
     big_tiles = TileGrid(height=H, width=W, tile_h=64, tile_w=64)
-    before = reval.rasterize_eval.launches
+    before = (reval.rasterize_eval.launches, rfwd.rasterize_fwd.launches)
     with pytest.raises(ValueError, match="pixels"):
         reval.rasterize_eval(*inputs, big_tiles, 1024)
-    assert reval.rasterize_eval.launches == before
+    with pytest.raises(ValueError, match="pixels"):
+        rfwd.rasterize_fwd(*inputs, big_tiles, 1024)
+    assert (reval.rasterize_eval.launches,
+            rfwd.rasterize_fwd.launches) == before

@@ -180,7 +180,7 @@ def test_config_fields_match():
 @pytest.mark.parametrize("change", [
     dict(extra=True), dict(renderer="oracle"), dict(renderer="xla"),
     dict(renderer="pallas4"), dict(texel_dtype="bf16"),
-    dict(eval_only=False)])
+    dict(eval_only=False, use_normal_loss=True)])
 def test_unported_requests_raise(change):
     s = scene_np(n=20)
     tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")

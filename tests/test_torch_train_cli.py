@@ -1,0 +1,254 @@
+"""The training entry point and what it reads and writes: the PNG decoder
+against PIL, ``gstex_torch.scripts.train`` for a few steps on the CPU on a
+dataset written by the port's own render, its checkpoint, and the
+device default of ``sample_background``."""
+
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from gstex_torch.data.blender import load_image, parse_blender
+from gstex_torch.data.png import read_png, write_png
+from gstex_torch.data.synthetic import write_blender_dataset
+from gstex_torch.models import gstex as tmodel
+from gstex_torch.models.init_io import load_scene_npz
+from gstex_torch.scripts import train as ttrain
+from gstex_torch.train import optim as toptim
+from gstex_torch.train import step as tstep
+from gstex_torch.utils.checkpoint import load_checkpoint
+
+STATS = "assets/trained_scene_stats.npz"
+
+
+def _filter_rows(img: np.ndarray, ftype: int) -> bytes:
+    """Encode every row of an (H, W, C) uint8 image with PNG filter
+    ``ftype`` (the spec's definitions, written independently of the
+    decoder under test)."""
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int64)
+    out = []
+    for y in range(h):
+        x = rows[y]
+        up = rows[y - 1] if y > 0 else np.zeros_like(x)
+        left = np.concatenate([np.zeros(c, np.int64), x[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int64), up[:-c]])
+        if ftype == 0:
+            pred = np.zeros_like(x)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = up
+        elif ftype == 3:
+            pred = (left + up) // 2
+        else:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))
+        out.append(bytes([ftype]) + ((x - pred) % 256).astype(
+            np.uint8).tobytes())
+    return b"".join(out)
+
+
+def _write_filtered(path, img, ftype):
+    h, w, c = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                           {3: 2, 4: 6}[c], 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(_filter_rows(img, ftype))))
+        f.write(chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
+def test_png_decoder_matches_pil(tmp_path, channels, ftype):
+    rng = np.random.default_rng(ftype * 10 + channels)
+    img = rng.integers(0, 256, (13, 17, channels), dtype=np.uint8)
+    img[4:9, 3:12] = img[4:5, 3:12]   # runs that the filters predict
+    path = tmp_path / "f.png"
+    _write_filtered(path, img, ftype)
+    pil = np.asarray(Image.open(path))
+    np.testing.assert_array_equal(pil.reshape(img.shape), img)
+    np.testing.assert_array_equal(read_png(path), img)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+def test_png_decoder_reads_pil_and_own_files(tmp_path, mode):
+    rng = np.random.default_rng(7)
+    c = len(mode)
+    img = rng.integers(0, 256, (40, 33, c), dtype=np.uint8)
+    img[10:30] = np.linspace(0, 255, 33 * c).reshape(33, c).astype(np.uint8)
+    Image.fromarray(img, mode).save(tmp_path / "pil.png", optimize=True)
+    np.testing.assert_array_equal(read_png(tmp_path / "pil.png"), img)
+    write_png(tmp_path / "own.png", img)
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tmp_path / "own.png")), img)
+    np.testing.assert_allclose(load_image(tmp_path / "own.png"), img / 255.0,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["L", "P", "I;16"])
+def test_png_decoder_rejects_other_formats(tmp_path, mode):
+    img = Image.fromarray(np.zeros((4, 4), np.uint8), "L")
+    img.convert(mode).save(tmp_path / "p.png")
+    with pytest.raises(ValueError, match="colour type"):
+        read_png(tmp_path / "p.png")
+    (tmp_path / "x.png").write_bytes(b"not a png")
+    with pytest.raises(ValueError, match="not a PNG"):
+        read_png(tmp_path / "x.png")
+
+
+@pytest.fixture
+def one_thread():
+    """These tests run many small tensor ops; one intra-op thread keeps
+    them from contending with the other test workers for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def small_scene_npz(path, n=1000, seed=0):
+    """A trained-scene-statistics file holding n of the asset's surfels."""
+    with np.load(STATS) as d:
+        d = dict(d)
+    keep = np.sort(np.random.default_rng(seed).choice(
+        d["xyz"].shape[0], n, replace=False))
+    per_surfel = {k for k, v in d.items() if v.ndim and v.shape[0] ==
+                  d["xyz"].shape[0]}
+    np.savez(path, **{k: (v[keep] if k in per_surfel else v)
+                      for k, v in d.items()})
+    return path
+
+
+def test_train_cli_on_cpu(tmp_path, one_thread):
+    """Three steps of gstex-blender-nvs at 64x96 on the CPU (the plain
+    versions of the kernels), from a dataset rendered by the port's eval
+    path; the checkpoint loads back into a fresh state."""
+    stats = small_scene_npz(tmp_path / "scene.npz", n=300)
+    cfg = tmodel.GStexConfig(renderer="pallas", chart_pad=(8, 8))
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    data = tmp_path / "data"
+    write_blender_dataset(data, cfg, params, buffers, 3, 64, 96)
+    write_blender_dataset(data, cfg, params, buffers, 1, 64, 96,
+                          split="test")
+    assert parse_blender(data, "train").heights[0] == 64
+    out = tmp_path / "run"
+    res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
+                       "--init-npz", str(stats), "--seed", "1",
+                       "--max-num-iterations", "3", "--pixel-num", "2e4",
+                       "--output-dir", str(out), "--device", "cpu"])
+    hist = res["history"]
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert all(np.isfinite(h["loss"]) and h["overflow"] == 0 for h in hist)
+    assert sorted(h["camera"] for h in hist) == [0, 1, 2]
+    assert res["eval"]["psnr"] > 5
+    assert (out / "config.json").exists() and (out / "metrics.jsonl").exists()
+
+    mcfg = tmodel.GStexConfig(renderer="pallas", chart_pad=None,
+                              pixel_num=2e4)
+    p0, b0 = load_scene_npz(mcfg, stats, seed=1, device="cpu")
+    state = tstep.init_state(mcfg, toptim.OptimConfig(), p0, b0)
+    config = load_checkpoint(res["checkpoint"], state)
+    assert config["method"] == "gstex-blender-nvs" and state.step == 3
+    moved = [float((a.detach() - b).abs().max())
+             for a, b in zip(state.params, p0)]
+    assert moved[0] > 0 and moved[-1] > 0
+    assert all(int(s["step"]) == 3 for s in state.optimizer.state.values())
+
+
+def test_sample_background_defaults_to_the_card(monkeypatch):
+    """Without a device, the background is drawn on the card: with no
+    card present that raises, as every entry point of the port does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for color in ("random", "white", "black"):
+        cfg = tmodel.GStexConfig(background_color=color)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmodel.sample_background(cfg)
+        bg = tmodel.sample_background(cfg, device="cpu")
+        assert bg.shape == (3,) and bg.device.type == "cpu"
+    gen = torch.Generator().manual_seed(0)
+    bg = tmodel.sample_background(tmodel.GStexConfig(), gen, device="cpu")
+    assert float(bg.min()) >= 0 and float(bg.max()) < 1
+
+
+@pytest.mark.parametrize("name", ["gstex", "gstex-blender-init",
+                                  "gstex-blender-nvs", "gstex-blender-lod"])
+def test_blender_methods_match_jax(name):
+    """The port's Blender methods carry the JAX package's settings; only
+    the renderer differs (the flat kernel path here, the backend's own
+    choice there)."""
+    import dataclasses
+
+    from gstex_torch.configs.methods import get_method
+    from gstex_tpu.configs import methods as jmethods
+
+    got, want = get_method(name), jmethods.get_method(name)
+    assert got.dataparser == want.dataparser == "blender"
+    assert dataclasses.replace(got.model, renderer="x") == \
+        tmodel.GStexConfig(**{**dataclasses.asdict(want.model),
+                              "renderer": "x"})
+    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
+    assert got.trainer.max_num_iterations == want.trainer.max_num_iterations
+    assert ({f.name for f in dataclasses.fields(got.trainer)}
+            == {f.name for f in dataclasses.fields(want.trainer)})
+    assert got.model.renderer == "pallas"
+
+
+def test_unported_methods_and_trainer_options_raise(tmp_path):
+    from gstex_torch.configs.methods import get_method
+    from gstex_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_method("gstex-dtu-nvs")
+    with pytest.raises(KeyError):
+        get_method("nope")
+    cfg = tmodel.GStexConfig()
+    for change in (dict(num_devices=4), dict(camera_opt="SO3xR3"),
+                   dict(steps_per_sync=8), dict(vis="tensorboard")):
+        tcfg = TrainerConfig(output_dir=str(tmp_path), **change)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
+
+
+def test_trainer_nan_gate_and_cap_growth(tmp_path, one_thread):
+    """A non-finite loss aborts with a diagnostic dump; an overflowing
+    step grows the pair capacities to its measured demand."""
+    import json
+
+    from gstex_torch.data.blender import parse_blender as parse
+    from gstex_torch.data.manager import FullImageCache
+    from gstex_torch.train.trainer import Trainer, TrainerConfig
+
+    stats = small_scene_npz(tmp_path / "scene.npz", n=300)
+    cfg = tmodel.GStexConfig(renderer="pallas", chart_pad=(8, 8),
+                             pair_cap=4096, s_max=64)
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    write_blender_dataset(tmp_path / "data", cfg, params, buffers, 2, 32, 48)
+    cache = FullImageCache.build(parse(tmp_path / "data", "train"),
+                                 device="cpu")
+    tcfg = TrainerConfig(output_dir=str(tmp_path / "run"),
+                         max_num_iterations=2, steps_per_save=0)
+    trainer = Trainer(tcfg, cfg, toptim.OptimConfig(), params, buffers,
+                      cache)
+    trainer._grow_capacities(5, {"overflow": 10, "total_pairs": 9000,
+                                 "max_tile_count": 100})
+    assert trainer.mcfg.pair_cap >= 9000 and trainer.mcfg.s_max >= 128
+
+    bad = params._replace(texture=torch.full_like(params.texture,
+                                                  float("nan")))
+    trainer = Trainer(tcfg, cfg, toptim.OptimConfig(), bad, buffers, cache)
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        trainer.train()
+    dump = json.loads((tmp_path / "run" / "nan_dump_step0.json").read_text())
+    assert dump["params"]["texture"]["finite_frac"] == 0.0
