@@ -7,7 +7,7 @@ each of its kernels against its plain PyTorch version.
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
-2. build: nvcc builds the four kernels from ``gstex_torch/csrc``, one
+2. build: nvcc builds the seven kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
@@ -19,7 +19,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    SSIM kernel and its float32 plain version on a render and a noisy copy,
    each against a float64 evaluation (|loss| <= 1e-6, gradient max abs
    <= 3e-5 of the float64 max), and to each other (the loss to 1e-6, the
-   gradient to twice 3e-5);
+   gradient to twice 3e-5); then, on the trained scene's dense lists of
+   the same view, the three dense-list kernels against their plain
+   versions and against the flat kernels, under the same gates;
 4. eval main path: ``gstex_torch.scripts.render spiral`` renders 8 frames
    of the trained scene; the eval kernel must launch once per frame;
 5. training main path: an 8-view 800x800 Blender dataset rendered from the
@@ -28,14 +30,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    same geometry with other fills (seed 1), across the re-chart at step
    100: one launch of each training kernel per step, no overflow, finite
    and falling loss, a checkpoint;
-6. training shapes and timing: for each scene at its training chart pad
-   ((40, 80) for the trained scene) and after a re-chart, the forward and
-   backward kernels against their plain versions, lean and full, with the
-   gates of phase 3; then an eval frame and a training step timed whole on
-   the host clock (median of 20), the card's busy time and each
-   ``gstex.*`` stage's host and device time from a ``torch.profiler``
-   trace, and each kernel alone beside its plain version and its bound;
-7. the ``kernels`` line, the nvidia-smi line and the final result.
+6. the large-chart main path: ``gstex_torch.scripts.train
+   gstex-blender-nvs --pixel-num 4e6`` on phase 5's dataset plus a test
+   split, 120 steps across the re-chart: the auto chart pad is (64, 128),
+   which the flat backward cannot stage, so every step launches the
+   dense-list forward and backward kernels once and the flat training
+   kernels never; the closing eval pass launches the dense-list eval
+   kernel; then 8 spiral frames through ``gstex_torch.scripts.render
+   --renderer pallas4``;
+7. training shapes and timing: for each scene at its training chart pad
+   and after a re-chart (the trained scene at (40, 80), the surface scene
+   at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
+   2000-surfel subsample of it at (88, 88), the last two on the dense
+   tier), the tier's forward and backward kernels against their plain
+   versions, lean and full, with the gates of phase 3 (and the dense eval
+   kernel on the dense tier; dense against flat at (40, 80)); then an eval
+   frame and a training step timed whole on the host clock (median of 20),
+   the card's busy time and each ``gstex.*`` stage's host and device time
+   from a ``torch.profiler`` trace, and each kernel alone beside its plain
+   version and its bound;
+8. the ``kernels`` line, the nvidia-smi line and the final result.
 
 Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
@@ -49,13 +63,23 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 STATS = ROOT / "assets" / "trained_scene_stats.npz"
 H = W = 800
 PAD = (8, 8)
+# the large-chart main path: this texel budget gives the trained scene an
+# auto chart pad of (64, 128), past what the flat backward can stage
+DENSE_PIXEL_NUM = 4e6
+DENSE_PAD = (64, 128)
+# few surfels, many texels each: 2000 of the trained scene's surfels at
+# pixel_num 1e6 resolve to an (88, 88) pad
+SUBSAMPLE = 2000
+SUBSAMPLE_PAD = (88, 88)
 TOL = 1e-4
 BWD_TOL = 1e-4        # of the plain version's max abs, per field group
 FLIP_TOL = 1e-5       # texture gradient sign flips
@@ -65,6 +89,7 @@ SSIM_GRAD_TOL = 3e-5
 FRAMES = 8
 VIEWS = 8
 TRAIN_STEPS = 120
+TEST_VIEWS = 2
 GT_TEXEL_SCALE = 5.0
 STEP = 3000          # a trained scene renders at its full SH degree (3)
 DEVICE = "cuda"
@@ -92,10 +117,13 @@ MAPS = {"img": slice(0, 3), "texture_rgb": slice(3, 6), "depth": 6,
 # the port's kernels by stage, read from their own device rows: the
 # profiler credits a launch made through ctypes to the op around it, and a
 # gstex.* range is no op
-STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",),
-                 "fwd_kernel": ("rasterize_fwd_kernel",),
+STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",
+                                 "rasterize_dense_eval_kernel"),
+                 "fwd_kernel": ("rasterize_fwd_kernel",
+                                "rasterize_dense_fwd_kernel"),
                  "ssim_kernel": ("ssim_tile_kernel", "ssim_sum_kernel"),
-                 "bwd_kernel": ("rasterize_bwd_kernel",)}
+                 "bwd_kernel": ("rasterize_bwd_kernel",
+                                "rasterize_dense_bwd_kernel")}
 FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
                 "axis2": [8, 9, 10, 11], "uv": [15, 19], "opacity": [20],
                 "rgb": [21, 22, 23], "xy": [24, 25]}
@@ -219,14 +247,63 @@ def scenes(model, init_io):
     yield "surface_scene_50k", cfg, params, buffers
 
 
+def flat_tier():
+    """How this script calls the flat pair-list kernels and their plain
+    versions: each takes (inputs, grid, s_cap, ...), ``inputs`` being
+    (records, gids, starts, counts, charts, cam_info)."""
+    from gstex_torch.ops import rasterize_bwd as rbwd
+    from gstex_torch.ops import rasterize_eval as reval
+    from gstex_torch.ops import rasterize_fwd as rfwd
+
+    return SimpleNamespace(
+        names=("rasterize_eval", "rasterize_fwd", "rasterize_bwd"),
+        flat=lambda i: i,
+        eval=lambda i, g, s: reval.rasterize_eval(*i, g, s),
+        fwd=lambda i, g, s, lean: rfwd.rasterize_fwd(*i, g, s, lean=lean),
+        fwd_plain=lambda i, g, s, lean: rfwd.rasterize_fwd_reference(
+            *i, g, s, lean=lean),
+        bwd=lambda i, m, n, c, g, s, lean: rbwd.rasterize_bwd(
+            *i, m, n, c, g, s, lean=lean),
+        bwd_plain=lambda i, m, n, c, g, s, lean: rbwd.rasterize_bwd_reference(
+            *i, m, n, c, g, s, lean=lean))
+
+
+def dense_tier():
+    """The dense-list kernels and their plain versions behind the same
+    calls: ``inputs`` is (records, ids, counts, charts, cam_info), and the
+    list length ``ids.shape[1]`` stands where the flat tier has s_cap.
+    ``flat`` gives the same lists as flat-tier inputs, for the walk
+    statistics and the bounds."""
+    from gstex_torch.ops import rasterize as plain
+    from gstex_torch.ops import rasterize_dense as rd
+
+    def flat(i):
+        records, ids, counts, charts, info = i
+        return (records, *plain.flat_view(ids, counts), charts, info)
+
+    return SimpleNamespace(
+        names=("rasterize_dense_eval", "rasterize_dense_fwd",
+               "rasterize_dense_bwd"),
+        flat=flat,
+        eval=lambda i, g, s: rd.rasterize_dense_eval(*i, g),
+        fwd=lambda i, g, s, lean: rd.rasterize_dense_fwd(*i, g, lean=lean),
+        fwd_plain=lambda i, g, s, lean: plain.forward_scan(*i, g, lean=lean),
+        bwd=lambda i, m, n, c, g, s, lean: rd.rasterize_dense_bwd(
+            *i, m, n, c, g, lean=lean),
+        bwd_plain=lambda i, m, n, c, g, s, lean: plain.backward_walk(
+            *i, m, n, c, g, lean=lean))
+
+
 class Frame:
     """One frame of ``models.gstex.render``'s eval path, stage by stage,
-    so that the kernels' inputs can be reused."""
+    so that the kernels' inputs can be reused; on the flat lists, or with
+    ``dense`` on the dense ones."""
 
-    def __init__(self, cfg, params, buffers, cam, bg):
+    def __init__(self, cfg, params, buffers, cam, bg, dense=False):
         self.cfg, self.params, self.buffers = cfg, params, buffers
-        self.cam, self.bg = cam, bg
+        self.cam, self.bg, self.dense = cam, bg, dense
         self.grid = cfg.grid(cam.height, cam.width)
+        self.tier = dense_tier() if dense else flat_tier()
 
     def prepare(self):
         from gstex_torch.models.gstex import active_sh_degree
@@ -241,35 +318,41 @@ class Frame:
             extent_sigma=cfg.sigma_factor)
 
     def cull_binning(self):
-        from gstex_torch.ops.binning import build_tile_bins_flat
+        from gstex_torch.ops import binning
         from gstex_torch.ops.cull import make_pair_cull
 
         prep = self.prep
-        self.bins = build_tile_bins_flat(
+        build = (binning.build_tile_bins if self.dense
+                 else binning.build_tile_bins_flat)
+        self.bins = build(
             prep.centers, prep.extents, prep.depths, prep.valid, self.grid,
-            pair_cap=self.cfg.pair_cap, s_cap=self.cfg.s_max,
+            self.cfg.pair_cap, self.cfg.s_max,
             cull_fn=make_pair_cull(prep.geom, self.cam, self.grid))
 
     def records(self):
         from gstex_torch.ops.records import assemble_records, cam_info
         from gstex_torch.ops.sh import sh_to_rgb
 
+        b = self.bins
+        lists = ((b.ids, b.counts) if self.dense
+                 else (b.gids, b.starts, b.counts))
         self.inputs = (
             assemble_records(self.prep.geom, self.cam.c2w[:3, 3],
                              self.buffers.texture_hw),
-            self.bins.gids, self.bins.starts, self.bins.counts,
-            sh_to_rgb(self.params.texture).contiguous(), cam_info(self.cam))
+            *lists, sh_to_rgb(self.params.texture).contiguous(),
+            cam_info(self.cam))
 
     def kernel(self):
-        from gstex_torch.ops.rasterize_eval import rasterize_eval
-
-        self.maps = rasterize_eval(*self.inputs, self.grid, self.cfg.s_max)
+        self.maps = self.tier.eval(self.inputs, self.grid, self.cfg.s_max)
 
     def plain(self):
+        """The eval kernel's plain version (the first eight planes of the
+        lean forward walk, which both tiers' eval kernels follow): its
+        maps and the walk's ``WalkStats``."""
         from gstex_torch.ops.rasterize_eval import rasterize_eval_reference
 
-        return rasterize_eval_reference(*self.inputs, self.grid,
-                                        self.cfg.s_max)
+        return rasterize_eval_reference(*self.tier.flat(self.inputs),
+                                        self.grid, self.cfg.s_max)
 
     def compose(self):
         m = self.maps
@@ -331,23 +414,28 @@ def eval_bound(frame, stats):
                     blends=int(stats.blended))
 
 
-def fwd_bound(inputs, texture_hw, grid, stats, lean):
-    """The forward kernel: the records and active texels of the gaussians
-    the walks read, the walked gids, starts, counts and cam_info once, the
-    fourteen planes and ncontrib written once; RESPONSE_FLOPS per
-    response and BLEND_FLOPS (BLEND_FULL_FLOPS) per blend."""
+def fwd_bound(inputs, texture_hw, grid, stats, lean, planes=15,
+              list_arrays=2):
+    """A forward walk over flat-tier inputs: the records and active texels
+    of the gaussians the walks read, the walked ids, the per-tile list
+    arrays (starts and counts; the dense lists have counts only) and
+    cam_info once, and the output planes written once (fourteen and
+    ncontrib; eight for the dense eval kernel, which also blends lean);
+    RESPONSE_FLOPS per response and BLEND_FLOPS (BLEND_FULL_FLOPS) per
+    blend."""
     _, gids, starts, _, _, info = inputs
     ids = walked_ids(gids, starts, stats.walked)
     bytes_once = (active_bytes(ids, texture_hw) + int(stats.walked.sum()) * 4
-                  + 2 * starts.numel() * 4 + info.numel() * 4
-                  + 15 * grid.height * grid.width * 4)
+                  + list_arrays * starts.numel() * 4 + info.numel() * 4
+                  + planes * grid.height * grid.width * 4)
     ops = (int(stats.evaluated) * RESPONSE_FLOPS + int(stats.blended)
            * (BLEND_FLOPS if lean else BLEND_FULL_FLOPS))
     return bound_of(bytes_once, ops, responses=int(stats.evaluated),
                     blends=int(stats.blended))
 
 
-def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean):
+def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean,
+              list_arrays=2):
     """The backward kernel: the records and active texels (plus the row
     and column the hat weights reach) of the gaussians walked, the walked
     gids, starts and counts, three forward planes, ncontrib and the twelve
@@ -367,7 +455,7 @@ def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean):
     hw_px = grid.height * grid.width
     bytes_once = (active_bytes(ids, texture_hw, extra=1)
                   + active_bytes(ids, texture_hw) + int(walk.sum()) * 4
-                  + 2 * starts.numel() * 4 + info.numel() * 4
+                  + list_arrays * starts.numel() * 4 + info.numel() * 4
                   + 16 * hw_px * 4)
     ops = (responses * RESPONSE_FLOPS
            + blends * (BWD_FLOPS if lean else BWD_FULL_FLOPS))
@@ -402,43 +490,115 @@ def bwd_errors(d_rec, d_ch, ref_rec, ref_ch):
     return errs, float(flips.sum()) / max(int(big.sum()), 1)
 
 
-def check_fwd_bwd(inputs, grid, s_cap, lean, **where):
-    """The forward kernel, then the backward kernel under seeded
+def check_fwd_bwd(tier, inputs, grid, s_cap, lean, **where):
+    """A tier's forward kernel, then its backward kernel under seeded
     cotangents, against their plain versions on one view's inputs; fails
     the run on a disagreement. Returns each kernel's max abs error and its
     plain version's ms."""
-    from gstex_torch.ops import rasterize_bwd as rbwd
-    from gstex_torch.ops import rasterize_fwd as rfwd
-
-    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
+    _, fwd_name, bwd_name = tier.names
+    maps, ncon = tier.fwd(inputs, grid, s_cap, lean)
     fwd_plain_ms, (ref_maps, ref_ncon) = once_ms(
-        lambda: rfwd.rasterize_fwd_reference(*inputs, grid, s_cap,
-                                             lean=lean))
+        lambda: tier.fwd_plain(inputs, grid, s_cap, lean))
     err = float((maps - ref_maps).abs().max())
     same = bool(torch.equal(ncon, ref_ncon))
-    emit("kernel_vs_plain", kernel="rasterize_fwd", lean=lean,
-         max_abs_err=err, tol=TOL, ncontrib_equal=same, **where)
+    emit("kernel_vs_plain", kernel=fwd_name, lean=lean, max_abs_err=err,
+         tol=TOL, ncontrib_equal=same, **where)
     require(err <= TOL and same,
-            f"{where}: forward kernel and plain version differ "
+            f"{where}: {fwd_name} kernel and plain version differ "
             f"(lean={lean}): {err}, ncontrib equal {same}")
 
     g = cotangents()
-    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, s_cap,
-                                     lean=lean)
+    d_rec, d_ch = tier.bwd(inputs, maps, ncon, g, grid, s_cap, lean)
     bwd_plain_ms, (ref_rec, ref_ch) = once_ms(
-        lambda: rbwd.rasterize_bwd_reference(*inputs, maps, ncon, g, grid,
-                                             s_cap, lean=lean))
+        lambda: tier.bwd_plain(inputs, maps, ncon, g, grid, s_cap, lean))
     errs, flip = bwd_errors(d_rec, d_ch, ref_rec, ref_ch)
     abs_err = max(float((d_rec - ref_rec).abs().max()),
                   float((d_ch - ref_ch).abs().max()))
-    emit("kernel_vs_plain", kernel="rasterize_bwd", lean=lean,
-         max_abs_err=abs_err, rel_err=errs, tol=BWD_TOL,
-         texture_flip_frac=flip, flip_tol=FLIP_TOL, **where)
+    emit("kernel_vs_plain", kernel=bwd_name, lean=lean, max_abs_err=abs_err,
+         rel_err=errs, tol=BWD_TOL, texture_flip_frac=flip,
+         flip_tol=FLIP_TOL, **where)
     require(max(errs.values()) <= BWD_TOL and flip <= FLIP_TOL,
-            f"{where}: backward kernel and plain version differ "
+            f"{where}: {bwd_name} kernel and plain version differ "
             f"(lean={lean}): {errs}, flips {flip}")
-    return {"rasterize_fwd": (err, fwd_plain_ms),
-            "rasterize_bwd": (abs_err, bwd_plain_ms)}
+    return {fwd_name: (err, fwd_plain_ms), bwd_name: (abs_err, bwd_plain_ms)}
+
+
+def check_dense_eval(frame, **where):
+    """The dense eval kernel against its plain version on a dense frame's
+    inputs; returns the max abs error, the plain version's ms and the
+    walk's statistics."""
+    maps = frame.tier.eval(frame.inputs, frame.grid, frame.cfg.s_max)
+    plain_ms, (ref, stats) = once_ms(frame.plain)
+    errs = {k: float((maps[sl] - ref[sl]).abs().max())
+            for k, sl in MAPS.items()}
+    emit("kernel_vs_plain", kernel="rasterize_dense_eval", max_abs_err=errs,
+         tol=TOL, s_max=frame.cfg.s_max, total_pairs=frame.bins.total_pairs,
+         overflow=frame.bins.overflow,
+         max_tile_count=int(frame.bins.counts.max()),
+         alpha_coverage=float((maps[7] > 0).float().mean()), **where)
+    require(frame.bins.overflow == 0, f"{where}: dense binning overflowed")
+    require(all(e <= TOL for e in errs.values()),
+            f"{where}: dense eval kernel and plain version differ by "
+            f"{max(errs.values())} > {TOL}")
+    return max(errs.values()), plain_ms, stats
+
+
+def check_dense_vs_flat(flat_frame, dense_frame, lean, **where):
+    """The two tiers on one view's pairs: the dense kernels' maps, ncontrib
+    and gradients against the flat kernels', under the gates that hold a
+    kernel to its plain version."""
+    flat, dense = flat_frame.tier, dense_frame.tier
+    grid, s_cap = flat_frame.grid, flat_frame.cfg.s_max
+    fi, di = flat_frame.inputs, dense_frame.inputs
+    eval_err = float((dense.eval(di, grid, s_cap)
+                      - flat.eval(fi, grid, s_cap)).abs().max())
+    maps, ncon = dense.fwd(di, grid, s_cap, lean)
+    fmaps, fncon = flat.fwd(fi, grid, s_cap, lean)
+    fwd_err = float((maps - fmaps).abs().max())
+    same = bool(torch.equal(ncon, fncon))
+    g = cotangents()
+    d_rec, d_ch = dense.bwd(di, maps, ncon, g, grid, s_cap, lean)
+    f_rec, f_ch = flat.bwd(fi, fmaps, fncon, g, grid, s_cap, lean)
+    errs, flip = bwd_errors(d_rec, d_ch, f_rec, f_ch)
+    emit("dense_vs_flat", lean=lean, eval_max_abs_err=eval_err,
+         fwd_max_abs_err=fwd_err, ncontrib_equal=same, tol=TOL,
+         bwd_rel_err=errs, bwd_tol=BWD_TOL, texture_flip_frac=flip,
+         flip_tol=FLIP_TOL, **where)
+    require(eval_err <= TOL and fwd_err <= TOL and same,
+            f"{where}: dense and flat forward differ (lean={lean}): "
+            f"{eval_err}, {fwd_err}, ncontrib equal {same}")
+    require(max(errs.values()) <= BWD_TOL and flip <= FLIP_TOL,
+            f"{where}: dense and flat backward differ (lean={lean}): "
+            f"{errs}, flips {flip}")
+
+
+def time_kernels(frame, lean, **where):
+    """CUDA-event ms of a frame's three kernels alone on its inputs, so
+    that the two tiers can be read side by side on one view's pairs."""
+    tier, i, grid, s_cap = frame.tier, frame.inputs, frame.grid, \
+        frame.cfg.s_max
+    maps, ncon = tier.fwd(i, grid, s_cap, lean)
+    g = cotangents()
+    ms = {
+        tier.names[0]: cuda_ms(lambda: tier.eval(i, grid, s_cap), 20),
+        tier.names[1]: cuda_ms(lambda: tier.fwd(i, grid, s_cap, lean), 20),
+        tier.names[2]: cuda_ms(lambda: tier.bwd(i, maps, ncon, g, grid, s_cap,
+                                                lean), 20)}
+    emit("timing", **{**where, "path": "kernels"}, lean=lean, kernel_ms=ms)
+    return ms
+
+
+def subsample_stats(path, n, seed=0):
+    """A trained-scene-statistics file holding ``n`` of the asset's
+    surfels, drawn with numpy from ``seed``."""
+    with np.load(STATS) as d:
+        d = dict(d)
+    total = d["xyz"].shape[0]
+    keep = np.sort(np.random.default_rng(seed).choice(total, n,
+                                                      replace=False))
+    np.savez(path, **{k: (v[keep] if v.ndim and v.shape[0] == total else v)
+                      for k, v in d.items()})
+    return path
 
 
 def main():
@@ -455,16 +615,19 @@ def main():
     from gstex_torch.models import init_io
     from gstex_torch.ops import _build
     from gstex_torch.ops import rasterize_bwd as rbwd
+    from gstex_torch.ops import rasterize_dense as rdense
     from gstex_torch.ops import rasterize_eval as reval
     from gstex_torch.ops import rasterize_fwd as rfwd
     from gstex_torch.ops import ssim_fused
     from gstex_torch.ops.camera import make_camera
+    from gstex_torch.ops.rasterize_api import use_flat_path
     from gstex_torch.scripts import render as render_cli
     from gstex_torch.scripts import train as train_cli
     from gstex_torch.train import step as train_step
 
+    dense_src = list(dense_tier().names)
     kernels_src = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
-                   "ssim_fused"]
+                   "ssim_fused"] + dense_src
     assert not torch.backends.cudnn.allow_tf32
 
     # 1. device
@@ -492,6 +655,10 @@ def main():
     cam = orbit_camera(H, W, dist=4.0, device=DEVICE)
     frames = {}
     worst = dict.fromkeys(kernels_src, 0.0)
+
+    def note(checks):
+        for k, (err, _) in checks.items():
+            worst[k] = max(worst[k], err)
     with torch.no_grad():
         for name, cfg, params, buffers in scenes(model, init_io):
             pair_cap, s_cap = render_cli.demand_caps(cfg, params, buffers,
@@ -519,8 +686,24 @@ def main():
                     f"{max(errs.values())} > {TOL}")
 
             for lean in (True, False):
-                check_fwd_bwd(frame.inputs, frame.grid, s_cap, lean,
-                              scene=name, chart_pad=list(PAD))
+                check_fwd_bwd(frame.tier, frame.inputs, frame.grid, s_cap,
+                              lean, scene=name, chart_pad=list(PAD))
+            if name != "trained_scene_stats":
+                continue
+            # the dense-list kernels on the same view's pairs: against
+            # their plain versions, and against the flat kernels
+            where = dict(scene=name, chart_pad=list(PAD))
+            dframe = Frame(cfg, params, buffers, cam, frame.bg, dense=True)
+            dframe.run()
+            worst["rasterize_dense_eval"] = check_dense_eval(dframe,
+                                                             **where)[0]
+            for lean in (True, False):
+                note(check_fwd_bwd(dframe.tier, dframe.inputs, dframe.grid,
+                                   s_cap, lean, **where))
+                check_dense_vs_flat(frame, dframe, lean, **where)
+            for f in (frame, dframe):
+                time_kernels(f, True, card=smi, **where)
+            del dframe
 
         # SSIM on a render and a noisy copy of it
         pred = frames["trained_scene_stats"][0].rgb.contiguous()
@@ -585,9 +768,10 @@ def main():
     # texels 5x the loader's fills, so the run starts well away from them
     p0 = p0._replace(texture=GT_TEXEL_SCALE * p0.texture)
     write_blender_dataset(data, cfg0, p0, b0, VIEWS, H, W)
-    del p0, b0
     train_counters = (rfwd.rasterize_fwd, rbwd.rasterize_bwd,
                       ssim_fused.fused_ssim_value_and_grad)
+    dense_counters = (rdense.rasterize_dense_fwd, rdense.rasterize_dense_bwd,
+                      rdense.rasterize_dense_eval)
     for fn in train_counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -622,7 +806,80 @@ def main():
     require(last < first, f"the loss did not fall: {first} -> {last}")
     require(Path(res["checkpoint"]).exists(), "no checkpoint")
 
-    # 6. timing: an eval frame, then a training step
+    # 6. the large-chart main path: the same command with a texel budget
+    # whose charts the flat path cannot take, on the same dataset plus a
+    # test split (two views between the training views), so that the run
+    # closes with an eval pass
+    write_blender_dataset(data, cfg0, p0, b0, TEST_VIEWS, H, W, split="test",
+                          azimuth0=0.4)
+    del p0, b0
+    for fn in train_counters + dense_counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train_cli.main([
+        "gstex-blender-nvs", "--data", str(data), "--init-npz", str(STATS),
+        "--seed", "1", "--pixel-num", str(DENSE_PIXEL_NUM),
+        "--max-num-iterations", str(TRAIN_STEPS),
+        "--output-dir", str(Path(tmp.name) / "run_dense")])
+    dense_train_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    run_cfg = json.loads((Path(tmp.name) / "run_dense" / "config.json")
+                         .read_text())["model"]
+    with tempfile.TemporaryDirectory() as frames_dir, torch.no_grad():
+        summary = render_cli.main([
+            "spiral", "--scene-npz", str(STATS), "--frames", str(FRAMES),
+            "--height", str(H), "--width", str(W), "--renderer", "pallas4",
+            "--output-path", frames_dir])
+        pngs = len(list(Path(frames_dir).glob("frame_*.png")))
+    dense_launches = {fn.__name__: fn.launches
+                      for fn in train_counters + dense_counters}
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = (statistics.mean(losses[:10]),
+                   statistics.mean(losses[-10:]))
+    # the step-0 eval image, the closing pass over the test split, and the
+    # spiral frames
+    eval_expected = 1 + TEST_VIEWS + FRAMES
+    emit("main_path", path="train_dense", steps=len(hist),
+         seconds=dense_train_s, launches=dense_launches,
+         chart_pad=run_cfg["chart_pad"], pair_cap=run_cfg["pair_cap"],
+         s_max=run_cfg["s_max"], renderer=run_cfg["renderer"],
+         first10_loss=first, last10_loss=last,
+         losses=[round(x, 6) for x in losses[::10]],
+         psnr_first=hist[0]["psnr"], psnr_last=hist[-1]["psnr"],
+         max_overflow=max(h["overflow"] for h in hist),
+         max_total_pairs=max(h["total_pairs"] for h in hist),
+         eval=res["eval"], spiral_frames=len(summary), spiral_pngs=pngs,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    require(tuple(run_cfg["chart_pad"]) == DENSE_PAD,
+            f"the run's chart pad is {run_cfg['chart_pad']}, not "
+            f"{DENSE_PAD}")
+    require(len(hist) == TRAIN_STEPS, f"{len(hist)} dense steps ran")
+    require(all(dense_launches[k] == TRAIN_STEPS for k in (
+        "rasterize_dense_fwd", "rasterize_dense_bwd",
+        "fused_ssim_value_and_grad")),
+            f"dense training kernels launched {dense_launches} for "
+            f"{TRAIN_STEPS} steps")
+    require(dense_launches["rasterize_fwd"] == 0
+            and dense_launches["rasterize_bwd"] == 0,
+            f"the flat training kernels ran on the large-chart path: "
+            f"{dense_launches}")
+    require(dense_launches["rasterize_dense_eval"] == eval_expected,
+            f"the dense eval kernel launched "
+            f"{dense_launches['rasterize_dense_eval']} times, not "
+            f"{eval_expected}")
+    require(all(h["overflow"] == 0 for h in hist), "a dense step overflowed")
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            "a dense loss is not finite")
+    require(last < first, f"the dense loss did not fall: {first} -> {last}")
+    require(res["eval"] is not None and res["eval"]["psnr"] > 10,
+            f"the eval pass read {res['eval']}")
+    require(pngs == FRAMES and all(
+        f["finite"] and f["alpha_coverage"] > 0 and f["overflow"] == 0
+        for f in summary), "a pallas4 spiral frame is missing, not finite, "
+                           "empty or overflowed")
+
+    # 7. timing: an eval frame, then a training step
     timings = {}
     with torch.no_grad():
         for name, (frame, stats) in frames.items():
@@ -649,24 +906,46 @@ def main():
     method = get_method("gstex-blender-nvs")
     image = torch.as_tensor(load_image(data / "train" / "r_0.png"),
                             device=DEVICE)
-    train_scenes = []
+    black = torch.zeros((H, W, 3), device=DEVICE)
     mcfg = method.model
-    params, buffers = init_io.load_scene_npz(mcfg, STATS, seed=1,
-                                             device=DEVICE)
-    mcfg = dataclasses.replace(mcfg, chart_pad=tuple(
-        params.texture.shape[1:3]))
-    train_scenes.append(("trained_scene_stats", mcfg, params, buffers,
-                         image))
     bcfg = dataclasses.replace(mcfg, chart_pad=PAD, background_color="black")
-    s = surface_scene(50_000, chart_pad=PAD, seed=0, device=DEVICE)
-    params, buffers = model.init_params(
-        bcfg, s["means"], s["log_scales"], s["quats"], s["opacity_logits"],
-        s["features_dc"], s["features_rest"])
-    train_scenes.append(("surface_scene_50k", bcfg, params, buffers,
-                         torch.zeros((H, W, 3), device=DEVICE)))
+    sub_npz = subsample_stats(Path(tmp.name) / "subsample.npz", SUBSAMPLE)
+
+    def loaded(cfg, npz):
+        """A scene from a statistics file at its auto chart pad."""
+        params, buffers = init_io.load_scene_npz(cfg, npz, seed=1,
+                                                 device=DEVICE)
+        return (dataclasses.replace(cfg, chart_pad=tuple(
+            params.texture.shape[1:3])), params, buffers, image)
+
+    def surface():
+        s = surface_scene(50_000, chart_pad=PAD, seed=0, device=DEVICE)
+        return (bcfg, *model.init_params(
+            bcfg, s["means"], s["log_scales"], s["quats"],
+            s["opacity_logits"], s["features_dc"], s["features_rest"]),
+            black)
+
+    # (name, expected chart pad, how to make it): made one at a time, the
+    # largest holds 8 GB of texture, gradient and Adam moments
+    train_scenes = [
+        ("trained_scene_stats", (40, 80), lambda: loaded(mcfg, STATS)),
+        ("surface_scene_50k", PAD, surface),
+        ("trained_scene_4e6", DENSE_PAD, lambda: loaded(dataclasses.replace(
+            mcfg, pixel_num=DENSE_PIXEL_NUM), STATS)),
+        (f"subsample_{SUBSAMPLE}", SUBSAMPLE_PAD,
+         lambda: loaded(mcfg, sub_npz)),
+    ]
+    all_counters = train_counters + dense_counters
     train_t = {}
-    main_err = {}
-    for name, cfg, params, buffers, img in train_scenes:
+    for name, want_pad, make in train_scenes:
+        cfg, params, buffers, img = make()
+        require(tuple(cfg.chart_pad) == want_pad,
+                f"{name}: chart pad {cfg.chart_pad}, expected {want_pad}")
+        dense = not use_flat_path(cfg.renderer, cfg.chart_pad,
+                                  cfg.tile_h * cfg.tile_w)
+        require(dense == (want_pad in (DENSE_PAD, SUBSAMPLE_PAD)),
+                f"{name}: pad {want_pad} went to the "
+                f"{'dense' if dense else 'flat'} tier")
         tcam = make_camera(1.2 * H, 1.2 * H, W / 2, H / 2, H, W,
                            orbit_c2w(4.0, 0.0), device=DEVICE)
         with torch.no_grad():
@@ -675,57 +954,81 @@ def main():
         cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
         state = train_step.init_state(cfg, method.optim, params, buffers,
                                       seed=0)
+        del params, buffers
         state.step = STEP
-        # a re-charted state: at the trained scene's pad (40, 80) its
-        # active charts grow past the init's 8x8
+        # a re-charted state: at a scene-sized pad its active charts grow
+        # past the init's 8x8
         train_step.rechart_step(cfg, state)
         hw = state.buffers.texture_hw
         charts = dict(chart_pad=list(cfg.chart_pad),
+                      lists="dense" if dense else "flat",
                       max_active_hw=[int(x) for x in hw.amax(0)],
                       above_8x8=int(((hw[:, 0] > 8) | (hw[:, 1] > 8)).sum()))
         require(max(cfg.chart_pad) <= 8 or charts["above_8x8"] > 0,
                 f"{name}: no active chart past 8x8 after the re-chart")
         lean = model.lean_losses(cfg)
+        where = dict(scene=name, path="train", **charts)
         # the kernels' inputs of this step's view, from the state as it is
         with torch.no_grad():
-            frame = Frame(cfg, state.params, state.buffers, tcam, None)
+            frame = Frame(cfg, state.params, state.buffers, tcam, None,
+                          dense=dense)
             for stage in ("prepare", "cull_binning", "records"):
                 getattr(frame, stage)()
-        k_in, grid = frame.inputs, frame.grid
+        tier, k_in, grid = frame.tier, frame.inputs, frame.grid
+        eval_name, fwd_name, bwd_name = tier.names
         # each kernel against its plain version at the training shapes,
         # lean and full; the main path's mode keeps its plain ms
-        checks = {mode: check_fwd_bwd(k_in, grid, s_cap, mode, scene=name,
-                                      path="train", **charts)
+        checks = {mode: check_fwd_bwd(tier, k_in, grid, s_cap, mode, **where)
                   for mode in (True, False)}
+        if name in ("trained_scene_stats", "trained_scene_4e6",
+                    f"subsample_{SUBSAMPLE}"):
+            for c in checks.values():
+                note(c)
+        if dense:
+            with torch.no_grad():
+                err, eval_plain_ms, stats = check_dense_eval(frame, **where)
+            worst[eval_name] = max(worst[eval_name], err)
+        else:
+            with torch.no_grad():
+                _, stats = frame.plain()
         if name == "trained_scene_stats":
-            main_err = {k: max(c[k][0] for c in checks.values())
-                        for k in ("rasterize_fwd", "rasterize_bwd")}
+            # both tiers take (40, 80): the dense kernels against the flat
+            with torch.no_grad():
+                dframe = Frame(cfg, state.params, state.buffers, tcam, None,
+                               dense=True)
+                for stage in ("prepare", "cull_binning", "records"):
+                    getattr(dframe, stage)()
+            for mode in (True, False):
+                check_dense_vs_flat(frame, dframe, mode, **where)
+            for f in (frame, dframe):
+                time_kernels(f, lean, card=smi, **where)
+            del dframe
 
         def step():
             return train_step.train_step(cfg, method.optim, state, tcam, img)
-        for fn in train_counters:
+        for fn in all_counters:
             fn.launches = 0
         step_ms, lo, hi = host_ms(step)
-        per_step = {fn.__name__: fn.launches / 21 for fn in train_counters}
+        per_step = {fn.__name__: fn.launches / 21 for fn in all_counters}
         busy_ms, top, trace = device_ms(step, 5)
         # each kernel alone on this view's inputs, beside its plain version
-        maps, ncon = rfwd.rasterize_fwd(*k_in, grid, s_cap, lean=lean)
+        flat_in = tier.flat(k_in)
+        arrays = 1 if dense else 2
+        maps, ncon = tier.fwd(k_in, grid, s_cap, lean)
         g = cotangents()
-        with torch.no_grad():
-            _, stats = reval.rasterize_eval_reference(*k_in, grid, s_cap)
+        tex_hw = frame.buffers.texture_hw
         kt = {
-            "rasterize_fwd": dict(
-                ms=cuda_ms(lambda: rfwd.rasterize_fwd(*k_in, grid, s_cap,
-                                                      lean=lean), 20),
-                plain_ms=checks[lean]["rasterize_fwd"][1],
-                **fwd_bound(k_in, frame.buffers.texture_hw, grid, stats,
-                            lean)),
-            "rasterize_bwd": dict(
-                ms=cuda_ms(lambda: rbwd.rasterize_bwd(
-                    *k_in, maps, ncon, g, grid, s_cap, lean=lean), 20),
-                plain_ms=checks[lean]["rasterize_bwd"][1],
-                **bwd_bound(k_in, frame.buffers.texture_hw, grid, s_cap,
-                            ncon, int(stats.blended), lean)),
+            fwd_name: dict(
+                ms=cuda_ms(lambda: tier.fwd(k_in, grid, s_cap, lean), 20),
+                plain_ms=checks[lean][fwd_name][1],
+                **fwd_bound(flat_in, tex_hw, grid, stats, lean,
+                            list_arrays=arrays)),
+            bwd_name: dict(
+                ms=cuda_ms(lambda: tier.bwd(k_in, maps, ncon, g, grid, s_cap,
+                                            lean), 20),
+                plain_ms=checks[lean][bwd_name][1],
+                **bwd_bound(flat_in, tex_hw, grid, s_cap, ncon,
+                            int(stats.blended), lean, list_arrays=arrays)),
         }
         train_t[name] = dict(step_ms=step_ms, step_ms_min=lo, step_ms_max=hi,
                              trace_stage_ms=trace, device_busy_ms=busy_ms,
@@ -737,7 +1040,31 @@ def main():
                              total_pairs=frame.bins.total_pairs,
                              kernels=kt, **charts)
         emit("timing", path="train", scene=name, card=smi, **train_t[name])
-        del state, frame, k_in, maps, ncon
+        if dense:
+            # the dense eval kernel alone, and an eval frame of this state
+            kt[eval_name] = dict(
+                ms=cuda_ms(lambda: tier.eval(k_in, grid, s_cap), 50),
+                plain_ms=eval_plain_ms,
+                **fwd_bound(flat_in, tex_hw, grid, stats, True, planes=8,
+                            list_arrays=arrays))
+            bg = render_cli.eval_background(cfg, DEVICE)
+
+            def whole():
+                with torch.no_grad():
+                    return model.render(cfg, state.params, state.buffers,
+                                        tcam, STEP, bg, eval_only=True)
+            frame_ms, lo, hi = host_ms(whole)
+            busy_ms, top, trace = device_ms(whole, 5)
+            emit("timing", path="eval", scene=name, card=smi,
+                 kernel_ms=kt[eval_name]["ms"], plain_ms=eval_plain_ms,
+                 frame_ms=frame_ms, frame_ms_min=lo, frame_ms_max=hi,
+                 trace_stage_ms=trace, device_busy_ms=busy_ms,
+                 device_idle_share=1.0 - busy_ms / frame_ms,
+                 device_top_ms=top, mpix_per_s=H * W / frame_ms / 1e3,
+                 **{k: v for k, v in kt[eval_name].items()
+                    if k not in ("ms", "plain_ms")}, **charts)
+        del state, frame, k_in, flat_in, maps, ncon, tier
+        torch.cuda.empty_cache()
     tmp.cleanup()
     # the SSIM kernel on phase 3's 800x800 pair, the training loss's shape;
     # its time does not depend on the data
@@ -753,8 +1080,7 @@ def main():
 
     main_e = timings["trained_scene_stats"]
     main_t = dict(train_t["trained_scene_stats"]["kernels"],
-                  ssim_fused=ssim_t)
-    worst.update(main_err)
+                  ssim_fused=ssim_t, **train_t["trained_scene_4e6"]["kernels"])
     kernels = [{
         "name": "rasterize_eval",
         "route": "cuda",
@@ -768,16 +1094,26 @@ def main():
         "bound_by": main_e["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this
     }]
-    replaces = {"rasterize_fwd": "gstex_tpu/ops/rasterize_pallas5.py:140",
-                "rasterize_bwd": "gstex_tpu/ops/rasterize_pallas5.py:561",
-                "ssim_fused": "gstex_tpu/ops/ssim_fused.py:63"}
-    counter = {"rasterize_fwd": "rasterize_fwd",
-               "rasterize_bwd": "rasterize_bwd",
-               "ssim_fused": "fused_ssim_value_and_grad"}
-    for k, where in replaces.items():
+    # kernel: (the TPU kernel it replaces, the counter and the main-path
+    # run that drove it)
+    driven = {
+        "rasterize_fwd": ("gstex_tpu/ops/rasterize_pallas5.py:140",
+                          launches["rasterize_fwd"]),
+        "rasterize_bwd": ("gstex_tpu/ops/rasterize_pallas5.py:561",
+                          launches["rasterize_bwd"]),
+        "ssim_fused": ("gstex_tpu/ops/ssim_fused.py:63",
+                       launches["fused_ssim_value_and_grad"]),
+        "rasterize_dense_fwd": ("gstex_tpu/ops/rasterize_pallas4.py:215",
+                                dense_launches["rasterize_dense_fwd"]),
+        "rasterize_dense_eval": ("gstex_tpu/ops/rasterize_pallas4.py:430",
+                                 dense_launches["rasterize_dense_eval"]),
+        "rasterize_dense_bwd": ("gstex_tpu/ops/rasterize_pallas4.py:585",
+                                dense_launches["rasterize_dense_bwd"]),
+    }
+    for k, (where, n_launches) in driven.items():
         kernels.append({
             "name": k, "route": "cuda", "source": f"gstex_torch/csrc/{k}.cu",
-            "replaces": where, "launches": launches[counter[k]],
+            "replaces": where, "launches": n_launches,
             "max_abs_err": worst[k], "ms": main_t[k]["ms"],
             "plain_ms": main_t[k]["plain_ms"],
             "bound_ms": main_t[k]["bound_ms"],

@@ -1,6 +1,7 @@
 """Method registry (counterpart of ``gstex_tpu/configs/methods.py``): the
 Blender methods, with the JAX package's model, optimizer and trainer
-settings. They render on the flat kernel path (``renderer="pallas"``).
+settings. They render on the kernel path (``renderer="pallas"``: the flat
+kernels where they take the scene's chart pad, else the dense-list ones).
 
 | method             | pixel_num | bg    | iters | xyz lr    |
 |--------------------|-----------|-------|-------|-----------|

@@ -125,10 +125,12 @@ def orbit_camera(height: int, width: int, dist: float = 4.0,
 
 def write_blender_dataset(out_dir, cfg, params, buffers, views: int,
                           height: int, width: int, split: str = "train",
-                          dist: float = 4.0, step: int = 3000) -> None:
-    """Render ``views`` orbit views of a scene with the eval path and write
-    them as a Blender-format split: ``transforms_<split>.json`` and RGBA
-    PNGs (straight colour, alpha = the render's alpha)."""
+                          dist: float = 4.0, step: int = 3000,
+                          azimuth0: float = 0.0) -> None:
+    """Render ``views`` orbit views of a scene (evenly spaced from
+    ``azimuth0``) with the eval path and write them as a Blender-format
+    split: ``transforms_<split>.json`` and RGBA PNGs (straight colour,
+    alpha = the render's alpha)."""
     import json
     from pathlib import Path
 
@@ -141,8 +143,8 @@ def write_blender_dataset(out_dir, cfg, params, buffers, views: int,
     focal = 1.2 * max(height, width)
     frames = []
     with torch.no_grad():
-        for i, az in enumerate(np.linspace(0, 2 * np.pi, views,
-                                           endpoint=False)):
+        for i, az in enumerate(azimuth0 + np.linspace(0, 2 * np.pi, views,
+                                                      endpoint=False)):
             c2w = orbit_c2w(dist, float(az))
             cam = make_camera(focal, focal, width / 2, height / 2, height,
                               width, c2w, device=dev)

@@ -2,12 +2,14 @@
 (counterpart of ``gstex_tpu/models/gstex.py``).
 
 Parameters are NamedTuples of tensors with the JAX package's field names
-and layouts, so one scene feeds both packages. ``render`` runs the flat
-pair-list path, forward-only for serving (``eval_only=True``) and
-differentiable for training. The dense tile lists, the uv channels, the
-bf16 texel stream, the per-pixel oracle and the depth-estimated normal
-loss arrive with later slices of the port and raise
-``NotImplementedError`` here, naming their ROADMAP item.
+and layouts, so one scene feeds both packages. ``render`` chooses among
+the flat pair-list kernels, the dense-list kernels (large chart pads,
+``renderer="pallas4"``), the pure-torch tier (``renderer="xla"``, the uv
+channels) and the per-pixel oracle, forward-only for serving
+(``eval_only=True``) and differentiable for training. The v1-v3 kernel
+tiers, the bf16 texel stream and the depth-estimated normal loss arrive
+with later slices of the port and raise ``NotImplementedError`` here,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ from torch.profiler import record_function
 from ..ops import sh as sh_ops
 from ..ops import ssim as ssim_ops
 from ..ops import ssim_fused
-from ..ops.binning import TileGrid, build_tile_bins_flat
+from ..ops.binning import TileGrid, build_tile_bins, build_tile_bins_flat
 from ..ops.camera import Camera
 from ..ops.cull import make_pair_cull
 from ..ops.prepare import activate_scales, prepare_splats
-from ..ops.rasterize_api import rasterize_pl5, rasterize_pl5_eval
-from ..ops.rasterize_bwd import fits as bwd_fits
+from ..ops.rasterize import rasterize
+from ..ops.rasterize_api import (dense_pallas_fits, rasterize_pl,
+                                 rasterize_pl5, rasterize_pl5_eval,
+                                 rasterize_pl_eval, use_flat_path)
+from ..ops.rasterize_ref import render_oracle
 from ..ops.surfel import SplatGeom
 from ..utils.device import resolve_device
 
@@ -89,11 +94,9 @@ class GStexConfig:
                         tile_w=self.tile_w)
 
 
-# renderers that name the flat pair-list kernel path; "_interpret" is the
-# JAX package's CPU mode of the same path, which here is the plain version
-# any CPU tensor takes
-FLAT_RENDERERS = ("pallas", "pallas5", "pallas_interpret",
-                  "pallas5_interpret")
+# kernel tiers of the JAX package that are still to be ported, by renderer
+# prefix
+UNPORTED_TIERS = {"pallas1": "11-12", "pallas2": "9-10", "pallas3": "7-8"}
 
 
 def lean_losses(cfg: GStexConfig) -> bool:
@@ -325,27 +328,33 @@ def init_params(cfg: GStexConfig, means, log_scales2, quats, opacity_logits,
 def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
            cam: Camera, step: int, background: torch.Tensor,
            extra: bool = False, eval_only: bool = False) -> dict:
-    """Render one view on the flat pair-list path: forward-only with
-    ``eval_only=True``, else the training forward, differentiable in the
-    params.
+    """Render one view, differentiable in the params unless the caller
+    holds ``torch.no_grad``. ``cfg.renderer`` names the tier:
+
+    - ``"pallas"`` / ``"pallas5"``: the flat pair-list kernels where they
+      take the chart pad (``use_flat_path``), else the dense-list kernels;
+    - ``"pallas4"``: the dense-list kernels;
+    - ``"xla"``: the pure-torch tile renderer, which also serves
+      ``extra=True`` (the uv channels) for every kernel renderer;
+    - ``"oracle"``: the per-pixel referee, with no binning.
+
+    An ``_interpret`` suffix is the JAX package's CPU mode of a kernel
+    tier; here any CPU tensor takes a kernel's plain version. With
+    ``eval_only=True`` the kernel tiers run their forward-only kernel.
 
     Returns ``rgb`` (composited over ``background`` (3,)), the raw maps
-    (plus ``normal`` and ``reg`` when training), and the binning's
-    ``overflow``, ``total_pairs`` and ``max_tile_count``.
+    (plus ``normal`` and ``reg`` unless a kernel tier renders
+    ``eval_only``), and the binning's ``overflow``, ``total_pairs`` and
+    ``max_tile_count``.
     """
-    if extra:
-        raise NotImplementedError(
-            "extra=True (uv channels) renders through the pure-torch tier: "
-            "ROADMAP Queue 1 item 13")
-    if cfg.renderer == "oracle":
-        raise NotImplementedError(
-            "renderer='oracle' (per-pixel fp32 oracle): ROADMAP Queue 1 "
-            "item 3")
-    if cfg.renderer not in FLAT_RENDERERS:
-        raise NotImplementedError(
-            f"renderer={cfg.renderer!r} uses the dense build_tile_bins "
-            f"lists or the XLA tier: ROADMAP Queue 1 items 4-5 and Queue 2 "
-            f"items 4-12")
+    renderer = cfg.renderer
+    for prefix, items in UNPORTED_TIERS.items():
+        if renderer.startswith(prefix):
+            raise NotImplementedError(
+                f"renderer={renderer!r}: the v{prefix[-1]} kernels are not "
+                f"ported yet: ROADMAP Queue 2 items {items}")
+    if not (renderer in ("oracle", "xla") or renderer.startswith("pallas")):
+        raise ValueError(f"unknown renderer {renderer!r}")
     if cfg.texel_dtype == "bf16":
         raise NotImplementedError(
             "texel_dtype='bf16' (bf16 chart stream): ROADMAP Queue 1 item 6")
@@ -353,13 +362,6 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
         raise NotImplementedError(
             "use_normal_loss (normals estimated from depth, ops/normals.py): "
             "ROADMAP Queue 1 item 13")
-    grid = cfg.grid(cam.height, cam.width)
-    pad = tuple(params.texture.shape[1:3])
-    if not eval_only and not bwd_fits(pad, grid.tile_h * grid.tile_w):
-        raise NotImplementedError(
-            f"charts of pad {pad} do not fit the backward kernel's shared "
-            f"memory; they take the dense fallback: ROADMAP Queue 1 items "
-            f"4 and 6")
     # the "gstex.*" ranges name the stages in a torch.profiler trace
     with record_function("gstex.prepare"):
         prep = prepare_splats(
@@ -369,35 +371,69 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             active_sh_degree=active_sh_degree(cfg, step),
             sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
             extent_sigma=cfg.sigma_factor)
-    with record_function("gstex.cull_binning"):
-        # binning and the cull see detached geometry: no gradient flows
-        # through the pair lists
-        geom_d = SplatGeom(*(x.detach() for x in prep.geom))
-        cull_fn = (make_pair_cull(geom_d, cam, grid) if cfg.pair_cull
-                   else None)
-        bins = build_tile_bins_flat(
-            prep.centers.detach(), prep.extents.detach(),
-            prep.depths.detach(), prep.valid, grid, pair_cap=cfg.pair_cap,
-            s_cap=cfg.s_max, cull_fn=cull_fn)
-    with record_function("gstex.records"):
+
+    def albedo():
         # texture albedo: SH2RGB(texture_dc) when sh_degree > 0, else
         # sigmoid
-        if cfg.sh_degree > 0:
-            texture = sh_ops.sh_to_rgb(params.texture)
-        else:
-            texture = torch.sigmoid(params.texture)
-    if eval_only:
-        out = rasterize_pl5_eval(prep.geom, texture, buffers.texture_hw,
-                                 bins, cam, grid, s_cap=cfg.s_max,
-                                 background=background)
+        with record_function("gstex.records"):
+            if cfg.sh_degree > 0:
+                return sh_ops.sh_to_rgb(params.texture)
+            return torch.sigmoid(params.texture)
+
+    if renderer == "oracle":
+        # no binning, no capacities: it cannot overflow
+        out = render_oracle(prep.geom, albedo(), buffers.texture_hw, cam,
+                            extra_channels=extra)
+        stats = dict(overflow=0, total_pairs=0, max_tile_count=0)
     else:
-        out = rasterize_pl5(prep.geom, texture, buffers.texture_hw, bins,
-                            cam, grid, s_cap=cfg.s_max,
-                            lean=lean_losses(cfg), background=background)
+        grid = cfg.grid(cam.height, cam.width)
+        pad = tuple(params.texture.shape[1:3])
+        # flat or dense is one decision per (renderer, pad, tile size), the
+        # same for training and eval. Where neither kernel tier takes the
+        # shapes, the pure-torch tier does.
+        use_flat = not extra and use_flat_path(renderer, pad,
+                                               grid.tile_h * grid.tile_w)
+        kernels = renderer.startswith("pallas") and not extra
+        if (kernels and not use_flat
+                and not dense_pallas_fits(pad, cfg.s_max)):
+            kernels = False
+        with record_function("gstex.cull_binning"):
+            # binning and the cull see detached geometry: no gradient flows
+            # through the pair lists
+            geom_d = SplatGeom(*(x.detach() for x in prep.geom))
+            cull_fn = (make_pair_cull(geom_d, cam, grid) if cfg.pair_cull
+                       else None)
+            binning = build_tile_bins_flat if use_flat else build_tile_bins
+            bins = binning(prep.centers.detach(), prep.extents.detach(),
+                           prep.depths.detach(), prep.valid, grid,
+                           cfg.pair_cap, cfg.s_max, cull_fn=cull_fn)
+        texture = albedo()
+        hw = buffers.texture_hw
+        if use_flat and eval_only:
+            out = rasterize_pl5_eval(prep.geom, texture, hw, bins, cam, grid,
+                                     s_cap=cfg.s_max, background=background)
+        elif use_flat:
+            out = rasterize_pl5(prep.geom, texture, hw, bins, cam, grid,
+                                s_cap=cfg.s_max, lean=lean_losses(cfg),
+                                background=background)
+        elif kernels and eval_only:
+            out = rasterize_pl_eval(prep.geom, texture, hw, bins, cam, grid,
+                                    background=background)
+        elif kernels:
+            out = rasterize_pl(prep.geom, texture, hw, bins, cam, grid,
+                               lean=lean_losses(cfg), background=background)
+        else:
+            with record_function("gstex.torch_tier"):
+                out = rasterize(prep.geom, texture, hw, bins, cam, grid,
+                                extra_channels=extra)
+        stats = dict(overflow=bins.overflow, total_pairs=bins.total_pairs,
+                     max_tile_count=int(bins.counts.max()))
+    if "rgb" not in out:
+        rgb = out["img"] + out["texture_rgb"] + (
+            1.0 - out["alpha"][..., None]) * background[None, None, :]
+        out["rgb"] = torch.clamp(rgb, 0.0, 1.0)
     out["background"] = background
-    out["overflow"] = bins.overflow
-    out["total_pairs"] = bins.total_pairs
-    out["max_tile_count"] = int(bins.counts.max())
+    out.update(stats)
     return out
 
 

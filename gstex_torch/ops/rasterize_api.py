@@ -1,18 +1,63 @@
 """Renderer API over the kernels (counterpart of
-``gstex_tpu/ops/rasterize_pallas_api.py``)."""
+``gstex_tpu/ops/rasterize_pallas_api.py``): the flat pair-list path
+(``rasterize_pl5``, ``rasterize_pl5_eval``), the dense-list path
+(``rasterize_pl``, ``rasterize_pl_eval``) and the rule that chooses
+between them (``use_flat_path``, ``dense_pallas_fits``)."""
 
 from __future__ import annotations
 
 import torch
 from torch.profiler import record_function
 
-from .binning import FlatBins, TileGrid
+from .binning import FlatBins, TileBins, TileGrid
 from .camera import Camera
+from .rasterize_bwd import fits as flat_bwd_fits
 from .rasterize_bwd import rasterize_bwd
+from .rasterize_dense import (rasterize_dense_bwd, rasterize_dense_eval,
+                              rasterize_dense_fwd)
 from .rasterize_eval import rasterize_eval
-from .rasterize_fwd import NG, rasterize_fwd
+from .rasterize_fwd import MAX_TILE_PIXELS, NG, rasterize_fwd
 from .records import assemble_records, cam_info
 from .surfel import SplatGeom
+
+# renderers that name the flat pair-list kernel path; "_interpret" is the
+# JAX package's CPU mode of the same path, which here is the plain version
+# any CPU tensor takes
+FLAT_RENDERERS = ("pallas", "pallas5", "pallas_interpret",
+                  "pallas5_interpret")
+
+
+def use_flat_path(renderer: str, chart_pad, tile_pixels: int) -> bool:
+    """Route ``renderer="pallas"`` to the flat path unless its kernels
+    cannot take the chart pad. One decision per (renderer, chart pad, tile
+    size), the same for training and eval, so a scene trained on one tier
+    is served by it.
+
+    The JAX package's rule bounds a pair-space gradient buffer in TPU HBM.
+    The flat CUDA kernels have no such buffer; what bounds them on the H100
+    is shared memory: the flat backward stages a splat's whole chart and
+    its gradient beside the tile's planes (``rasterize_bwd.fits``: (14 ·
+    pixels + 64 + 6·Ch·Cw) · 4 B <= 227 KB, about (80, 88) at 32 x 32
+    tiles)."""
+    if renderer not in FLAT_RENDERERS:
+        return False
+    return (tile_pixels <= MAX_TILE_PIXELS
+            and flat_bwd_fits(chart_pad, tile_pixels))
+
+
+def dense_pallas_fits(chart_pad, s_max: int) -> bool:
+    """Can the dense-list kernels take these shapes? Where they cannot,
+    ``models.gstex.render`` falls back to the pure-torch tier.
+
+    The JAX package's rule bounds the TPU backward's per-tile chart-gradient
+    window in VMEM. The dense CUDA kernels hold nothing in pair space and
+    nothing chart-sized on chip: records are staged 32 at a time, texels
+    are read from and texel gradients added to the ``(N, Ch, Cw, 3)``
+    tensors in device memory. So every pad and every ``s_max`` fits; what
+    bounds a scene on the H100 is device memory for the charts themselves
+    (with gradient and Adam moments, 48 · N · Ch · Cw bytes) and for the
+    ``num_tiles x s_max`` int32 id list."""
+    return True
 
 
 def _compose(maps: torch.Tensor, background) -> dict:
@@ -91,6 +136,74 @@ def rasterize_pl5(geom: SplatGeom, texture: torch.Tensor,
         maps, _ = _Rasterize5.apply(records, texture.contiguous(),
                                     fbins.gids, fbins.starts, fbins.counts,
                                     info, grid, s_cap, lean)
+    with record_function("gstex.compose"):
+        out = _compose(maps, background)
+        out["normal"] = maps[8:11].permute(1, 2, 0)
+        out["reg"] = maps[11]
+    return out
+
+
+def rasterize_pl_eval(geom: SplatGeom, texture: torch.Tensor,
+                      texture_hw: torch.Tensor, bins: TileBins, cam: Camera,
+                      grid: TileGrid, px_offset=None,
+                      background=None) -> dict:
+    """Dense-path forward-only render: the maps of ``rasterize_pl5_eval``
+    from the dense per-tile lists."""
+    with record_function("gstex.records"):
+        records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
+        info = cam_info(cam, px_offset)
+    with record_function("gstex.eval_kernel"):
+        maps = rasterize_dense_eval(records, bins.ids, bins.counts,
+                                    texture.contiguous(), info, grid)
+    with record_function("gstex.compose"):
+        return _compose(maps, background)
+
+
+class _Rasterize4(torch.autograd.Function):
+    """(records, charts) -> (14, H, W) maps, ncontrib over the dense lists;
+    the backward runs ``rasterize_dense_bwd`` on the cotangents of the
+    first 12 maps (the counterpart of ``_core4``'s custom VJP, with its
+    segment sums inside the kernel)."""
+
+    @staticmethod
+    def forward(ctx, records, charts, ids, counts, info, grid, lean):
+        maps, ncon = rasterize_dense_fwd(records, ids, counts, charts, info,
+                                         grid, lean=lean)
+        ctx.save_for_backward(records, charts, ids, counts, info, maps, ncon)
+        ctx.grid, ctx.lean = grid, lean
+        ctx.mark_non_differentiable(ncon)
+        return maps, ncon
+
+    @staticmethod
+    def backward(ctx, g_maps, g_ncon):
+        records, charts, ids, counts, info, maps, ncon = ctx.saved_tensors
+        d_rec, d_ch = rasterize_dense_bwd(
+            records, ids, counts, charts, info, maps, ncon,
+            g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean)
+        return d_rec, d_ch, None, None, None, None, None
+
+
+def rasterize_pl(geom: SplatGeom, texture: torch.Tensor,
+                 texture_hw: torch.Tensor, bins: TileBins, cam: Camera,
+                 grid: TileGrid, px_offset=None, version: int = 4,
+                 lean: bool = False, background=None) -> dict:
+    """Dense-path training render, differentiable in ``geom`` and
+    ``texture``; same outputs as ``rasterize.rasterize`` (and ``rgb``,
+    given a ``background``). ``lean`` as in ``rasterize_pl5``. Only
+    ``version=4`` is ported."""
+    if version != 4:
+        item = {3: "7-8", 2: "9-10", 1: "11-12"}.get(version)
+        if item is None:
+            raise ValueError(f"unknown kernel version {version}")
+        raise NotImplementedError(
+            f"the v{version} kernels are not ported yet: ROADMAP Queue 2 "
+            f"items {item}")
+    with record_function("gstex.records"):
+        records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
+        info = cam_info(cam, px_offset)
+    with record_function("gstex.fwd_kernel"):
+        maps, _ = _Rasterize4.apply(records, texture.contiguous(), bins.ids,
+                                    bins.counts, info, grid, lean)
     with record_function("gstex.compose"):
         out = _compose(maps, background)
         out["normal"] = maps[8:11].permute(1, 2, 0)

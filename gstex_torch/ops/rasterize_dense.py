@@ -1,0 +1,186 @@
+"""The dense-list render kernels: eval, training forward and backward over
+the ``(num_tiles, s_max)`` id lists of ``binning.build_tile_bins``. The
+CUDA kernels ``csrc/rasterize_dense_eval.cu``, ``rasterize_dense_fwd.cu``
+and ``rasterize_dense_bwd.cu``, their wrappers, and their plain PyTorch
+versions (``ops/rasterize.py``).
+
+Counterpart of ``gstex_tpu/ops/rasterize_pallas4.py``:
+``rasterize_pallas4_eval`` (``_eval_kernel4``), ``rasterize_pallas4_fwd``
+(``_fwd_kernel4``) and ``rasterize_pallas4_bwd`` (``_bwd_kernel4``)
+together with the per-gaussian reduction that follows it
+(``rasterize_pallas_api.py:_reduce_d_charts``). They compute what the flat
+kernels compute (``ops/rasterize_fwd.py``, ``ops/rasterize_bwd.py``), and
+differ in what they hold on chip: a chunk of records only. Texels are
+fetched from the ``(N, Ch, Cw, 3)`` charts in device memory and texel
+gradients are added there, so their shared memory does not grow with the
+chart pad and every pad is served. Maps come back as ``(C, H, W)`` planes
+in ``rasterize_fwd.CH_NAMES`` order; ncontrib is ``s_max`` where a pixel's
+walk never broke.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import rasterize as plain
+from .binning import TileGrid
+from .rasterize_fwd import MAX_TILE_PIXELS, NCH, NG
+from .records import F_REC
+
+
+def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid):
+    """Raise on inputs the dense-list kernels do not take."""
+    dev = records.device
+    n = records.shape[0]
+    if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:
+        raise ValueError(f"tiles of more than {MAX_TILE_PIXELS} pixels are "
+                         f"not supported")
+    spec = {
+        "records": (records, torch.float32, (n, F_REC)),
+        "ids": (ids, torch.int32, None),
+        "counts": (counts, torch.int32, (grid.num_tiles,)),
+        "charts": (charts, torch.float32, None),
+        "cam_info": (cam_info, torch.float32, (18,)),
+    }
+    for name, (x, dtype, shape) in spec.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, records on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ids.dim() != 2 or ids.shape[0] != grid.num_tiles:
+        raise ValueError(f"ids must be (num_tiles={grid.num_tiles}, s_max), "
+                         f"got {tuple(ids.shape)}")
+    if charts.dim() != 4 or charts.shape[0] != n or charts.shape[3] != 3:
+        raise ValueError(f"charts must be (N, Ch, Cw, 3) with N={n}, got "
+                         f"{tuple(charts.shape)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the dense-list kernels run on cpu or cuda, not "
+                         f"{dev}")
+
+
+def _launch(name: str, n_ptr: int, pointers, ints, dev):
+    """Build (at first use) and launch ``gstex_<name>`` on the current
+    stream of ``dev``; raise if the launch is refused."""
+    from . import _build
+
+    fn = getattr(_build.load(name), f"gstex_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(x.data_ptr() for x in pointers), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _geometry(grid: TileGrid, charts, ids):
+    return (grid.num_tiles, grid.ntx, grid.tile_h, grid.tile_w, grid.height,
+            grid.width, charts.shape[1], charts.shape[2], ids.shape[1])
+
+
+def rasterize_dense_eval_reference(records, ids, counts, charts, cam_info,
+                                   grid: TileGrid) -> torch.Tensor:
+    """Plain PyTorch version of the eval kernel: the first eight planes of
+    the lean forward scan."""
+    maps, _ = plain.forward_scan(records, ids, counts, charts, cam_info,
+                                 grid, lean=True)
+    return maps[:8].contiguous()
+
+
+def rasterize_dense_eval(records, ids, counts, charts, cam_info,
+                         grid: TileGrid) -> torch.Tensor:
+    """Forward-only blend; returns the ``(8, H, W)`` maps: img (3), tex
+    (3), depth, alpha.
+
+    Args:
+        records: (N, F_REC) float32 per-gaussian records.
+        ids: (num_tiles, s_max) int32 ``TileBins.ids``.
+        counts: (num_tiles,) int32 ``TileBins.counts`` (clamped to s_max
+            here and in the kernel).
+        charts: (N, Ch, Cw, 3) float32 albedo charts.
+        cam_info: (18,) float32.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch).
+    """
+    check_inputs(records, ids, counts, charts, cam_info, grid)
+    dev = records.device
+    if dev.type == "cpu":
+        return rasterize_dense_eval_reference(records, ids, counts, charts,
+                                              cam_info, grid)
+    out = torch.empty((8, grid.height, grid.width), dtype=torch.float32,
+                      device=dev)
+    _launch("rasterize_dense_eval", 6,
+            (records, ids, counts, charts, cam_info, out),
+            _geometry(grid, charts, ids), dev)
+    rasterize_dense_eval.launches += 1
+    return out
+
+
+def rasterize_dense_fwd(records, ids, counts, charts, cam_info,
+                        grid: TileGrid, lean: bool = False):
+    """Training forward; returns ``(maps (14, H, W), ncontrib (H, W)
+    int32)``. ``lean=True`` skips the normal and reg chains; their planes
+    stay zero. Arguments as ``rasterize_dense_eval``."""
+    check_inputs(records, ids, counts, charts, cam_info, grid)
+    dev = records.device
+    if dev.type == "cpu":
+        return plain.forward_scan(records, ids, counts, charts, cam_info,
+                                  grid, lean=lean)
+    out = torch.empty((NCH, grid.height, grid.width), dtype=torch.float32,
+                      device=dev)
+    ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
+                       device=dev)
+    _launch("rasterize_dense_fwd", 7,
+            (records, ids, counts, charts, cam_info, out, ncon),
+            (*_geometry(grid, charts, ids), int(lean)), dev)
+    rasterize_dense_fwd.launches += 1
+    return out, ncon
+
+
+def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
+                        ncontrib, gmaps, grid: TileGrid, lean: bool = False):
+    """Gradients of the training forward's first 12 maps: returns
+    ``(d_records (N, 32), d_charts (N, Ch, Cw, 3))``.
+
+    ``maps`` (14, H, W) and ``ncontrib`` (H, W) are ``rasterize_dense_fwd``'s
+    outputs for the same inputs, ``gmaps`` (12, H, W) the cotangents of its
+    first 12 channels. CPU tensors run the plain version
+    (``rasterize.backward_walk``); CUDA tensors launch the kernel (and
+    raise if it cannot launch).
+    """
+    check_inputs(records, ids, counts, charts, cam_info, grid)
+    dev = records.device
+    hw = (grid.height, grid.width)
+    for name, x, dtype, shape in (("maps", maps, torch.float32, (NCH, *hw)),
+                                  ("ncontrib", ncontrib, torch.int32, hw),
+                                  ("gmaps", gmaps, torch.float32, (NG, *hw))):
+        if x.device != dev or x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on {dev}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous with shape {shape}")
+    if dev.type == "cpu":
+        return plain.backward_walk(records, ids, counts, charts, cam_info,
+                                   maps, ncontrib, gmaps, grid, lean=lean)
+    d_rec = torch.zeros_like(records)
+    d_ch = torch.zeros_like(charts)
+    _launch("rasterize_dense_bwd", 10,
+            (records, ids, counts, charts, cam_info, maps, ncontrib, gmaps,
+             d_rec, d_ch),
+            (*_geometry(grid, charts, ids), int(lean)), dev)
+    rasterize_dense_bwd.launches += 1
+    return d_rec, d_ch
+
+
+# kernel launches since the last reset (CPU calls do not count)
+rasterize_dense_eval.launches = 0
+rasterize_dense_fwd.launches = 0
+rasterize_dense_bwd.launches = 0

@@ -199,13 +199,15 @@ def untile(acc: torch.Tensor, grid: TileGrid) -> torch.Tensor:
 
 def forward_walk(records, gids, starts, counts, charts, cam_info,
                  grid: TileGrid, s_cap: int, lean: bool = False,
-                 chunk: int = 16):
+                 chunk: int = 16, extra: bool = False):
     """The plain forward walk, vectorized over all tiles: slot rank
     0..min(count, s_cap) in chunks on (tiles, pixels) tensors, in the
     kernels' per-pixel order and arithmetic. Returns the (14, H, W) maps,
     ncontrib (H, W) int32, and the ``WalkStats``: per tile the splats the
     walk needed (the rank after which no in-image pixel had T > T_EPS,
-    else the clamped count), and the counts of responses and blends."""
+    else the clamped count), and the counts of responses and blends.
+    ``extra=True`` appends the three planes of the ``uv`` visualization
+    map, Σ w·(u, v, 0.5) with the chart coordinates clamped to [0, 1]."""
     dev = records.device
     nt = grid.num_tiles
     pix = grid.tile_h * grid.tile_w
@@ -219,7 +221,8 @@ def forward_walk(records, gids, starts, counts, charts, cam_info,
     T = torch.ones((nt, pix), dtype=torch.float32, device=dev)
     t_fin = torch.ones((nt, pix), dtype=torch.float32, device=dev)
     ncon = torch.full((nt, pix), s_cap, dtype=torch.int32, device=dev)
-    acc = torch.zeros((NCH, nt, pix), dtype=torch.float32, device=dev)
+    acc = torch.zeros((NCH + 3 * extra, nt, pix), dtype=torch.float32,
+                      device=dev)
     walked = n_walk.clone()
     done = torch.zeros(nt, dtype=torch.bool, device=dev)
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
@@ -269,6 +272,12 @@ def forward_walk(records, gids, starts, counts, charts, cam_info,
                 acc_a[11] = acc_a[11] + 2.0 * w * (m * acc_a[7] - acc_a[13])
                 acc_a[13] = acc_a[13] + w * m
             acc_a[7] = acc_a[7] + w
+            if extra:
+                acc_a[NCH] = acc_a[NCH] + w * torch.clamp(resp["uvu_raw"],
+                                                          0.0, 1.0)
+                acc_a[NCH + 1] = acc_a[NCH + 1] + w * torch.clamp(
+                    resp["uvv_raw"], 0.0, 1.0)
+                acc_a[NCH + 2] = acc_a[NCH + 2] + w * 0.5
 
             finished = ~(ins & (Ta > T_EPS)).any(-1) & valid[:, j]
             newly = finished & ~done[act]

@@ -46,8 +46,8 @@ def intersect(geom: SplatGeom, origin: torch.Tensor, dirs: torch.Tensor,
     Broadcasts geom fields against pixel arrays (``dirs`` (..., 3) world
     ray dirs with unit view-space z, ``px`` (..., 2) continuous pixel
     coords). Returns ``t`` (view depth of the hit), ``alpha`` (after the
-    cutoffs), ``uv`` (chart coordinates in [0,1]) and ``n_eff`` (normal
-    flipped toward the camera).
+    cutoffs), ``uv`` (chart coordinates in [0,1], in a detached frame) and
+    ``n_eff`` (normal flipped toward the camera).
     """
     om = origin - geom.mean
     denom = (dirs * geom.normal).sum(-1)
@@ -78,8 +78,14 @@ def intersect(geom: SplatGeom, origin: torch.Tensor, dirs: torch.Tensor,
     alpha = torch.where(alpha < ALPHA_CUTOFF, zero, alpha)
     alpha = torch.where(t > 1e-6, alpha, zero)
 
-    uv_u = 0.5 + geom.uv_scale[..., 0] * (a1 + t * b1)
-    uv_v = 0.5 + geom.uv_scale[..., 1] * (a2 + t * b2)
+    # the chart uv frame (axes and mapping) is detached: the uv reaches
+    # the means through o − μ and t only
+    ax1_d, ax2_d = geom.ax1.detach(), geom.ax2.detach()
+    uv_scale = geom.uv_scale.detach()
+    uv_u = 0.5 + uv_scale[..., 0] * ((om * ax1_d).sum(-1)
+                                     + t * (dirs * ax1_d).sum(-1))
+    uv_v = 0.5 + uv_scale[..., 1] * ((om * ax2_d).sum(-1)
+                                     + t * (dirs * ax2_d).sum(-1))
     uv = torch.stack([uv_u.clamp(0.0, 1.0), uv_v.clamp(0.0, 1.0)], dim=-1)
 
     facing = torch.where(denom > 0.0, -1.0, 1.0)

@@ -10,7 +10,10 @@ Modes:
   at ``--height`` x ``--width``.
 
 Pair capacities are sized from one demand pass over every camera
-(``settle_caps``), so no frame overflows.
+(``settle_caps``), so no frame overflows. ``--renderer`` names the tier
+(``models.gstex.render``): the default ``pallas`` takes the flat kernels
+where they fit the scene's chart pad and the dense-list kernels otherwise;
+``pallas4`` the dense-list kernels; ``xla`` the pure-torch tier.
 
     python -m gstex_torch.scripts.render spiral \\
         --scene-npz assets/trained_scene_stats.npz --frames 8
@@ -29,7 +32,7 @@ from ..data.png import write_png
 from ..data.synthetic import orbit_c2w, orbit_camera
 from ..models import gstex as model
 from ..models.init_io import load_scene_npz
-from ..ops.binning import build_tile_bins_flat, settle_caps
+from ..ops.binning import sorted_pairs, settle_caps
 from ..ops.camera import make_camera
 from ..ops.cull import make_pair_cull
 from ..ops.prepare import prepare_splats
@@ -49,31 +52,27 @@ def eval_background(cfg: model.GStexConfig, device) -> torch.Tensor:
 
 def demand_caps(cfg: model.GStexConfig, params, buffers, cams,
                 step: int) -> tuple[int, int]:
-    """(pair_cap, s_cap) from the largest pair demand over ``cams``: one
-    cull + binning pass per camera at generous capacities, doubled while a
-    pass overflows, then ``settle_caps``."""
-    pair_cap, s_cap = 1 << 20, 4096
-    for _ in range(3):
-        total, hottest, overflow = 0, 0, 0
-        for cam in cams:
-            prep = prepare_splats(
-                params.means, params.log_scales, params.quats,
-                params.opacity_logits, params.features_dc,
-                params.features_rest, buffers.mappings, cam,
-                active_sh_degree=model.active_sh_degree(cfg, step),
-                sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
-                extent_sigma=cfg.sigma_factor)
-            grid = cfg.grid(cam.height, cam.width)
-            fb = build_tile_bins_flat(
-                prep.centers, prep.extents, prep.depths, prep.valid, grid,
-                pair_cap=pair_cap, s_cap=s_cap,
-                cull_fn=make_pair_cull(prep.geom, cam, grid))
-            total = max(total, fb.total_pairs)
-            hottest = max(hottest, int(fb.counts.max()))
-            overflow = max(overflow, fb.overflow)
-        if overflow == 0:
-            break
-        pair_cap, s_cap = min(pair_cap * 2, 1 << 24), s_cap * 2
+    """(pair_cap, s_max) from the largest pair demand over ``cams``: one
+    pair expansion per camera, with the cull where ``cfg.pair_cull`` has
+    the render cull, then ``settle_caps``. The caps hold for both list
+    layouts: each counts the same pairs, and the per-tile cap that bounds
+    the flat walk is the dense lists' row length."""
+    total, hottest = 0, 0
+    for cam in cams:
+        prep = prepare_splats(
+            params.means, params.log_scales, params.quats,
+            params.opacity_logits, params.features_dc,
+            params.features_rest, buffers.mappings, cam,
+            active_sh_degree=model.active_sh_degree(cfg, step),
+            sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
+            extent_sigma=cfg.sigma_factor)
+        grid = cfg.grid(cam.height, cam.width)
+        cull_fn = (make_pair_cull(prep.geom, cam, grid) if cfg.pair_cull
+                   else None)
+        pairs = sorted_pairs(prep.centers, prep.extents, prep.depths,
+                              prep.valid, grid, 1 << 24, cull_fn)
+        total = max(total, pairs.total)
+        hottest = max(hottest, int(pairs.tile_counts.max()))
     return settle_caps(total, hottest)
 
 
@@ -120,12 +119,16 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--output-path", default="renders")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random fills of a statistics file")
+    p.add_argument("--renderer", default="pallas",
+                   help="render tier: pallas (flat kernels where they fit "
+                        "the chart pad, else dense), pallas4 (dense-list "
+                        "kernels), xla (pure torch), oracle")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = model.GStexConfig(renderer="pallas")
+    cfg = model.GStexConfig(renderer=args.renderer)
     params, buffers = load_scene_npz(cfg, args.scene_npz, seed=args.seed,
                                      device=device)
     # a trained scene renders at its full SH degree

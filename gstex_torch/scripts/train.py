@@ -11,6 +11,15 @@ mean eval PSNR and SSIM.
     python -m gstex_torch.scripts.train gstex-blender-nvs \\
         --data DATA_DIR --init-npz assets/trained_scene_stats.npz
 
+``--renderer`` overrides the method's render tier (``pallas``: the flat
+kernels where they fit the scene's chart pad, the dense-list kernels
+otherwise; ``pallas4``: the dense-list kernels; ``xla``: pure torch). A
+large texel budget makes large charts, which train on the dense tier:
+
+    python -m gstex_torch.scripts.train gstex-blender-nvs \\
+        --data DATA_DIR --init-npz assets/trained_scene_stats.npz \\
+        --pixel-num 4e6
+
 PLY and point-cloud init, ``--set`` overrides and the multi-device flags
 of ``gstex-train`` are not offered yet.
 """
@@ -46,6 +55,9 @@ def main(argv=None) -> dict:
                    help="seed of the scene loader's random fills")
     p.add_argument("--max-num-iterations", type=int, default=None)
     p.add_argument("--pixel-num", type=float, default=None)
+    p.add_argument("--renderer", default=None,
+                   help="render tier (default: the method's): pallas, "
+                        "pallas4, xla, oracle")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
@@ -56,6 +68,9 @@ def main(argv=None) -> dict:
     if args.pixel_num is not None:
         method.model = dataclasses.replace(method.model,
                                            pixel_num=args.pixel_num)
+    if args.renderer is not None:
+        method.model = dataclasses.replace(method.model,
+                                           renderer=args.renderer)
     if args.max_num_iterations is not None:
         method.trainer = dataclasses.replace(
             method.trainer, max_num_iterations=args.max_num_iterations)

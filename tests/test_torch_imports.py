@@ -36,7 +36,22 @@ def test_sources_found():
              if p.is_relative_to(ROOT / "gstex_torch")}
     assert {"ops/rasterize_eval.py", "ops/rasterize_fwd.py",
             "ops/rasterize_bwd.py", "ops/ssim_fused.py", "train/trainer.py",
-            "scripts/train.py", "utils/checkpoint.py"} <= names
+            "scripts/train.py", "utils/checkpoint.py", "ops/rasterize.py",
+            "ops/rasterize_ref.py", "ops/rasterize_dense.py",
+            "ops/rasterize_api.py", "ops/binning.py"} <= names
+
+
+def test_every_kernel_source_has_a_wrapper():
+    """Each CUDA source under csrc/ is built by name from one module of
+    ops/ (``_build.load("<name>")``), and from nowhere else."""
+    sources = {p.stem for p in (ROOT / "gstex_torch" / "csrc").glob("*.cu")}
+    assert sources == {"rasterize_eval", "rasterize_fwd", "rasterize_bwd",
+                       "ssim_fused", "rasterize_dense_eval",
+                       "rasterize_dense_fwd", "rasterize_dense_bwd"}
+    ops = "".join(p.read_text()
+                  for p in (ROOT / "gstex_torch" / "ops").glob("*.py"))
+    for name in sources:
+        assert f'"{name}"' in ops, name
 
 
 def test_package_turns_tf32_off():

@@ -23,6 +23,14 @@ The chart pads include a non-square one, whose active charts are drawn
 up to the full pad in each direction, and one large enough that each
 chunk of both kernels stages a single splat, as the training main path's
 scene-sized pads do.
+
+The dense-list kernels run the same cases plus a pad the flat backward
+cannot stage, (88, 88). Their eval and forward kernels follow their plain
+version operation for operation (1e-4, ncontrib equal). Their backward's
+plain version pulls the per-splat math back with autograd where the
+kernel writes the chain rule out, so the two differ by rounding: the same
+1e-4 of each field group's largest value and 1e-5 sign flips. On the pads
+both tiers take, the dense kernels are also held to the flat ones.
 """
 
 import pytest
@@ -30,10 +38,12 @@ import torch
 
 from gstex_torch.data.synthetic import orbit_camera, surface_scene
 from gstex_torch.ops import rasterize_bwd as rbwd
+from gstex_torch.ops import rasterize_dense as rdense
 from gstex_torch.ops import rasterize_eval as reval
 from gstex_torch.ops import rasterize_fwd as rfwd
 from gstex_torch.ops import ssim_fused
-from gstex_torch.ops.binning import TileGrid, build_tile_bins_flat
+from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
+                                     build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
 from gstex_torch.ops.prepare import prepare_splats
 from gstex_torch.ops.records import assemble_records, cam_info
@@ -60,7 +70,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def kernel_inputs(device, pad, tile, s_cap, n=2000, height=H, width=W):
+def kernel_inputs(device, pad, tile, s_cap, n=2000, height=H, width=W,
+                  dense=False):
     s = surface_scene(n, chart_pad=pad, seed=1, device=device)
     # active chart dims up to the pad in each direction
     gen = torch.Generator(device=device).manual_seed(4)
@@ -74,13 +85,14 @@ def kernel_inputs(device, pad, tile, s_cap, n=2000, height=H, width=W):
                           s["features_rest"], s["mappings"], cam,
                           active_sh_degree=3)
     grid = TileGrid(height=height, width=width, tile_h=tile, tile_w=tile)
-    bins = build_tile_bins_flat(prep.centers, prep.extents, prep.depths,
-                                prep.valid, grid, pair_cap=1 << 18,
-                                s_cap=s_cap,
-                                cull_fn=make_pair_cull(prep.geom, cam, grid))
+    binning = build_tile_bins if dense else build_tile_bins_flat
+    bins = binning(prep.centers, prep.extents, prep.depths, prep.valid, grid,
+                   1 << 18, s_cap,
+                   cull_fn=make_pair_cull(prep.geom, cam, grid))
+    lists = ((bins.ids, bins.counts) if dense
+             else (bins.gids, bins.starts, bins.counts))
     inputs = (assemble_records(prep.geom, cam.c2w[:3, 3], s["texture_hw"]),
-              bins.gids, bins.starts, bins.counts,
-              sh_to_rgb(s["texture"]).contiguous(), cam_info(cam))
+              *lists, sh_to_rgb(s["texture"]).contiguous(), cam_info(cam))
     return inputs, grid, bins
 
 
@@ -205,3 +217,118 @@ def test_kernel_wrapper_raises_instead_of_falling_back(cuda):
         rfwd.rasterize_fwd(*inputs, big_tiles, 1024)
     assert (reval.rasterize_eval.launches,
             rfwd.rasterize_fwd.launches) == before
+
+
+DENSE_CASES = CASES + [((88, 88), 32, 1024), ((128, 128), 32, 1024)]
+DENSE_IDS = CASE_IDS + ["pad88x88_above_flat", "pad128x128_max"]
+
+
+def dense_inputs(cuda, pad, tile, s_cap):
+    # few surfels where the charts are large: 300 x (128, 128) is 59 MB
+    n = 300 if pad[0] >= 88 else 2000
+    return kernel_inputs(cuda, pad, tile, s_cap, n=n, dense=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad,tile,s_cap", DENSE_CASES, ids=DENSE_IDS)
+def test_dense_eval_kernel_matches_plain(cuda, pad, tile, s_cap):
+    inputs, grid, bins = dense_inputs(cuda, pad, tile, s_cap)
+    if s_cap == 16:
+        assert bins.overflow > 0
+    before = rdense.rasterize_dense_eval.launches
+    out = rdense.rasterize_dense_eval(*inputs, grid)
+    torch.cuda.synchronize()
+    assert rdense.rasterize_dense_eval.launches == before + 1
+    ref = rdense.rasterize_dense_eval_reference(*inputs, grid)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert float(out[7].max()) > 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", DENSE_CASES, ids=DENSE_IDS)
+def test_dense_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
+    inputs, grid, _ = dense_inputs(cuda, pad, tile, s_cap)
+    before = rdense.rasterize_dense_fwd.launches
+    maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid, lean=lean)
+    torch.cuda.synchronize()
+    assert rdense.rasterize_dense_fwd.launches == before + 1
+    ref, ref_ncon = rdense.plain.forward_scan(*inputs, grid, lean=lean)
+    torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    assert torch.equal(ncon, ref_ncon)
+    assert float(maps[7].max()) > 0.3
+    if lean:
+        assert float(maps[8:12].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", DENSE_CASES, ids=DENSE_IDS)
+def test_dense_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
+    inputs, grid, _ = dense_inputs(cuda, pad, tile, s_cap)
+    if pad[0] >= 88:
+        assert not rbwd.fits(pad, tile * tile)
+    maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid, lean=lean)
+    g = cotangents(cuda)
+    before = rdense.rasterize_dense_bwd.launches
+    d_rec, d_ch = rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid,
+                                             lean=lean)
+    torch.cuda.synchronize()
+    assert rdense.rasterize_dense_bwd.launches == before + 1
+    ref_rec, ref_ch = rdense.plain.backward_walk(*inputs, maps, ncon, g,
+                                                 grid, lean=lean)
+    errs = backward_errors(d_rec, d_ch, ref_rec, ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+    assert float(ref_rec.abs().max()) > 0 and float(ref_ch.abs().max()) > 0
+    assert float(d_rec[:, [12, 13, 14, 16, 17, 18]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+def test_dense_kernels_match_flat_kernels(cuda, pad, tile, s_cap, lean):
+    """The two tiers compute one function: same maps (same operations in
+    the same per-pixel order) and same gradients (sums in another order;
+    the texel derivative in its 2 x 2 and its hat-function form)."""
+    flat, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
+    dense, _, _ = kernel_inputs(cuda, pad, tile, s_cap, dense=True)
+    torch.testing.assert_close(rdense.rasterize_dense_eval(*dense, grid),
+                               reval.rasterize_eval(*flat, grid, s_cap),
+                               atol=1e-4, rtol=0)
+    maps, ncon = rdense.rasterize_dense_fwd(*dense, grid, lean=lean)
+    fmaps, fncon = rfwd.rasterize_fwd(*flat, grid, s_cap, lean=lean)
+    torch.testing.assert_close(maps, fmaps, atol=1e-4, rtol=0)
+    # a pixel that never breaks reads s_max on the dense tier, s_cap on the
+    # flat one: the same number here
+    assert torch.equal(ncon, fncon)
+    g = cotangents(cuda)
+    d_rec, d_ch = rdense.rasterize_dense_bwd(*dense, maps, ncon, g, grid,
+                                             lean=lean)
+    f_rec, f_ch = rbwd.rasterize_bwd(*flat, fmaps, fncon, g, grid, s_cap,
+                                     lean=lean)
+    errs = backward_errors(d_rec, d_ch, f_rec, f_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_wrappers_raise_instead_of_falling_back(cuda):
+    inputs, grid, _ = kernel_inputs(cuda, (8, 8), 32, 1024, n=200,
+                                    dense=True)
+    big_tiles = TileGrid(height=H, width=W, tile_h=64, tile_w=64)
+    before = (rdense.rasterize_dense_eval.launches,
+              rdense.rasterize_dense_fwd.launches)
+    with pytest.raises(ValueError, match="pixels"):
+        rdense.rasterize_dense_eval(*inputs, big_tiles)
+    records, ids, counts, charts, info = inputs
+    with pytest.raises(ValueError, match="ids"):
+        rdense.rasterize_dense_fwd(records, ids[:-1].contiguous(), counts,
+                                   charts, info, grid)
+    with pytest.raises(ValueError, match="is on"):
+        rdense.rasterize_dense_fwd(records, ids.cpu(), counts, charts, info,
+                                   grid)
+    assert (rdense.rasterize_dense_eval.launches,
+            rdense.rasterize_dense_fwd.launches) == before

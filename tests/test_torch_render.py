@@ -177,11 +177,16 @@ def test_config_fields_match():
     assert jf == tf
 
 
-@pytest.mark.parametrize("change", [
-    dict(extra=True), dict(renderer="oracle"), dict(renderer="xla"),
-    dict(renderer="pallas4"), dict(texel_dtype="bf16"),
-    dict(eval_only=False, use_normal_loss=True)])
-def test_unported_requests_raise(change):
+@pytest.mark.parametrize("change,item", [
+    (dict(renderer="pallas1"), "Queue 2 items 11-12"),
+    (dict(renderer="pallas2"), "Queue 2 items 9-10"),
+    (dict(renderer="pallas3"), "Queue 2 items 7-8"),
+    (dict(renderer="pallas3_interpret", eval_only=False),
+     "Queue 2 items 7-8"),
+    (dict(texel_dtype="bf16"), "Queue 1 item 6"),
+    (dict(eval_only=False, use_normal_loss=True), "Queue 1 item 13")])
+def test_unported_requests_raise(change, item):
+    change = dict(change)
     s = scene_np(n=20)
     tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")
     _, tc = cameras()
@@ -189,8 +194,17 @@ def test_unported_requests_raise(change):
                 eval_only=change.pop("eval_only", True))
     cfg = tmodel.GStexConfig(**{"renderer": "pallas", "chart_pad": (4, 4),
                                 **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmodel.render(cfg, tp, tb, tc, STEP, t(BG), **call)
+
+
+def test_unknown_renderer_is_refused():
+    s = scene_np(n=20)
+    tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")
+    _, tc = cameras()
+    cfg = tmodel.GStexConfig(renderer="cuda", chart_pad=(4, 4))
+    with pytest.raises(ValueError, match="unknown renderer"):
+        tmodel.render(cfg, tp, tb, tc, STEP, t(BG), eval_only=True)
 
 
 def _stats_file(tmp_path, n=300):

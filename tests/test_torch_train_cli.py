@@ -1,7 +1,9 @@
 """The training entry point and what it reads and writes: the PNG decoder
 against PIL, ``gstex_torch.scripts.train`` for a few steps on the CPU on a
 dataset written by the port's own render, its checkpoint, and the
-device default of ``sample_background``."""
+device default of ``sample_background``; the same entry points on the
+dense-list tier (``--renderer pallas4``, and a chart pad too large for the
+flat path)."""
 
 import struct
 import zlib
@@ -167,6 +169,55 @@ def test_train_cli_on_cpu(tmp_path, one_thread):
     assert all(int(s["step"]) == 3 for s in state.optimizer.state.values())
 
 
+@pytest.mark.parametrize("flags,pad", [
+    (["--renderer", "pallas4", "--pixel-num", "2e4"], None),
+    (["--pixel-num", "6e5"], (128, 128))], ids=["pallas4", "large_charts"])
+def test_train_cli_on_the_dense_tier(tmp_path, one_thread, monkeypatch,
+                                     flags, pad):
+    """Two steps on the CPU through the dense lists: asked for by name, or
+    taken because the texel budget makes charts too large for the flat
+    path (60 surfels at 6e5 texels: the largest pad, (128, 128))."""
+    from gstex_torch.scripts import render as trender
+
+    taken = []
+    real = tmodel.build_tile_bins
+    monkeypatch.setattr(tmodel, "build_tile_bins",
+                        lambda *a, **k: (taken.append(1), real(*a, **k))[1])
+    monkeypatch.setattr(tmodel, "build_tile_bins_flat", None)
+    stats = small_scene_npz(tmp_path / "scene.npz", n=60)
+    cfg = tmodel.GStexConfig(renderer="pallas4", chart_pad=(8, 8))
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    data = tmp_path / "data"
+    write_blender_dataset(data, cfg, params, buffers, 2, 32, 48)
+    write_blender_dataset(data, cfg, params, buffers, 1, 32, 48,
+                          split="test")
+    out = tmp_path / "run"
+    res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
+                       "--init-npz", str(stats), "--seed", "1",
+                       "--max-num-iterations", "2", *flags,
+                       "--output-dir", str(out), "--device", "cpu"])
+    hist = res["history"]
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and h["overflow"] == 0 for h in hist)
+    assert res["eval"]["psnr"] > 5
+    import json
+    run_cfg = json.loads((out / "config.json").read_text())["model"]
+    assert run_cfg["renderer"] == ("pallas4" if pad is None else "pallas")
+    if pad is not None:
+        assert tuple(run_cfg["chart_pad"]) == pad
+    # 3 views written, 2 training renders, the step-0 eval image, eval_all
+    assert len(taken) == 3 + 2 + 1 + 1
+
+    frames = tmp_path / "frames"
+    summary = trender.main([
+        "spiral", "--scene-npz", str(stats), "--frames", "2", "--height",
+        "32", "--width", "48", "--renderer", "pallas4", "--device", "cpu",
+        "--output-path", str(frames)])
+    assert len(list(frames.glob("frame_*.png"))) == 2
+    assert all(s["finite"] and s["overflow"] == 0 for s in summary)
+    assert len(taken) == 3 + 2 + 1 + 1 + 2
+
+
 def test_sample_background_defaults_to_the_card(monkeypatch):
     """Without a device, the background is drawn on the card: with no
     card present that raises, as every entry point of the port does."""
@@ -244,6 +295,17 @@ def test_trainer_nan_gate_and_cap_growth(tmp_path, one_thread):
     trainer._grow_capacities(5, {"overflow": 10, "total_pairs": 9000,
                                  "max_tile_count": 100})
     assert trainer.mcfg.pair_cap >= 9000 and trainer.mcfg.s_max >= 128
+
+    # the dense lists truncate at s_max: the overflowing step reports its
+    # demand, the caps grow past it, and the next step drops nothing
+    dense = tmodel.GStexConfig(renderer="pallas4", chart_pad=(8, 8),
+                               pair_cap=4096, s_max=8)
+    trainer = Trainer(tcfg, dense, toptim.OptimConfig(), params, buffers,
+                      cache)
+    hist = trainer.train()
+    assert hist[0]["overflow"] > 0 and hist[0]["max_tile_count"] > 8
+    assert trainer.mcfg.s_max >= hist[0]["max_tile_count"]
+    assert hist[1]["overflow"] == 0
 
     bad = params._replace(texture=torch.full_like(params.texture,
                                                   float("nan")))
