@@ -7,7 +7,7 @@ each of its kernels against its plain PyTorch version.
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
-2. build: nvcc builds the seven kernels from ``gstex_torch/csrc``, one
+2. build: nvcc builds the eleven kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
@@ -21,7 +21,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    <= 3e-5 of the float64 max), and to each other (the loss to 1e-6, the
    gradient to twice 3e-5); then, on the trained scene's dense lists of
    the same view, the three dense-list kernels against their plain
-   versions and against the flat kernels, under the same gates;
+   versions and against the flat kernels, under the same gates; then the
+   pair-space v3 and v2 kernels on per-slot copies of those dense lists,
+   and of the trained scene at pixel_num 1e5, re-charted, at (16, 24):
+   each against its plain version, lean and full, and, summed per
+   gaussian, against the dense kernels on the same pairs (v3's product
+   scan may break a pixel's walk one slot apart from the serial product at
+   no more than 1e-5 of the pixels; the maps are held to 1e-4 elsewhere);
 4. eval main path: ``gstex_torch.scripts.render spiral`` renders 8 frames
    of the trained scene; the eval kernel must launch once per frame;
 5. training main path: an 8-view 800x800 Blender dataset rendered from the
@@ -38,7 +44,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernels never; the closing eval pass launches the dense-list eval
    kernel; then 8 spiral frames through ``gstex_torch.scripts.render
    --renderer pallas4``;
-7. training shapes and timing: for each scene at its training chart pad
+7. the pair-space main path: ``gstex_torch.scripts.train
+   gstex-blender-nvs --pixel-num 1e5 --renderer pallas3`` on phase 6's
+   dataset, 120 steps across the re-chart: the auto chart pad is (16, 24);
+   every step launches the v3 forward and backward kernels once and no
+   other training kernel; the closing eval pass launches the dense-list
+   eval kernel; then the same with ``--renderer pallas2`` and the v2
+   kernels; the pair buffer's bytes and each run's peak memory;
+8. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
    2000-surfel subsample of it at (88, 88), the last two on the dense
@@ -48,8 +61,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    frame and a training step timed whole on the host clock (median of 20),
    the card's busy time and each ``gstex.*`` stage's host and device time
    from a ``torch.profiler`` trace, and each kernel alone beside its plain
-   version and its bound;
-8. the ``kernels`` line, the nvidia-smi line and the final result.
+   version and its bound; then the trained scene at pixel_num 1e5,
+   re-charted at (16, 24): a training step on ``pallas3``, ``pallas2``
+   and ``pallas4`` timed the same way (the trace's ``pair_gather`` range
+   and ``index_backward``, autograd's scatter-add through the gathers,
+   beside the kernels), and the four pair-space kernels alone beside their
+   plain versions and bounds;
+9. the ``kernels`` line, the nvidia-smi line and the final result.
 
 Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
@@ -80,6 +98,12 @@ DENSE_PAD = (64, 128)
 # pixel_num 1e6 resolve to an (88, 88) pad
 SUBSAMPLE = 2000
 SUBSAMPLE_PAD = (88, 88)
+# the pair-space main path: a texel budget whose charts the v3 and v2
+# kernels take (Ch <= 40), at a pair buffer that fits the card
+PAIR_PIXEL_NUM = 1e5
+PAIR_PAD = (16, 24)
+# pixels whose ncontrib v3 may place one slot apart from the serial walk
+PAIR_NCON_FRAC = 1e-5
 TOL = 1e-4
 BWD_TOL = 1e-4        # of the plain version's max abs, per field group
 FLIP_TOL = 1e-5       # texture gradient sign flips
@@ -120,10 +144,14 @@ MAPS = {"img": slice(0, 3), "texture_rgb": slice(3, 6), "depth": 6,
 STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",
                                  "rasterize_dense_eval_kernel"),
                  "fwd_kernel": ("rasterize_fwd_kernel",
-                                "rasterize_dense_fwd_kernel"),
+                                "rasterize_dense_fwd_kernel",
+                                "rasterize_v3_fwd_kernel",
+                                "rasterize_v2_fwd_kernel"),
                  "ssim_kernel": ("ssim_tile_kernel", "ssim_sum_kernel"),
                  "bwd_kernel": ("rasterize_bwd_kernel",
-                                "rasterize_dense_bwd_kernel")}
+                                "rasterize_dense_bwd_kernel",
+                                "rasterize_v3_bwd_kernel",
+                                "rasterize_v2_bwd_kernel")}
 FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
                 "axis2": [8, 9, 10, 11], "uv": [15, 19], "opacity": [20],
                 "rgb": [21, 22, 23], "xy": [24, 25]}
@@ -189,7 +217,9 @@ def device_ms(fn, reps):
     parts of ``loss`` and ``backward``. ``backward`` adds the device ms of the autograd
     engine's nodes, which run on its own thread, outside the stage that
     waits for them; ``autograd_params`` is that less the backward
-    kernel."""
+    kernel, and ``index_backward`` the part of it in autograd's indexing
+    nodes (on the pair-space tiers, the scatter-add through the gathers
+    of the per-slot copies and the masked store that places them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,6 +256,11 @@ def device_ms(fn, reps):
         stages["autograd_params"] = {
             "device_ms": stages["backward"]["device_ms"]
             - stages["bwd_kernel"]["device_ms"]}
+        stages["index_backward"] = {"device_ms": sum(
+            e.device_time_total for e in cpu if e.key in (
+                "autograd::engine::evaluate_function: IndexBackward0",
+                "autograd::engine::evaluate_function: IndexPutBackward0"))
+            / 1e3 / reps}
     return busy_us / 1e3 / reps, top, stages
 
 
@@ -292,6 +327,38 @@ def dense_tier():
             *i, m, n, c, g, lean=lean),
         bwd_plain=lambda i, m, n, c, g, s, lean: plain.backward_walk(
             *i, m, n, c, g, lean=lean))
+
+
+def pair_tier(version):
+    """The v3 or v2 pair-space kernels and their plain versions behind the
+    same calls: ``inputs`` is (records_t, charts_g, counts, cam_info); the
+    record gradients come back as ``(T·S, 32)`` rows, one per slot."""
+    from gstex_torch.ops import rasterize_v2, rasterize_v3
+
+    mod = rasterize_v3 if version == 3 else rasterize_v2
+    name = f"rasterize_v{version}"
+    fwd, bwd = getattr(mod, f"{name}_fwd"), getattr(mod, f"{name}_bwd")
+    fwd_ref = getattr(mod, f"{name}_fwd_reference")
+    bwd_ref = getattr(mod, f"{name}_bwd_reference")
+
+    def rows(d):
+        return d[0].reshape(-1, d[0].shape[-1]), d[1]
+    return SimpleNamespace(
+        names=(None, f"{name}_fwd", f"{name}_bwd"),
+        fwd=lambda i, g, s, lean: fwd(*i, g, lean=lean),
+        fwd_plain=lambda i, g, s, lean: fwd_ref(*i, g, lean=lean),
+        bwd=lambda i, m, n, c, g, s, lean: rows(bwd(*i, m, n, c, g,
+                                                    lean=lean)),
+        bwd_plain=lambda i, m, n, c, g, s, lean: rows(bwd_ref(
+            *i, m, n, c, g, lean=lean)))
+
+
+def pair_copies(dframe):
+    """A dense frame's inputs as the pair-space kernels take them."""
+    from gstex_torch.ops.pair_inputs import pair_inputs
+
+    records, _, _, charts, info = dframe.inputs
+    return (*pair_inputs(records, charts, dframe.bins), info)
 
 
 class Frame:
@@ -434,6 +501,65 @@ def fwd_bound(inputs, texture_hw, grid, stats, lean, planes=15,
                     blends=int(stats.blended))
 
 
+def walk_responses(counts, ncon, grid, s_cap):
+    """The backward walk's (pixel, slot) responses: per in-image pixel,
+    its ncontrib capped by its tile's walk; and the walk per tile."""
+    from gstex_torch.ops.rasterize_bwd import tile_planes, walk_starts
+
+    walk = walk_starts(counts, ncon, grid, s_cap)
+    planes = tile_planes(torch.stack(
+        [ncon.float(), torch.ones_like(ncon, dtype=torch.float32)]), grid)
+    return int((torch.minimum(planes[0], walk[:, None].float())
+                * planes[1]).sum()), walk
+
+
+def walked_slots(ids, walked):
+    """The gaussian of each of the first ``walked[t]`` slots of every
+    tile's list, one entry per slot."""
+    rank = torch.arange(ids.shape[1], device=ids.device)
+    return ids[rank[None, :] < walked[:, None]].long()
+
+
+def pair_bounds(pinputs, ids, texture_hw, grid, stats, ncon, lean):
+    """The v3 and v2 kernels' bounds. Operations: the dense tier's on the
+    same pairs (RESPONSE_FLOPS per response the walks need, BLEND_FLOPS or
+    BLEND_FULL_FLOPS per forward blend, BWD_FLOPS or BWD_FULL_FLOPS per
+    backward pair). Bytes, what each kernel needs of pair space: per walked
+    slot its own record copy and the active texels of its own chart copy
+    (the backward: plus the row and column the hat weights reach), counts
+    and cam_info, the forward's fifteen output planes; for the backward the
+    twelve cotangents, three maps and ncontrib read and the walked slots'
+    record and active texel gradients written once. The copies' full pads
+    are the gather's traffic (``pair_copy_bytes``), paid in the
+    ``pair_gather`` stage and its backward, not by the kernels."""
+    records_t, charts_g, counts, info = pinputs
+    small = counts.numel() * 4 + info.numel() * 4
+    hw_px = grid.height * grid.width
+    blends = int(stats.blended)
+    fwd_ops = (int(stats.evaluated) * RESPONSE_FLOPS
+               + blends * (BLEND_FLOPS if lean else BLEND_FULL_FLOPS))
+    responses, walk = walk_responses(counts, ncon, grid, records_t.shape[1])
+    bwd_ops = (responses * RESPONSE_FLOPS
+               + blends * (BWD_FLOPS if lean else BWD_FULL_FLOPS))
+    fwd_slots = walked_slots(ids, stats.walked)
+    bwd_slots = walked_slots(ids, walk)
+    fwd_bytes = (active_bytes(fwd_slots, texture_hw) + small
+                 + 15 * hw_px * 4)
+    bwd_bytes = (active_bytes(bwd_slots, texture_hw, extra=1)
+                 + active_bytes(bwd_slots, texture_hw) + small
+                 + 16 * hw_px * 4)
+    slots = int(counts.sum())
+    copy_bytes = slots * (records_t.shape[-1] + charts_g[0, 0].numel()) * 4
+    return (bound_of(fwd_bytes, fwd_ops, slots=slots,
+                     walked_slots=int(fwd_slots.numel()),
+                     responses=int(stats.evaluated), blends=blends),
+            bound_of(bwd_bytes, bwd_ops, slots=slots,
+                     walked_slots=int(bwd_slots.numel()),
+                     responses=responses, blends=blends),
+            dict(pair_copy_bytes=copy_bytes,
+                 pair_copy_bytes_ms=copy_bytes / HBM_BYTES_PER_S * 1e3))
+
+
 def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean,
               list_arrays=2):
     """The backward kernel: the records and active texels (plus the row
@@ -443,15 +569,9 @@ def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean,
     active texel gradients written once; RESPONSE_FLOPS per (pixel, pair)
     below the pixel's ncontrib and BWD_FLOPS (BWD_FULL_FLOPS) per pair of
     weight > 0."""
-    from gstex_torch.ops.rasterize_bwd import tile_planes, walk_starts
-
     _, gids, starts, counts, _, info = inputs
-    walk = walk_starts(counts, ncon, grid, s_cap)
+    responses, walk = walk_responses(counts, ncon, grid, s_cap)
     ids = walked_ids(gids, starts, walk)
-    planes = tile_planes(torch.stack(
-        [ncon.float(), torch.ones_like(ncon, dtype=torch.float32)]), grid)
-    responses = int((torch.minimum(planes[0], walk[:, None].float())
-                     * planes[1]).sum())
     hw_px = grid.height * grid.width
     bytes_once = (active_bytes(ids, texture_hw, extra=1)
                   + active_bytes(ids, texture_hw) + int(walk.sum()) * 4
@@ -572,6 +692,62 @@ def check_dense_vs_flat(flat_frame, dense_frame, lean, **where):
             f"{errs}, flips {flip}")
 
 
+def check_pair_vs_dense(dframe, pinputs, tier, lean, **where):
+    """A pair-space tier against the dense kernels on the same pairs: maps
+    and ncontrib, and the pair-space gradients summed per gaussian against
+    the dense backward's, under the gates that hold a kernel to its plain
+    version; v3 may place ncontrib one slot apart at no more than
+    PAIR_NCON_FRAC of the pixels, whose maps are left out."""
+    dense, grid, s_cap = dframe.tier, dframe.grid, dframe.cfg.s_max
+    di, name = dframe.inputs, tier.names[1][:len("rasterize_v3")]
+    maps, ncon = tier.fwd(pinputs, grid, s_cap, lean)
+    dmaps, dncon = dense.fwd(di, grid, s_cap, lean)
+    same = ncon == dncon
+    n_diff = int((~same).sum())
+    fwd_err = float((maps - dmaps)[:, same].abs().max())
+    g = cotangents()
+    d_rec, d_ch = tier.bwd(pinputs, maps, ncon, g, grid, s_cap, lean)
+    ids = dframe.bins.ids.reshape(-1).long()
+    records, charts = di[0], di[3]
+    d_rec = torch.zeros_like(records).index_add_(0, ids, d_rec)
+    d_ch = torch.zeros_like(charts).index_add_(
+        0, ids, d_ch.reshape(ids.numel(), *charts.shape[1:]))
+    f_rec, f_ch = dense.bwd(di, dmaps, dncon, g, grid, s_cap, lean)
+    errs, flip = bwd_errors(d_rec, d_ch, f_rec, f_ch)
+    allowed = 0 if name.endswith("v2") else PAIR_NCON_FRAC * same.numel()
+    emit("pair_vs_dense", tier=name, lean=lean, ncontrib_diff_pixels=n_diff,
+         ncontrib_diff_allowed=allowed, fwd_max_abs_err=fwd_err, tol=TOL,
+         bwd_rel_err=errs, bwd_tol=BWD_TOL, texture_flip_frac=flip,
+         flip_tol=FLIP_TOL, **where)
+    require(n_diff <= allowed and fwd_err <= TOL,
+            f"{where}: {name} and dense forward differ (lean={lean}): "
+            f"{n_diff} ncontrib pixels, {fwd_err}")
+    require(max(errs.values()) <= BWD_TOL and flip <= FLIP_TOL,
+            f"{where}: {name} and dense backward differ (lean={lean}): "
+            f"{errs}, flips {flip}")
+
+
+def check_pairs(dframe, note, **where):
+    """Both pair-space tiers on a dense frame's lists: each kernel against
+    its plain version, lean and full, and against the dense kernels.
+    Returns each kernel's plain ms in lean mode."""
+    pinputs = pair_copies(dframe)
+    emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
+                                       for x in pinputs[:2]),
+         slots=int(pinputs[2].sum()), s_max=dframe.cfg.s_max, **where)
+    plain_ms = {}
+    for version in (3, 2):
+        tier = pair_tier(version)
+        for lean in (True, False):
+            checks = check_fwd_bwd(tier, pinputs, dframe.grid,
+                                   dframe.cfg.s_max, lean, **where)
+            note(checks)
+            if lean:
+                plain_ms.update({k: v[1] for k, v in checks.items()})
+            check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
+    return plain_ms
+
+
 def time_kernels(frame, lean, **where):
     """CUDA-event ms of a frame's three kernels alone on its inputs, so
     that the two tiers can be read side by side on one view's pairs."""
@@ -617,7 +793,10 @@ def main():
     from gstex_torch.ops import rasterize_bwd as rbwd
     from gstex_torch.ops import rasterize_dense as rdense
     from gstex_torch.ops import rasterize_eval as reval
+    from gstex_torch.ops import rasterize_api
     from gstex_torch.ops import rasterize_fwd as rfwd
+    from gstex_torch.ops import rasterize_v2 as rv2
+    from gstex_torch.ops import rasterize_v3 as rv3
     from gstex_torch.ops import ssim_fused
     from gstex_torch.ops.camera import make_camera
     from gstex_torch.ops.rasterize_api import use_flat_path
@@ -626,8 +805,10 @@ def main():
     from gstex_torch.train import step as train_step
 
     dense_src = list(dense_tier().names)
+    pair_src = ["rasterize_v3_fwd", "rasterize_v3_bwd", "rasterize_v2_fwd",
+                "rasterize_v2_bwd"]
     kernels_src = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
-                   "ssim_fused"] + dense_src
+                   "ssim_fused"] + dense_src + pair_src
     assert not torch.backends.cudnn.allow_tf32
 
     # 1. device
@@ -703,7 +884,33 @@ def main():
                 check_dense_vs_flat(frame, dframe, lean, **where)
             for f in (frame, dframe):
                 time_kernels(f, True, card=smi, **where)
+            # the pair-space kernels on per-slot copies of the same lists
+            check_pairs(dframe, note, **where)
             del dframe
+
+        # the pair-space kernels at their main path's pad: the trained
+        # scene at pixel_num 1e5, re-charted so that its charts fill it
+        pcfg = model.GStexConfig(renderer="pallas3", chart_pad=None,
+                                 pixel_num=PAIR_PIXEL_NUM)
+        pp, pb = init_io.params_from_scene_stats(pcfg, STATS, device=DEVICE)
+        pcfg = dataclasses.replace(pcfg,
+                                   chart_pad=tuple(pp.texture.shape[1:3]))
+        require(pcfg.chart_pad == PAIR_PAD,
+                f"pixel_num {PAIR_PIXEL_NUM}: chart pad {pcfg.chart_pad}, "
+                f"not {PAIR_PAD}")
+        pp, pb = model.rechart(pcfg, pp, pb)
+        pair_cap, s_cap = render_cli.demand_caps(pcfg, pp, pb, [cam], STEP)
+        pcfg = dataclasses.replace(pcfg, pair_cap=pair_cap, s_max=s_cap)
+        pframe = Frame(pcfg, pp, pb, cam,
+                       render_cli.eval_background(pcfg, DEVICE), dense=True)
+        pframe.run()
+        hw = pb.texture_hw
+        pair_plain_ms = check_pairs(
+            pframe, note, scene="trained_scene_1e5",
+            chart_pad=list(PAIR_PAD),
+            max_active_hw=[int(x) for x in hw.amax(0)])
+        del pframe, pp, pb
+        torch.cuda.empty_cache()
 
         # SSIM on a render and a noisy copy of it
         pred = frames["trained_scene_stats"][0].rgb.contiguous()
@@ -879,7 +1086,90 @@ def main():
         for f in summary), "a pallas4 spiral frame is missing, not finite, "
                            "empty or overflowed")
 
-    # 7. timing: an eval frame, then a training step
+    # 7. the pair-space main path: the same command at a texel budget whose
+    # charts the v3 and v2 kernels take, once through each
+    pair_counters = (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd,
+                     rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd)
+    all_counters = train_counters + dense_counters + pair_counters
+    real_gather = rasterize_api.pair_inputs
+    pair_launches = {}
+    for renderer in ("pallas3", "pallas2"):
+        version = renderer[-1]
+        gathered = []
+
+        def gather(records, texture, bins):
+            # the per-slot copies each step makes, as they are made
+            out = real_gather(records, texture, bins)
+            gathered.append(sum(x.numel() * x.element_size()
+                                for x in out[:2]))
+            return out
+        rasterize_api.pair_inputs = gather
+        torch.cuda.reset_peak_memory_stats()
+        for fn in all_counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = train_cli.main([
+                "gstex-blender-nvs", "--data", str(data), "--init-npz",
+                str(STATS), "--seed", "1", "--pixel-num", str(PAIR_PIXEL_NUM),
+                "--renderer", renderer, "--max-num-iterations",
+                str(TRAIN_STEPS), "--output-dir",
+                str(Path(tmp.name) / f"run_{renderer}")])
+        finally:
+            rasterize_api.pair_inputs = real_gather
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in all_counters}
+        pair_launches[renderer] = launches
+        run_cfg = json.loads((Path(tmp.name) / f"run_{renderer}"
+                              / "config.json").read_text())["model"]
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        first, last = (statistics.mean(losses[:10]),
+                       statistics.mean(losses[-10:]))
+        emit("main_path", path=f"train_{renderer}", steps=len(hist),
+             seconds=run_s, launches=launches,
+             chart_pad=run_cfg["chart_pad"], renderer=run_cfg["renderer"],
+             first10_loss=first, last10_loss=last,
+             losses=[round(x, 6) for x in losses[::10]],
+             psnr_first=hist[0]["psnr"], psnr_last=hist[-1]["psnr"],
+             max_overflow=max(h["overflow"] for h in hist),
+             max_total_pairs=max(h["total_pairs"] for h in hist),
+             pair_buffer_bytes=max(gathered),
+             pair_buffer_with_grad_bytes=2 * max(gathered),
+             gathers=len(gathered), eval=res["eval"],
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             checkpoint=Path(res["checkpoint"]).name)
+        require(tuple(run_cfg["chart_pad"]) == PAIR_PAD,
+                f"{renderer}: the run's chart pad is {run_cfg['chart_pad']}, "
+                f"not {PAIR_PAD}")
+        require(len(hist) == TRAIN_STEPS, f"{renderer}: {len(hist)} steps")
+        own = (f"rasterize_v{version}_fwd", f"rasterize_v{version}_bwd",
+               "fused_ssim_value_and_grad")
+        require(all(launches[k] == TRAIN_STEPS for k in own),
+                f"{renderer}: kernels launched {launches} for "
+                f"{TRAIN_STEPS} steps")
+        require(all(v == 0 for k, v in launches.items()
+                    if k not in own and k != "rasterize_dense_eval"),
+                f"{renderer}: other training kernels ran: {launches}")
+        require(launches["rasterize_dense_eval"] == 1 + TEST_VIEWS,
+                f"{renderer}: the dense eval kernel launched "
+                f"{launches['rasterize_dense_eval']} times, not "
+                f"{1 + TEST_VIEWS}")
+        require(len(gathered) == TRAIN_STEPS,
+                f"{renderer}: {len(gathered)} pair gathers")
+        require(all(h["overflow"] == 0 for h in hist),
+                f"{renderer}: a step overflowed")
+        require(all(x == x and abs(x) != float("inf") for x in losses),
+                f"{renderer}: a loss is not finite")
+        require(last < first,
+                f"{renderer}: the loss did not fall: {first} -> {last}")
+        require(res["eval"] is not None and res["eval"]["psnr"] > 10,
+                f"{renderer}: the eval pass read {res['eval']}")
+        require(Path(res["checkpoint"]).exists(), f"{renderer}: no checkpoint")
+        del res
+        torch.cuda.empty_cache()
+
+    # 8. timing: an eval frame, then a training step
     timings = {}
     with torch.no_grad():
         for name, (frame, stats) in frames.items():
@@ -935,7 +1225,6 @@ def main():
         (f"subsample_{SUBSAMPLE}", SUBSAMPLE_PAD,
          lambda: loaded(mcfg, sub_npz)),
     ]
-    all_counters = train_counters + dense_counters
     train_t = {}
     for name, want_pad, make in train_scenes:
         cfg, params, buffers, img = make()
@@ -1065,6 +1354,83 @@ def main():
                     if k not in ("ms", "plain_ms")}, **charts)
         del state, frame, k_in, flat_in, maps, ncon, tier
         torch.cuda.empty_cache()
+
+    # the pair-space tiers and the dense tier, one state at (16, 24)
+    cfg, params, buffers, img = loaded(dataclasses.replace(
+        mcfg, pixel_num=PAIR_PIXEL_NUM), STATS)
+    require(tuple(cfg.chart_pad) == PAIR_PAD,
+            f"pixel_num {PAIR_PIXEL_NUM}: chart pad {cfg.chart_pad}")
+    with torch.no_grad():
+        pair_cap, s_cap = render_cli.demand_caps(cfg, params, buffers,
+                                                 [tcam], STEP)
+    cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
+    state = train_step.init_state(cfg, method.optim, params, buffers, seed=0)
+    del params, buffers
+    state.step = STEP
+    train_step.rechart_step(cfg, state)
+    # each renderer's steps start from their own copy of this state
+    start = (model.GStexParams(*(p.detach().clone() for p in state.params)),
+             state.buffers)
+    lean = model.lean_losses(cfg)
+    hw = state.buffers.texture_hw
+    charts = dict(chart_pad=list(cfg.chart_pad), lists="dense",
+                  max_active_hw=[int(x) for x in hw.amax(0)])
+    with torch.no_grad():
+        frame = Frame(cfg, state.params, state.buffers, tcam, None,
+                      dense=True)
+        for stage in ("prepare", "cull_binning", "records"):
+            getattr(frame, stage)()
+        _, stats = frame.plain()
+        p_in = pair_copies(frame)
+    grid = frame.grid
+    for renderer in ("pallas3", "pallas2", "pallas4"):
+        rcfg = dataclasses.replace(cfg, renderer=renderer)
+        r_state = train_step.init_state(cfg, method.optim, *start, seed=0)
+        r_state.step = STEP
+
+        def step():
+            return train_step.train_step(rcfg, method.optim, r_state, tcam,
+                                         img)
+        for fn in all_counters:
+            fn.launches = 0
+        step_ms, lo, hi = host_ms(step)
+        per_step = {fn.__name__: fn.launches / 21 for fn in all_counters}
+        busy_ms, top, trace = device_ms(step, 5)
+        train_t[f"trained_scene_1e5_{renderer}"] = dict(
+            step_ms=step_ms, step_ms_min=lo, step_ms_max=hi,
+            trace_stage_ms=trace, device_busy_ms=busy_ms,
+            device_idle_share=1.0 - busy_ms / step_ms, device_top_ms=top,
+            mpix_per_s=H * W / step_ms / 1e3, launches_per_step=per_step,
+            lean=lean, pair_cap=pair_cap, s_cap=s_cap,
+            total_pairs=frame.bins.total_pairs, **charts)
+        emit("timing", path="train", scene="trained_scene_1e5",
+             renderer=renderer, card=smi,
+             **train_t[f"trained_scene_1e5_{renderer}"])
+    # each pair-space kernel alone on this view's copies, beside its plain
+    # version (phase 3, the same scene and pad) and its bound; the dense
+    # kernels on the same lists
+    pair_t = {}
+    g = cotangents()
+    for version in (3, 2):
+        tier = pair_tier(version)
+        _, fwd_name, bwd_name = tier.names
+        maps, ncon = tier.fwd(p_in, grid, s_cap, lean)
+        fwd_b, bwd_b, copies = pair_bounds(p_in, frame.bins.ids, hw, grid,
+                                           stats, ncon, lean)
+        pair_t[fwd_name] = dict(
+            ms=cuda_ms(lambda: tier.fwd(p_in, grid, s_cap, lean), 20),
+            plain_ms=pair_plain_ms[fwd_name], **fwd_b)
+        pair_t[bwd_name] = dict(
+            ms=cuda_ms(lambda: tier.bwd(p_in, maps, ncon, g, grid, s_cap,
+                                        lean), 20),
+            plain_ms=pair_plain_ms[bwd_name], **bwd_b)
+    dense_ms = time_kernels(frame, lean, card=smi, scene="trained_scene_1e5",
+                            **charts)
+    emit("timing", path="pair_kernels", scene="trained_scene_1e5", card=smi,
+         lean=lean, kernels=pair_t, dense_kernel_ms=dense_ms, **copies,
+         **charts)
+    del state, r_state, start, frame, p_in, maps, ncon
+    torch.cuda.empty_cache()
     tmp.cleanup()
     # the SSIM kernel on phase 3's 800x800 pair, the training loss's shape;
     # its time does not depend on the data
@@ -1080,7 +1446,8 @@ def main():
 
     main_e = timings["trained_scene_stats"]
     main_t = dict(train_t["trained_scene_stats"]["kernels"],
-                  ssim_fused=ssim_t, **train_t["trained_scene_4e6"]["kernels"])
+                  ssim_fused=ssim_t, **train_t["trained_scene_4e6"]["kernels"],
+                  **pair_t)
     kernels = [{
         "name": "rasterize_eval",
         "route": "cuda",
@@ -1109,6 +1476,14 @@ def main():
                                  dense_launches["rasterize_dense_eval"]),
         "rasterize_dense_bwd": ("gstex_tpu/ops/rasterize_pallas4.py:585",
                                 dense_launches["rasterize_dense_bwd"]),
+        "rasterize_v3_fwd": ("gstex_tpu/ops/rasterize_pallas3.py:156",
+                             pair_launches["pallas3"]["rasterize_v3_fwd"]),
+        "rasterize_v3_bwd": ("gstex_tpu/ops/rasterize_pallas3.py:315",
+                             pair_launches["pallas3"]["rasterize_v3_bwd"]),
+        "rasterize_v2_fwd": ("gstex_tpu/ops/rasterize_pallas2.py:197",
+                             pair_launches["pallas2"]["rasterize_v2_fwd"]),
+        "rasterize_v2_bwd": ("gstex_tpu/ops/rasterize_pallas2.py:338",
+                             pair_launches["pallas2"]["rasterize_v2_bwd"]),
     }
     for k, (where, n_launches) in driven.items():
         kernels.append({

@@ -39,6 +39,9 @@
 //   which is handled apart: there the derivative is two-sided, as theirs.
 // - A pixel skips a splat at once where it has no weight (rank >=
 //   ncontrib, or alpha == 0): every gradient term of such a pair is zero.
+// - The walk and chain rule are backward_tile in tile_walk.cuh, shared
+//   with the v2 kernel; this file says how a slot's record and chart are
+//   found and where its gradients go.
 //
 // Precision: no --use_fast_math and --fmad=false. The plain version
 // (ops/rasterize.py:backward_walk) pulls the local math back with autograd
@@ -46,30 +49,51 @@
 // shuffles and atomics, so the two agree to rounding (a relative
 // tolerance), not bitwise.
 
-#include <cuda_runtime.h>
+#include "tile_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPixPerThread = 4;
-constexpr int kRec = 32;
-constexpr int kCam = 18;
-constexpr int kPlanes = 14;  // 12 cotangents, alpha, m1
-constexpr int kFields = 20;  // record fields with a gradient
 constexpr int kChunk = 32;
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kExtent2 = 9.0f;
-constexpr float kAaSigma2 = 0.5f;
-constexpr float kRegNear = 0.2f;
-constexpr float kInvRegNear = 5.0f;
-constexpr float kKfac = static_cast<float>(100.0 / (100.0 - 0.2));
-constexpr float kKfacNear = static_cast<float>(100.0 / (100.0 - 0.2) * 0.2);
 
-// record field of each of the kFields gradient slots
-__constant__ int kFieldOf[kFields] = {0,  1,  2,  3,  4,  5,  6,
-                                      7,  8,  9,  10, 11, 15, 19,
-                                      20, 21, 22, 23, 24, 25};
+// A tile's slot k is gaussian ids[tile, k]: its record and chart are read
+// through the id, and its gradients are added into the gaussian's rows of
+// d_records and d_charts, which other tiles add to as well.
+struct DenseSlots {
+  const float* records;
+  const int* tile_ids;
+  const float* charts;
+  float* d_records;
+  float* d_charts;
+  long long chw3;
+  int* s_id;  // the chunk's ids, in shared memory
+
+  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
+                        int tid) const {
+    if (tid < n) s_id[tid] = tile_ids[base + tid];
+    __syncthreads();
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      const int s = i / kRec;
+      s_rec[i] = records[static_cast<long long>(s_id[s]) * kRec + (i - s * kRec)];
+      s_drec[i] = 0.0f;
+    }
+  }
+  __device__ const float* chart(int s, int) const {
+    return charts + static_cast<long long>(s_id[s]) * chw3;
+  }
+  __device__ float* dchart(int s, int) const {
+    return d_charts + static_cast<long long>(s_id[s]) * chw3;
+  }
+  // the chunk's per-tile record sums into the per-gaussian gradients
+  __device__ void end(int, int n, const float* s_drec, int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      const float x = s_drec[i];
+      const int s = i / kRec;
+      if (x != 0.0f)
+        atomicAdd(d_records + static_cast<long long>(s_id[s]) * kRec +
+                      (i - s * kRec), x);
+    }
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 rasterize_dense_bwd_kernel(const float* __restrict__ records,
@@ -84,305 +108,13 @@ rasterize_dense_bwd_kernel(const float* __restrict__ records,
                            float* __restrict__ d_charts, int ntx, int tile_h,
                            int tile_w, int height, int width, int ch, int cw,
                            int s_max, int lean) {
-  extern __shared__ float s_pl[];  // kPlanes * pix
-  __shared__ float s_rec[kChunk * kRec];
-  __shared__ float s_drec[kChunk * kRec];
   __shared__ int s_id[kChunk];
-  __shared__ float cam[kCam];
-  __shared__ int s_top;
-  const int pix = tile_h * tile_w;
-  const long long chw3 = static_cast<long long>(ch) * cw * 3;
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  if (tid < kCam) cam[tid] = cam_info[tid];
-  if (tid == 0) s_top = -1;
-  __syncthreads();
-
-  const int* tile_ids = ids + static_cast<long long>(tile) * s_max;
-  const int count = min(counts[tile], s_max);
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-  const long long plane = static_cast<long long>(height) * width;
-
-  float gx[kPixPerThread], gy[kPixPerThread];
-  float d0[kPixPerThread], d1[kPixPerThread], d2[kPixPerThread];
-  float T[kPixPerThread], BS[kPixPerThread], E[kPixPerThread],
-      D[kPixPerThread];
-  int ncon[kPixPerThread];
-  bool inside[kPixPerThread];
-  int top = -1;
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    const int p = tid + j * kThreads;
-    const int ix = tx * tile_w + p % tile_w;
-    const int iy = ty * tile_h + p / tile_w;
-    inside[j] = p < pix && ix < width && iy < height;
-    gx[j] = static_cast<float>(ix) + cam[4];
-    gy[j] = static_cast<float>(iy) + cam[5];
-    const float dx = (gx[j] + 0.5f - cam[2]) / cam[0];
-    const float dy = (gy[j] + 0.5f - cam[3]) / cam[1];
-    d0[j] = cam[9] * dx + cam[10] * dy + cam[11];
-    d1[j] = cam[12] * dx + cam[13] * dy + cam[14];
-    d2[j] = cam[15] * dx + cam[16] * dy + cam[17];
-    BS[j] = 0.0f;
-    E[j] = 0.0f;
-    D[j] = 0.0f;
-    T[j] = 1.0f;
-    ncon[j] = 0;
-    if (inside[j]) {
-      const long long o = static_cast<long long>(iy) * width + ix;
-      T[j] = maps[12 * plane + o];
-      ncon[j] = ncontrib[o];
-      top = max(top, ncon[j]);
-#pragma unroll
-      for (int c = 0; c < 12; ++c) s_pl[c * pix + p] = gmaps[c * plane + o];
-      s_pl[12 * pix + p] = maps[7 * plane + o];
-      s_pl[13 * pix + p] = maps[13 * plane + o];
-    }
-  }
-  if (top >= 0) atomicMax(&s_top, top);
-  __syncthreads();
-  const int walk = min(count, s_top + 1);
-
-  for (int base = ((walk - 1) / kChunk) * kChunk; base >= 0 && walk > 0;
-       base -= kChunk) {
-    const int n = min(kChunk, walk - base);
-    if (tid < n) s_id[tid] = tile_ids[base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const int s = i / kRec;
-      s_rec[i] = records[static_cast<long long>(s_id[s]) * kRec + (i - s * kRec)];
-      s_drec[i] = 0.0f;
-    }
-    __syncthreads();
-
-    for (int s = n - 1; s >= 0; --s) {
-      const int k = base + s;
-      const float* r = s_rec + s * kRec;
-      const float* chart = charts + static_cast<long long>(s_id[s]) * chw3;
-      float* dch = d_charts + static_cast<long long>(s_id[s]) * chw3;
-      float v[kFields];
-#pragma unroll
-      for (int f = 0; f < kFields; ++f) v[f] = 0.0f;
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j) {
-        if (!inside[j] || k >= ncon[j]) continue;
-        const int p = tid + j * kThreads;
-        const float nd = r[0] * d0[j] + r[1] * d1[j] + r[2] * d2[j];
-        const float safe_nd =
-            fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
-        const float t = r[3] / safe_nd;
-        const float b1d = r[4] * d0[j] + r[5] * d1[j] + r[6] * d2[j];
-        const float b2d = r[8] * d0[j] + r[9] * d1[j] + r[10] * d2[j];
-        const float u = r[7] + t * b1d;
-        const float v_ = r[11] + t * b2d;
-        const float r2 = u * u + v_ * v_;
-        const float arg_s = r2 <= kExtent2 ? -0.5f * r2 : -1e30f;
-        const float dpx = gx[j] - r[24];
-        const float dpy = gy[j] - r[25];
-        const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
-        const float g = expf(fmaxf(arg_s, arg_c));
-        const float opg = r[20] * g;
-        float alpha = fminf(opg, kAlphaClamp);
-        if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
-        if (!(alpha > 0.0f)) continue;  // no weight: every term is zero
-        any = true;
-
-        const float inv_q = 1.0f / (1.0f - alpha);
-        const float t_k = T[j] * inv_q;
-        const float w = alpha * t_k;
-        const float* gp = s_pl + p;  // plane c at gp[c * pix]
-        const float g_reg = gp[11 * pix];
-        float m = 0.0f, invtc = 0.0f, wm = 0.0f, big_a = 0.0f, big_c = 0.0f,
-              d_m = 0.0f;
-        if (!lean) {
-          const float inv_t = safe_nd * (1.0f / r[3]);
-          invtc = t >= kRegNear ? inv_t : kInvRegNear;
-          m = kKfac * (1.0f - kRegNear * invtc);
-          wm = w * m;
-          big_a = gp[12 * pix] - w - E[j];
-          big_c = gp[13 * pix] - wm - D[j];
-          d_m = 2.0f * g_reg * w * (big_a - E[j]);
-        }
-
-        // texels: the forward's four, and the fetch's derivatives
-        const float b1ud = r[12] * d0[j] + r[13] * d1[j] + r[14] * d2[j];
-        const float b2ud = r[16] * d0[j] + r[17] * d1[j] + r[18] * d2[j];
-        const float uvu_raw = 0.5f + r[15] + t * b1ud;
-        const float uvv_raw = 0.5f + r[19] + t * b2ud;
-        const float hf = r[26];
-        const float wf = r[27];
-        const float x_raw = fminf(fmaxf(uvu_raw, 0.0f), 1.0f) * hf;
-        const float y_raw = fminf(fmaxf(uvv_raw, 0.0f), 1.0f) * wf;
-        const float xg = fminf(fmaxf(x_raw, 0.0f), hf - 1.0f);
-        const float yg = fminf(fmaxf(y_raw, 0.0f), wf - 1.0f);
-        const float x0 = floorf(xg);
-        const float y0 = floorf(yg);
-        const float fx = xg - x0;
-        const float fy = yg - y0;
-        const int x0i = static_cast<int>(x0);
-        const int y0i = static_cast<int>(y0);
-        const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
-        const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
-        const int o00 = (x0i * cw + y0i) * 3, o01 = (x0i * cw + y1i) * 3;
-        const int o10 = (x1i * cw + y0i) * 3, o11 = (x1i * cw + y1i) * 3;
-        const float gt[3] = {gp[3 * pix], gp[4 * pix], gp[5 * pix]};
-        float texk[3];
-        float d_x = 0.0f, d_y = 0.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float c00 = __ldg(chart + o00 + c), c01 = __ldg(chart + o01 + c);
-          const float c10 = __ldg(chart + o10 + c), c11 = __ldg(chart + o11 + c);
-          const float row0 = (1.0f - fy) * c00 + fy * c01;
-          const float row1 = (1.0f - fy) * c10 + fy * c11;
-          texk[c] = (1.0f - fx) * row0 + fx * row1;
-          d_x = d_x + gt[c] * (row1 - row0);
-          d_y = d_y + gt[c] * ((1.0f - fx) * (c01 - c00) + fx * (c11 - c10));
-          const float wg = w * gt[c];
-          const float v00 = wg * ((1.0f - fx) * (1.0f - fy));
-          const float v01 = wg * ((1.0f - fx) * fy);
-          const float v10 = wg * (fx * (1.0f - fy));
-          const float v11 = wg * (fx * fy);
-          if (v00 != 0.0f) atomicAdd(dch + o00 + c, v00);
-          if (v01 != 0.0f) atomicAdd(dch + o01 + c, v01);
-          if (v10 != 0.0f) atomicAdd(dch + o10 + c, v10);
-          if (v11 != 0.0f) atomicAdd(dch + o11 + c, v11);
-        }
-        // A sample exactly on a texel row or column (float32 charts of 8
-        // or 16 texels meet one a few times a frame): the hat weights'
-        // derivative is two-sided there, one texel each way, and texels
-        // outside the padded chart read as zero.
-        if (fx == 0.0f || fy == 0.0f) {
-          const auto texel = [&](int row, int col, int c) {
-            return (row >= 0 && row < ch && col >= 0 && col < cw)
-                       ? __ldg(chart + (row * cw + col) * 3 + c)
-                       : 0.0f;
-          };
-          if (fx == 0.0f) {
-            d_x = 0.0f;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              const float up = (1.0f - fy) * texel(x0i + 1, y0i, c) +
-                               fy * texel(x0i + 1, y0i + 1, c);
-              const float down = (1.0f - fy) * texel(x0i - 1, y0i, c) +
-                                 fy * texel(x0i - 1, y0i + 1, c);
-              d_x = d_x + gt[c] * (up - down);
-            }
-          }
-          if (fy == 0.0f) {
-            d_y = 0.0f;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              const float right = (1.0f - fx) * texel(x0i, y0i + 1, c) +
-                                  fx * texel(x0i + 1, y0i + 1, c);
-              const float left = (1.0f - fx) * texel(x0i, y0i - 1, c) +
-                                 fx * texel(x0i + 1, y0i - 1, c);
-              d_y = d_y + gt[c] * (right - left);
-            }
-          }
-        }
-        d_x = w * d_x;
-        d_y = w * d_y;
-
-        float s_k = r[21] * gp[0] + r[22] * gp[pix] + r[23] * gp[2 * pix] +
-                    texk[0] * gt[0] + texk[1] * gt[1] + texk[2] * gt[2] +
-                    t * gp[6 * pix] + gp[7 * pix];
-        const float fl = nd > 0.0f ? -1.0f : 1.0f;
-        if (!lean) {
-          s_k = s_k + fl * (r[0] * gp[8 * pix] + r[1] * gp[9 * pix] +
-                            r[2] * gp[10 * pix]);
-          s_k = s_k + 2.0f * g_reg * ((m * big_a - big_c) + (D[j] - m * E[j]));
-        }
-        const float sw = s_k * w;
-        const float d_alpha = t_k * s_k - BS[j] * inv_q;
-
-        if (!(x_raw >= 0.0f && x_raw <= hf - 1.0f)) d_x = 0.0f;
-        if (!(y_raw >= 0.0f && y_raw <= wf - 1.0f)) d_y = 0.0f;
-        const bool interior =
-            opg <= kAlphaClamp && opg >= kAlphaCutoff && t > 1e-6f;
-        const float dag = interior ? d_alpha : 0.0f;
-        const float d_op = g * dag;
-        const float d_g = r[20] * d_op;
-        const bool surf = arg_s >= arg_c;
-        const float dgs = surf ? d_g : 0.0f;
-        const float d_u = -u * dgs;
-        const float d_v = -v_ * dgs;
-        const float dgc = surf ? 0.0f : d_g;
-        const float d_xy0 = ((1.0f / kAaSigma2) * dpx) * dgc;
-        const float d_xy1 = ((1.0f / kAaSigma2) * dpy) * dgc;
-        const float d_uvu =
-            (uvu_raw >= 0.0f && uvu_raw <= 1.0f) ? d_x * hf : 0.0f;
-        const float d_uvv =
-            (uvv_raw >= 0.0f && uvv_raw <= 1.0f) ? d_y * wf : 0.0f;
-        float d_t = w * gp[6 * pix];
-        if (!lean)
-          d_t = d_t + (t >= kRegNear ? d_m * kKfacNear * invtc * invtc : 0.0f);
-        d_t = d_t + d_u * b1d + d_v * b2d;
-        d_t = d_t + d_uvu * b1ud + d_uvv * b2ud;
-        const float d_an = d_t * (1.0f / safe_nd);
-        const float d_nd = fabsf(nd) >= 1e-9f ? -t * d_an : 0.0f;
-
-        float n0 = d_nd * d0[j], n1 = d_nd * d1[j], n2 = d_nd * d2[j];
-        if (!lean) {
-          const float wfl = w * fl;
-          n0 = n0 + wfl * gp[8 * pix];
-          n1 = n1 + wfl * gp[9 * pix];
-          n2 = n2 + wfl * gp[10 * pix];
-        }
-        v[0] += n0;
-        v[1] += n1;
-        v[2] += n2;
-        v[3] += d_an;
-        v[4] += d_u * (t * d0[j]);
-        v[5] += d_u * (t * d1[j]);
-        v[6] += d_u * (t * d2[j]);
-        v[7] += d_u;
-        v[8] += d_v * (t * d0[j]);
-        v[9] += d_v * (t * d1[j]);
-        v[10] += d_v * (t * d2[j]);
-        v[11] += d_v;
-        v[12] += d_uvu;
-        v[13] += d_uvv;
-        v[14] += d_op;
-        v[15] += w * gp[0];
-        v[16] += w * gp[pix];
-        v[17] += w * gp[2 * pix];
-        v[18] += d_xy0;
-        v[19] += d_xy1;
-
-        BS[j] = BS[j] + sw;
-        if (!lean) {
-          E[j] = E[j] + w;
-          D[j] = D[j] + wm;
-        }
-        T[j] = t_k;
-      }
-      // record grads: warp sums, then one shared atomic per warp and field
-      if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-        for (int f = 0; f < kFields; ++f) {
-          float x = v[f];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_down_sync(0xffffffffu, x, off);
-          if (lane == 0 && x != 0.0f)
-            atomicAdd(s_drec + s * kRec + kFieldOf[f], x);
-        }
-      }
-    }
-    __syncthreads();
-    // the chunk's per-tile record sums into the per-gaussian gradients
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const float x = s_drec[i];
-      const int s = i / kRec;
-      if (x != 0.0f)
-        atomicAdd(d_records + static_cast<long long>(s_id[s]) * kRec +
-                      (i - s * kRec), x);
-    }
-    __syncthreads();
-  }
+  const DenseSlots slots{records,
+                         ids + static_cast<long long>(blockIdx.x) * s_max,
+                         charts, d_records, d_charts,
+                         static_cast<long long>(ch) * cw * 3, s_id};
+  backward_tile<kChunk>(slots, counts, cam_info, maps, ncontrib, gmaps, ntx,
+                        tile_h, tile_w, height, width, ch, cw, s_max, lean);
 }
 
 }  // namespace

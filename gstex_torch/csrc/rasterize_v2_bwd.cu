@@ -1,0 +1,154 @@
+// Backward of the v2 pair-space training forward (csrc/rasterize_v2_fwd.cu):
+// the back-to-front gradient walk over each tile's own slots, writing
+// pair-space gradients.
+//
+// Replaces: gstex_tpu/ops/rasterize_pallas2.py, _bwd_kernel2 (launched by
+// rasterize_pallas2_bwd). For each pixel it walks the tile's slots from
+// min(count, max ncontrib + 1) down to 0, recovers T before each applied
+// splat as T_{k+1} / (1 - alpha_k) from t_final, keeps the suffix sums of
+// s*w (and of w and w*m for the reg chain), and writes the gradients of
+// record fields 0-11, 15, 19-25 of slot (t, s) into d_records_t (T, S, 32)
+// and of the texels of its bilinear fetch into d_charts_g (T, S, Ch, Cw, 3).
+// Fields 12-14, 16-18 (the detached uv frame) get none. The reduction to
+// per-gaussian gradients is autograd's, through the gathers that made the
+// pair-space inputs.
+//
+// What bounds it on the H100: operations (~300 fp32 operations per applied
+// (pixel, pair), ~40 per walked one). Bytes: one record read and one
+// record gradient written per slot, the slot's chart read and its gradient
+// written once per slot (pair space: a splat's chart once per tile).
+//
+// What the design does about it, and where it departs from the dense
+// kernel (csrc/rasterize_dense_bwd.cu):
+// - One block per tile, 256 threads with 4 pixels each; the tile's 12
+//   cotangent planes and its alpha and m1 maps sit in shared memory.
+// - Records are staged 16 slots a chunk; their gradients are summed per
+//   chunk in shared memory (a warp shuffle reduction, one shared atomic per
+//   warp and field) and leave with one plain store per slot: every slot
+//   belongs to this block alone, so there are no global atomics.
+// - Texel gradients: where the chunk's 16 chart gradients fit beside the
+//   planes (16 * Ch * Cw * 12 bytes; 74 KB at (16, 24)) they are summed in
+//   shared memory with shared atomics and stored once; above that they are
+//   added into the slot's own region of d_charts_g, which only this block
+//   writes.
+// - The fetch is the forward's 2 x 2 bilinear form with the dense kernel's
+//   two-sided derivative where a sample sits exactly on a texel: the TPU
+//   kernel's hat-function form.
+// - A pixel skips a splat at once where it has no weight (rank >=
+//   ncontrib, or alpha == 0): every gradient term of such a pair is zero.
+// - The walk and chain rule are the dense kernel's own code, backward_tile
+//   in tile_walk.cuh; this file says how a slot's record and chart are
+//   found and where its gradients go.
+//
+// Precision: no --use_fast_math and --fmad=false. The plain version
+// (ops/rasterize_v2.py: ops/rasterize.py:backward_walk on the pair-space
+// view) pulls the local math back with autograd and sums in scan order;
+// this kernel writes the chain rule out and sums by shuffles and shared
+// atomics, so the two agree to rounding, not bitwise.
+
+#include "tile_walk.cuh"
+
+namespace {
+
+constexpr int kChunk = 16;
+// shared memory a block may use
+constexpr size_t kSmemMax = 227 * 1024;
+
+// A tile's slot k has its own record and chart, at (tile, k) of the
+// pair-space copies, and its own rows of d_records_t and d_charts_g, which
+// only this block writes.
+struct PairSlots {
+  const float* tile_rec;
+  const float* tile_charts;
+  float* tile_drec;
+  float* tile_dcharts;
+  long long chw3;
+  float* s_dch;  // the chunk's chart gradients in shared memory, or null
+
+  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
+                        int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
+      s_drec[i] = 0.0f;
+    }
+    if (s_dch)
+      for (long long i = tid; i < n * chw3; i += kThreads) s_dch[i] = 0.0f;
+  }
+  __device__ const float* chart(int, int k) const {
+    return tile_charts + static_cast<long long>(k) * chw3;
+  }
+  // the slot's chart gradient: staged, or in its own region of d_charts_g
+  __device__ float* dchart(int s, int k) const {
+    return s_dch ? s_dch + s * chw3
+                 : tile_dcharts + static_cast<long long>(k) * chw3;
+  }
+  // the chunk's record and chart gradients, one plain store each
+  __device__ void end(int base, int n, const float* s_drec, int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads)
+      tile_drec[static_cast<long long>(base) * kRec + i] = s_drec[i];
+    if (s_dch)
+      for (long long i = tid; i < n * chw3; i += kThreads)
+        tile_dcharts[base * chw3 + i] = s_dch[i];
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+rasterize_v2_bwd_kernel(const float* __restrict__ records_t,
+                        const float* __restrict__ charts_g,
+                        const int* __restrict__ counts,
+                        const float* __restrict__ cam_info,
+                        const float* __restrict__ maps,
+                        const int* __restrict__ ncontrib,
+                        const float* __restrict__ gmaps,
+                        float* __restrict__ d_records_t,
+                        float* __restrict__ d_charts_g, int ntx, int tile_h,
+                        int tile_w, int height, int width, int ch, int cw,
+                        int s_max, int lean, int stage) {
+  // kPlanes * pix floats (backward_tile's), then (stage) the chunk's chart
+  // gradients
+  extern __shared__ float s_dyn[];
+  const long long chw3 = static_cast<long long>(ch) * cw * 3;
+  const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
+  const PairSlots slots{records_t + slot0 * kRec, charts_g + slot0 * chw3,
+                        d_records_t + slot0 * kRec, d_charts_g + slot0 * chw3,
+                        chw3,
+                        stage ? s_dyn + kPlanes * tile_h * tile_w : nullptr};
+  backward_tile<kChunk>(slots, counts, cam_info, maps, ncontrib, gmaps, ntx,
+                        tile_h, tile_w, height, width, ch, cw, s_max, lean);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Pointers are device pointers; d_records_t and
+// d_charts_g must be zeroed; `stream` is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int gstex_rasterize_v2_bwd(
+    const void* records_t, const void* charts_g, const void* counts,
+    const void* cam_info, const void* maps, const void* ncontrib,
+    const void* gmaps, void* d_records_t, void* d_charts_g, int num_tiles,
+    int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
+    int s_max, int lean, void* stream) {
+  const size_t planes =
+      static_cast<size_t>(kPlanes) * tile_h * tile_w * sizeof(float);
+  const size_t staged =
+      static_cast<size_t>(kChunk) * ch * cw * 3 * sizeof(float);
+  const size_t fixed = 2 * kChunk * kRec * sizeof(float) + 256;
+  const int stage = planes + staged + fixed <= kSmemMax;
+  const size_t smem = planes + (stage ? staged : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rasterize_v2_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (num_tiles == 0) return 0;
+  rasterize_v2_bwd_kernel<<<num_tiles, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(records_t),
+      static_cast<const float*>(charts_g), static_cast<const int*>(counts),
+      static_cast<const float*>(cam_info), static_cast<const float*>(maps),
+      static_cast<const int*>(ncontrib), static_cast<const float*>(gmaps),
+      static_cast<float*>(d_records_t), static_cast<float*>(d_charts_g), ntx,
+      tile_h, tile_w, height, width, ch, cw, s_max, lean, stage);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,92 @@
+// Training forward of the textured-surfel blend over the pair-space
+// inputs: per (tile, slot) copies of the records, records_t (T, S, 32), and
+// of the charts, charts_g (T, S, Ch, Cw, 3), with per-tile counts.
+//
+// Replaces: gstex_tpu/ops/rasterize_pallas2.py, _fwd_kernel2 (launched by
+// rasterize_pallas2_fwd). Computes what csrc/rasterize_dense_fwd.cu
+// computes: img, tex, depth, alpha, the camera-facing normal, the 2DGS
+// distortion reg, the backward's residuals t_final and m1 as fourteen
+// (H, W) planes in CH_NAMES order, and ncontrib (H, W): the slot at which T
+// would fall to T_EPS (not blended), else S. lean != 0 skips the normal and
+// reg chains; their planes are zero.
+//
+// The TPU kernel packs each slot's chart a-major onto 128 lanes and fetches
+// texels by a matmul against hat weights; none of that layout is carried
+// over. This kernel reads each slot's own record and chart where the dense
+// kernel reads them through TileBins.ids.
+//
+// What bounds it on the H100: operations, as for the dense kernel (~40
+// fp32 operations per (pixel, pair) response, ~90 per blend). Its bytes
+// differ: every tile reads its own copy of a chart, so the texels of a
+// splat that covers many tiles are fetched once per tile (no sharing in
+// L2), and the copies themselves were written by the gather before it.
+//
+// What the design does about it: the dense kernel's, one block per tile,
+// 256 threads with 4 pixels each, a pixel's ray, T and sums in registers,
+// 16 records a chunk in shared memory (CHUNK of the TPU kernel), the
+// tile's walk ends once no in-image pixel has T > T_EPS. The walk is the
+// dense kernel's own code, forward_tile in tile_walk.cuh; this file says
+// how a slot finds its record and chart (its own copies).
+//
+// Precision: no --use_fast_math and --fmad=false; every operation rounds
+// as the plain version's (ops/rasterize_v2.py: the serial walk of
+// ops/rasterize.py:forward_scan on the pair-space view) does, in the same
+// per-pixel order.
+
+#include "tile_walk.cuh"
+
+namespace {
+
+constexpr int kChunk = 16;
+
+// A tile's slot k has its own record and chart, at (tile, k) of the
+// pair-space copies.
+struct PairSlots {
+  const float* tile_rec;
+  const float* tile_charts;
+  long long chw3;
+
+  __device__ void stage(int base, int n, float* s_rec, int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads)
+      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
+  }
+  __device__ const float* chart(int, int k) const {
+    return tile_charts + static_cast<long long>(k) * chw3;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+rasterize_v2_fwd_kernel(const float* __restrict__ records_t,
+                        const float* __restrict__ charts_g,
+                        const int* __restrict__ counts,
+                        const float* __restrict__ cam_info,
+                        float* __restrict__ out, int* __restrict__ ncontrib,
+                        int ntx, int tile_h, int tile_w, int height,
+                        int width, int ch, int cw, int s_max, int lean) {
+  const long long chw3 = static_cast<long long>(ch) * cw * 3;
+  const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
+  const PairSlots slots{records_t + slot0 * kRec, charts_g + slot0 * chw3,
+                        chw3};
+  forward_tile<kChunk>(slots, counts, cam_info, out, ncontrib, ntx, tile_h,
+                       tile_w, height, width, cw, s_max, lean);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Pointers are device pointers; `stream` is a
+// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+extern "C" int gstex_rasterize_v2_fwd(
+    const void* records_t, const void* charts_g, const void* counts,
+    const void* cam_info, void* out, void* ncontrib, int num_tiles, int ntx,
+    int tile_h, int tile_w, int height, int width, int ch, int cw, int s_max,
+    int lean, void* stream) {
+  if (num_tiles == 0) return 0;
+  rasterize_v2_fwd_kernel<<<num_tiles, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(records_t),
+      static_cast<const float*>(charts_g), static_cast<const int*>(counts),
+      static_cast<const float*>(cam_info), static_cast<float*>(out),
+      static_cast<int*>(ncontrib), ntx, tile_h, tile_w, height, width, ch, cw,
+      s_max, lean);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,12 +4,12 @@
 Parameters are NamedTuples of tensors with the JAX package's field names
 and layouts, so one scene feeds both packages. ``render`` chooses among
 the flat pair-list kernels, the dense-list kernels (large chart pads,
-``renderer="pallas4"``), the pure-torch tier (``renderer="xla"``, the uv
-channels) and the per-pixel oracle, forward-only for serving
-(``eval_only=True``) and differentiable for training. The v1-v3 kernel
-tiers, the bf16 texel stream and the depth-estimated normal loss arrive
-with later slices of the port and raise ``NotImplementedError`` here,
-naming their ROADMAP item.
+``renderer="pallas4"``), the pair-space v3 and v2 kernels (``"pallas3"``,
+``"pallas2"``), the pure-torch tier (``renderer="xla"``, the uv channels)
+and the per-pixel oracle, forward-only for serving (``eval_only=True``)
+and differentiable for training. The v1 kernels, the bf16 texel stream
+and the depth-estimated normal loss arrive with later slices of the port
+and raise ``NotImplementedError`` here, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -96,7 +96,18 @@ class GStexConfig:
 
 # kernel tiers of the JAX package that are still to be ported, by renderer
 # prefix
-UNPORTED_TIERS = {"pallas1": "11-12", "pallas2": "9-10", "pallas3": "7-8"}
+UNPORTED_TIERS = {"pallas1": "11-12"}
+# renderers whose training render takes the pair-space kernels, by version
+PAIR_TIERS = {"pallas3": 3, "pallas2": 2}
+
+
+def kernel_version(renderer: str) -> int:
+    """The dense-list training kernels a renderer names: 3 and 2 for the
+    pair-space tiers (and their ``_interpret`` forms), else 4."""
+    for prefix, version in PAIR_TIERS.items():
+        if renderer.startswith(prefix):
+            return version
+    return 4
 
 
 def lean_losses(cfg: GStexConfig) -> bool:
@@ -334,6 +345,10 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     - ``"pallas"`` / ``"pallas5"``: the flat pair-list kernels where they
       take the chart pad (``use_flat_path``), else the dense-list kernels;
     - ``"pallas4"``: the dense-list kernels;
+    - ``"pallas3"`` / ``"pallas2"``: the dense lists, trained through the
+      pair-space v3 (chunk-scan) or v2 (serial) kernels; their
+      ``eval_only`` renders take the dense-list eval kernel, as the JAX
+      package's take its v4 eval kernel;
     - ``"xla"``: the pure-torch tile renderer, which also serves
       ``extra=True`` (the uv channels) for every kernel renderer;
     - ``"oracle"``: the per-pixel referee, with no binning.
@@ -421,6 +436,7 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
                                     background=background)
         elif kernels:
             out = rasterize_pl(prep.geom, texture, hw, bins, cam, grid,
+                               version=kernel_version(renderer),
                                lean=lean_losses(cfg), background=background)
         else:
             with record_function("gstex.torch_tier"):

@@ -2,8 +2,9 @@
 
 Each ``gstex_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into a shared
 library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
-the repository root (the hash is of the source and flags, so an edited
-source is rebuilt). Sources in the repository are the only input.
+the repository root (the hash is of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt). Sources
+in the repository are the only input.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

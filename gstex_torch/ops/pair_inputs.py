@@ -1,0 +1,146 @@
+"""The pair-space inputs of the v2 and v3 kernels: every (tile, slot) of
+the dense lists gets its own copy of its splat's record and chart.
+
+Counterpart of ``gstex_tpu/ops/rasterize_pallas.py`` ``PallasInputs`` /
+``prepare_pallas_inputs`` and of the chart-pad limits of its lane packing
+(``pack_charts``, ``rasterize_pallas3.pack_charts_cmajor``). The charts
+keep the port's ``(Ch, Cw, 3)`` layout; the TPU's lane packing and its
+``Cw`` padding are not carried over.
+
+Both gathers are differentiable: autograd's scatter-add through them is
+the reduction of the kernels' pair-space gradients to per-gaussian ones,
+which XLA does through the transpose of the same gathers in the JAX
+package. The pair buffer and its gradient take ``2 · T · s_max · Ch · Cw
+· 12`` bytes; the dense-list kernels (``ops/rasterize_dense.py``) have no
+such buffer.
+
+Also here, what the v3 and v2 wrappers share: their input checks and
+their launches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .binning import TileBins, TileGrid
+from .rasterize_dense import _launch
+from .rasterize_fwd import NCH
+from .records import F_REC
+
+# the JAX package's limits on the chart height: v3 packs charts c-major
+# into 128 lanes (3 · ceil8(Ch) <= 128), v1 and v2 a-major (3 · Ch <= 128)
+MAX_CHART_H = {3: 40, 2: 42, 1: 42}
+TILE = (32, 32)
+
+
+class PairInputs(NamedTuple):
+    records_t: torch.Tensor   # (T, S, 32) records[bins.ids]
+    charts_g: torch.Tensor    # (T, S, Ch, Cw, 3) texture[bins.ids]
+    counts: torch.Tensor      # (T,) int32, clamped to S
+
+
+def check_pair_shapes(version: int, chart_pad, grid: TileGrid) -> None:
+    """Raise ``ValueError`` on the shapes the JAX package's v1-v3 kernels
+    refuse: tiles other than 32 x 32, and charts taller than their lane
+    packing takes."""
+    if version not in MAX_CHART_H:
+        raise ValueError(f"unknown pair-space kernel version {version}")
+    if (grid.tile_h, grid.tile_w) != TILE:
+        raise ValueError(f"the v{version} kernels need 32x32 tiles, not "
+                         f"{grid.tile_h}x{grid.tile_w}; renderer 'pallas4' "
+                         f"takes every tile size")
+    limit = MAX_CHART_H[version]
+    if chart_pad[0] > limit:
+        raise ValueError(f"the v{version} kernels take charts of at most "
+                         f"{limit} rows, not {chart_pad[0]}; renderer "
+                         f"'pallas4' takes every pad")
+
+
+def pair_inputs(records: torch.Tensor, texture: torch.Tensor,
+                bins: TileBins) -> PairInputs:
+    """``records`` (N, 32) and ``texture`` (N, Ch, Cw, 3) gathered to the
+    (tile, slot) pairs of ``bins``; slots past a tile's count are zero.
+
+    Only the real slots are gathered. The lists pad every tile's row with
+    id 0, and a gather of the padding would send all of its gradient rows
+    to gaussian 0, where autograd's scatter-add serializes on them."""
+    ids = bins.ids.long()
+    nt, s_max = ids.shape
+    counts = torch.clamp(bins.counts, max=s_max)
+    real = torch.arange(s_max, device=ids.device)[None] < counts[:, None]
+    gid = ids[real]
+    records_t = records.new_zeros((nt, s_max, *records.shape[1:]))
+    records_t[real] = records[gid]
+    charts_g = texture.new_zeros((nt, s_max, *texture.shape[1:]))
+    charts_g[real] = texture[gid]
+    return PairInputs(records_t, charts_g, counts.to(torch.int32))
+
+
+def check_inputs(version: int, records_t, charts_g, counts, cam_info,
+                 grid: TileGrid) -> None:
+    """Raise on inputs the v2 or v3 kernels do not take."""
+    check_pair_shapes(version, charts_g.shape[2:4], grid)
+    dev = records_t.device
+    if records_t.dim() != 3 or records_t.shape[0] != grid.num_tiles \
+            or records_t.shape[2] != F_REC:
+        raise ValueError(f"records_t must be (num_tiles={grid.num_tiles}, "
+                         f"s_max, {F_REC}), got {tuple(records_t.shape)}")
+    if charts_g.dim() != 5 or charts_g.shape[:2] != records_t.shape[:2] \
+            or charts_g.shape[4] != 3:
+        raise ValueError(f"charts_g must be (T, S, Ch, Cw, 3) with (T, S) = "
+                         f"{tuple(records_t.shape[:2])}, got "
+                         f"{tuple(charts_g.shape)}")
+    spec = {"records_t": (records_t, torch.float32, None),
+            "charts_g": (charts_g, torch.float32, None),
+            "counts": (counts, torch.int32, (grid.num_tiles,)),
+            "cam_info": (cam_info, torch.float32, (18,))}
+    for name, (x, dtype, shape) in spec.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, records_t on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the v{version} kernels run on cpu or cuda, not "
+                         f"{dev}")
+
+
+def _geometry(grid: TileGrid, charts_g):
+    return (grid.num_tiles, grid.ntx, grid.tile_h, grid.tile_w, grid.height,
+            grid.width, charts_g.shape[2], charts_g.shape[3],
+            charts_g.shape[1])
+
+
+def launch_fwd(name: str, records_t, charts_g, counts, cam_info,
+               grid: TileGrid, lean: bool):
+    """Launch the forward kernel ``gstex_<name>`` on CUDA inputs; returns
+    ``(maps (14, H, W), ncontrib (H, W) int32)``."""
+    dev = records_t.device
+    out = torch.empty((NCH, grid.height, grid.width), dtype=torch.float32,
+                      device=dev)
+    ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
+                       device=dev)
+    _launch(name, 6, (records_t, charts_g, counts, cam_info, out, ncon),
+            (*_geometry(grid, charts_g), int(lean)), dev)
+    return out, ncon
+
+
+def launch_bwd(name: str, records_t, charts_g, counts, cam_info, maps,
+               ncontrib, gmaps, grid: TileGrid, lean: bool):
+    """Launch the backward kernel ``gstex_<name>`` on CUDA inputs; returns
+    the pair-space ``(d_records_t, d_charts_g)``. Every slot belongs to one
+    tile, so one block writes it: the kernels need no atomics across
+    blocks."""
+    dev = records_t.device
+    d_rec = torch.zeros_like(records_t)
+    d_ch = torch.zeros_like(charts_g)
+    _launch(name, 9, (records_t, charts_g, counts, cam_info, maps, ncontrib,
+                      gmaps, d_rec, d_ch),
+            (*_geometry(grid, charts_g), int(lean)), dev)
+    return d_rec, d_ch

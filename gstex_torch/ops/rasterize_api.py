@@ -1,8 +1,10 @@
 """Renderer API over the kernels (counterpart of
 ``gstex_tpu/ops/rasterize_pallas_api.py``): the flat pair-list path
 (``rasterize_pl5``, ``rasterize_pl5_eval``), the dense-list path
-(``rasterize_pl``, ``rasterize_pl_eval``) and the rule that chooses
-between them (``use_flat_path``, ``dense_pallas_fits``)."""
+(``rasterize_pl``, ``rasterize_pl_eval``; ``rasterize_pl`` also trains on
+the pair-space v3 and v2 kernels over the same lists) and the rule that
+chooses between flat and dense (``use_flat_path``,
+``dense_pallas_fits``)."""
 
 from __future__ import annotations
 
@@ -11,12 +13,15 @@ from torch.profiler import record_function
 
 from .binning import FlatBins, TileBins, TileGrid
 from .camera import Camera
+from .pair_inputs import check_pair_shapes, pair_inputs
 from .rasterize_bwd import fits as flat_bwd_fits
 from .rasterize_bwd import rasterize_bwd
 from .rasterize_dense import (rasterize_dense_bwd, rasterize_dense_eval,
                               rasterize_dense_fwd)
 from .rasterize_eval import rasterize_eval
 from .rasterize_fwd import MAX_TILE_PIXELS, NG, rasterize_fwd
+from .rasterize_v2 import rasterize_v2_bwd, rasterize_v2_fwd
+from .rasterize_v3 import rasterize_v3_bwd, rasterize_v3_fwd
 from .records import assemble_records, cam_info
 from .surfel import SplatGeom
 
@@ -183,27 +188,69 @@ class _Rasterize4(torch.autograd.Function):
         return d_rec, d_ch, None, None, None, None, None
 
 
+def _pair_impls(version: int):
+    if version == 3:
+        return rasterize_v3_fwd, rasterize_v3_bwd
+    return rasterize_v2_fwd, rasterize_v2_bwd
+
+
+class _RasterizePairs(torch.autograd.Function):
+    """(records_t, charts_g) -> (14, H, W) maps, ncontrib over the
+    pair-space inputs, by the v3 or v2 kernels; the backward returns their
+    pair-space gradients, which autograd reduces through the gathers of
+    ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``)."""
+
+    @staticmethod
+    def forward(ctx, records_t, charts_g, counts, info, grid, version, lean):
+        fwd, _ = _pair_impls(version)
+        maps, ncon = fwd(records_t, charts_g, counts, info, grid, lean=lean)
+        ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon)
+        ctx.grid, ctx.version, ctx.lean = grid, version, lean
+        ctx.mark_non_differentiable(ncon)
+        return maps, ncon
+
+    @staticmethod
+    def backward(ctx, g_maps, g_ncon):
+        records_t, charts_g, counts, info, maps, ncon = ctx.saved_tensors
+        _, bwd = _pair_impls(ctx.version)
+        d_rec, d_ch = bwd(records_t, charts_g, counts, info, maps, ncon,
+                          g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean)
+        return d_rec, d_ch, None, None, None, None, None
+
+
 def rasterize_pl(geom: SplatGeom, texture: torch.Tensor,
                  texture_hw: torch.Tensor, bins: TileBins, cam: Camera,
                  grid: TileGrid, px_offset=None, version: int = 4,
                  lean: bool = False, background=None) -> dict:
     """Dense-path training render, differentiable in ``geom`` and
     ``texture``; same outputs as ``rasterize.rasterize`` (and ``rgb``,
-    given a ``background``). ``lean`` as in ``rasterize_pl5``. Only
-    ``version=4`` is ported."""
-    if version != 4:
-        item = {3: "7-8", 2: "9-10", 1: "11-12"}.get(version)
-        if item is None:
-            raise ValueError(f"unknown kernel version {version}")
+    given a ``background``). ``lean`` as in ``rasterize_pl5``.
+    ``version`` 4 runs the dense-list kernels; 3 and 2 the pair-space
+    kernels on per-slot copies of the records and charts (32x32 tiles;
+    charts of at most 40 and 42 rows); 1 is not ported yet."""
+    if version == 1:
         raise NotImplementedError(
-            f"the v{version} kernels are not ported yet: ROADMAP Queue 2 "
-            f"items {item}")
+            "the v1 kernels are not ported yet: ROADMAP Queue 2 items 11-12")
+    if version not in (2, 3, 4):
+        raise ValueError(f"unknown kernel version {version}")
+    if version != 4:
+        check_pair_shapes(version, texture.shape[1:3], grid)
     with record_function("gstex.records"):
         records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
         info = cam_info(cam, px_offset)
-    with record_function("gstex.fwd_kernel"):
-        maps, _ = _Rasterize4.apply(records, texture.contiguous(), bins.ids,
-                                    bins.counts, info, grid, lean)
+    if version == 4:
+        with record_function("gstex.fwd_kernel"):
+            maps, _ = _Rasterize4.apply(records, texture.contiguous(),
+                                        bins.ids, bins.counts, info, grid,
+                                        lean)
+    else:
+        # the per-slot copies that v4 does without
+        with record_function("gstex.pair_gather"):
+            pairs = pair_inputs(records, texture, bins)
+        with record_function("gstex.fwd_kernel"):
+            maps, _ = _RasterizePairs.apply(pairs.records_t, pairs.charts_g,
+                                            pairs.counts, info, grid,
+                                            version, lean)
     with record_function("gstex.compose"):
         out = _compose(maps, background)
         out["normal"] = maps[8:11].permute(1, 2, 0)

@@ -62,6 +62,19 @@ def chunk_size(chart_pad, pixels: int) -> int:
     return max(1, min(MAX_CHUNK, (_SMEM_TARGET - fixed) // per))
 
 
+def check_residuals(maps, ncontrib, gmaps, dev, grid: TileGrid) -> None:
+    """Raise unless the forward's maps and ncontrib and the cotangents
+    have the shapes and types the backward kernels read."""
+    hw = (grid.height, grid.width)
+    for name, x, dtype, shape in (("maps", maps, torch.float32, (NCH, *hw)),
+                                  ("ncontrib", ncontrib, torch.int32, hw),
+                                  ("gmaps", gmaps, torch.float32, (NG, *hw))):
+        if x.device != dev or x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} on {dev}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous with shape {shape}")
+
+
 def tile_planes(maps: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """(C, H, W) -> (C, T, P) per-tile planes, zero outside the image."""
     c = maps.shape[0]
@@ -80,6 +93,138 @@ def walk_starts(counts, ncontrib, grid: TileGrid, s_cap: int):
     ncon_t, inside = tile_planes(planes, grid)
     top = torch.where(inside > 0, ncon_t, -1.0).amax(dim=1).long() + 1
     return torch.minimum(torch.clamp(counts.long(), max=s_cap), top)
+
+
+def texel_terms(r, resp, ids, charts_flat, ch, cw, w, ga, applied, d_ch):
+    """The bilinear fetch of a batch of pairs in its hat-function form, on
+    the 3 x 3 texels around each sample: adds the texel gradients ``w ·
+    g_tex · wx · wy`` of the applied pairs into ``d_ch`` (the flat
+    ``(·, Ch, Cw, 3)`` buffer ``charts_flat`` indexes), and returns the
+    fetched ``texk`` (three channels) and ``d_x``, ``d_y``: the gradients
+    with respect to the sample's texel coordinates, zero where the
+    coordinate was clamped.
+
+    ``r`` holds record fields on dim 1, broadcasting against the response
+    tensors ``resp``; ``ids`` the pairs' chart rows, shaped to broadcast
+    against them; ``ga`` the twelve cotangent planes."""
+    hf, wf = r[:, 26], r[:, 27]
+    x_raw = torch.clamp(resp["uvu_raw"], 0.0, 1.0) * hf
+    y_raw = torch.clamp(resp["uvv_raw"], 0.0, 1.0) * wf
+    xg = torch.minimum(torch.clamp(x_raw, min=0.0), hf - 1.0)
+    yg = torch.minimum(torch.clamp(y_raw, min=0.0), wf - 1.0)
+    x0 = torch.floor(xg)
+    y0 = torch.floor(yg)
+    rows, wx, dwx, cols, wy, dwy = [], [], [], [], [], []
+    for i in range(3):
+        ai = x0 + (i - 1.0)
+        dfx = xg - ai
+        rows.append(ai.long())
+        wx.append(torch.clamp(1.0 - dfx.abs(), min=0.0))
+        dwx.append(torch.where(dfx.abs() <= 1.0, -torch.sign(dfx), 0.0))
+        bi = y0 + (i - 1.0)
+        dfy = yg - bi
+        cols.append(bi.long())
+        wy.append(torch.clamp(1.0 - dfy.abs(), min=0.0))
+        dwy.append(torch.where(dfy.abs() <= 1.0, -torch.sign(dfy), 0.0))
+    ok_r = [(ri >= 0) & (ri < ch) for ri in rows]
+    ok_c = [(ci >= 0) & (ci < cw) for ci in cols]
+    tidx = [[(ids * ch + rows[i].clamp(0, ch - 1)) * cw
+             + cols[jj].clamp(0, cw - 1) for jj in range(3)]
+            for i in range(3)]
+    texel = [[torch.where((ok_r[i] & ok_c[jj])[..., None],
+                          charts_flat[tidx[i][jj]], 0.0)
+              for jj in range(3)] for i in range(3)]          # (..., 3)
+    tmp = [[texel[i][0][..., c] * wy[0] + texel[i][1][..., c] * wy[1]
+            + texel[i][2][..., c] * wy[2] for i in range(3)]
+           for c in range(3)]
+    texk = [wx[0] * tmp[c][0] + wx[1] * tmp[c][1] + wx[2] * tmp[c][2]
+            for c in range(3)]
+    coeff = [ga[3] * tmp[0][i] + ga[4] * tmp[1][i] + ga[5] * tmp[2][i]
+             for i in range(3)]
+    coeff_dx = coeff[0] * dwx[0] + coeff[1] * dwx[1] + coeff[2] * dwx[2]
+    m2 = [[(wx[i] * w) * ga[3 + c] for i in range(3)] for c in range(3)]
+    d_wy = []
+    for jj in range(3):
+        acc = torch.zeros_like(w)
+        for c in range(3):
+            for i in range(3):
+                acc = acc + texel[i][jj][..., c] * m2[c][i]
+        d_wy.append(acc)
+    d_x = w * coeff_dx
+    d_y = d_wy[0] * dwy[0] + d_wy[1] * dwy[1] + d_wy[2] * dwy[2]
+    lanes = torch.arange(3, device=w.device)
+    for i in range(3):
+        for jj in range(3):
+            keep = (applied & ok_r[i] & ok_c[jj])[..., None]
+            vals = torch.stack([wy[jj] * m2[c][i] for c in range(3)], -1)
+            vals = torch.where(keep, vals, 0.0)
+            flat = tidx[i][jj][..., None] * 3 + lanes
+            d_ch.index_add_(0, flat.reshape(-1), vals.reshape(-1))
+    x_pass = (x_raw >= 0.0) & (x_raw <= hf - 1.0)
+    y_pass = (y_raw >= 0.0) & (y_raw <= wf - 1.0)
+    return (texk, torch.where(x_pass, d_x, 0.0),
+            torch.where(y_pass, d_y, 0.0))
+
+
+def record_terms(r, resp, dirs, ga, w, d_alpha, d_m, d_x, d_y,
+                 lean: bool) -> torch.Tensor:
+    """The chain rule from a batch of pairs' ``d_alpha``, ``d_m`` (the
+    reg chain's gradient of the depth map; unused when ``lean``) and
+    texel-coordinate gradients to the first 26 record fields: ``(26,
+    ...)`` per pair and pixel, not yet masked or summed. Fields 12-14 and
+    16-18 (the detached uv frame) are zero."""
+    t = resp["t"]
+    hf, wf = r[:, 26], r[:, 27]
+    opg = resp["opg"]
+    interior = (opg <= ALPHA_CLAMP) & (opg >= ALPHA_CUTOFF) & (t > 1e-6)
+    dag = torch.where(interior, d_alpha, 0.0)
+    d_op = resp["g"] * dag
+    d_g = r[:, 20] * d_op
+    surf = resp["arg_s"] >= resp["arg_c"]
+    dgs = torch.where(surf, d_g, 0.0)
+    d_u = -resp["u"] * dgs
+    d_v = -resp["v"] * dgs
+    dgc = torch.where(surf, 0.0, d_g)
+    d_xy0 = ((1.0 / AA_SIGMA2) * resp["dpx"]) * dgc
+    d_xy1 = ((1.0 / AA_SIGMA2) * resp["dpy"]) * dgc
+    u_pass = (resp["uvu_raw"] >= 0.0) & (resp["uvu_raw"] <= 1.0)
+    v_pass = (resp["uvv_raw"] >= 0.0) & (resp["uvv_raw"] <= 1.0)
+    d_uvu = torch.where(u_pass, d_x * hf, 0.0)
+    d_uvv = torch.where(v_pass, d_y * wf, 0.0)
+    d_t = w * ga[6]
+    if not lean:
+        invtc = resp["invtc"]
+        d_t = d_t + torch.where(t >= REG_NEAR,
+                                d_m * KFAC_NEAR * invtc * invtc, 0.0)
+    d_t = d_t + d_u * resp["b1d"] + d_v * resp["b2d"]
+    d_t = d_t + d_uvu * resp["b1ud"] + d_uvv * resp["b2ud"]
+    nd_pass = resp["nd"].abs() >= 1e-9
+    d_an = d_t * (1.0 / resp["safe_nd"])
+    d_nd = torch.where(nd_pass, -t * d_an, 0.0)
+
+    nrm = [d_nd * dirs[c] for c in range(3)]
+    if not lean:
+        wfl = w * resp["flip"]
+        nrm = [nrm[c] + wfl * ga[8 + c] for c in range(3)]
+    zero = torch.zeros_like(d_t)
+    vals = (nrm + [d_an]
+            + [d_u * (t * dirs[c]) for c in range(3)] + [d_u]
+            + [d_v * (t * dirs[c]) for c in range(3)] + [d_v]
+            + [zero] * 3 + [d_uvu] + [zero] * 3 + [d_uvv] + [d_op]
+            + [w * ga[c] for c in range(3)] + [d_xy0, d_xy1])
+    return torch.stack(torch.broadcast_tensors(*vals), 0)
+
+
+def direct_terms(r, resp, ga, texk, lean: bool) -> torch.Tensor:
+    """∂L/∂w of a pair without the reg chain: Σ_ch g_ch · y_ch over img,
+    tex, depth, alpha, and the normal unless ``lean``."""
+    s_k = (r[:, 21] * ga[0] + r[:, 22] * ga[1] + r[:, 23] * ga[2]
+           + texk[0] * ga[3] + texk[1] * ga[4] + texk[2] * ga[5]
+           + resp["t"] * ga[6] + ga[7])
+    if not lean:
+        s_k = s_k + resp["flip"] * (r[:, 0] * ga[8] + r[:, 1] * ga[9]
+                                    + r[:, 2] * ga[10])
+    return s_k
 
 
 def rasterize_bwd_reference(records, gids, starts, counts, charts,
@@ -123,7 +268,7 @@ def rasterize_bwd_reference(records, gids, starts, counts, charts,
         t_k = Ta * inv_q
         w = torch.where(applied, a * t_k, 0.0)
         BSa, Ea, Da = BS[act], E[act], D[act]
-        t = resp["t"]
+        d_m = None
         if not lean:
             m = resp["m"]
             wm = w * m
@@ -131,115 +276,16 @@ def rasterize_bwd_reference(records, gids, starts, counts, charts,
             big_c = fw[2, act] - wm - Da
             d_m = 2.0 * ga[11] * w * (big_a - Ea)
 
-        # texels: 3 x 3 neighbourhood of the sample, hat weights
-        hf, wf = r[:, 26], r[:, 27]
-        x_raw = torch.clamp(resp["uvu_raw"], 0.0, 1.0) * hf
-        y_raw = torch.clamp(resp["uvv_raw"], 0.0, 1.0) * wf
-        xg = torch.minimum(torch.clamp(x_raw, min=0.0), hf - 1.0)
-        yg = torch.minimum(torch.clamp(y_raw, min=0.0), wf - 1.0)
-        x0 = torch.floor(xg)
-        y0 = torch.floor(yg)
-        rows, wx, dwx, cols, wy, dwy = [], [], [], [], [], []
-        for i in range(3):
-            ai = x0 + (i - 1.0)
-            dfx = xg - ai
-            rows.append(ai.long())
-            wx.append(torch.clamp(1.0 - dfx.abs(), min=0.0))
-            dwx.append(torch.where(dfx.abs() <= 1.0, -torch.sign(dfx), 0.0))
-            bi = y0 + (i - 1.0)
-            dfy = yg - bi
-            cols.append(bi.long())
-            wy.append(torch.clamp(1.0 - dfy.abs(), min=0.0))
-            dwy.append(torch.where(dfy.abs() <= 1.0, -torch.sign(dfy), 0.0))
-        ok_r = [(ri >= 0) & (ri < ch) for ri in rows]
-        ok_c = [(ci >= 0) & (ci < cw) for ci in cols]
-        tidx = [[(ids[:, None] * ch + rows[i].clamp(0, ch - 1)) * cw
-                 + cols[jj].clamp(0, cw - 1) for jj in range(3)]
-                for i in range(3)]
-        texel = [[torch.where((ok_r[i] & ok_c[jj])[..., None],
-                              charts_flat[tidx[i][jj]], 0.0)
-                  for jj in range(3)] for i in range(3)]        # (A, P, 3)
-        tmp = [[texel[i][0][..., c] * wy[0] + texel[i][1][..., c] * wy[1]
-                + texel[i][2][..., c] * wy[2] for i in range(3)]
-               for c in range(3)]
-        texk = [wx[0] * tmp[c][0] + wx[1] * tmp[c][1] + wx[2] * tmp[c][2]
-                for c in range(3)]
-        coeff = [ga[3] * tmp[0][i] + ga[4] * tmp[1][i] + ga[5] * tmp[2][i]
-                 for i in range(3)]
-        coeff_dx = coeff[0] * dwx[0] + coeff[1] * dwx[1] + coeff[2] * dwx[2]
-        m2 = [[(wx[i] * w) * ga[3 + c] for i in range(3)] for c in range(3)]
-        d_wy = []
-        for jj in range(3):
-            acc = torch.zeros_like(w)
-            for c in range(3):
-                for i in range(3):
-                    acc = acc + texel[i][jj][..., c] * m2[c][i]
-            d_wy.append(acc)
-        d_x = w * coeff_dx
-        d_y = d_wy[0] * dwy[0] + d_wy[1] * dwy[1] + d_wy[2] * dwy[2]
-        for i in range(3):
-            for jj in range(3):
-                keep = (applied & ok_r[i] & ok_c[jj])[..., None]
-                vals = torch.stack([wy[jj] * m2[c][i] for c in range(3)], -1)
-                vals = torch.where(keep, vals, 0.0)
-                flat = tidx[i][jj][..., None] * 3 + torch.arange(3,
-                                                                 device=dev)
-                d_ch.index_add_(0, flat.reshape(-1), vals.reshape(-1))
-
-        s_k = (r[:, 21] * ga[0] + r[:, 22] * ga[1] + r[:, 23] * ga[2]
-               + texk[0] * ga[3] + texk[1] * ga[4] + texk[2] * ga[5]
-               + t * ga[6] + ga[7])
+        texk, d_x, d_y = texel_terms(r, resp, ids[:, None], charts_flat, ch,
+                                     cw, w, ga, applied, d_ch)
+        s_k = direct_terms(r, resp, ga, texk, lean)
         if not lean:
-            fl = resp["flip"]
-            s_k = s_k + fl * (r[:, 0] * ga[8] + r[:, 1] * ga[9]
-                              + r[:, 2] * ga[10])
             s_k = s_k + 2.0 * ga[11] * ((m * big_a - big_c)
                                         + (Da - m * Ea))
         sw = s_k * w
         d_alpha = torch.where(applied, t_k * s_k - BSa * inv_q, 0.0)
-
-        x_pass = (x_raw >= 0.0) & (x_raw <= hf - 1.0)
-        y_pass = (y_raw >= 0.0) & (y_raw <= wf - 1.0)
-        d_x = torch.where(x_pass, d_x, 0.0)
-        d_y = torch.where(y_pass, d_y, 0.0)
-        opg = resp["opg"]
-        interior = (opg <= ALPHA_CLAMP) & (opg >= ALPHA_CUTOFF) & (t > 1e-6)
-        dag = torch.where(interior, d_alpha, 0.0)
-        d_op = resp["g"] * dag
-        d_g = r[:, 20] * d_op
-        surf = resp["arg_s"] >= resp["arg_c"]
-        dgs = torch.where(surf, d_g, 0.0)
-        d_u = -resp["u"] * dgs
-        d_v = -resp["v"] * dgs
-        dgc = torch.where(surf, 0.0, d_g)
-        d_xy0 = ((1.0 / AA_SIGMA2) * resp["dpx"]) * dgc
-        d_xy1 = ((1.0 / AA_SIGMA2) * resp["dpy"]) * dgc
-        u_pass = (resp["uvu_raw"] >= 0.0) & (resp["uvu_raw"] <= 1.0)
-        v_pass = (resp["uvv_raw"] >= 0.0) & (resp["uvv_raw"] <= 1.0)
-        d_uvu = torch.where(u_pass, d_x * hf, 0.0)
-        d_uvv = torch.where(v_pass, d_y * wf, 0.0)
-        d_t = w * ga[6]
-        if not lean:
-            invtc = resp["invtc"]
-            d_t = d_t + torch.where(t >= REG_NEAR,
-                                    d_m * KFAC_NEAR * invtc * invtc, 0.0)
-        d_t = d_t + d_u * resp["b1d"] + d_v * resp["b2d"]
-        d_t = d_t + d_uvu * resp["b1ud"] + d_uvv * resp["b2ud"]
-        nd_pass = resp["nd"].abs() >= 1e-9
-        d_an = d_t * (1.0 / resp["safe_nd"])
-        d_nd = torch.where(nd_pass, -t * d_an, 0.0)
-
-        zero = torch.zeros_like(w)
-        nrm = [d_nd * dirs[c] for c in range(3)]
-        if not lean:
-            wfl = w * fl
-            nrm = [nrm[c] + wfl * ga[8 + c] for c in range(3)]
-        vals = (nrm + [d_an]
-                + [d_u * (t * dirs[c]) for c in range(3)] + [d_u]
-                + [d_v * (t * dirs[c]) for c in range(3)] + [d_v]
-                + [zero] * 3 + [d_uvu] + [zero] * 3 + [d_uvv] + [d_op]
-                + [w * ga[c] for c in range(3)] + [d_xy0, d_xy1])
-        vals = torch.stack(vals, 0)                               # (26, A, P)
+        vals = record_terms(r, resp, dirs, ga, w, d_alpha, d_m, d_x, d_y,
+                            lean)                                 # (26, A, P)
         vals = torch.where(applied, vals, 0.0).sum(-1)            # (26, A)
         d_rec[:, :26].index_add_(0, ids, vals.T.contiguous())
 
@@ -264,15 +310,8 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                  s_cap)
-    hw = (grid.height, grid.width)
-    for name, x, dtype, shape in (("maps", maps, torch.float32, (NCH, *hw)),
-                                  ("ncontrib", ncontrib, torch.int32, hw),
-                                  ("gmaps", gmaps, torch.float32, (NG, *hw))):
-        if x.device != records.device or x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} on {records.device}")
-        if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous with shape {shape}")
     dev = records.device
+    check_residuals(maps, ncontrib, gmaps, dev, grid)
     if dev.type == "cpu":
         return rasterize_bwd_reference(records, gids, starts, counts,
                                        charts, cam_info, maps, ncontrib,

@@ -26,7 +26,8 @@ import torch
 
 from . import rasterize as plain
 from .binning import TileGrid
-from .rasterize_fwd import MAX_TILE_PIXELS, NCH, NG
+from .rasterize_bwd import check_residuals
+from .rasterize_fwd import MAX_TILE_PIXELS, NCH
 from .records import F_REC
 
 
@@ -159,14 +160,7 @@ def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
     """
     check_inputs(records, ids, counts, charts, cam_info, grid)
     dev = records.device
-    hw = (grid.height, grid.width)
-    for name, x, dtype, shape in (("maps", maps, torch.float32, (NCH, *hw)),
-                                  ("ncontrib", ncontrib, torch.int32, hw),
-                                  ("gmaps", gmaps, torch.float32, (NG, *hw))):
-        if x.device != dev or x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} on {dev}")
-        if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous with shape {shape}")
+    check_residuals(maps, ncontrib, gmaps, dev, grid)
     if dev.type == "cpu":
         return plain.backward_walk(records, ids, counts, charts, cam_info,
                                    maps, ncontrib, gmaps, grid, lean=lean)

@@ -13,12 +13,21 @@ mean eval PSNR and SSIM.
 
 ``--renderer`` overrides the method's render tier (``pallas``: the flat
 kernels where they fit the scene's chart pad, the dense-list kernels
-otherwise; ``pallas4``: the dense-list kernels; ``xla``: pure torch). A
-large texel budget makes large charts, which train on the dense tier:
+otherwise; ``pallas4``: the dense-list kernels; ``pallas3``, ``pallas2``:
+the pair-space v3 and v2 kernels over the dense lists, for charts of at
+most 40 and 42 rows; ``xla``: pure torch). A large texel budget makes
+large charts, which train on the dense tier:
 
     python -m gstex_torch.scripts.train gstex-blender-nvs \\
         --data DATA_DIR --init-npz assets/trained_scene_stats.npz \\
         --pixel-num 4e6
+
+and a small one makes charts that the pair-space tiers take (the
+per-slot chart copies cost ``2 · tiles · s_max · Ch · Cw · 12`` bytes):
+
+    python -m gstex_torch.scripts.train gstex-blender-nvs \\
+        --data DATA_DIR --init-npz assets/trained_scene_stats.npz \\
+        --pixel-num 1e5 --renderer pallas3
 
 PLY and point-cloud init, ``--set`` overrides and the multi-device flags
 of ``gstex-train`` are not offered yet.
@@ -57,7 +66,7 @@ def main(argv=None) -> dict:
     p.add_argument("--pixel-num", type=float, default=None)
     p.add_argument("--renderer", default=None,
                    help="render tier (default: the method's): pallas, "
-                        "pallas4, xla, oracle")
+                        "pallas4, pallas3, pallas2, xla, oracle")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")

@@ -38,7 +38,8 @@ def test_sources_found():
             "ops/rasterize_bwd.py", "ops/ssim_fused.py", "train/trainer.py",
             "scripts/train.py", "utils/checkpoint.py", "ops/rasterize.py",
             "ops/rasterize_ref.py", "ops/rasterize_dense.py",
-            "ops/rasterize_api.py", "ops/binning.py"} <= names
+            "ops/rasterize_api.py", "ops/binning.py", "ops/pair_inputs.py",
+            "ops/rasterize_v3.py", "ops/rasterize_v2.py"} <= names
 
 
 def test_every_kernel_source_has_a_wrapper():
@@ -47,7 +48,9 @@ def test_every_kernel_source_has_a_wrapper():
     sources = {p.stem for p in (ROOT / "gstex_torch" / "csrc").glob("*.cu")}
     assert sources == {"rasterize_eval", "rasterize_fwd", "rasterize_bwd",
                        "ssim_fused", "rasterize_dense_eval",
-                       "rasterize_dense_fwd", "rasterize_dense_bwd"}
+                       "rasterize_dense_fwd", "rasterize_dense_bwd",
+                       "rasterize_v3_fwd", "rasterize_v3_bwd",
+                       "rasterize_v2_fwd", "rasterize_v2_bwd"}
     ops = "".join(p.read_text()
                   for p in (ROOT / "gstex_torch" / "ops").glob("*.py"))
     for name in sources:

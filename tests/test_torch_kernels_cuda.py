@@ -31,6 +31,14 @@ plain version pulls the per-splat math back with autograd where the
 kernel writes the chain rule out, so the two differ by rounding: the same
 1e-4 of each field group's largest value and 1e-5 sign flips. On the pads
 both tiers take, the dense kernels are also held to the flat ones.
+
+The pair-space v3 and v2 kernels run on per-(tile, slot) copies of the
+dense lists' records and charts, at 32x32 tiles and pads up to their
+limits (40 rows for v3, 42 for v2), one of them past what their backward
+stages in shared memory. Each is held to its plain version by the gates
+above (v3's forward sums its chunks by a shuffle tree, so its maps to
+1e-4; T and ncontrib exactly), and, summed per gaussian, to the dense
+kernels on the same pairs.
 """
 
 import pytest
@@ -41,10 +49,13 @@ from gstex_torch.ops import rasterize_bwd as rbwd
 from gstex_torch.ops import rasterize_dense as rdense
 from gstex_torch.ops import rasterize_eval as reval
 from gstex_torch.ops import rasterize_fwd as rfwd
+from gstex_torch.ops import rasterize_v2 as rv2
+from gstex_torch.ops import rasterize_v3 as rv3
 from gstex_torch.ops import ssim_fused
 from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                      build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
+from gstex_torch.ops.pair_inputs import pair_inputs
 from gstex_torch.ops.prepare import prepare_splats
 from gstex_torch.ops.records import assemble_records, cam_info
 from gstex_torch.ops.sh import sh_to_rgb
@@ -332,3 +343,146 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
                                    grid)
     assert (rdense.rasterize_dense_eval.launches,
             rdense.rasterize_dense_fwd.launches) == before
+
+
+# the pair-space kernels: 32x32 tiles only; charts of at most 40 rows for
+# v3, 42 for v2. (40, 56) is past what the backward kernels stage in shared
+# memory, so its chart gradients go to device memory.
+PAIR_CASES = [((4, 4), 1024), ((16, 24), 1024), ((16, 24), 16),
+              ((40, 8), 1024), ((40, 56), 1024)]
+PAIR_IDS = ["pad4", "pad16x24", "pad16x24_truncating", "pad40x8",
+            "pad40x56_unstaged"]
+V2_CASES = PAIR_CASES + [((42, 8), 1024)]
+V2_IDS = PAIR_IDS + ["pad42x8"]
+PAIR_PARAMS = ([pytest.param(3, pad, s, id=f"v3-{i}")
+                for (pad, s), i in zip(PAIR_CASES, PAIR_IDS)]
+               + [pytest.param(2, pad, s, id=f"v2-{i}")
+                  for (pad, s), i in zip(V2_CASES, V2_IDS)])
+
+
+def pair_kernels(version):
+    """(fwd, bwd, fwd_plain, bwd_plain) of one pair-space version."""
+    if version == 3:
+        return (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd,
+                rv3.rasterize_v3_fwd_reference,
+                rv3.rasterize_v3_bwd_reference)
+    return (rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd,
+            rv2.rasterize_v2_fwd_reference, rv2.rasterize_v2_bwd_reference)
+
+
+def pair_case(cuda, pad, s_cap):
+    """The dense inputs of a scene and their pair-space copies."""
+    n = 600 if pad[0] * pad[1] > 1000 else 2000
+    dense, grid, bins = kernel_inputs(cuda, pad, 32, s_cap, n=n, dense=True)
+    records, _, _, charts, info = dense
+    return dense, (*pair_inputs(records, charts, bins), info), grid, bins
+
+
+def per_gaussian(d_rec_t, d_ch_g, ids, n):
+    """Pair-space gradients summed per gaussian."""
+    flat = ids.reshape(-1).long()
+    d_rec = torch.zeros((n, d_rec_t.shape[-1]), device=d_rec_t.device)
+    d_ch = torch.zeros((n, *d_ch_g.shape[2:]), device=d_ch_g.device)
+    d_rec.index_add_(0, flat, d_rec_t.reshape(flat.numel(), -1))
+    d_ch.index_add_(0, flat, d_ch_g.reshape(flat.numel(), *d_ch_g.shape[2:]))
+    return d_rec, d_ch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("version,pad,s_cap", PAIR_PARAMS)
+def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, lean):
+    """The kernel and its plain version run the same float32 operations
+    (the v3 scans in the same order), so T and ncontrib agree bit for bit;
+    v3's sums over a chunk's 16 slots are reordered (1e-4)."""
+    _, pairs, grid, bins = pair_case(cuda, pad, s_cap)
+    if s_cap == 16:
+        assert bins.overflow > 0
+    fwd, _, fwd_plain, _ = pair_kernels(version)
+    before = fwd.launches
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    ref, ref_ncon = fwd_plain(*pairs, grid, lean=lean)
+    torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    assert torch.equal(ncon, ref_ncon)
+    assert float(maps[7].max()) > 0.3
+    if lean:
+        assert float(maps[8:12].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("version,pad,s_cap", PAIR_PARAMS)
+def test_pair_backward_kernel_matches_plain(cuda, version, pad, s_cap, lean):
+    _, pairs, grid, _ = pair_case(cuda, pad, s_cap)
+    fwd, bwd, _, bwd_plain = pair_kernels(version)
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    g = cotangents(cuda)
+    before = bwd.launches
+    d_rec, d_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    assert d_rec.shape == pairs[0].shape and d_ch.shape == pairs[1].shape
+    ref_rec, ref_ch = bwd_plain(*pairs, maps, ncon, g, grid, lean=lean)
+    errs = backward_errors(d_rec.reshape(-1, 32), d_ch,
+                           ref_rec.reshape(-1, 32), ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+    assert float(ref_rec.abs().max()) > 0 and float(ref_ch.abs().max()) > 0
+    assert float(d_rec[..., [12, 13, 14, 16, 17, 18]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("version", [3, 2], ids=["v3", "v2"])
+@pytest.mark.parametrize("pad,s_cap", [((16, 24), 1024), ((4, 4), 16)],
+                         ids=["pad16x24", "truncating"])
+def test_pair_kernels_match_dense_kernels(cuda, pad, s_cap, version, lean):
+    """On the same pairs the pair-space kernels compute the dense-list
+    kernels' function: v2 the same maps and ncontrib (the same serial
+    walk); v3 may break a pixel's walk one slot apart where its product
+    scan and the serial product round to either side of T_EPS, at no more
+    than 1e-5 of the pixels (and one), with the maps held to 1e-4
+    elsewhere. Gradients summed per gaussian: 1e-4 of each field group's
+    max, 1e-5 sign flips."""
+    dense, pairs, grid, bins = pair_case(cuda, pad, s_cap)
+    fwd, bwd, _, _ = pair_kernels(version)
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    dmaps, dncon = rdense.rasterize_dense_fwd(*dense, grid, lean=lean)
+    same = ncon == dncon
+    if version == 2:
+        assert bool(same.all())
+    assert int((~same).sum()) <= max(1, 1e-5 * same.numel())
+    torch.testing.assert_close(maps[:, same], dmaps[:, same], atol=1e-4,
+                               rtol=0)
+    g = cotangents(cuda)
+    d_rec_t, d_ch_g = bwd(*pairs, maps, ncon, g, grid, lean=lean)
+    d_rec, d_ch = per_gaussian(d_rec_t, d_ch_g, bins.ids, dense[0].shape[0])
+    ref_rec, ref_ch = rdense.rasterize_dense_bwd(*dense, dmaps, dncon, g, grid,
+                                                 lean=lean)
+    errs = backward_errors(d_rec, d_ch, ref_rec, ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pair_wrappers_raise_instead_of_falling_back(cuda):
+    _, pairs, grid, _ = pair_case(cuda, (8, 8), 1024)
+    records_t, charts_g, counts, info = pairs
+    small_tiles = TileGrid(height=H, width=W, tile_h=16, tile_w=16)
+    before = (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches)
+    for fwd in (rv3.rasterize_v3_fwd, rv2.rasterize_v2_fwd):
+        with pytest.raises(ValueError, match="32x32"):
+            fwd(*pairs, small_tiles)
+        with pytest.raises(ValueError, match="is on"):
+            fwd(records_t, charts_g, counts.cpu(), info, grid)
+        with pytest.raises(ValueError, match="charts_g"):
+            fwd(records_t, charts_g[:, :-1].contiguous(), counts, info, grid)
+    tall = torch.zeros((*charts_g.shape[:2], 41, 8, 3), device=cuda)
+    with pytest.raises(ValueError, match="40 rows"):
+        rv3.rasterize_v3_fwd(records_t, tall, counts, info, grid)
+    assert (rv3.rasterize_v3_fwd.launches,
+            rv2.rasterize_v2_fwd.launches) == before

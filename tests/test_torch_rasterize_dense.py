@@ -154,13 +154,11 @@ def test_rgb_composite_and_unported_versions():
     rgb = got["img"] + got["texture_rgb"] + (1 - got["alpha"][..., None]
                                              ) * bg.numpy()
     np.testing.assert_allclose(got["rgb"], np.clip(rgb, 0, 1), atol=1e-6)
-    for version, items in ((3, "7-8"), (2, "9-10"), (1, "11-12")):
-        def old(geom, texture, hw, bins, cam, grid, extra_channels=False):
-            return rasterize_pl(geom, texture, hw, bins, cam, grid,
-                                version=version)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 2 items {items}"):
-            xla.torch_run(s, tile, s_max, {}, render=old)
+    def old(geom, texture, hw, bins, cam, grid, extra_channels=False):
+        return rasterize_pl(geom, texture, hw, bins, cam, grid, version=1)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 2 items 11-12"):
+        xla.torch_run(s, tile, s_max, {}, render=old)
 
 
 @pytest.mark.parametrize("pad,flat", [((8, 8), True), ((40, 80), True),
@@ -181,15 +179,19 @@ def test_dispatch_rule(pad, flat):
 
 def test_tiers_agree_at_exact_texel_ties():
     """Where a sample sits exactly on a texel row or column, or exactly on
-    the last texel, the fetch's derivative is a matter of convention. Both
-    tiers' plain versions (the flat one written out by hand, the dense one
-    pulled back by autograd) take the TPU kernels': two-sided at a tie,
-    passed at the bounds. Every splat here samples its 8 x 8 chart at
-    x = 2.0 and y = 7.0 in every pixel."""
+    the last texel, the fetch's derivative is a matter of convention. The
+    plain versions of every tier (the flat one written out by hand, the
+    dense one pulled back by autograd, the pair-space v3 and v2 ones) take
+    the TPU kernels': two-sided at a tie, passed at the bounds. Every
+    splat here samples its 8 x 8 chart at x = 2.0 and y = 7.0 in every
+    pixel."""
     from gstex_torch.ops import rasterize as plain
     from gstex_torch.ops import rasterize_bwd as rbwd
+    from gstex_torch.ops import rasterize_v2 as rv2
+    from gstex_torch.ops import rasterize_v3 as rv3
     from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                          build_tile_bins_flat)
+    from gstex_torch.ops.pair_inputs import pair_inputs
     from gstex_torch.ops.prepare import prepare_splats
     from gstex_torch.ops.records import assemble_records, cam_info
 
@@ -222,15 +224,29 @@ def test_tiers_agree_at_exact_texel_ties():
         records, flat.gids, flat.starts, flat.counts, charts, info, maps,
         ncon, g, grid, 64)
     assert float(f_rec[:, [15, 19]].abs().max(0).values.min()) > 0.1
-    for group in ([15], [19], [0, 1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11],
-                  [20, 21, 22, 23, 24, 25]):
-        scale = float(f_rec[:, group].abs().max())
-        torch.testing.assert_close(d_rec[:, group] / scale,
-                                   f_rec[:, group] / scale, atol=1e-5,
-                                   rtol=0, msg=str(group))
-    torch.testing.assert_close(d_ch / float(f_ch.abs().max()),
-                               f_ch / float(f_ch.abs().max()), atol=1e-5,
-                               rtol=0)
+    # the pair-space tiers' plain backwards on the same lists, their
+    # gradients summed per gaussian
+    pairs = pair_inputs(records, charts, dense)
+    ids = dense.ids.reshape(-1).long()
+    tiers = {"dense": (d_rec, d_ch)}
+    for name, bwd in (("v3", rv3.rasterize_v3_bwd_reference),
+                      ("v2", rv2.rasterize_v2_bwd_reference)):
+        p_rec, p_ch = bwd(*pairs, info, maps, ncon, g, grid)
+        tiers[name] = (
+            torch.zeros_like(records).index_add_(
+                0, ids, p_rec.reshape(ids.numel(), -1)),
+            torch.zeros_like(charts).index_add_(
+                0, ids, p_ch.reshape(ids.numel(), *charts.shape[1:])))
+    for name, (t_rec, t_ch) in tiers.items():
+        for group in ([15], [19], [0, 1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11],
+                      [20, 21, 22, 23, 24, 25]):
+            scale = float(f_rec[:, group].abs().max())
+            torch.testing.assert_close(t_rec[:, group] / scale,
+                                       f_rec[:, group] / scale, atol=1e-5,
+                                       rtol=0, msg=f"{name} {group}")
+        torch.testing.assert_close(t_ch / float(f_ch.abs().max()),
+                                   f_ch / float(f_ch.abs().max()), atol=1e-5,
+                                   rtol=0, msg=name)
 
 
 def test_wrappers_check_their_inputs():

@@ -179,13 +179,16 @@ def test_config_fields_match():
 
 @pytest.mark.parametrize("change,item", [
     (dict(renderer="pallas1"), "Queue 2 items 11-12"),
-    (dict(renderer="pallas2"), "Queue 2 items 9-10"),
-    (dict(renderer="pallas3"), "Queue 2 items 7-8"),
-    (dict(renderer="pallas3_interpret", eval_only=False),
-     "Queue 2 items 7-8"),
+    (dict(renderer="pallas1_interpret", eval_only=False),
+     "Queue 2 items 11-12"),
+    (dict(renderer="pallas2"), None),
+    (dict(renderer="pallas3"), None),
+    (dict(renderer="pallas3_interpret", eval_only=False), None),
     (dict(texel_dtype="bf16"), "Queue 1 item 6"),
     (dict(eval_only=False, use_normal_loss=True), "Queue 1 item 13")])
 def test_unported_requests_raise(change, item):
+    """A request of what is still to be ported raises, naming its ROADMAP
+    item; the pair-space tiers (``item`` None), ported since, render."""
     change = dict(change)
     s = scene_np(n=20)
     tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")
@@ -194,6 +197,13 @@ def test_unported_requests_raise(change, item):
                 eval_only=change.pop("eval_only", True))
     cfg = tmodel.GStexConfig(**{"renderer": "pallas", "chart_pad": (4, 4),
                                 **change})
+    if item is None:
+        with torch.no_grad():
+            out = tmodel.render(cfg, tp, tb, tc, STEP, t(BG), **call)
+        assert bool(torch.isfinite(out["rgb"]).all())
+        assert float(out["alpha"].max()) > 0.1
+        assert ("reg" in out) == (not call["eval_only"])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmodel.render(cfg, tp, tb, tc, STEP, t(BG), **call)
 

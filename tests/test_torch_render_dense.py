@@ -1,9 +1,10 @@
 """The whole ``render`` on the tiers beside the flat kernels: gstex_torch
 ``models.gstex.render`` against gstex_tpu ``render`` on the same numpy
 scene with ``renderer="oracle"``, ``"xla"`` (the config default),
-``"pallas4"`` and ``extra=True``, for eval and training renders; the
-flat-or-dense dispatch; cap sizing without the cull; and one ``train_step``
-on the dense tier against JAX ``make_train_step``.
+``"pallas4"``, the pair-space ``"pallas3"`` and ``"pallas2"`` and
+``extra=True``, for eval and training renders; the flat-or-dense
+dispatch; cap sizing without the cull; and one ``train_step`` on the
+dense tier and one on the v3 tier against JAX ``make_train_step``.
 
 Maps are compared at ``test_torch_render.py``'s atol 5e-5 (the two
 packages cull pairs from their own geometry and sum in another order)
@@ -93,6 +94,34 @@ def test_pallas4_matches_jax(eval_only):
     assert_maps(tout, jout, base.MAPS if eval_only else TRAIN_MAPS)
     assert ("normal" in tout) == (not eval_only)
     assert tout["total_pairs"] == int(jout["total_pairs"])
+
+
+@pytest.mark.parametrize("eval_only", [True, False], ids=["eval", "train"])
+@pytest.mark.parametrize("renderer", ["pallas3", "pallas2"])
+def test_pair_tiers_match_jax(monkeypatch, renderer, eval_only):
+    """The pair-space tiers against JAX's v3 and v2 kernels in interpret
+    mode: training renders through them, and ``eval_only`` renders, as in
+    the JAX package, through the dense-list eval kernel (here its plain
+    version)."""
+    from gstex_torch.ops import rasterize_api
+
+    taken = []
+    for name in ("rasterize_pl", "rasterize_pl_eval"):
+        real = getattr(tmodel, name)
+        monkeypatch.setattr(
+            tmodel, name,
+            lambda *a, _real=real, _name=name, **k: (
+                taken.append((_name, k.get("version"))), _real(*a, **k))[1])
+    cfg_kw = dict(renderer=renderer, chart_pad=(4, 4), pair_cap=8192,
+                  s_max=64, lambda_normal=0.05)
+    jout, tout = render_both(cfg_kw, jax_renderer=renderer + "_interpret",
+                             eval_only=eval_only)
+    assert_maps(tout, jout, base.MAPS if eval_only else TRAIN_MAPS)
+    assert tout["total_pairs"] == int(jout["total_pairs"])
+    version = int(renderer[-1])
+    assert taken == ([("rasterize_pl_eval", None)] if eval_only
+                     else [("rasterize_pl", version)])
+    assert rasterize_api.rasterize_pl is not tmodel.rasterize_pl
 
 
 def test_default_config_renders():
@@ -202,18 +231,18 @@ def test_demand_caps_cover_both_list_layouts(monkeypatch, pair_cull):
     assert 1.25 * measured[1] <= s_max
 
 
-def test_dense_train_step_matches_jax():
-    """One step on the dense tier (``renderer="pallas4"``) from the same
-    params, camera and ground truth as JAX ``make_train_step`` on its v4
-    kernels in interpret mode: the loss within 1e-5 relative, the updates
-    as ``test_torch_train.py`` holds the flat tier's."""
+def train_step_matches_jax(jax_renderer, torch_renderer):
+    """One step from the same params, camera and ground truth through JAX
+    ``make_train_step`` and the port's ``train_step``: the loss within
+    1e-5 relative, the updates as ``test_torch_train.py`` holds the flat
+    tier's."""
     LEAVES = tmodel.GStexParams._fields
     s = base.scene_np("random", n=64, pad=(4, 4), seed=2)
     jp, jb = base.jax_params(s)
     cfg_kw = dict(chart_pad=(4, 4), pair_cap=8192, s_max=64,
                   background_color="white", sh_degree_interval=1000)
-    jcfg = jmodel.GStexConfig(renderer="pallas4_interpret", **cfg_kw)
-    tcfg = tmodel.GStexConfig(renderer="pallas4", **cfg_kw)
+    jcfg = jmodel.GStexConfig(renderer=jax_renderer, **cfg_kw)
+    tcfg = tmodel.GStexConfig(renderer=torch_renderer, **cfg_kw)
     ocfg = dict(max_steps=15000)
     c2w = orbit_c2w(3.0, 0.3)
     f = 1.2 * max(H, W)
@@ -253,3 +282,16 @@ def test_dense_train_step_matches_jax():
         tiny = grad <= 1e-6 * grad.max()
         assert not (bad & ~tiny).any(), leaf
         assert bad.sum() <= 1e-3 * bad.size, leaf
+
+
+def test_dense_train_step_matches_jax():
+    """One step on the dense tier (``renderer="pallas4"``) against JAX on
+    its v4 kernels in interpret mode."""
+    train_step_matches_jax("pallas4_interpret", "pallas4")
+
+
+def test_pairs_train_step_matches_jax():
+    """One step on the v3 pair-space tier (``renderer="pallas3"``, the
+    chunk-scan plain version here) against JAX on its v3 kernels in
+    interpret mode."""
+    train_step_matches_jax("pallas3_interpret", "pallas3")

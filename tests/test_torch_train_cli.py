@@ -3,7 +3,8 @@ against PIL, ``gstex_torch.scripts.train`` for a few steps on the CPU on a
 dataset written by the port's own render, its checkpoint, and the
 device default of ``sample_background``; the same entry points on the
 dense-list tier (``--renderer pallas4``, and a chart pad too large for the
-flat path)."""
+flat path), and training on the pair-space tiers (``--renderer pallas3``,
+``pallas2``)."""
 
 import struct
 import zlib
@@ -216,6 +217,43 @@ def test_train_cli_on_the_dense_tier(tmp_path, one_thread, monkeypatch,
     assert len(list(frames.glob("frame_*.png"))) == 2
     assert all(s["finite"] and s["overflow"] == 0 for s in summary)
     assert len(taken) == 3 + 2 + 1 + 1 + 2
+
+
+@pytest.mark.parametrize("renderer", ["pallas3", "pallas2"])
+def test_train_cli_on_the_pair_tiers(tmp_path, one_thread, monkeypatch,
+                                     renderer):
+    """Two steps on the CPU through the pair-space tiers: every training
+    render goes to ``rasterize_pl`` with the tier's version, once a step,
+    and every eval render (the step-0 image, the closing pass) to the
+    dense-list eval path."""
+    calls = []
+    for name in ("rasterize_pl", "rasterize_pl_eval"):
+        real = getattr(tmodel, name)
+        monkeypatch.setattr(
+            tmodel, name,
+            lambda *a, _real=real, _name=name, **k: (
+                calls.append((_name, k.get("version"))), _real(*a, **k))[1])
+    stats = small_scene_npz(tmp_path / "scene.npz", n=300)
+    cfg = tmodel.GStexConfig(renderer="pallas", chart_pad=(8, 8))
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    data = tmp_path / "data"
+    write_blender_dataset(data, cfg, params, buffers, 2, 64, 96)
+    write_blender_dataset(data, cfg, params, buffers, 1, 64, 96,
+                          split="test")
+    calls.clear()
+    out = tmp_path / "run"
+    res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
+                       "--init-npz", str(stats), "--seed", "1",
+                       "--max-num-iterations", "2", "--pixel-num", "2e4",
+                       "--renderer", renderer, "--output-dir", str(out),
+                       "--device", "cpu"])
+    hist = res["history"]
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and h["overflow"] == 0 for h in hist)
+    assert res["eval"]["psnr"] > 5
+    version = int(renderer[-1])
+    assert sorted(calls) == sorted([("rasterize_pl", version)] * 2
+                                   + [("rasterize_pl_eval", None)] * 2)
 
 
 def test_sample_background_defaults_to_the_card(monkeypatch):
