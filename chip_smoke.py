@@ -7,7 +7,7 @@ each of its kernels against its plain PyTorch version.
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
-2. build: nvcc builds the eleven kernels from ``gstex_torch/csrc``, one
+2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
@@ -22,12 +22,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gradient to twice 3e-5); then, on the trained scene's dense lists of
    the same view, the three dense-list kernels against their plain
    versions and against the flat kernels, under the same gates; then the
-   pair-space v3 and v2 kernels on per-slot copies of those dense lists,
-   and of the trained scene at pixel_num 1e5, re-charted, at (16, 24):
-   each against its plain version, lean and full, and, summed per
-   gaussian, against the dense kernels on the same pairs (v3's product
-   scan may break a pixel's walk one slot apart from the serial product at
-   no more than 1e-5 of the pixels; the maps are held to 1e-4 elsewhere);
+   pair-space v3, v2 and v1 kernels on per-slot copies of those dense
+   lists, and of the trained scene at pixel_num 1e5, re-charted, at
+   (16, 24): each against its plain version, lean and full; v3 and v2,
+   summed per gaussian, against the dense kernels on the same pairs (v3's
+   product scan may break a pixel's walk one slot apart from the serial
+   product at no more than 1e-5 of the pixels; the maps are held to 1e-4
+   elsewhere); v1 against v2, which it equals but for its rounding of the
+   distortion depth m (ncontrib and every plane but reg and m1 bit for
+   bit, those within 1e-6 of their max; gradients within 1e-5 of each
+   field group's max, no sign flips);
 4. eval main path: ``gstex_torch.scripts.render spiral`` renders 8 frames
    of the trained scene; the eval kernel must launch once per frame;
 5. training main path: an 8-view 800x800 Blender dataset rendered from the
@@ -51,7 +55,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    other training kernel; the closing eval pass launches the dense-list
    eval kernel; then the same with ``--renderer pallas2`` and the v2
    kernels; the pair buffer's bytes and each run's peak memory;
-8. training shapes and timing: for each scene at its training chart pad
+8. the nerfstudio main path: a DTU-like capture written from the trained
+   scene (16 views of 1600x1200 intrinsics, their images downscaled by 2
+   to 800x600 in ``images_2/``, black background, object masks, the
+   surfels as a seed ply in COLMAP axes), then ``gstex_torch.scripts.train
+   gstex-dtu-nvs --renderer pallas1 --init-ply`` for 120 steps across the
+   re-chart: the auto chart pad is (40, 80); every step launches the v1
+   forward and backward kernels and the SSIM kernel once and no other
+   training kernel; the closing eval pass over the interval split
+   launches the dense-list eval kernel; the pair buffer's bytes, the peak
+   memory and the eval PSNR;
+9. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
    2000-surfel subsample of it at (88, 88), the last two on the dense
@@ -62,12 +76,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the card's busy time and each ``gstex.*`` stage's host and device time
    from a ``torch.profiler`` trace, and each kernel alone beside its plain
    version and its bound; then the trained scene at pixel_num 1e5,
-   re-charted at (16, 24): a training step on ``pallas3``, ``pallas2``
-   and ``pallas4`` timed the same way (the trace's ``pair_gather`` range
-   and ``index_backward``, autograd's scatter-add through the gathers,
-   beside the kernels), and the four pair-space kernels alone beside their
-   plain versions and bounds;
-9. the ``kernels`` line, the nvidia-smi line and the final result.
+   re-charted at (16, 24): a training step on ``pallas3``, ``pallas2``,
+   ``pallas1`` and ``pallas4`` timed the same way (the trace's
+   ``pair_gather`` range and ``index_backward``, autograd's scatter-add
+   through the gathers, beside the kernels), and the six pair-space
+   kernels alone beside their plain versions and bounds; then phase 8's
+   shapes (a ``gstex-dtu-nvs`` state from its seed ply at (40, 80),
+   re-charted, on a masked 800x600 train view): a ``pallas1`` step timed
+   the same way, and on that view's per-slot copies the v1 kernels
+   against their plain versions, lean and full, under phase 3's gates
+   (the last tile row is partial; the backward's chart gradients are
+   past shared memory), and alone beside their bounds;
+10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
+    nerfstudio view, where their main path runs them), the nvidia-smi
+    line and the final result.
 
 Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
@@ -102,11 +124,19 @@ SUBSAMPLE_PAD = (88, 88)
 # kernels take (Ch <= 40), at a pair buffer that fits the card
 PAIR_PIXEL_NUM = 1e5
 PAIR_PAD = (16, 24)
+# the nerfstudio main path: DTU's 1600x1200 captures, trained at half size
+DTU_VIEWS = 16
+DTU_H, DTU_W = 600, 800
+DTU_PAD = (40, 80)
+V1_M_PLANES = [11, 13]   # reg and m1: the planes the depth map m enters
+V1_M_TOL = 1e-6       # of their max
+V1_BWD_TOL = 1e-5     # of each field group's max, against v2
 # pixels whose ncontrib v3 may place one slot apart from the serial walk
 PAIR_NCON_FRAC = 1e-5
 TOL = 1e-4
 BWD_TOL = 1e-4        # of the plain version's max abs, per field group
 FLIP_TOL = 1e-5       # texture gradient sign flips
+ERR_SLICE = 1 << 28   # elements per slice of an error's temporaries (1 GB)
 SSIM_LOSS_TOL = 1e-6
 # of the float64 gradient's max abs: float32 roundoff alone is ~1.2e-5
 SSIM_GRAD_TOL = 3e-5
@@ -131,6 +161,8 @@ FP32_FLOPS_PER_S = 67e12
 # - SSIM: one pixel and channel (5 blurs and 3 adjoint blurs of 2 x 11
 #   taps, the map and its derivatives).
 RESPONSE_FLOPS = 34
+# v1 takes the falloff as the larger of two exps: one more per response
+V1_RESPONSE_FLOPS = 35
 BLEND_FLOPS = 75
 BLEND_FULL_FLOPS = 96
 BWD_FLOPS = 350
@@ -146,12 +178,14 @@ STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",
                  "fwd_kernel": ("rasterize_fwd_kernel",
                                 "rasterize_dense_fwd_kernel",
                                 "rasterize_v3_fwd_kernel",
-                                "rasterize_v2_fwd_kernel"),
+                                "rasterize_v2_fwd_kernel",
+                                "rasterize_v1_fwd_kernel"),
                  "ssim_kernel": ("ssim_tile_kernel", "ssim_sum_kernel"),
                  "bwd_kernel": ("rasterize_bwd_kernel",
                                 "rasterize_dense_bwd_kernel",
                                 "rasterize_v3_bwd_kernel",
-                                "rasterize_v2_bwd_kernel")}
+                                "rasterize_v2_bwd_kernel",
+                                "rasterize_v1_bwd_kernel")}
 FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
                 "axis2": [8, 9, 10, 11], "uv": [15, 19], "opacity": [20],
                 "rgb": [21, 22, 23], "xy": [24, 25]}
@@ -330,12 +364,12 @@ def dense_tier():
 
 
 def pair_tier(version):
-    """The v3 or v2 pair-space kernels and their plain versions behind the
-    same calls: ``inputs`` is (records_t, charts_g, counts, cam_info); the
-    record gradients come back as ``(T·S, 32)`` rows, one per slot."""
-    from gstex_torch.ops import rasterize_v2, rasterize_v3
+    """The v3, v2 or v1 pair-space kernels and their plain versions behind
+    the same calls: ``inputs`` is (records_t, charts_g, counts, cam_info);
+    the record gradients come back as ``(T·S, 32)`` rows, one per slot."""
+    from gstex_torch.ops import rasterize_v1, rasterize_v2, rasterize_v3
 
-    mod = rasterize_v3 if version == 3 else rasterize_v2
+    mod = {3: rasterize_v3, 2: rasterize_v2, 1: rasterize_v1}[version]
     name = f"rasterize_v{version}"
     fwd, bwd = getattr(mod, f"{name}_fwd"), getattr(mod, f"{name}_bwd")
     fwd_ref = getattr(mod, f"{name}_fwd_reference")
@@ -520,9 +554,11 @@ def walked_slots(ids, walked):
     return ids[rank[None, :] < walked[:, None]].long()
 
 
-def pair_bounds(pinputs, ids, texture_hw, grid, stats, ncon, lean):
-    """The v3 and v2 kernels' bounds. Operations: the dense tier's on the
-    same pairs (RESPONSE_FLOPS per response the walks need, BLEND_FLOPS or
+def pair_bounds(pinputs, ids, texture_hw, grid, stats, ncon, lean,
+                response_flops=RESPONSE_FLOPS):
+    """The pair-space kernels' bounds. Operations: the dense tier's on the
+    same pairs (``response_flops`` per response the walks need, v1's one
+    more than the others', BLEND_FLOPS or
     BLEND_FULL_FLOPS per forward blend, BWD_FLOPS or BWD_FULL_FLOPS per
     backward pair). Bytes, what each kernel needs of pair space: per walked
     slot its own record copy and the active texels of its own chart copy
@@ -536,10 +572,10 @@ def pair_bounds(pinputs, ids, texture_hw, grid, stats, ncon, lean):
     small = counts.numel() * 4 + info.numel() * 4
     hw_px = grid.height * grid.width
     blends = int(stats.blended)
-    fwd_ops = (int(stats.evaluated) * RESPONSE_FLOPS
+    fwd_ops = (int(stats.evaluated) * response_flops
                + blends * (BLEND_FLOPS if lean else BLEND_FULL_FLOPS))
     responses, walk = walk_responses(counts, ncon, grid, records_t.shape[1])
-    bwd_ops = (responses * RESPONSE_FLOPS
+    bwd_ops = (responses * response_flops
                + blends * (BWD_FLOPS if lean else BWD_FULL_FLOPS))
     fwd_slots = walked_slots(ids, stats.walked)
     bwd_slots = walked_slots(ids, walk)
@@ -589,25 +625,38 @@ def ssim_bound(shape):
     return bound_of(3 * n * 4 + 4, n * SSIM_FLOPS)
 
 
-def cotangents(seed=0):
+def cotangents(height=H, width=W, seed=0):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    g = torch.randn((12, H, W), generator=gen, device=DEVICE)
+    g = torch.randn((12, height, width), generator=gen, device=DEVICE)
     g[6] *= 0.1
     g[8:] *= 0.1
     return g.contiguous()
 
 
 def bwd_errors(d_rec, d_ch, ref_rec, ref_ch):
+    """Per record-field group, and for the charts, the max abs error over
+    the reference's max abs; the fraction of chart gradients above 1e-6 of
+    that max whose sign flips; and the max abs error of all. The charts are
+    read in slices of about ERR_SLICE elements: the pair-space chart
+    gradients of the nerfstudio path's view hold 19 GB each."""
     errs = {}
     for name, fields in FIELD_GROUPS.items():
         scale = float(ref_rec[:, fields].abs().max()) + 1e-12
         errs[name] = float((d_rec[:, fields] - ref_rec[:, fields]).abs()
                            .max()) / scale
-    scale = float(ref_ch.abs().max()) + 1e-12
-    errs["texture"] = float((d_ch - ref_ch).abs().max()) / scale
-    big = ref_ch.abs() > 1e-6 * scale
-    flips = (torch.sign(d_ch) != torch.sign(ref_ch)) & big
-    return errs, float(flips.sum()) / max(int(big.sum()), 1)
+    step = max(1, ERR_SLICE // max(1, ref_ch[0].numel()))
+    parts = [(d_ch[i:i + step], ref_ch[i:i + step])
+             for i in range(0, ref_ch.shape[0], step)]
+    scale = max(float(b.abs().max()) for _, b in parts) + 1e-12
+    ch_err, flips, big_n = 0.0, 0, 0
+    for a, b in parts:
+        ch_err = max(ch_err, float((a - b).abs().max()))
+        big = b.abs() > 1e-6 * scale
+        flips += int(((torch.sign(a) != torch.sign(b)) & big).sum())
+        big_n += int(big.sum())
+    errs["texture"] = ch_err / scale
+    abs_err = max(float((d_rec - ref_rec).abs().max()), ch_err)
+    return errs, flips / max(big_n, 1), abs_err
 
 
 def check_fwd_bwd(tier, inputs, grid, s_cap, lean, **where):
@@ -627,13 +676,11 @@ def check_fwd_bwd(tier, inputs, grid, s_cap, lean, **where):
             f"{where}: {fwd_name} kernel and plain version differ "
             f"(lean={lean}): {err}, ncontrib equal {same}")
 
-    g = cotangents()
+    g = cotangents(grid.height, grid.width)
     d_rec, d_ch = tier.bwd(inputs, maps, ncon, g, grid, s_cap, lean)
     bwd_plain_ms, (ref_rec, ref_ch) = once_ms(
         lambda: tier.bwd_plain(inputs, maps, ncon, g, grid, s_cap, lean))
-    errs, flip = bwd_errors(d_rec, d_ch, ref_rec, ref_ch)
-    abs_err = max(float((d_rec - ref_rec).abs().max()),
-                  float((d_ch - ref_ch).abs().max()))
+    errs, flip, abs_err = bwd_errors(d_rec, d_ch, ref_rec, ref_ch)
     emit("kernel_vs_plain", kernel=bwd_name, lean=lean, max_abs_err=abs_err,
          rel_err=errs, tol=BWD_TOL, texture_flip_frac=flip,
          flip_tol=FLIP_TOL, **where)
@@ -679,7 +726,7 @@ def check_dense_vs_flat(flat_frame, dense_frame, lean, **where):
     g = cotangents()
     d_rec, d_ch = dense.bwd(di, maps, ncon, g, grid, s_cap, lean)
     f_rec, f_ch = flat.bwd(fi, fmaps, fncon, g, grid, s_cap, lean)
-    errs, flip = bwd_errors(d_rec, d_ch, f_rec, f_ch)
+    errs, flip, _ = bwd_errors(d_rec, d_ch, f_rec, f_ch)
     emit("dense_vs_flat", lean=lean, eval_max_abs_err=eval_err,
          fwd_max_abs_err=fwd_err, ncontrib_equal=same, tol=TOL,
          bwd_rel_err=errs, bwd_tol=BWD_TOL, texture_flip_frac=flip,
@@ -713,7 +760,7 @@ def check_pair_vs_dense(dframe, pinputs, tier, lean, **where):
     d_ch = torch.zeros_like(charts).index_add_(
         0, ids, d_ch.reshape(ids.numel(), *charts.shape[1:]))
     f_rec, f_ch = dense.bwd(di, dmaps, dncon, g, grid, s_cap, lean)
-    errs, flip = bwd_errors(d_rec, d_ch, f_rec, f_ch)
+    errs, flip, _ = bwd_errors(d_rec, d_ch, f_rec, f_ch)
     allowed = 0 if name.endswith("v2") else PAIR_NCON_FRAC * same.numel()
     emit("pair_vs_dense", tier=name, lean=lean, ncontrib_diff_pixels=n_diff,
          ncontrib_diff_allowed=allowed, fwd_max_abs_err=fwd_err, tol=TOL,
@@ -727,16 +774,47 @@ def check_pair_vs_dense(dframe, pinputs, tier, lean, **where):
             f"{errs}, flips {flip}")
 
 
+def check_v1_vs_v2(pinputs, grid, s_cap, lean, **where):
+    """The v1 kernels against the v2 kernels on the same pairs: ncontrib
+    and every plane but reg and m1 bit for bit, those two within V1_M_TOL
+    of their max (v1 computes the distortion depth m by a divide, v2 by a
+    reciprocal and a multiply); the pair-space gradients within V1_BWD_TOL
+    of each field group's max, no texture sign flips."""
+    v1, v2 = pair_tier(1), pair_tier(2)
+    maps1, ncon1 = v1.fwd(pinputs, grid, s_cap, lean)
+    maps2, ncon2 = v2.fwd(pinputs, grid, s_cap, lean)
+    rest = [c for c in range(maps2.shape[0]) if c not in V1_M_PLANES]
+    same_ncon = bool(torch.equal(ncon1, ncon2))
+    rest_equal = bool(torch.equal(maps1[rest], maps2[rest]))
+    m_scale = float(maps2[V1_M_PLANES].abs().max())
+    m_err = float((maps1[V1_M_PLANES] - maps2[V1_M_PLANES]).abs().max())
+    g = cotangents()
+    d1 = v1.bwd(pinputs, maps1, ncon1, g, grid, s_cap, lean)
+    d2 = v2.bwd(pinputs, maps2, ncon2, g, grid, s_cap, lean)
+    errs, flip, _ = bwd_errors(*d1, *d2)
+    emit("v1_vs_v2", lean=lean, ncontrib_equal=same_ncon,
+         other_planes_equal=rest_equal, m_planes_max_abs_err=m_err,
+         m_planes_max=m_scale, m_tol=V1_M_TOL, bwd_rel_err=errs,
+         bwd_tol=V1_BWD_TOL, texture_flip_frac=flip, **where)
+    require(same_ncon and rest_equal and m_err <= V1_M_TOL * m_scale,
+            f"{where}: v1 and v2 forward differ (lean={lean}): ncontrib "
+            f"equal {same_ncon}, other planes equal {rest_equal}, reg/m1 "
+            f"{m_err} of {m_scale}")
+    require(max(errs.values()) <= V1_BWD_TOL and flip == 0.0,
+            f"{where}: v1 and v2 backward differ (lean={lean}): {errs}, "
+            f"flips {flip}")
+
+
 def check_pairs(dframe, note, **where):
-    """Both pair-space tiers on a dense frame's lists: each kernel against
-    its plain version, lean and full, and against the dense kernels.
-    Returns each kernel's plain ms in lean mode."""
+    """The pair-space tiers on a dense frame's lists: each kernel against
+    its plain version, lean and full; v3 and v2 against the dense kernels,
+    v1 against v2. Returns each kernel's plain ms in lean mode."""
     pinputs = pair_copies(dframe)
     emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
                                        for x in pinputs[:2]),
          slots=int(pinputs[2].sum()), s_max=dframe.cfg.s_max, **where)
     plain_ms = {}
-    for version in (3, 2):
+    for version in (3, 2, 1):
         tier = pair_tier(version)
         for lean in (True, False):
             checks = check_fwd_bwd(tier, pinputs, dframe.grid,
@@ -744,7 +822,11 @@ def check_pairs(dframe, note, **where):
             note(checks)
             if lean:
                 plain_ms.update({k: v[1] for k, v in checks.items()})
-            check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
+            if version == 1:
+                check_v1_vs_v2(pinputs, dframe.grid, dframe.cfg.s_max, lean,
+                               **where)
+            else:
+                check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
     return plain_ms
 
 
@@ -762,6 +844,236 @@ def time_kernels(frame, lean, **where):
                                                 lean), 20)}
     emit("timing", **{**where, "path": "kernels"}, lean=lean, kernel_ms=ms)
     return ms
+
+
+def recharted_state(cfg, optim, params, buffers, cam):
+    """A training state of ``params`` with the caps ``cam``'s view
+    demands, at step STEP and re-charted: at a scene-sized pad its active
+    charts grow past the init's 8x8. Returns the config with the caps and
+    the state."""
+    from gstex_torch.scripts import render as render_cli
+    from gstex_torch.train import step as train_step
+
+    with torch.no_grad():
+        pair_cap, s_cap = render_cli.demand_caps(cfg, params, buffers, [cam],
+                                                 STEP)
+    cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
+    state = train_step.init_state(cfg, optim, params, buffers, seed=0)
+    state.step = STEP
+    train_step.rechart_step(cfg, state)
+    return cfg, state
+
+
+def step_timing(step, counters, pixels):
+    """A training step timed whole on the host clock (median of 20, after a
+    warm-up) and traced over 5 more; the launches of ``counters`` per step
+    and the peak memory of those runs."""
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, lo, hi = host_ms(step)
+    per_step = {fn.__name__: fn.launches / 21 for fn in counters}
+    busy_ms, top, trace = device_ms(step, 5)
+    return dict(step_ms=step_ms, step_ms_min=lo, step_ms_max=hi,
+                trace_stage_ms=trace, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / step_ms, device_top_ms=top,
+                mpix_per_s=pixels / step_ms / 1e3, launches_per_step=per_step,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def pair_frame(cfg, params, buffers, cam):
+    """One view's dense lists as a training step makes them, the walk's
+    statistics, and the per-slot copies the pair-space kernels take."""
+    with torch.no_grad():
+        frame = Frame(cfg, params, buffers, cam, None, dense=True)
+        for stage in ("prepare", "cull_binning", "records"):
+            getattr(frame, stage)()
+        _, stats = frame.plain()
+        return frame, stats, pair_copies(frame)
+
+
+def time_pair_kernels(versions, p_in, frame, stats, lean, plain_ms):
+    """Each pair-space kernel of ``versions`` alone on a view's per-slot
+    copies (CUDA events, mean of 20) beside its plain version's ms and its
+    bound; and the copies' full-pad bytes."""
+    grid, s_cap = frame.grid, frame.cfg.s_max
+    g = cotangents(grid.height, grid.width)
+    out = {}
+    for version in versions:
+        tier = pair_tier(version)
+        _, fwd_name, bwd_name = tier.names
+        maps, ncon = tier.fwd(p_in, grid, s_cap, lean)
+        fwd_b, bwd_b, copies = pair_bounds(
+            p_in, frame.bins.ids, frame.buffers.texture_hw, grid, stats, ncon,
+            lean, V1_RESPONSE_FLOPS if version == 1 else RESPONSE_FLOPS)
+        out[fwd_name] = dict(
+            ms=cuda_ms(lambda: tier.fwd(p_in, grid, s_cap, lean), 20),
+            plain_ms=plain_ms[fwd_name], **fwd_b)
+        out[bwd_name] = dict(
+            ms=cuda_ms(lambda: tier.bwd(p_in, maps, ncon, g, grid, s_cap,
+                                        lean), 20),
+            plain_ms=plain_ms[bwd_name], **bwd_b)
+    return out, copies
+
+
+def dtu_main_path(root, counters):
+    """Phase 8: write a DTU-like nerfstudio capture from the trained scene
+    and train ``gstex-dtu-nvs --renderer pallas1`` on it from its seed ply,
+    through the CLI a user calls; fails the run unless the v1 kernels took
+    every step. Returns the launch counts of ``counters``."""
+    from gstex_torch.data.synthetic import write_nerfstudio_dataset
+    from gstex_torch.models import gstex as model
+    from gstex_torch.models import init_io
+    from gstex_torch.ops import rasterize_api
+    from gstex_torch.scripts import train as train_cli
+
+    cfg = model.GStexConfig(renderer="pallas", chart_pad=PAD,
+                            pair_cap=1 << 21, s_max=2048,
+                            background_color="black")
+    params, buffers = init_io.params_from_scene_stats(cfg, STATS, seed=0,
+                                                      device=DEVICE)
+    # texels 5x the loader's fills: the seed ply carries the surfels'
+    # geometry and dc colour, not their texture
+    params = params._replace(texture=GT_TEXEL_SCALE * params.texture)
+    t0 = time.perf_counter()
+    paths = write_nerfstudio_dataset(root / "dtu", cfg, params, buffers,
+                                     DTU_VIEWS, DTU_H, DTU_W)
+    write_s = time.perf_counter() - t0
+    del params, buffers
+    torch.cuda.empty_cache()
+
+    real_gather = rasterize_api.pair_inputs
+    gathered = []
+
+    def gather(records, texture, bins):
+        out = real_gather(records, texture, bins)
+        gathered.append(sum(x.numel() * x.element_size() for x in out[:2]))
+        return out
+    rasterize_api.pair_inputs = gather
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = train_cli.main([
+            "gstex-dtu-nvs", "--data", str(root / "dtu"), "--init-ply",
+            str(paths["init_ply"]), "--renderer", "pallas1",
+            "--max-num-iterations", str(TRAIN_STEPS), "--output-dir",
+            str(root / "run_dtu")])
+    finally:
+        rasterize_api.pair_inputs = real_gather
+    run_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    run_cfg = json.loads((root / "run_dtu" / "config.json").read_text())
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = (statistics.mean(losses[:10]),
+                   statistics.mean(losses[-10:]))
+    n_eval = (DTU_VIEWS + 7) // 8      # every 8th view, from the first
+    num_tiles = -(-DTU_H // 32) * -(-DTU_W // 32)
+    emit("main_path", path="train_dtu_pallas1", steps=len(hist),
+         dataset_seconds=write_s, seconds=run_s, launches=launches,
+         image_hw=[DTU_H, DTU_W], views=DTU_VIEWS, eval_views=n_eval,
+         chart_pad=run_cfg["model"]["chart_pad"],
+         renderer=run_cfg["model"]["renderer"],
+         num_gaussians=run_cfg["num_gaussians"],
+         # the demand-sized list length, from the pair buffer's size
+         s_max=max(gathered) // (4 * num_tiles * (
+             32 + 3 * DTU_PAD[0] * DTU_PAD[1])),
+         first10_loss=first, last10_loss=last,
+         losses=[round(x, 6) for x in losses[::10]],
+         psnr_first=hist[0]["psnr"], psnr_last=hist[-1]["psnr"],
+         max_overflow=max(h["overflow"] for h in hist),
+         max_total_pairs=max(h["total_pairs"] for h in hist),
+         pair_buffer_bytes=max(gathered),
+         pair_buffer_with_grad_bytes=2 * max(gathered),
+         gathers=len(gathered), eval=res["eval"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         checkpoint=Path(res["checkpoint"]).name)
+    require(tuple(run_cfg["model"]["chart_pad"]) == DTU_PAD,
+            f"dtu: the run's chart pad is {run_cfg['model']['chart_pad']}, "
+            f"not {DTU_PAD}")
+    require(len(hist) == TRAIN_STEPS, f"dtu: {len(hist)} steps")
+    own = ("rasterize_v1_fwd", "rasterize_v1_bwd",
+           "fused_ssim_value_and_grad")
+    require(all(launches[k] == TRAIN_STEPS for k in own),
+            f"dtu: kernels launched {launches} for {TRAIN_STEPS} steps")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in own and k != "rasterize_dense_eval"),
+            f"dtu: other training kernels ran: {launches}")
+    require(launches["rasterize_dense_eval"] == 1 + n_eval,
+            f"dtu: the dense eval kernel launched "
+            f"{launches['rasterize_dense_eval']} times, not {1 + n_eval}")
+    require(len(gathered) == TRAIN_STEPS, f"dtu: {len(gathered)} gathers")
+    require(all(h["overflow"] == 0 for h in hist), "dtu: a step overflowed")
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            "dtu: a loss is not finite")
+    require(last < first, f"dtu: the loss did not fall: {first} -> {last}")
+    require(res["eval"] is not None and res["eval"]["psnr"] > 10,
+            f"dtu: the eval pass read {res['eval']}")
+    require(Path(res["checkpoint"]).exists(), "dtu: no checkpoint")
+    return launches
+
+
+def dtu_step_timing(root, counters, smi, note):
+    """Phase 9 at the nerfstudio main path's shapes: a ``gstex-dtu-nvs``
+    state from phase 8's seed ply at its auto pad (40, 80), re-charted, on
+    the v1 tier: a training step on a train view with its mask, timed
+    whole and traced by stage; then on that view's per-slot copies the v1
+    kernels against their plain versions, lean and full, under phase 3's
+    gates (at 800x600 the bottom row of tiles is partial, and at (40, 80)
+    the backward adds the chart gradients in device memory, not shared
+    memory), and alone beside their bounds. Returns the kernels'
+    timings."""
+    from gstex_torch.configs.methods import get_method
+    from gstex_torch.data.manager import FullImageCache
+    from gstex_torch.data.nerfstudio_parser import parse_nerfstudio
+    from gstex_torch.models import gstex as model
+    from gstex_torch.models import init_io
+    from gstex_torch.train import step as train_step
+
+    method = get_method("gstex-dtu-nvs")
+    cfg = dataclasses.replace(method.model, renderer="pallas1")
+    raw = init_io.raw_from_gaussian_ply(root / "dtu" / "init.ply",
+                                        fix_init=cfg.fix_init, device=DEVICE)
+    params, buffers = model.init_params(cfg, *(raw[k] for k in (
+        "means", "log_scales", "quats", "opacity_logits", "features_dc",
+        "features_rest")))
+    cfg = dataclasses.replace(cfg, chart_pad=tuple(params.texture.shape[1:3]))
+    require(cfg.chart_pad == DTU_PAD,
+            f"dtu timing: chart pad {cfg.chart_pad}, not {DTU_PAD}")
+    views = FullImageCache.build(parse_nerfstudio(
+        root / "dtu", "train", downscale_factor=method.downscale_factor,
+        eval_mode=method.eval_mode, eval_interval=method.eval_interval),
+        device=DEVICE)
+    cam, img, mask = views.get(0)
+    cfg, state = recharted_state(cfg, method.optim, params, buffers, cam)
+    del params, buffers, raw
+    hw = state.buffers.texture_hw
+    lean = model.lean_losses(cfg)
+    charts = dict(chart_pad=list(cfg.chart_pad), lists="dense",
+                  max_active_hw=[int(x) for x in hw.amax(0)],
+                  image_hw=[cam.height, cam.width])
+    timing = step_timing(lambda: train_step.train_step(
+        cfg, method.optim, state, cam, img, mask), counters,
+        cam.height * cam.width)
+    emit("timing", path="train", scene="dtu_800x600", renderer="pallas1",
+         card=smi, **timing, lean=lean, pair_cap=cfg.pair_cap,
+         s_cap=cfg.s_max, **charts)
+    frame, stats, p_in = pair_frame(cfg, state.params, state.buffers, cam)
+    del state
+    torch.cuda.empty_cache()
+    plain_ms = {}
+    for mode in (True, False):
+        checks = check_fwd_bwd(pair_tier(1), p_in, frame.grid, cfg.s_max,
+                               mode, scene="dtu_800x600", **charts)
+        note(checks)
+        if mode == lean:
+            plain_ms = {k: v[1] for k, v in checks.items()}
+    kt, copies = time_pair_kernels((1,), p_in, frame, stats, lean, plain_ms)
+    emit("timing", path="pair_kernels", scene="dtu_800x600", card=smi,
+         lean=lean, kernels=kt, **copies, **charts)
+    return kt
 
 
 def subsample_stats(path, n, seed=0):
@@ -795,6 +1107,7 @@ def main():
     from gstex_torch.ops import rasterize_eval as reval
     from gstex_torch.ops import rasterize_api
     from gstex_torch.ops import rasterize_fwd as rfwd
+    from gstex_torch.ops import rasterize_v1 as rv1
     from gstex_torch.ops import rasterize_v2 as rv2
     from gstex_torch.ops import rasterize_v3 as rv3
     from gstex_torch.ops import ssim_fused
@@ -806,7 +1119,7 @@ def main():
 
     dense_src = list(dense_tier().names)
     pair_src = ["rasterize_v3_fwd", "rasterize_v3_bwd", "rasterize_v2_fwd",
-                "rasterize_v2_bwd"]
+                "rasterize_v2_bwd", "rasterize_v1_fwd", "rasterize_v1_bwd"]
     kernels_src = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
                    "ssim_fused"] + dense_src + pair_src
     assert not torch.backends.cudnn.allow_tf32
@@ -983,11 +1296,11 @@ def main():
         fn.launches = 0
     t0 = time.perf_counter()
     res = train_cli.main([
-        "gstex-blender-nvs", "--data", str(data), "--init-npz", str(STATS),
+        "gstex-blender-nvs", "--data", str(data), "--scene-npz", str(STATS),
         "--seed", "1", "--max-num-iterations", str(TRAIN_STEPS),
         "--output-dir", str(Path(tmp.name) / "run")])
     train_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in train_counters}
+    flat_launches = {fn.__name__: fn.launches for fn in train_counters}
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     first, last = (statistics.mean(losses[:10]),
@@ -995,7 +1308,7 @@ def main():
     run_cfg = json.loads((Path(tmp.name) / "run" / "config.json")
                          .read_text())
     emit("main_path", path="train", steps=len(hist), seconds=train_s,
-         launches=launches, chart_pad=run_cfg["model"]["chart_pad"],
+         launches=flat_launches, chart_pad=run_cfg["model"]["chart_pad"],
          pair_cap=run_cfg["model"]["pair_cap"],
          first10_loss=first, last10_loss=last,
          losses=[round(x, 6) for x in losses[::10]],
@@ -1004,8 +1317,9 @@ def main():
          max_total_pairs=max(h["total_pairs"] for h in hist),
          checkpoint=Path(res["checkpoint"]).name)
     require(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
-    require(all(v == TRAIN_STEPS for v in launches.values()),
-            f"training kernels launched {launches} for {TRAIN_STEPS} steps")
+    require(all(v == TRAIN_STEPS for v in flat_launches.values()),
+            f"training kernels launched {flat_launches} for {TRAIN_STEPS} "
+            f"steps")
     require(all(h["overflow"] == 0 for h in hist), "a step overflowed")
     require(all(x == x and abs(x) != float("inf") for x in losses),
             "a loss is not finite")
@@ -1024,7 +1338,7 @@ def main():
         fn.launches = 0
     t0 = time.perf_counter()
     res = train_cli.main([
-        "gstex-blender-nvs", "--data", str(data), "--init-npz", str(STATS),
+        "gstex-blender-nvs", "--data", str(data), "--scene-npz", str(STATS),
         "--seed", "1", "--pixel-num", str(DENSE_PIXEL_NUM),
         "--max-num-iterations", str(TRAIN_STEPS),
         "--output-dir", str(Path(tmp.name) / "run_dense")])
@@ -1089,7 +1403,8 @@ def main():
     # 7. the pair-space main path: the same command at a texel budget whose
     # charts the v3 and v2 kernels take, once through each
     pair_counters = (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd,
-                     rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd)
+                     rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd,
+                     rv1.rasterize_v1_fwd, rv1.rasterize_v1_bwd)
     all_counters = train_counters + dense_counters + pair_counters
     real_gather = rasterize_api.pair_inputs
     pair_launches = {}
@@ -1110,7 +1425,7 @@ def main():
         t0 = time.perf_counter()
         try:
             res = train_cli.main([
-                "gstex-blender-nvs", "--data", str(data), "--init-npz",
+                "gstex-blender-nvs", "--data", str(data), "--scene-npz",
                 str(STATS), "--seed", "1", "--pixel-num", str(PAIR_PIXEL_NUM),
                 "--renderer", renderer, "--max-num-iterations",
                 str(TRAIN_STEPS), "--output-dir",
@@ -1169,7 +1484,11 @@ def main():
         del res
         torch.cuda.empty_cache()
 
-    # 8. timing: an eval frame, then a training step
+    # 8. the nerfstudio main path: gstex-dtu-nvs on the v1 tier
+    dtu_launches = dtu_main_path(Path(tmp.name), all_counters)
+    torch.cuda.empty_cache()
+
+    # 9. timing: an eval frame, then a training step
     timings = {}
     with torch.no_grad():
         for name, (frame, stats) in frames.items():
@@ -1237,17 +1556,10 @@ def main():
                 f"{'dense' if dense else 'flat'} tier")
         tcam = make_camera(1.2 * H, 1.2 * H, W / 2, H / 2, H, W,
                            orbit_c2w(4.0, 0.0), device=DEVICE)
-        with torch.no_grad():
-            pair_cap, s_cap = render_cli.demand_caps(cfg, params, buffers,
-                                                     [tcam], STEP)
-        cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
-        state = train_step.init_state(cfg, method.optim, params, buffers,
-                                      seed=0)
+        cfg, state = recharted_state(cfg, method.optim, params, buffers,
+                                     tcam)
         del params, buffers
-        state.step = STEP
-        # a re-charted state: at a scene-sized pad its active charts grow
-        # past the init's 8x8
-        train_step.rechart_step(cfg, state)
+        pair_cap, s_cap = cfg.pair_cap, cfg.s_max
         hw = state.buffers.texture_hw
         charts = dict(chart_pad=list(cfg.chart_pad),
                       lists="dense" if dense else "flat",
@@ -1293,13 +1605,8 @@ def main():
                 time_kernels(f, lean, card=smi, **where)
             del dframe
 
-        def step():
-            return train_step.train_step(cfg, method.optim, state, tcam, img)
-        for fn in all_counters:
-            fn.launches = 0
-        step_ms, lo, hi = host_ms(step)
-        per_step = {fn.__name__: fn.launches / 21 for fn in all_counters}
-        busy_ms, top, trace = device_ms(step, 5)
+        timing = step_timing(lambda: train_step.train_step(
+            cfg, method.optim, state, tcam, img), all_counters, H * W)
         # each kernel alone on this view's inputs, beside its plain version
         flat_in = tier.flat(k_in)
         arrays = 1 if dense else 2
@@ -1319,14 +1626,8 @@ def main():
                 **bwd_bound(flat_in, tex_hw, grid, s_cap, ncon,
                             int(stats.blended), lean, list_arrays=arrays)),
         }
-        train_t[name] = dict(step_ms=step_ms, step_ms_min=lo, step_ms_max=hi,
-                             trace_stage_ms=trace, device_busy_ms=busy_ms,
-                             device_idle_share=1.0 - busy_ms / step_ms,
-                             device_top_ms=top,
-                             mpix_per_s=H * W / step_ms / 1e3,
-                             launches_per_step=per_step, lean=lean,
-                             pair_cap=pair_cap, s_cap=s_cap,
-                             total_pairs=frame.bins.total_pairs,
+        train_t[name] = dict(timing, lean=lean, pair_cap=pair_cap,
+                             s_cap=s_cap, total_pairs=frame.bins.total_pairs,
                              kernels=kt, **charts)
         emit("timing", path="train", scene=name, card=smi, **train_t[name])
         if dense:
@@ -1360,14 +1661,8 @@ def main():
         mcfg, pixel_num=PAIR_PIXEL_NUM), STATS)
     require(tuple(cfg.chart_pad) == PAIR_PAD,
             f"pixel_num {PAIR_PIXEL_NUM}: chart pad {cfg.chart_pad}")
-    with torch.no_grad():
-        pair_cap, s_cap = render_cli.demand_caps(cfg, params, buffers,
-                                                 [tcam], STEP)
-    cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
-    state = train_step.init_state(cfg, method.optim, params, buffers, seed=0)
+    cfg, state = recharted_state(cfg, method.optim, params, buffers, tcam)
     del params, buffers
-    state.step = STEP
-    train_step.rechart_step(cfg, state)
     # each renderer's steps start from their own copy of this state
     start = (model.GStexParams(*(p.detach().clone() for p in state.params)),
              state.buffers)
@@ -1375,33 +1670,15 @@ def main():
     hw = state.buffers.texture_hw
     charts = dict(chart_pad=list(cfg.chart_pad), lists="dense",
                   max_active_hw=[int(x) for x in hw.amax(0)])
-    with torch.no_grad():
-        frame = Frame(cfg, state.params, state.buffers, tcam, None,
-                      dense=True)
-        for stage in ("prepare", "cull_binning", "records"):
-            getattr(frame, stage)()
-        _, stats = frame.plain()
-        p_in = pair_copies(frame)
-    grid = frame.grid
-    for renderer in ("pallas3", "pallas2", "pallas4"):
+    frame, stats, p_in = pair_frame(cfg, state.params, state.buffers, tcam)
+    for renderer in ("pallas3", "pallas2", "pallas1", "pallas4"):
         rcfg = dataclasses.replace(cfg, renderer=renderer)
         r_state = train_step.init_state(cfg, method.optim, *start, seed=0)
         r_state.step = STEP
-
-        def step():
-            return train_step.train_step(rcfg, method.optim, r_state, tcam,
-                                         img)
-        for fn in all_counters:
-            fn.launches = 0
-        step_ms, lo, hi = host_ms(step)
-        per_step = {fn.__name__: fn.launches / 21 for fn in all_counters}
-        busy_ms, top, trace = device_ms(step, 5)
+        timing = step_timing(lambda: train_step.train_step(
+            rcfg, method.optim, r_state, tcam, img), all_counters, H * W)
         train_t[f"trained_scene_1e5_{renderer}"] = dict(
-            step_ms=step_ms, step_ms_min=lo, step_ms_max=hi,
-            trace_stage_ms=trace, device_busy_ms=busy_ms,
-            device_idle_share=1.0 - busy_ms / step_ms, device_top_ms=top,
-            mpix_per_s=H * W / step_ms / 1e3, launches_per_step=per_step,
-            lean=lean, pair_cap=pair_cap, s_cap=s_cap,
+            timing, lean=lean, pair_cap=cfg.pair_cap, s_cap=cfg.s_max,
             total_pairs=frame.bins.total_pairs, **charts)
         emit("timing", path="train", scene="trained_scene_1e5",
              renderer=renderer, card=smi,
@@ -1409,27 +1686,17 @@ def main():
     # each pair-space kernel alone on this view's copies, beside its plain
     # version (phase 3, the same scene and pad) and its bound; the dense
     # kernels on the same lists
-    pair_t = {}
-    g = cotangents()
-    for version in (3, 2):
-        tier = pair_tier(version)
-        _, fwd_name, bwd_name = tier.names
-        maps, ncon = tier.fwd(p_in, grid, s_cap, lean)
-        fwd_b, bwd_b, copies = pair_bounds(p_in, frame.bins.ids, hw, grid,
-                                           stats, ncon, lean)
-        pair_t[fwd_name] = dict(
-            ms=cuda_ms(lambda: tier.fwd(p_in, grid, s_cap, lean), 20),
-            plain_ms=pair_plain_ms[fwd_name], **fwd_b)
-        pair_t[bwd_name] = dict(
-            ms=cuda_ms(lambda: tier.bwd(p_in, maps, ncon, g, grid, s_cap,
-                                        lean), 20),
-            plain_ms=pair_plain_ms[bwd_name], **bwd_b)
+    pair_t, copies = time_pair_kernels((3, 2, 1), p_in, frame, stats, lean,
+                                       pair_plain_ms)
     dense_ms = time_kernels(frame, lean, card=smi, scene="trained_scene_1e5",
                             **charts)
     emit("timing", path="pair_kernels", scene="trained_scene_1e5", card=smi,
          lean=lean, kernels=pair_t, dense_kernel_ms=dense_ms, **copies,
          **charts)
-    del state, r_state, start, frame, p_in, maps, ncon
+    del state, r_state, start, frame, p_in
+    torch.cuda.empty_cache()
+    # the nerfstudio main path's shapes: pad (40, 80), 800x600, masks
+    dtu_t = dtu_step_timing(Path(tmp.name), all_counters, smi, note)
     torch.cuda.empty_cache()
     tmp.cleanup()
     # the SSIM kernel on phase 3's 800x800 pair, the training loss's shape;
@@ -1448,6 +1715,10 @@ def main():
     main_t = dict(train_t["trained_scene_stats"]["kernels"],
                   ssim_fused=ssim_t, **train_t["trained_scene_4e6"]["kernels"],
                   **pair_t)
+    # the v1 kernels at their main path's shapes: the nerfstudio view at
+    # (40, 80); their (16, 24) times stand on the trained_scene_1e5
+    # pair_kernels line beside v3's and v2's
+    main_t.update(dtu_t)
     kernels = [{
         "name": "rasterize_eval",
         "route": "cuda",
@@ -1465,11 +1736,11 @@ def main():
     # run that drove it)
     driven = {
         "rasterize_fwd": ("gstex_tpu/ops/rasterize_pallas5.py:140",
-                          launches["rasterize_fwd"]),
+                          flat_launches["rasterize_fwd"]),
         "rasterize_bwd": ("gstex_tpu/ops/rasterize_pallas5.py:561",
-                          launches["rasterize_bwd"]),
+                          flat_launches["rasterize_bwd"]),
         "ssim_fused": ("gstex_tpu/ops/ssim_fused.py:63",
-                       launches["fused_ssim_value_and_grad"]),
+                       flat_launches["fused_ssim_value_and_grad"]),
         "rasterize_dense_fwd": ("gstex_tpu/ops/rasterize_pallas4.py:215",
                                 dense_launches["rasterize_dense_fwd"]),
         "rasterize_dense_eval": ("gstex_tpu/ops/rasterize_pallas4.py:430",
@@ -1484,6 +1755,10 @@ def main():
                              pair_launches["pallas2"]["rasterize_v2_fwd"]),
         "rasterize_v2_bwd": ("gstex_tpu/ops/rasterize_pallas2.py:338",
                              pair_launches["pallas2"]["rasterize_v2_bwd"]),
+        "rasterize_v1_fwd": ("gstex_tpu/ops/rasterize_pallas.py:307",
+                             dtu_launches["rasterize_v1_fwd"]),
+        "rasterize_v1_bwd": ("gstex_tpu/ops/rasterize_pallas_bwd.py:42",
+                             dtu_launches["rasterize_v1_bwd"]),
     }
     for k, (where, n_launches) in driven.items():
         kernels.append({
@@ -1497,6 +1772,9 @@ def main():
             # plain version is five conv2d calls plus autograd)
             "library_ms": None,
         })
+    require(all(k["launches"] > 0 for k in kernels),
+            f"a kernel of the main paths never launched: "
+            f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

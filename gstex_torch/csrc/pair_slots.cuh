@@ -1,0 +1,95 @@
+// How the pair-space kernels (rasterize_v2_*.cu, rasterize_v1_*.cu) find a
+// tile's slots for the shared walk of tile_walk.cuh: slot k of tile t has
+// its own copy of its splat's record, at (t, k) of records_t (T, S, 32),
+// and of its chart, at (t, k) of charts_g (T, S, Ch, Cw, 3), and its own
+// rows of the pair-space gradients d_records_t and d_charts_g, which only
+// the tile's block writes. So the backward needs no atomics across blocks.
+
+#pragma once
+
+#include "tile_walk.cuh"
+
+namespace {
+
+// records staged per chunk (the TPU kernels' CHUNK is a layout choice of
+// theirs and is not carried over)
+constexpr int kPairChunk = 16;
+// shared memory a block may use
+constexpr size_t kSmemMax = 227 * 1024;
+
+struct PairSlots {
+  const float* tile_rec;
+  const float* tile_charts;
+  long long chw3;
+
+  __device__ PairSlots(const float* records_t, const float* charts_g,
+                       int ch, int cw, int s_max)
+      : chw3(static_cast<long long>(ch) * cw * 3) {
+    const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
+    tile_rec = records_t + slot0 * kRec;
+    tile_charts = charts_g + slot0 * chw3;
+  }
+  __device__ void stage(int base, int n, float* s_rec, int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads)
+      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
+  }
+  __device__ const float* chart(int, int k) const {
+    return tile_charts + static_cast<long long>(k) * chw3;
+  }
+};
+
+// The backward's slots: where the chunk's chart gradients fit beside the
+// planes they are summed in shared memory (s_dch) and stored once, else
+// added into the slot's own region of d_charts_g.
+struct PairGradSlots : PairSlots {
+  float* tile_drec;
+  float* tile_dcharts;
+  float* s_dch;  // the chunk's chart gradients in shared memory, or null
+
+  __device__ PairGradSlots(const float* records_t, const float* charts_g,
+                           float* d_records_t, float* d_charts_g, int ch,
+                           int cw, int s_max, float* staged)
+      : PairSlots(records_t, charts_g, ch, cw, s_max), s_dch(staged) {
+    const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
+    tile_drec = d_records_t + slot0 * kRec;
+    tile_dcharts = d_charts_g + slot0 * chw3;
+  }
+  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
+                        int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
+      s_drec[i] = 0.0f;
+    }
+    if (s_dch)
+      for (long long i = tid; i < n * chw3; i += kThreads) s_dch[i] = 0.0f;
+  }
+  // the slot's chart gradient: staged, or in its own region of d_charts_g
+  __device__ float* dchart(int s, int k) const {
+    return s_dch ? s_dch + s * chw3
+                 : tile_dcharts + static_cast<long long>(k) * chw3;
+  }
+  // the chunk's record and chart gradients, one plain store each
+  __device__ void end(int base, int n, const float* s_drec, int tid) const {
+    for (int i = tid; i < n * kRec; i += kThreads)
+      tile_drec[static_cast<long long>(base) * kRec + i] = s_drec[i];
+    if (s_dch)
+      for (long long i = tid; i < n * chw3; i += kThreads)
+        tile_dcharts[base * chw3 + i] = s_dch[i];
+  }
+};
+
+// Dynamic shared memory of a pair-space backward block: the kPlanes
+// per-pixel planes and, where they fit beside them, the chunk's chart
+// gradients (`stage`).
+inline size_t pair_bwd_smem(int tile_h, int tile_w, int ch, int cw,
+                            int* stage) {
+  const size_t planes =
+      static_cast<size_t>(kPlanes) * tile_h * tile_w * sizeof(float);
+  const size_t staged =
+      static_cast<size_t>(kPairChunk) * ch * cw * 3 * sizeof(float);
+  const size_t fixed = 2 * kPairChunk * kRec * sizeof(float) + 256;
+  *stage = planes + staged + fixed <= kSmemMax;
+  return planes + (*stage ? staged : 0);
+}
+
+}  // namespace

@@ -1,0 +1,74 @@
+// Training forward of the textured-surfel blend over the pair-space
+// inputs, in the v1 kernels' arithmetic: per (tile, slot) copies of the
+// records, records_t (T, S, 32), and of the charts, charts_g (T, S, Ch, Cw,
+// 3), with per-tile counts.
+//
+// Replaces: gstex_tpu/ops/rasterize_pallas.py, _fwd_kernel (launched by
+// rasterize_pallas_fwd). Computes img, tex, depth, alpha, the
+// camera-facing normal, the 2DGS distortion reg, the backward's residuals
+// t_final and m1 as fourteen (H, W) planes in CH_NAMES order, and ncontrib
+// (H, W): the slot at which T would fall to T_EPS (not blended), else S.
+// lean != 0 skips the normal and reg chains; their planes are zero.
+//
+// v1 is the serial walk of the v2 kernel (csrc/rasterize_v2_fwd.cu) with
+// its own rounding: the falloff is the larger of two exps, and the
+// distortion depth m = KFAC * (1 - NEAR / max(t, NEAR)) is a divide where
+// v2 multiplies by 1/t. So alpha, T, ncontrib and every plane but reg and
+// m1 are v2's to the bit; reg and m1 differ from v2's by about an ulp of
+// m. The TPU kernel's CHUNK of 4 splats, its (8, 128) pixel layout, its
+// texel fetch by a matmul against hat weights and its double-buffered
+// chart DMA are TPU layout and are not carried over.
+//
+// What bounds it on the H100: operations, as for the v2 and dense kernels
+// (~40 fp32 operations per (pixel, pair) response, ~90 per blend; v1's
+// second exp adds one per response). Bytes: each tile reads its own copy
+// of a chart (no sharing in L2), copies the gather wrote before it.
+//
+// What the design does about it: v2's, one block per tile, 256 threads
+// with 4 pixels each, a pixel's ray, T and sums in registers, 16 records a
+// chunk in shared memory, the tile's walk ends once no in-image pixel has
+// T > T_EPS. The walk is forward_tile in tile_walk.cuh with kV1 set; the
+// slots are pair_slots.cuh's.
+//
+// Precision: no --use_fast_math and --fmad=false, and true IEEE divides
+// (nvcc's -prec-div=true default): every operation rounds as the plain
+// version's (ops/rasterize_v1.py: ops/rasterize.py:forward_scan with v1's
+// arithmetic on the pair-space view) does, in the same per-pixel order.
+
+#include "pair_slots.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+rasterize_v1_fwd_kernel(const float* __restrict__ records_t,
+                        const float* __restrict__ charts_g,
+                        const int* __restrict__ counts,
+                        const float* __restrict__ cam_info,
+                        float* __restrict__ out, int* __restrict__ ncontrib,
+                        int ntx, int tile_h, int tile_w, int height,
+                        int width, int ch, int cw, int s_max, int lean) {
+  const PairSlots slots(records_t, charts_g, ch, cw, s_max);
+  forward_tile<kPairChunk, PairSlots, true>(slots, counts, cam_info, out,
+                                            ncontrib, ntx, tile_h, tile_w,
+                                            height, width, cw, s_max, lean);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Pointers are device pointers; `stream` is a
+// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+extern "C" int gstex_rasterize_v1_fwd(
+    const void* records_t, const void* charts_g, const void* counts,
+    const void* cam_info, void* out, void* ncontrib, int num_tiles, int ntx,
+    int tile_h, int tile_w, int height, int width, int ch, int cw, int s_max,
+    int lean, void* stream) {
+  if (num_tiles == 0) return 0;
+  rasterize_v1_fwd_kernel<<<num_tiles, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(records_t),
+      static_cast<const float*>(charts_g), static_cast<const int*>(counts),
+      static_cast<const float*>(cam_info), static_cast<float*>(out),
+      static_cast<int*>(ncontrib), ntx, tile_h, tile_w, height, width, ch, cw,
+      s_max, lean);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -25,35 +25,17 @@
 // 256 threads with 4 pixels each, a pixel's ray, T and sums in registers,
 // 16 records a chunk in shared memory (CHUNK of the TPU kernel), the
 // tile's walk ends once no in-image pixel has T > T_EPS. The walk is the
-// dense kernel's own code, forward_tile in tile_walk.cuh; this file says
-// how a slot finds its record and chart (its own copies).
+// dense kernel's own code, forward_tile in tile_walk.cuh; pair_slots.cuh
+// says how a slot finds its record and chart (its own copies).
 //
 // Precision: no --use_fast_math and --fmad=false; every operation rounds
 // as the plain version's (ops/rasterize_v2.py: the serial walk of
 // ops/rasterize.py:forward_scan on the pair-space view) does, in the same
 // per-pixel order.
 
-#include "tile_walk.cuh"
+#include "pair_slots.cuh"
 
 namespace {
-
-constexpr int kChunk = 16;
-
-// A tile's slot k has its own record and chart, at (tile, k) of the
-// pair-space copies.
-struct PairSlots {
-  const float* tile_rec;
-  const float* tile_charts;
-  long long chw3;
-
-  __device__ void stage(int base, int n, float* s_rec, int tid) const {
-    for (int i = tid; i < n * kRec; i += kThreads)
-      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
-  }
-  __device__ const float* chart(int, int k) const {
-    return tile_charts + static_cast<long long>(k) * chw3;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 rasterize_v2_fwd_kernel(const float* __restrict__ records_t,
@@ -63,12 +45,9 @@ rasterize_v2_fwd_kernel(const float* __restrict__ records_t,
                         float* __restrict__ out, int* __restrict__ ncontrib,
                         int ntx, int tile_h, int tile_w, int height,
                         int width, int ch, int cw, int s_max, int lean) {
-  const long long chw3 = static_cast<long long>(ch) * cw * 3;
-  const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
-  const PairSlots slots{records_t + slot0 * kRec, charts_g + slot0 * chw3,
-                        chw3};
-  forward_tile<kChunk>(slots, counts, cam_info, out, ncontrib, ntx, tile_h,
-                       tile_w, height, width, cw, s_max, lean);
+  const PairSlots slots(records_t, charts_g, ch, cw, s_max);
+  forward_tile<kPairChunk>(slots, counts, cam_info, out, ncontrib, ntx,
+                           tile_h, tile_w, height, width, cw, s_max, lean);
 }
 
 }  // namespace

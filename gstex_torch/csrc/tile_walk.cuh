@@ -1,12 +1,24 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
 // shared by the dense-list kernels (rasterize_dense_fwd.cu,
-// rasterize_dense_bwd.cu) and the v2 pair-space kernels
-// (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu). The two tiers compute the
-// same function and differ only in how a tile's slot finds its record and
-// chart (through TileBins.ids, or the slot's own copy) and where its
-// gradients go (added per gaussian with atomics, or stored per slot). Each
-// kernel file defines that as a `Slots` type and instantiates
-// `forward_tile` or `backward_tile` from its own __global__ function.
+// rasterize_dense_bwd.cu) and the v2 and v1 pair-space kernels
+// (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu, rasterize_v1_fwd.cu,
+// rasterize_v1_bwd.cu). The tiers compute the same function and differ
+// only in how a tile's slot finds its record and chart (through
+// TileBins.ids, or the slot's own copy) and where its gradients go (added
+// per gaussian with atomics, or stored per slot). Each kernel file defines
+// that as a `Slots` type and instantiates `forward_tile` or
+// `backward_tile` from its own __global__ function.
+//
+// kV1 selects the v1 kernels' arithmetic (gstex_tpu/ops/rasterize_pallas.py
+// and rasterize_pallas_bwd.py), which differs from the others' in rounding
+// only: the falloff as the larger of two exps (the surfel's, zero outside
+// the 3-sigma ellipse, and the screen low-pass's) where the others take
+// one exp of the larger argument; the distortion depth
+// m = KFAC * (1 - NEAR / max(t, NEAR)) by a divide where the others
+// multiply by 1/t = n.d / a_n; and in the backward the m chain
+// d_m * KFAC * NEAR / (tc * tc) and d_a_n = d_t / n.d by divides. With
+// kV1 false every operation is the one the dense and v2 kernels always
+// ran.
 //
 // forward_tile's Slots:
 //   void stage(int base, int n, float* s_rec, int tid): the records of
@@ -50,10 +62,44 @@ __constant__ int kFieldOf[kFields] = {0,  1,  2,  3,  4,  5,  6,
                                       7,  8,  9,  10, 11, 15, 19,
                                       20, 21, 22, 23, 24, 25};
 
+// The falloff g from the surfel's argument arg_s (-r2 / 2 inside the
+// 3-sigma ellipse, -1e30 outside) and the screen low-pass's arg_c: one exp
+// of the larger argument, or (v1) the larger of the two exps. `surf` says
+// whether the surfel's term is the max (v1: compared after the exps).
+template <bool kV1>
+__device__ __forceinline__ float falloff(float r2, float arg_s, float arg_c,
+                                         bool& surf) {
+  if constexpr (kV1) {
+    const float g_surf = r2 <= kExtent2 ? expf(-0.5f * r2) : 0.0f;
+    const float g_scr = expf(arg_c);
+    surf = g_surf >= g_scr;
+    return surf ? g_surf : g_scr;
+  } else {
+    surf = arg_s >= arg_c;
+    return expf(fmaxf(arg_s, arg_c));
+  }
+}
+
+// The distortion depth m(t) = KFAC * (1 - NEAR / max(t, NEAR)): by a
+// divide (v1), or with 1/t = n.d / a_n by a reciprocal and a multiply,
+// leaving 1 / max(t, NEAR) in invtc for the backward's m chain (v1's chain
+// divides instead and leaves invtc as it was).
+template <bool kV1>
+__device__ __forceinline__ float depth_map(float t, float safe_nd, float a_n,
+                                           float& invtc) {
+  if constexpr (kV1) {
+    return kKfac * (1.0f - kRegNear / fmaxf(t, kRegNear));
+  } else {
+    const float inv_t = safe_nd * (1.0f / a_n);
+    invtc = t >= kRegNear ? inv_t : kInvRegNear;
+    return kKfac * (1.0f - kRegNear * invtc);
+  }
+}
+
 // One block per tile, 256 threads with 4 pixels each; a pixel's ray, T and
 // sums stay in registers; the tile leaves its walk once no in-image pixel
 // has T > T_EPS. Writes the fourteen planes and ncontrib.
-template <int kChunk, class Slots>
+template <int kChunk, class Slots, bool kV1 = false>
 __device__ __forceinline__ void forward_tile(
     const Slots& slots, const int* __restrict__ counts,
     const float* __restrict__ cam_info, float* __restrict__ out,
@@ -126,7 +172,8 @@ __device__ __forceinline__ void forward_tile(
         const float dpx = gx[j] - r[24];
         const float dpy = gy[j] - r[25];
         const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
-        const float g = expf(fmaxf(arg_s, arg_c));
+        bool surf;
+        const float g = falloff<kV1>(r2, arg_s, arg_c, surf);
         float alpha = fminf(r[20] * g, kAlphaClamp);
         if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
         if (!(alpha > 0.0f)) continue;  // T * (1 - 0) == T, weight 0
@@ -164,9 +211,8 @@ __device__ __forceinline__ void forward_tile(
           }
           acc[6][j] = acc[6][j] + w * t;
           if (!lean) {
-            const float inv_t = safe_nd * (1.0f / r[3]);
-            const float invtc = t >= kRegNear ? inv_t : kInvRegNear;
-            const float m = kKfac * (1.0f - kRegNear * invtc);
+            float invtc;
+            const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
             const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
 #pragma unroll
             for (int c = 0; c < 3; ++c) acc[8 + c][j] = acc[8 + c][j] + r[c] * wfl;
@@ -216,7 +262,7 @@ __device__ __forceinline__ void forward_tile(
 // likewise in y). That is the TPU kernels' hat-function form everywhere but
 // where a sample sits exactly on a texel, which is handled apart: there the
 // derivative is two-sided, as theirs.
-template <int kChunk, class Slots>
+template <int kChunk, class Slots, bool kV1 = false>
 __device__ __forceinline__ void backward_tile(
     const Slots& slots, const int* __restrict__ counts,
     const float* __restrict__ cam_info, const float* __restrict__ maps,
@@ -313,7 +359,8 @@ __device__ __forceinline__ void backward_tile(
         const float dpx = gx[j] - r[24];
         const float dpy = gy[j] - r[25];
         const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
-        const float g = expf(fmaxf(arg_s, arg_c));
+        bool surf;
+        const float g = falloff<kV1>(r2, arg_s, arg_c, surf);
         const float opg = r[20] * g;
         float alpha = fminf(opg, kAlphaClamp);
         if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
@@ -328,9 +375,7 @@ __device__ __forceinline__ void backward_tile(
         float m = 0.0f, invtc = 0.0f, wm = 0.0f, big_a = 0.0f, big_c = 0.0f,
               d_m = 0.0f;
         if (!lean) {
-          const float inv_t = safe_nd * (1.0f / r[3]);
-          invtc = t >= kRegNear ? inv_t : kInvRegNear;
-          m = kKfac * (1.0f - kRegNear * invtc);
+          m = depth_map<kV1>(t, safe_nd, r[3], invtc);
           wm = w * m;
           big_a = gp[12 * pix] - w - E[j];
           big_c = gp[13 * pix] - wm - D[j];
@@ -435,7 +480,6 @@ __device__ __forceinline__ void backward_tile(
         const float dag = interior ? d_alpha : 0.0f;
         const float d_op = g * dag;
         const float d_g = r[20] * d_op;
-        const bool surf = arg_s >= arg_c;
         const float dgs = surf ? d_g : 0.0f;
         const float d_u = -u * dgs;
         const float d_v = -v_ * dgs;
@@ -447,12 +491,26 @@ __device__ __forceinline__ void backward_tile(
         const float d_uvv =
             (uvv_raw >= 0.0f && uvv_raw <= 1.0f) ? d_y * wf : 0.0f;
         float d_t = w * gp[6 * pix];
-        if (!lean)
-          d_t = d_t + (t >= kRegNear ? d_m * kKfacNear * invtc * invtc : 0.0f);
+        if (!lean) {
+          if constexpr (kV1) {
+            const float tc = fmaxf(t, kRegNear);
+            d_t = d_t + (t >= kRegNear ? d_m * kKfac * kRegNear / (tc * tc)
+                                       : 0.0f);
+          } else {
+            d_t = d_t +
+                  (t >= kRegNear ? d_m * kKfacNear * invtc * invtc : 0.0f);
+          }
+        }
         d_t = d_t + d_u * b1d + d_v * b2d;
         d_t = d_t + d_uvu * b1ud + d_uvv * b2ud;
-        const float d_an = d_t * (1.0f / safe_nd);
-        const float d_nd = fabsf(nd) >= 1e-9f ? -t * d_an : 0.0f;
+        float d_an, d_nd;
+        if constexpr (kV1) {
+          d_an = d_t / safe_nd;
+          d_nd = fabsf(nd) >= 1e-9f ? -t / safe_nd * d_t : 0.0f;
+        } else {
+          d_an = d_t * (1.0f / safe_nd);
+          d_nd = fabsf(nd) >= 1e-9f ? -t * d_an : 0.0f;
+        }
 
         float n0 = d_nd * d0[j], n1 = d_nd * d1[j], n2 = d_nd * d2[j];
         if (!lean) {

@@ -21,6 +21,9 @@ from .png import SIGNATURE, read_png
 
 @dataclass
 class ParsedDataset:
+    """A parsed split: the JAX package's ``ParsedDataset`` fields, and what
+    its nerfstudio parser sets on it (distortion, camera type)."""
+
     image_filenames: list
     c2ws: np.ndarray      # (M,3,4) float32
     fx: np.ndarray        # (M,)
@@ -29,6 +32,14 @@ class ParsedDataset:
     cy: np.ndarray
     heights: np.ndarray   # (M,) int
     widths: np.ndarray
+    points_xyz: np.ndarray | None = None   # (P,3) seed points
+    points_rgb: np.ndarray | None = None   # (P,3) 0-255
+    mask_filenames: list | None = None     # per-frame masks (or None)
+    # the pose normalization the parser applied (identity, 1 for Blender)
+    dataparser_transform: np.ndarray | None = None  # (3,4)
+    dataparser_scale: float = 1.0
+    distortion: np.ndarray | None = None   # (M,6) k1 k2 k3 k4 p1 p2, or 12
+    camera_type: str = "perspective"       # | fisheye | fisheye624 | ...
 
 
 def png_size(path) -> tuple[int, int]:
@@ -42,9 +53,13 @@ def png_size(path) -> tuple[int, int]:
 
 
 def load_image(path) -> np.ndarray:
-    """A PNG frame as float32 (H, W, C) in [0, 1] (RGBA stays RGBA; the
-    trainer composites it over the background)."""
-    return read_png(path).astype(np.float32) / 255.0
+    """A PNG frame as float32 (H, W, C) in [0, 1]: RGBA stays RGBA (the
+    trainer composites it over the background); grey and grey-alpha
+    become RGB, as PIL's ``convert("RGB")`` makes them."""
+    img = read_png(path)
+    if img.shape[-1] <= 2:
+        img = np.repeat(img[..., :1], 3, axis=-1)
+    return img.astype(np.float32) / 255.0
 
 
 def parse_blender(data_dir, split: str = "train",

@@ -1,5 +1,8 @@
 """8-bit PNG reading and writing with ``zlib`` and numpy (no image
-library): non-interlaced RGB and RGBA, all five row filters."""
+library): non-interlaced grey, grey-alpha, RGB and RGBA, all five row
+filters; and masks read as PIL's ``convert("L")`` reads them. Other image
+formats raise: the card's machine has no image library, and JPEG decoding
+is still to be ported (ROADMAP Queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -9,7 +12,9 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}   # PNG colour type -> samples per pixel
+# PNG colour type -> samples per pixel: grey, RGB, grey-alpha, RGBA
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 
 
 def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray,
@@ -43,10 +48,13 @@ def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray,
 
 
 def read_png(path) -> np.ndarray:
-    """An (H, W, C) uint8 array from an 8-bit, non-interlaced RGB or RGBA
-    PNG; anything else raises."""
+    """An (H, W, C) uint8 array from an 8-bit, non-interlaced grey (C 1),
+    grey-alpha (2), RGB (3) or RGBA (4) PNG; anything else raises."""
     with open(path, "rb") as f:
         data = f.read()
+    if data[:3] == JPEG_SIGNATURE:
+        raise ValueError(f"{path} is a JPEG image: the port reads PNG only "
+                         f"(JPEG decoding is ROADMAP Queue 1 item 10)")
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
     pos, header, idat = 8, None, []
@@ -65,9 +73,10 @@ def read_png(path) -> np.ndarray:
         raise ValueError(f"{path} has no IHDR chunk")
     width, height, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit non-interlaced RGB and RGBA "
-                         f"PNGs are read (bit depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace})")
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey, "
+                         f"grey-alpha, RGB and RGBA PNGs are read (bit depth "
+                         f"{depth}, colour type {ctype}, interlace "
+                         f"{interlace})")
     bpp = _CHANNELS[ctype]
     stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -83,11 +92,30 @@ def read_png(path) -> np.ndarray:
     return out.reshape(height, width, bpp)
 
 
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 grey levels of an (H, W, C) image as PIL's
+    ``convert("L")`` makes them: grey as it is (alpha dropped), colour by
+    the ITU-R 601 weights 299/587/114 per mille in PIL's fixed point."""
+    if img.shape[-1] <= 2:
+        return img[..., 0]
+    rgb = img[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def read_mask(path) -> np.ndarray:
+    """A binary (H, W) uint8 mask from a PNG: 1 where its grey level (as
+    ``to_grey``) is above 127."""
+    return (to_grey(read_png(path)) > 127).astype(np.uint8)
+
+
 def write_png(path, img: np.ndarray) -> None:
-    """Write an (H, W, 3) or (H, W, 4) uint8 image as an 8-bit RGB or RGBA
-    PNG (no row filters)."""
+    """Write an (H, W, C) uint8 image, C of 1 to 4, as an 8-bit grey,
+    grey-alpha, RGB or RGBA PNG (no row filters)."""
+    if img.ndim == 2:
+        img = img[..., None]
     h, w, c = img.shape
-    ctype = {3: 2, 4: 6}[c]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     img = np.ascontiguousarray(img, np.uint8)
     raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
 

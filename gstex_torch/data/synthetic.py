@@ -161,3 +161,101 @@ def write_blender_dataset(out_dir, cfg, params, buffers, views: int,
     meta = {"camera_angle_x": 2 * float(np.arctan(0.5 * width / focal)),
             "frames": frames}
     (out_dir / f"transforms_{split}.json").write_text(json.dumps(meta))
+
+
+def colmap_axes(xyz: np.ndarray) -> np.ndarray:
+    """Points in COLMAP axes: the inverse of ``ops.quat.fix_init_points``,
+    (x, y, z) -> (x, −z, y)."""
+    return np.stack([xyz[..., 0], -xyz[..., 2], xyz[..., 1]], -1)
+
+
+def colmap_rotation(quats: torch.Tensor) -> torch.Tensor:
+    """Rotations in COLMAP axes: the inverse of
+    ``ops.quat.fix_init_rotation``, rows (r0, r1, r2) -> (r0, −r2, r1)."""
+    from ..ops.quat import quat_to_rotmat, rotmat_to_quat
+
+    rm = quat_to_rotmat(quats)
+    return rotmat_to_quat(torch.stack([rm[..., 0, :], -rm[..., 2, :],
+                                       rm[..., 1, :]], dim=-2))
+
+
+def write_nerfstudio_dataset(out_dir, cfg, params, buffers, views: int,
+                             height: int, width: int, downscale: int = 2,
+                             dist: float = 4.0, step: int = 3000,
+                             masks: bool = True) -> dict:
+    """Render ``views`` orbit views of a scene with the eval path over a
+    black background and write them as a nerfstudio dataset, as COLMAP
+    processing leaves a DTU scan: ``transforms.json`` (OPENCV, zero
+    distortion, the intrinsics of a capture ``downscale`` times the
+    rendered size), the renders as RGB PNGs in ``images_<downscale>/``,
+    with ``masks`` the object masks (alpha > 0.5) as grey PNGs named by
+    each frame's ``mask_path``, and the scene's surfels in COLMAP axes:
+    ``points3D.ply`` (xyz and colour, the dataset's ``ply_file_path``) and
+    ``init.ply`` (a 2DGS gaussian ply for ``--init-ply``). The nerfstudio
+    methods' ``fix_init`` maps both back onto the scene. Returns the
+    paths written."""
+    import json
+    from pathlib import Path
+
+    from ..models import gstex as model
+    from ..ops.sh import sh_to_rgb
+    from ..utils.ply import write_ply
+    from .png import write_png
+
+    out_dir = Path(out_dir)
+    img_dir = out_dir / f"images_{downscale}"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    if masks:
+        (out_dir / "masks").mkdir(exist_ok=True)
+    dev = params.means.device
+    focal = 1.2 * max(height, width)
+    black = torch.zeros(3, device=dev)
+    frames = []
+    with torch.no_grad():
+        for i, az in enumerate(np.linspace(0, 2 * np.pi, views,
+                                           endpoint=False)):
+            c2w = orbit_c2w(dist, float(az))
+            cam = make_camera(focal, focal, width / 2, height / 2, height,
+                              width, c2w, device=dev)
+            out = model.render(cfg, params, buffers, cam, step, black,
+                               eval_only=True)
+            name = f"frame_{i:05d}.png"
+            write_png(img_dir / name,
+                      (out["rgb"] * 255 + 0.5).to(torch.uint8).cpu().numpy())
+            frame = {"file_path": f"images/{name}",
+                     "transform_matrix": np.concatenate(
+                         [c2w, [[0, 0, 0, 1]]]).tolist()}
+            if masks:
+                write_png(out_dir / "masks" / name, (
+                    (out["alpha"] > 0.5).to(torch.uint8) * 255).cpu().numpy())
+                frame["mask_path"] = f"masks/{name}"
+            frames.append(frame)
+    s = downscale
+    meta = {"camera_model": "OPENCV", "fl_x": s * focal, "fl_y": s * focal,
+            "cx": s * width / 2, "cy": s * height / 2, "w": s * width,
+            "h": s * height, "k1": 0.0, "k2": 0.0, "k3": 0.0, "k4": 0.0,
+            "p1": 0.0, "p2": 0.0, "ply_file_path": "points3D.ply",
+            "frames": frames}
+    (out_dir / "transforms.json").write_text(json.dumps(meta))
+
+    np_ = lambda x: x.detach().cpu().numpy()
+    xyz = colmap_axes(np_(params.means))
+    rgb = np.clip(np_(sh_to_rgb(params.features_dc)), 0, 1) * 255
+    write_ply(out_dir / "points3D.ply", {
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+    n = xyz.shape[0]
+    rest = np_(params.features_rest).transpose(0, 2, 1).reshape(n, -1)
+    quats = np_(colmap_rotation(params.quats))
+    fields = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
+    fields.update({f"f_dc_{c}": np_(params.features_dc)[:, c]
+                   for c in range(3)})
+    fields.update({f"f_rest_{j}": rest[:, j] for j in range(rest.shape[1])})
+    fields["opacity"] = np_(params.opacity_logits)[:, 0]
+    fields.update({f"scale_{j}": np_(params.log_scales)[:, j]
+                   for j in range(2)})
+    fields.update({f"rot_{j}": quats[:, j] for j in range(4)})
+    write_ply(out_dir / "init.ply", fields)
+    return {"transforms": out_dir / "transforms.json",
+            "points": out_dir / "points3D.ply",
+            "init_ply": out_dir / "init.ply"}

@@ -4,12 +4,13 @@
 Parameters are NamedTuples of tensors with the JAX package's field names
 and layouts, so one scene feeds both packages. ``render`` chooses among
 the flat pair-list kernels, the dense-list kernels (large chart pads,
-``renderer="pallas4"``), the pair-space v3 and v2 kernels (``"pallas3"``,
-``"pallas2"``), the pure-torch tier (``renderer="xla"``, the uv channels)
-and the per-pixel oracle, forward-only for serving (``eval_only=True``)
-and differentiable for training. The v1 kernels, the bf16 texel stream
-and the depth-estimated normal loss arrive with later slices of the port
-and raise ``NotImplementedError`` here, naming their ROADMAP item.
+``renderer="pallas4"``), the pair-space v3, v2 and v1 kernels
+(``"pallas3"``, ``"pallas2"``, ``"pallas1"``), the pure-torch tier
+(``renderer="xla"``, the uv channels) and the per-pixel oracle,
+forward-only for serving (``eval_only=True``) and differentiable for
+training. The bf16 texel stream and the
+depth-estimated normal loss arrive with later slices of the port and
+raise ``NotImplementedError`` here, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -94,16 +95,13 @@ class GStexConfig:
                         tile_w=self.tile_w)
 
 
-# kernel tiers of the JAX package that are still to be ported, by renderer
-# prefix
-UNPORTED_TIERS = {"pallas1": "11-12"}
 # renderers whose training render takes the pair-space kernels, by version
-PAIR_TIERS = {"pallas3": 3, "pallas2": 2}
+PAIR_TIERS = {"pallas3": 3, "pallas2": 2, "pallas1": 1}
 
 
 def kernel_version(renderer: str) -> int:
-    """The dense-list training kernels a renderer names: 3 and 2 for the
-    pair-space tiers (and their ``_interpret`` forms), else 4."""
+    """The dense-list training kernels a renderer names: 3, 2 and 1 for
+    the pair-space tiers (and their ``_interpret`` forms), else 4."""
     for prefix, version in PAIR_TIERS.items():
         if renderer.startswith(prefix):
             return version
@@ -345,10 +343,10 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     - ``"pallas"`` / ``"pallas5"``: the flat pair-list kernels where they
       take the chart pad (``use_flat_path``), else the dense-list kernels;
     - ``"pallas4"``: the dense-list kernels;
-    - ``"pallas3"`` / ``"pallas2"``: the dense lists, trained through the
-      pair-space v3 (chunk-scan) or v2 (serial) kernels; their
-      ``eval_only`` renders take the dense-list eval kernel, as the JAX
-      package's take its v4 eval kernel;
+    - ``"pallas3"`` / ``"pallas2"`` / ``"pallas1"``: the dense lists,
+      trained through the pair-space v3 (chunk-scan), v2 or v1 (serial)
+      kernels; their ``eval_only`` renders take the dense-list eval
+      kernel, as the JAX package's take its v4 eval kernel;
     - ``"xla"``: the pure-torch tile renderer, which also serves
       ``extra=True`` (the uv channels) for every kernel renderer;
     - ``"oracle"``: the per-pixel referee, with no binning.
@@ -363,11 +361,6 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     ``max_tile_count``.
     """
     renderer = cfg.renderer
-    for prefix, items in UNPORTED_TIERS.items():
-        if renderer.startswith(prefix):
-            raise NotImplementedError(
-                f"renderer={renderer!r}: the v{prefix[-1]} kernels are not "
-                f"ported yet: ROADMAP Queue 2 items {items}")
     if not (renderer in ("oracle", "xla") or renderer.startswith("pallas")):
         raise ValueError(f"unknown renderer {renderer!r}")
     if cfg.texel_dtype == "bf16":

@@ -1,10 +1,17 @@
 """Scene sources for the port (counterpart of
-``gstex_tpu/models/init_io.py`` ``params_from_export_npz`` and
-``params_from_scene_stats``).
+``gstex_tpu/models/init_io.py``): the init paths of
+``GStexModel.populate_modules`` (reference ``nerfstudio/models/gstex.py:
+241-377``) as raw (pre-activation) parameter dicts for
+``models.gstex.init_params``: a pre-trained 2DGS ply
+(``raw_from_gaussian_ply``), a point npz (``raw_from_npz``), seed points
+from a dataset, a LOD ply or a point cloud (``raw_from_points``), random
+points (``raw_random``); and whole scenes with their charts from the
+port's own dumps (``params_from_export_npz``, ``params_from_scene_stats``,
+``load_scene_npz``).
 
-Random fills use a ``torch.Generator`` seeded from ``seed``: the values
-differ from the JAX package's ``jax.random`` fills, which are
-timing-neutral placeholders there too.
+Random draws use an explicit ``torch.Generator`` where the JAX package
+takes a key: the values differ from ``jax.random``'s. Seed-point init
+draws only the rotations, which a caller may pass in instead.
 """
 
 from __future__ import annotations
@@ -12,8 +19,117 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quat import fix_init_points, fix_init_rotation, random_quats
+from ..ops.sh import num_sh_bases, rgb_to_sh
+from ..utils import ply as ply_io
 from ..utils.device import resolve_device
 from . import gstex as model
+
+
+def knn_mean_dist(points: torch.Tensor, k: int = 3,
+                  chunk: int = 2048) -> torch.Tensor:
+    """Mean distance of each point to its k nearest neighbours (itself
+    left out): the scale init of ``k_nearest_sklearn`` (reference
+    ``gstex.py:285-288,775-793``), by brute force in chunks of queries
+    with ``torch.topk``, on the points' device."""
+    pts = points.to(torch.float32)
+    n = pts.shape[0]
+    k_eff = min(k, max(n - 1, 1))
+    out = []
+    for i in range(0, n, chunk):
+        q = pts[i:i + chunk]
+        d2 = ((q[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+        # the k+1 smallest (the zero self-distance among them), self dropped
+        near, _ = torch.topk(d2, k_eff + 1, dim=1, largest=False)
+        out.append(torch.sqrt(torch.clamp(near[:, 1:], min=0.0)).mean(-1))
+    return torch.cat(out) if out else pts.new_zeros((0,))
+
+
+def _f32(a, dev) -> torch.Tensor:
+    """An array or tensor as float32 on ``dev``."""
+    if torch.is_tensor(a):
+        return a.to(device=dev, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def raw_from_points(points, colors_255, sh_degree: int = 3,
+                    generator: torch.Generator | None = None, opacity=None,
+                    scales=None, quats=None, fix_init_pts: bool = False,
+                    device=None) -> dict:
+    """Seed-point init (reference ``gstex.py:278-331``): log-scales from
+    the 3-NN mean distance, opacity logit(0.1), uniform random rotations
+    drawn with ``generator`` (or ``quats`` as given), dc = RGB2SH(colour /
+    255), the rest of the SH zero. ``fix_init_pts`` maps COLMAP axes to
+    the model's (``fix_init_points``). A dict of tensors on ``device``."""
+    dev = resolve_device(device)
+    pts = _f32(points, dev)
+    if fix_init_pts:
+        pts = fix_init_points(pts)
+    n = pts.shape[0]
+    if scales is None:
+        avg = knn_mean_dist(pts)
+        scales = torch.log(torch.clamp(avg, min=1e-7))[:, None].repeat(1, 2)
+    if quats is None:
+        quats = random_quats(n, generator, device=dev)
+    if opacity is None:
+        opacity = np.full((n, 1), np.log(0.1 / 0.9), np.float32)
+    return {
+        "means": pts,
+        "log_scales": _f32(scales, dev),
+        "quats": _f32(quats, dev),
+        "opacity_logits": _f32(opacity, dev).reshape(n, 1),
+        "features_dc": rgb_to_sh(_f32(colors_255, dev) / 255.0),
+        "features_rest": torch.zeros((n, num_sh_bases(sh_degree) - 1, 3),
+                                     device=dev),
+    }
+
+
+def raw_from_gaussian_ply(path, sh_degree: int = 3, fix_init: bool = False,
+                          device=None) -> dict:
+    """A 2DGS gaussian ply as a raw parameter dict (``load_ply``, reference
+    ``gstex.py:608-665``); ``fix_init`` maps COLMAP axes to the model's,
+    means and rotations."""
+    dev = resolve_device(device)
+    g = {k: _f32(v, dev) for k, v in
+         ply_io.read_gaussian_ply(path, sh_degree).items()}
+    means, quats = g["means"], g["quats"]
+    if fix_init:
+        means = fix_init_points(means)
+        quats = fix_init_rotation(quats)
+    return {
+        "means": means,
+        "log_scales": g["scales"][:, :2],
+        "quats": quats,
+        "opacity_logits": g["opacity"],
+        "features_dc": g["features_dc"],
+        "features_rest": g["features_rest"],
+    }
+
+
+def raw_from_npz(path, sh_degree: int = 3, device=None) -> dict:
+    """A point npz with ``xyz``, ``colors`` (0-1), ``opacity``, ``scaling``
+    and ``rotation`` (reference ``gstex.py:261-270``): every field given,
+    nothing drawn."""
+    with np.load(path, allow_pickle=True) as d:
+        d = dict(d)
+    colors = np.clip(255.0 * d["colors"], 1.0, 254.0)
+    return raw_from_points(d["xyz"], colors, sh_degree=sh_degree,
+                           opacity=d["opacity"], scales=d["scaling"][:, :2],
+                           quats=d["rotation"], device=device)
+
+
+def raw_random(num: int, scale: float = 2.0, sh_degree: int = 3,
+               generator: torch.Generator | None = None,
+               device=None) -> dict:
+    """Random init (reference ``gstex.py:281,299-301,330``): ``num`` points
+    uniform in a cube of side ``scale`` with uniform colours and random
+    rotations, all drawn with ``generator``."""
+    dev = resolve_device(device)
+    points = (torch.rand((num, 3), generator=generator, device=dev)
+              - 0.5) * scale
+    colors = 255.0 * torch.rand((num, 3), generator=generator, device=dev)
+    return raw_from_points(points, colors, sh_degree=sh_degree,
+                           generator=generator, device=dev)
 
 
 def _chart_pad(cfg, hw, log_scales):

@@ -1,4 +1,4 @@
-"""The pair-space inputs of the v2 and v3 kernels: every (tile, slot) of
+"""The pair-space inputs of the v3, v2 and v1 kernels: every (tile, slot) of
 the dense lists gets its own copy of its splat's record and chart.
 
 Counterpart of ``gstex_tpu/ops/rasterize_pallas.py`` ``PallasInputs`` /
@@ -14,7 +14,7 @@ package. The pair buffer and its gradient take ``2 · T · s_max · Ch · Cw
 · 12`` bytes; the dense-list kernels (``ops/rasterize_dense.py``) have no
 such buffer.
 
-Also here, what the v3 and v2 wrappers share: their input checks and
+Also here, what the v3, v2 and v1 wrappers share: their input checks and
 their launches.
 """
 
@@ -80,7 +80,7 @@ def pair_inputs(records: torch.Tensor, texture: torch.Tensor,
 
 def check_inputs(version: int, records_t, charts_g, counts, cam_info,
                  grid: TileGrid) -> None:
-    """Raise on inputs the v2 or v3 kernels do not take."""
+    """Raise on inputs the v3, v2 or v1 kernels do not take."""
     check_pair_shapes(version, charts_g.shape[2:4], grid)
     dev = records_t.device
     if records_t.dim() != 3 or records_t.shape[0] != grid.num_tiles \

@@ -60,14 +60,15 @@ def flat_view(ids: torch.Tensor, counts: torch.Tensor):
 
 
 def forward_scan(records, ids, counts, charts, cam_info, grid: TileGrid,
-                 lean: bool = False, extra: bool = False):
+                 lean: bool = False, extra: bool = False, v1: bool = False):
     """Front-to-back blend over the dense lists: the ``(14, H, W)`` maps in
     ``rasterize_fwd.CH_NAMES`` order (plus three ``uv`` planes with
     ``extra``) and ncontrib ``(H, W)`` int32, which is ``s_max`` where a
-    pixel's walk never broke."""
+    pixel's walk never broke. ``v1`` takes the v1 kernels' arithmetic
+    (``rasterize_fwd.response``)."""
     maps, ncon, _ = forward_walk(records, *flat_view(ids, counts), charts,
                                  cam_info, grid, ids.shape[1], lean=lean,
-                                 extra=extra)
+                                 extra=extra, v1=v1)
     return maps, ncon
 
 
@@ -115,13 +116,14 @@ def _hat_fetch(charts_flat, gid, ch, cw, r, uvu_raw, uvv_raw):
 
 
 def backward_walk(records, ids, counts, charts, cam_info, maps, ncontrib,
-                  gmaps, grid: TileGrid, lean: bool = False):
+                  gmaps, grid: TileGrid, lean: bool = False,
+                  v1: bool = False):
     """Gradients of the first 12 maps of ``forward_scan`` under the
     cotangents ``gmaps`` (12, H, W): ``(d_records (N, 32), d_charts (N, Ch,
     Cw, 3))``. One rank per step from each tile's ``min(count, max
     ncontrib + 1)`` down, over the tiles that still walk. ``lean`` leaves
     out the normal and reg terms, as the lean forward leaves out their
-    maps."""
+    maps; ``v1`` pulls back the v1 kernels' arithmetic."""
     dev = records.device
     n = records.shape[0]
     ch, cw = charts.shape[1], charts.shape[2]
@@ -149,7 +151,8 @@ def backward_walk(records, ids, counts, charts, cam_info, maps, ncontrib,
         r = records[gid].requires_grad_(True)                      # (A, F)
         with torch.enable_grad():
             rr = r[:, :, None]
-            resp = response(rr, [d[act] for d in dirs], gx[act], gy[act])
+            resp = response(rr, [d[act] for d in dirs], gx[act], gy[act],
+                            v1=v1)
             tex, tidx, texels = _hat_fetch(charts_flat, gid, ch, cw, rr,
                                            resp["uvu_raw"], resp["uvv_raw"])
             n_eff = rr[:, 0:3] * resp["flip"][:, None]             # (A, 3, P)

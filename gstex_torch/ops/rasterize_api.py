@@ -2,7 +2,7 @@
 ``gstex_tpu/ops/rasterize_pallas_api.py``): the flat pair-list path
 (``rasterize_pl5``, ``rasterize_pl5_eval``), the dense-list path
 (``rasterize_pl``, ``rasterize_pl_eval``; ``rasterize_pl`` also trains on
-the pair-space v3 and v2 kernels over the same lists) and the rule that
+the pair-space v3, v2 and v1 kernels over the same lists) and the rule that
 chooses between flat and dense (``use_flat_path``,
 ``dense_pallas_fits``)."""
 
@@ -20,6 +20,7 @@ from .rasterize_dense import (rasterize_dense_bwd, rasterize_dense_eval,
                               rasterize_dense_fwd)
 from .rasterize_eval import rasterize_eval
 from .rasterize_fwd import MAX_TILE_PIXELS, NG, rasterize_fwd
+from .rasterize_v1 import rasterize_v1_bwd, rasterize_v1_fwd
 from .rasterize_v2 import rasterize_v2_bwd, rasterize_v2_fwd
 from .rasterize_v3 import rasterize_v3_bwd, rasterize_v3_fwd
 from .records import assemble_records, cam_info
@@ -188,21 +189,20 @@ class _Rasterize4(torch.autograd.Function):
         return d_rec, d_ch, None, None, None, None, None
 
 
-def _pair_impls(version: int):
-    if version == 3:
-        return rasterize_v3_fwd, rasterize_v3_bwd
-    return rasterize_v2_fwd, rasterize_v2_bwd
+_PAIR_IMPLS = {3: (rasterize_v3_fwd, rasterize_v3_bwd),
+               2: (rasterize_v2_fwd, rasterize_v2_bwd),
+               1: (rasterize_v1_fwd, rasterize_v1_bwd)}
 
 
 class _RasterizePairs(torch.autograd.Function):
     """(records_t, charts_g) -> (14, H, W) maps, ncontrib over the
-    pair-space inputs, by the v3 or v2 kernels; the backward returns their
+    pair-space inputs, by the v3, v2 or v1 kernels; the backward returns their
     pair-space gradients, which autograd reduces through the gathers of
     ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``)."""
 
     @staticmethod
     def forward(ctx, records_t, charts_g, counts, info, grid, version, lean):
-        fwd, _ = _pair_impls(version)
+        fwd, _ = _PAIR_IMPLS[version]
         maps, ncon = fwd(records_t, charts_g, counts, info, grid, lean=lean)
         ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon)
         ctx.grid, ctx.version, ctx.lean = grid, version, lean
@@ -212,7 +212,7 @@ class _RasterizePairs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_maps, g_ncon):
         records_t, charts_g, counts, info, maps, ncon = ctx.saved_tensors
-        _, bwd = _pair_impls(ctx.version)
+        _, bwd = _PAIR_IMPLS[ctx.version]
         d_rec, d_ch = bwd(records_t, charts_g, counts, info, maps, ncon,
                           g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean)
         return d_rec, d_ch, None, None, None, None, None
@@ -225,13 +225,10 @@ def rasterize_pl(geom: SplatGeom, texture: torch.Tensor,
     """Dense-path training render, differentiable in ``geom`` and
     ``texture``; same outputs as ``rasterize.rasterize`` (and ``rgb``,
     given a ``background``). ``lean`` as in ``rasterize_pl5``.
-    ``version`` 4 runs the dense-list kernels; 3 and 2 the pair-space
+    ``version`` 4 runs the dense-list kernels; 3, 2 and 1 the pair-space
     kernels on per-slot copies of the records and charts (32x32 tiles;
-    charts of at most 40 and 42 rows); 1 is not ported yet."""
-    if version == 1:
-        raise NotImplementedError(
-            "the v1 kernels are not ported yet: ROADMAP Queue 2 items 11-12")
-    if version not in (2, 3, 4):
+    charts of at most 40, 42 and 42 rows)."""
+    if version not in (1, 2, 3, 4):
         raise ValueError(f"unknown kernel version {version}")
     if version != 4:
         check_pair_shapes(version, texture.shape[1:3], grid)

@@ -116,7 +116,7 @@ def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
         raise ValueError("s_cap must be >= 0")
 
 
-def response(r, dirs, gx, gy) -> dict:
+def response(r, dirs, gx, gy, v1: bool = False) -> dict:
     """One splat's response at a batch of pixels, in the kernels'
     arithmetic and order.
 
@@ -125,6 +125,13 @@ def response(r, dirs, gx, gy) -> dict:
     ``gy`` the pixel coordinates. ``m`` is the distortion depth map
     ``surfel.reg_depth_map(t)`` written as the kernels compute it: 1/t is
     ``n·d / a_n``.
+
+    ``v1`` takes the v1 kernels' arithmetic, which differs in rounding
+    only: the falloff ``g`` as the larger of two exps (the surfel's, zero
+    outside the 3σ ellipse, and the screen low-pass's) and ``m`` =
+    KFAC·(1 − NEAR / max(t, NEAR)) by a divide. Differentiated by
+    autograd, as ``rasterize.backward_walk`` does, it also gives v1's
+    divides in the gradient: the m chain's KFAC·NEAR/tc² and d_t / n·d.
     """
     d0, d1, d2 = dirs
 
@@ -144,21 +151,36 @@ def response(r, dirs, gx, gy) -> dict:
     dpx = gx - r[:, 24]
     dpy = gy - r[:, 25]
     arg_c = (-0.5 / AA_SIGMA2) * (dpx * dpx + dpy * dpy)
-    g = torch.exp(torch.maximum(arg_s, arg_c))
+    if v1:
+        g_surf = torch.where(r2 <= EXTENT_SIGMA * EXTENT_SIGMA,
+                             torch.exp(-0.5 * r2), 0.0)
+        g_scr = torch.exp(arg_c)
+        # the larger term takes the whole gradient, ties the surfel's
+        g = torch.where(g_surf >= g_scr, g_surf, g_scr)
+    else:
+        g = torch.exp(torch.maximum(arg_s, arg_c))
     opg = r[:, 20] * g
     alpha = torch.clamp(opg, max=ALPHA_CLAMP)
     alpha = torch.where((alpha < ALPHA_CUTOFF) | ~(t > 1e-6), 0.0, alpha)
     b1ud = dot(12)
     b2ud = dot(16)
-    inv_t = safe_nd * (1.0 / r[:, 3])
-    invtc = torch.where(t >= REG_NEAR, inv_t, 1.0 / REG_NEAR)
+    if v1:
+        # a tensor numerator: ``scalar / tensor`` is a reciprocal times
+        # the scalar in torch, not a divide
+        invtc = None
+        near = torch.full_like(t, REG_NEAR)
+        m = KFAC * (1.0 - near / torch.clamp(t, min=REG_NEAR))
+    else:
+        inv_t = safe_nd * (1.0 / r[:, 3])
+        invtc = torch.where(t >= REG_NEAR, inv_t, 1.0 / REG_NEAR)
+        m = KFAC * (1.0 - REG_NEAR * invtc)
     return {
         "nd": nd, "safe_nd": safe_nd, "t": t, "b1d": b1d, "b2d": b2d,
         "u": u, "v": v, "arg_s": arg_s, "arg_c": arg_c, "dpx": dpx,
         "dpy": dpy, "g": g, "opg": opg, "alpha": alpha, "b1ud": b1ud,
         "b2ud": b2ud, "uvu_raw": 0.5 + r[:, 15] + t * b1ud,
         "uvv_raw": 0.5 + r[:, 19] + t * b2ud, "invtc": invtc,
-        "m": KFAC * (1.0 - REG_NEAR * invtc),
+        "m": m,
         "flip": torch.where(nd > 0.0, -1.0, 1.0),
     }
 
@@ -199,7 +221,7 @@ def untile(acc: torch.Tensor, grid: TileGrid) -> torch.Tensor:
 
 def forward_walk(records, gids, starts, counts, charts, cam_info,
                  grid: TileGrid, s_cap: int, lean: bool = False,
-                 chunk: int = 16, extra: bool = False):
+                 chunk: int = 16, extra: bool = False, v1: bool = False):
     """The plain forward walk, vectorized over all tiles: slot rank
     0..min(count, s_cap) in chunks on (tiles, pixels) tensors, in the
     kernels' per-pixel order and arithmetic. Returns the (14, H, W) maps,
@@ -207,7 +229,8 @@ def forward_walk(records, gids, starts, counts, charts, cam_info,
     walk needed (the rank after which no in-image pixel had T > T_EPS,
     else the clamped count), and the counts of responses and blends.
     ``extra=True`` appends the three planes of the ``uv`` visualization
-    map, Σ w·(u, v, 0.5) with the chart coordinates clamped to [0, 1]."""
+    map, Σ w·(u, v, 0.5) with the chart coordinates clamped to [0, 1].
+    ``v1`` takes the v1 kernels' arithmetic (``response``)."""
     dev = records.device
     nt = grid.num_tiles
     pix = grid.tile_h * grid.tile_w
@@ -245,7 +268,7 @@ def forward_walk(records, gids, starts, counts, charts, cam_info,
         for j in range(chunk):
             r = rec[:, j, :, None]                                 # (A, F, 1)
             alive = ins & (Ta > T_EPS) & valid[:, j, None]
-            resp = response(r, da, gxa, gya)
+            resp = response(r, da, gxa, gya, v1=v1)
             alpha = torch.where(alive, resp["alpha"], 0.0)
             t_new = Ta * (1.0 - alpha)
             applied = (alpha > 0) & (t_new > T_EPS)

@@ -13,9 +13,9 @@ Pair capacities are sized from one demand pass over every camera
 (``settle_caps``), so no frame overflows. ``--renderer`` names the tier
 (``models.gstex.render``): the default ``pallas`` takes the flat kernels
 where they fit the scene's chart pad and the dense-list kernels otherwise;
-``pallas4`` the dense-list kernels, as do ``pallas3`` and ``pallas2``
-(their pair-space kernels train; a frame takes the dense-list eval
-kernel); ``xla`` the pure-torch tier.
+``pallas4`` the dense-list kernels, as do ``pallas3``, ``pallas2`` and
+``pallas1`` (their pair-space kernels train; a frame takes the
+dense-list eval kernel); ``xla`` the pure-torch tier.
 
     python -m gstex_torch.scripts.render spiral \\
         --scene-npz assets/trained_scene_stats.npz --frames 8
@@ -124,8 +124,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--renderer", default="pallas",
                    help="render tier: pallas (flat kernels where they fit "
                         "the chart pad, else dense), pallas4, pallas3, "
-                        "pallas2 (dense-list eval kernel), xla (pure "
-                        "torch), oracle")
+                        "pallas2, pallas1 (dense-list eval kernel), xla "
+                        "(pure torch), oracle")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)

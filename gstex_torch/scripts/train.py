@@ -1,36 +1,45 @@
-"""gstex-torch-train: train a GStex method on a Blender-format dataset.
+"""gstex-torch-train: train a GStex method on a Blender or nerfstudio
+dataset.
 
-The counterpart of ``gstex-train`` for the port. The scene starts from
-``--init-npz``, a gstex-npz export or a trained-scene-statistics file
-(``models/init_io.py:load_scene_npz``; ``--seed`` seeds its random
-fills). Pair capacities are sized from the first view's measured demand.
-The run writes ``config.json``, ``metrics.jsonl`` and a checkpoint under
-``--output-dir``, and, where the dataset has a test split, prints the
-mean eval PSNR and SSIM.
+The counterpart of ``gstex-train`` for the port. The method names the
+dataparser: ``transforms_<split>.json`` for the Blender methods, a
+nerfstudio ``transforms.json`` (COLMAP captures such as DTU, images
+downscaled by 2 from ``images_2/``, masks where the frames name them) for
+``gstex-colmap-init``, ``gstex-dtu-nvs`` and ``gstex-dtu-lod``. The scene
+starts, as in ``gstex-train`` and in its order, from ``--init-ply`` (a
+2DGS gaussian ply), ``--init-npz`` (a point npz: xyz, colors, opacity,
+scaling, rotation), ``--init-lod-ply`` (an xyz + rgb point ply),
+``--init-pcd`` (a point cloud), the dataset's seed points, or
+``--num-random`` random points; the nerfstudio methods map COLMAP axes to
+the model's (``fix_init``). ``--scene-npz`` instead loads a whole scene
+with its charts: a gstex-npz export or a trained-scene-statistics file
+(``models/init_io.py:load_scene_npz``). ``--seed`` seeds every random
+draw. Pair capacities are sized from the first view's measured demand
+unless ``--set`` pins them. The run writes ``config.json``,
+``metrics.jsonl`` and a checkpoint under ``--output-dir``, and, where the
+dataset has an eval split, prints the mean eval PSNR and SSIM.
+
+    python -m gstex_torch.scripts.train gstex-dtu-nvs \\
+        --data DTU_SCAN_DIR --init-ply DTU_SCAN_DIR/init.ply
 
     python -m gstex_torch.scripts.train gstex-blender-nvs \\
-        --data DATA_DIR --init-npz assets/trained_scene_stats.npz
+        --data DATA_DIR --scene-npz assets/trained_scene_stats.npz
 
 ``--renderer`` overrides the method's render tier (``pallas``: the flat
 kernels where they fit the scene's chart pad, the dense-list kernels
-otherwise; ``pallas4``: the dense-list kernels; ``pallas3``, ``pallas2``:
-the pair-space v3 and v2 kernels over the dense lists, for charts of at
-most 40 and 42 rows; ``xla``: pure torch). A large texel budget makes
-large charts, which train on the dense tier:
+otherwise; ``pallas4``: the dense-list kernels; ``pallas3``, ``pallas2``,
+``pallas1``: the pair-space v3, v2 and v1 kernels over the dense lists,
+for charts of at most 40, 42 and 42 rows, whose per-slot chart copies
+cost ``2 · tiles · s_max · Ch · Cw · 12`` bytes; ``xla``: pure torch).
+``--set SECTION.FIELD=VALUE`` overrides any field of the model, optim or
+trainer config (the value parsed as JSON, else taken as a string):
 
-    python -m gstex_torch.scripts.train gstex-blender-nvs \\
-        --data DATA_DIR --init-npz assets/trained_scene_stats.npz \\
-        --pixel-num 4e6
+    python -m gstex_torch.scripts.train gstex-dtu-nvs \\
+        --data DTU_SCAN_DIR --init-ply DTU_SCAN_DIR/init.ply \\
+        --renderer pallas1 --set model.lambda_reg=0.1
 
-and a small one makes charts that the pair-space tiers take (the
-per-slot chart copies cost ``2 · tiles · s_max · Ch · Cw · 12`` bytes):
-
-    python -m gstex_torch.scripts.train gstex-blender-nvs \\
-        --data DATA_DIR --init-npz assets/trained_scene_stats.npz \\
-        --pixel-num 1e5 --renderer pallas3
-
-PLY and point-cloud init, ``--set`` overrides and the multi-device flags
-of ``gstex-train`` are not offered yet.
+The multi-device, viewer and metric-sink flags of ``gstex-train`` are not
+offered yet.
 """
 
 from __future__ import annotations
@@ -41,32 +50,130 @@ import json
 import time
 from pathlib import Path
 
+import torch
+
 from ..configs.methods import get_method
 from ..data.blender import parse_blender
 from ..data.manager import FullImageCache
-from ..models.init_io import load_scene_npz
+from ..data.nerfstudio_parser import parse_nerfstudio
+from ..models import gstex as model
+from ..models import init_io
 from ..train.trainer import Trainer
+from ..utils import ply as ply_io
 from ..utils.checkpoint import latest_checkpoint
 from ..utils.device import resolve_device
+
+
+def build_dataset(method, data_dir, split):
+    """The method's dataparser on ``data_dir``; ``FileNotFoundError`` where
+    a Blender dataset has no such split."""
+    if method.dataparser == "blender":
+        return parse_blender(data_dir, split=split)
+    return parse_nerfstudio(
+        data_dir, split=split, downscale_factor=method.downscale_factor,
+        eval_mode=method.eval_mode, eval_interval=method.eval_interval)
+
+
+def build_model(args, method, parsed, device):
+    """(params, buffers) from the first init source given, in
+    ``gstex-train``'s order."""
+    mcfg = method.model
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.scene_npz:
+        return init_io.load_scene_npz(mcfg, args.scene_npz, seed=args.seed,
+                                      device=device)
+    points = dict(sh_degree=mcfg.sh_degree, generator=gen,
+                  fix_init_pts=mcfg.fix_init, device=device)
+    if args.init_ply:
+        raw = init_io.raw_from_gaussian_ply(args.init_ply,
+                                            sh_degree=mcfg.sh_degree,
+                                            fix_init=mcfg.fix_init,
+                                            device=device)
+    elif args.init_npz:
+        raw = init_io.raw_from_npz(args.init_npz, sh_degree=mcfg.sh_degree,
+                                   device=device)
+    elif args.init_lod_ply:
+        raw = init_io.raw_from_points(*ply_io.read_point_ply(
+            args.init_lod_ply), **points)
+    elif args.init_pcd:
+        raw = init_io.raw_from_points(*ply_io.read_pcd(args.init_pcd),
+                                      **points)
+    elif parsed.points_xyz is not None:
+        raw = init_io.raw_from_points(parsed.points_xyz, parsed.points_rgb,
+                                      **points)
+    else:
+        raw = init_io.raw_random(args.num_random, sh_degree=mcfg.sh_degree,
+                                 generator=gen, device=device)
+    return model.init_params(
+        mcfg, raw["means"], raw["log_scales"], raw["quats"],
+        raw["opacity_logits"], raw["features_dc"], raw["features_rest"],
+        generator=gen)
+
+
+def apply_override(method, spec: str):
+    """Apply one ``--set SECTION.FIELD=VALUE`` override (the counterpart of
+    ``gstex-train``'s, the analog of the reference's nested tyro flags,
+    ``method_configs.py:136-143``)."""
+    try:
+        key, raw = spec.split("=", 1)
+        section, name = key.split(".", 1)
+    except ValueError:
+        raise SystemExit(f"--set expects SECTION.FIELD=VALUE, got {spec!r}")
+    target = {"model": method.model, "optim": method.optim,
+              "trainer": method.trainer}.get(section)
+    if target is None:
+        raise SystemExit(f"--set section must be model/optim/trainer, "
+                         f"got {section!r}")
+    types = {f.name: str(f.type) for f in dataclasses.fields(target)}
+    if name not in types:
+        raise SystemExit(f"--set: {section} has no field {name!r}; "
+                         f"have {sorted(types)}")
+    try:
+        value = json.loads(raw)
+    except json.JSONDecodeError:
+        value = raw
+    # a JSON list for a tuple field (also one whose default is None, as
+    # the chart pad's)
+    if isinstance(value, list) and "tuple" in types[name]:
+        value = tuple(value)
+    setattr(method, section, dataclasses.replace(target, **{name: value}))
+    return method
 
 
 def main(argv=None) -> dict:
     """Train; returns ``{"history": per-step metrics, "checkpoint": path,
     "eval": mean eval metrics or None}``."""
     p = argparse.ArgumentParser(
-        description="Train a GStex method on a Blender-format dataset.")
+        description="Train a GStex method on a Blender or nerfstudio "
+                    "dataset.")
     p.add_argument("method")
     p.add_argument("--data", required=True,
-                   help="dataset directory (transforms_<split>.json)")
-    p.add_argument("--init-npz", required=True,
-                   help="gstex-npz export or trained-scene-statistics file")
+                   help="dataset directory (transforms_<split>.json, or a "
+                        "nerfstudio transforms.json)")
+    p.add_argument("--init-ply", default=None,
+                   help="2DGS gaussian ply")
+    p.add_argument("--init-npz", default=None,
+                   help="point npz: xyz, colors, opacity, scaling, rotation")
+    p.add_argument("--init-lod-ply", default=None,
+                   help="xyz + red/green/blue point ply")
+    p.add_argument("--init-pcd", default=None, help="point-cloud .pcd")
+    p.add_argument("--num-random", type=int, default=50000,
+                   help="random points where no other init is given")
+    p.add_argument("--scene-npz", default=None,
+                   help="a whole scene: gstex-npz export or "
+                        "trained-scene-statistics file")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the scene loader's random fills")
+                   help="seed of the init's random draws")
     p.add_argument("--max-num-iterations", type=int, default=None)
     p.add_argument("--pixel-num", type=float, default=None)
     p.add_argument("--renderer", default=None,
                    help="render tier (default: the method's): pallas, "
-                        "pallas4, pallas3, pallas2, xla, oracle")
+                        "pallas4, pallas3, pallas2, pallas1, xla, oracle")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="SECTION.FIELD=VALUE",
+                   help="override a config field, e.g. --set "
+                        "model.lambda_reg=0.1 (sections: model, optim, "
+                        "trainer; values parsed as JSON, else strings)")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
@@ -80,6 +187,13 @@ def main(argv=None) -> dict:
     if args.renderer is not None:
         method.model = dataclasses.replace(method.model,
                                            renderer=args.renderer)
+    for spec in args.overrides:
+        method = apply_override(method, spec)
+    # caps sized to the scene's measured demand, unless pinned by --set
+    if not any(o.split("=")[0] in ("model.pair_cap", "model.s_max")
+               for o in args.overrides):
+        method.trainer = dataclasses.replace(method.trainer,
+                                             demand_size_caps=True)
     if args.max_num_iterations is not None:
         method.trainer = dataclasses.replace(
             method.trainer, max_num_iterations=args.max_num_iterations)
@@ -87,24 +201,32 @@ def main(argv=None) -> dict:
                                            max_steps=args.max_num_iterations)
     out = args.output_dir or (f"outputs/{Path(args.data).name}/{method.name}/"
                               f"{time.strftime('%Y-%m-%d_%H%M%S')}")
-    method.trainer = dataclasses.replace(method.trainer, output_dir=out,
-                                         demand_size_caps=True)
+    method.trainer = dataclasses.replace(method.trainer, output_dir=out)
 
-    train_cache = FullImageCache.build(parse_blender(args.data, "train"),
+    train_parsed = build_dataset(method, args.data, "train")
+    train_cache = FullImageCache.build(train_parsed,
                                        seed=method.trainer.seed,
                                        device=device)
     eval_cache = None
-    if (Path(args.data) / "transforms_test.json").exists():
-        eval_cache = FullImageCache.build(parse_blender(args.data, "test"),
-                                          seed=1, device=device)
-    params, buffers = load_scene_npz(method.model, args.init_npz,
-                                     seed=args.seed, device=device)
+    try:
+        eval_parsed = build_dataset(method, args.data, "test")
+    except FileNotFoundError:
+        eval_parsed = None
+    if eval_parsed is not None and len(eval_parsed.image_filenames) > 0:
+        eval_cache = FullImageCache.build(eval_parsed, seed=1, device=device)
+    params, buffers = build_model(args, method, train_parsed, device)
     if method.model.chart_pad is None:
         method.model = dataclasses.replace(
             method.model, chart_pad=tuple(params.texture.shape[1:3]))
     run_config = {
         "method": method.name, "data": str(args.data),
-        "init_npz": str(args.init_npz), "seed": args.seed,
+        "dataparser": method.dataparser,
+        "downscale_factor": method.downscale_factor,
+        "eval_mode": method.eval_mode, "eval_interval": method.eval_interval,
+        "init": {k: getattr(args, k) for k in (
+            "init_ply", "init_npz", "init_lod_ply", "init_pcd", "scene_npz",
+            "num_random")},
+        "seed": args.seed, "overrides": args.overrides,
         "model": dataclasses.asdict(method.model),
         "optim": dataclasses.asdict(method.optim),
         "trainer": dataclasses.asdict(method.trainer),

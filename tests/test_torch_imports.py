@@ -39,7 +39,9 @@ def test_sources_found():
             "scripts/train.py", "utils/checkpoint.py", "ops/rasterize.py",
             "ops/rasterize_ref.py", "ops/rasterize_dense.py",
             "ops/rasterize_api.py", "ops/binning.py", "ops/pair_inputs.py",
-            "ops/rasterize_v3.py", "ops/rasterize_v2.py"} <= names
+            "ops/rasterize_v3.py", "ops/rasterize_v2.py",
+            "ops/rasterize_v1.py", "data/nerfstudio_parser.py",
+            "data/colmap.py", "data/pose_utils.py", "utils/ply.py"} <= names
 
 
 def test_every_kernel_source_has_a_wrapper():
@@ -50,7 +52,8 @@ def test_every_kernel_source_has_a_wrapper():
                        "ssim_fused", "rasterize_dense_eval",
                        "rasterize_dense_fwd", "rasterize_dense_bwd",
                        "rasterize_v3_fwd", "rasterize_v3_bwd",
-                       "rasterize_v2_fwd", "rasterize_v2_bwd"}
+                       "rasterize_v2_fwd", "rasterize_v2_bwd",
+                       "rasterize_v1_fwd", "rasterize_v1_bwd"}
     ops = "".join(p.read_text()
                   for p in (ROOT / "gstex_torch" / "ops").glob("*.py"))
     for name in sources:

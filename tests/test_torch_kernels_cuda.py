@@ -32,13 +32,14 @@ kernel writes the chain rule out, so the two differ by rounding: the same
 1e-4 of each field group's largest value and 1e-5 sign flips. On the pads
 both tiers take, the dense kernels are also held to the flat ones.
 
-The pair-space v3 and v2 kernels run on per-(tile, slot) copies of the
-dense lists' records and charts, at 32x32 tiles and pads up to their
-limits (40 rows for v3, 42 for v2), one of them past what their backward
-stages in shared memory. Each is held to its plain version by the gates
-above (v3's forward sums its chunks by a shuffle tree, so its maps to
-1e-4; T and ncontrib exactly), and, summed per gaussian, to the dense
-kernels on the same pairs.
+The pair-space v3, v2 and v1 kernels run on per-(tile, slot) copies of
+the dense lists' records and charts, at 32x32 tiles and pads up to their
+limits (40 rows for v3, 42 for v2 and v1), one of them past what their
+backward stages in shared memory. Each is held to its plain version by
+the gates above (v3's forward sums its chunks by a shuffle tree, so its
+maps to 1e-4; T and ncontrib exactly), v3 and v2, summed per gaussian, to
+the dense kernels on the same pairs, and v1 to v2, which it equals but
+for its rounding of the distortion depth.
 """
 
 import pytest
@@ -49,6 +50,7 @@ from gstex_torch.ops import rasterize_bwd as rbwd
 from gstex_torch.ops import rasterize_dense as rdense
 from gstex_torch.ops import rasterize_eval as reval
 from gstex_torch.ops import rasterize_fwd as rfwd
+from gstex_torch.ops import rasterize_v1 as rv1
 from gstex_torch.ops import rasterize_v2 as rv2
 from gstex_torch.ops import rasterize_v3 as rv3
 from gstex_torch.ops import ssim_fused
@@ -347,33 +349,39 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
 
 # the pair-space kernels: 32x32 tiles only; charts of at most 40 rows for
 # v3, 42 for v2. (40, 56) is past what the backward kernels stage in shared
-# memory, so its chart gradients go to device memory.
-PAIR_CASES = [((4, 4), 1024), ((16, 24), 1024), ((16, 24), 16),
-              ((40, 8), 1024), ((40, 56), 1024)]
+# memory, so its chart gradients go to device memory. (pad, s_cap, image
+# height and width): an 88x120 image ends in a partial row and column of
+# tiles (the nerfstudio path's 600 rows are 18 tiles and 24 rows).
+PARTIAL = (88, 120)
+PAIR_CASES = [((4, 4), 1024, (H, W)), ((16, 24), 1024, (H, W)),
+              ((16, 24), 16, (H, W)), ((40, 8), 1024, (H, W)),
+              ((40, 56), 1024, (H, W)), ((16, 24), 1024, PARTIAL),
+              ((40, 56), 1024, PARTIAL)]
 PAIR_IDS = ["pad4", "pad16x24", "pad16x24_truncating", "pad40x8",
-            "pad40x56_unstaged"]
-V2_CASES = PAIR_CASES + [((42, 8), 1024)]
-V2_IDS = PAIR_IDS + ["pad42x8"]
-PAIR_PARAMS = ([pytest.param(3, pad, s, id=f"v3-{i}")
-                for (pad, s), i in zip(PAIR_CASES, PAIR_IDS)]
-               + [pytest.param(2, pad, s, id=f"v2-{i}")
-                  for (pad, s), i in zip(V2_CASES, V2_IDS)])
+            "pad40x56_unstaged", "pad16x24_partial_tiles",
+            "pad40x56_unstaged_partial_tiles"]
+V2_CASES = PAIR_CASES + [((42, 8), 1024, (H, W)), ((40, 80), 1024, PARTIAL)]
+V2_IDS = PAIR_IDS + ["pad42x8", "pad40x80_partial_tiles"]
+PAIR_PARAMS = ([pytest.param(3, pad, s, hw, id=f"v3-{i}")
+                for (pad, s, hw), i in zip(PAIR_CASES, PAIR_IDS)]
+               + [pytest.param(v, pad, s, hw, id=f"v{v}-{i}")
+                  for v in (2, 1)
+                  for (pad, s, hw), i in zip(V2_CASES, V2_IDS)])
 
 
 def pair_kernels(version):
     """(fwd, bwd, fwd_plain, bwd_plain) of one pair-space version."""
-    if version == 3:
-        return (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd,
-                rv3.rasterize_v3_fwd_reference,
-                rv3.rasterize_v3_bwd_reference)
-    return (rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd,
-            rv2.rasterize_v2_fwd_reference, rv2.rasterize_v2_bwd_reference)
+    mod = {3: rv3, 2: rv2, 1: rv1}[version]
+    name = f"rasterize_v{version}"
+    return tuple(getattr(mod, f"{name}_{k}") for k in (
+        "fwd", "bwd", "fwd_reference", "bwd_reference"))
 
 
-def pair_case(cuda, pad, s_cap):
+def pair_case(cuda, pad, s_cap, hw=(H, W)):
     """The dense inputs of a scene and their pair-space copies."""
     n = 600 if pad[0] * pad[1] > 1000 else 2000
-    dense, grid, bins = kernel_inputs(cuda, pad, 32, s_cap, n=n, dense=True)
+    dense, grid, bins = kernel_inputs(cuda, pad, 32, s_cap, n=n, height=hw[0],
+                                      width=hw[1], dense=True)
     records, _, _, charts, info = dense
     return dense, (*pair_inputs(records, charts, bins), info), grid, bins
 
@@ -390,12 +398,13 @@ def per_gaussian(d_rec_t, d_ch_g, ids, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("version,pad,s_cap", PAIR_PARAMS)
-def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, lean):
+@pytest.mark.parametrize("version,pad,s_cap,hw", PAIR_PARAMS)
+def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
+                                           lean):
     """The kernel and its plain version run the same float32 operations
     (the v3 scans in the same order), so T and ncontrib agree bit for bit;
     v3's sums over a chunk's 16 slots are reordered (1e-4)."""
-    _, pairs, grid, bins = pair_case(cuda, pad, s_cap)
+    _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
     if s_cap == 16:
         assert bins.overflow > 0
     fwd, _, fwd_plain, _ = pair_kernels(version)
@@ -413,12 +422,13 @@ def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, lean):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("version,pad,s_cap", PAIR_PARAMS)
-def test_pair_backward_kernel_matches_plain(cuda, version, pad, s_cap, lean):
-    _, pairs, grid, _ = pair_case(cuda, pad, s_cap)
+@pytest.mark.parametrize("version,pad,s_cap,hw", PAIR_PARAMS)
+def test_pair_backward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
+                                            lean):
+    _, pairs, grid, _ = pair_case(cuda, pad, s_cap, hw)
     fwd, bwd, _, bwd_plain = pair_kernels(version)
     maps, ncon = fwd(*pairs, grid, lean=lean)
-    g = cotangents(cuda)
+    g = cotangents(cuda, *hw)
     before = bwd.launches
     d_rec, d_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean)
     torch.cuda.synchronize()
@@ -469,12 +479,47 @@ def test_pair_kernels_match_dense_kernels(cuda, pad, s_cap, version, lean):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,s_cap,hw", [
+    ((16, 24), 1024, (H, W)), ((4, 4), 16, (H, W)), ((40, 56), 1024, (H, W)),
+    ((40, 80), 1024, PARTIAL)], ids=[
+        "pad16x24", "truncating", "pad40x56_unstaged",
+        "pad40x80_partial_tiles"])
+def test_v1_kernels_match_v2_kernels(cuda, pad, s_cap, hw, lean):
+    """On the same pairs the v1 kernels compute the v2 kernels' function
+    with their own rounding of the distortion depth m: ncontrib and every
+    plane but reg and m1 bit for bit (lean: all of them), reg and m1
+    within 1e-6 of their max; the gradients within 1e-5 of each field
+    group's max, no sign flips."""
+    _, pairs, grid, _ = pair_case(cuda, pad, s_cap, hw)
+    maps1, ncon1 = rv1.rasterize_v1_fwd(*pairs, grid, lean=lean)
+    maps2, ncon2 = rv2.rasterize_v2_fwd(*pairs, grid, lean=lean)
+    assert torch.equal(ncon1, ncon2)
+    m_planes = [11, 13]
+    rest = [c for c in range(14) if c not in m_planes]
+    assert torch.equal(maps1[rest], maps2[rest])
+    scale = float(maps2[m_planes].abs().max())
+    assert (scale == 0.0) == lean
+    assert float((maps1[m_planes] - maps2[m_planes]).abs().max()) <= (
+        1e-6 * scale)
+    g = cotangents(cuda, *hw)
+    d1 = rv1.rasterize_v1_bwd(*pairs, maps1, ncon1, g, grid, lean=lean)
+    d2 = rv2.rasterize_v2_bwd(*pairs, maps2, ncon2, g, grid, lean=lean)
+    errs = backward_errors(d1[0].reshape(-1, 32), d1[1],
+                           d2[0].reshape(-1, 32), d2[1])
+    assert errs.pop("texture_flip_frac") == 0.0
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.cuda
 def test_pair_wrappers_raise_instead_of_falling_back(cuda):
     _, pairs, grid, _ = pair_case(cuda, (8, 8), 1024)
     records_t, charts_g, counts, info = pairs
     small_tiles = TileGrid(height=H, width=W, tile_h=16, tile_w=16)
-    before = (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches)
-    for fwd in (rv3.rasterize_v3_fwd, rv2.rasterize_v2_fwd):
+    before = (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches,
+              rv1.rasterize_v1_fwd.launches)
+    for fwd in (rv3.rasterize_v3_fwd, rv2.rasterize_v2_fwd,
+                rv1.rasterize_v1_fwd):
         with pytest.raises(ValueError, match="32x32"):
             fwd(*pairs, small_tiles)
         with pytest.raises(ValueError, match="is on"):
@@ -484,5 +529,8 @@ def test_pair_wrappers_raise_instead_of_falling_back(cuda):
     tall = torch.zeros((*charts_g.shape[:2], 41, 8, 3), device=cuda)
     with pytest.raises(ValueError, match="40 rows"):
         rv3.rasterize_v3_fwd(records_t, tall, counts, info, grid)
-    assert (rv3.rasterize_v3_fwd.launches,
-            rv2.rasterize_v2_fwd.launches) == before
+    tall = torch.zeros((*charts_g.shape[:2], 43, 8, 3), device=cuda)
+    with pytest.raises(ValueError, match="42 rows"):
+        rv1.rasterize_v1_fwd(records_t, tall, counts, info, grid)
+    assert (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches,
+            rv1.rasterize_v1_fwd.launches) == before

@@ -154,11 +154,20 @@ def test_rgb_composite_and_unported_versions():
     rgb = got["img"] + got["texture_rgb"] + (1 - got["alpha"][..., None]
                                              ) * bg.numpy()
     np.testing.assert_allclose(got["rgb"], np.clip(rgb, 0, 1), atol=1e-6)
-    def old(geom, texture, hw, bins, cam, grid, extra_channels=False):
-        return rasterize_pl(geom, texture, hw, bins, cam, grid, version=1)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 2 items 11-12"):
-        xla.torch_run(s, tile, s_max, {}, render=old)
+
+    def version(v):
+        def render(geom, texture, hw, bins, cam, grid, extra_channels=False):
+            return rasterize_pl(geom, texture, hw, bins, cam, grid,
+                                version=v)
+        return render
+    # v1, ported since, renders v2's maps but for the distortion depth's
+    # rounding (reg); a version the JAX package has no kernel for raises
+    v1, _, _ = xla.torch_run(s, tile, s_max, {}, render=version(1))
+    v2, _, _ = xla.torch_run(s, tile, s_max, {}, render=version(2))
+    for k in ("img", "texture_rgb", "depth", "alpha", "normal"):
+        np.testing.assert_array_equal(v1[k], v2[k], err_msg=k)
+    with pytest.raises(ValueError, match="unknown kernel version"):
+        xla.torch_run(s, tile, s_max, {}, render=version(5))
 
 
 @pytest.mark.parametrize("pad,flat", [((8, 8), True), ((40, 80), True),

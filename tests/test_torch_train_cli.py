@@ -100,8 +100,10 @@ def test_png_decoder_reads_pil_and_own_files(tmp_path, mode):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("mode", ["L", "P", "I;16"])
+@pytest.mark.parametrize("mode", ["1", "P", "I;16"])
 def test_png_decoder_rejects_other_formats(tmp_path, mode):
+    """Bit depths other than 8 and palette images raise (8-bit grey is
+    read: ``test_torch_data_nerfstudio.py``)."""
     img = Image.fromarray(np.zeros((4, 4), np.uint8), "L")
     img.convert(mode).save(tmp_path / "p.png")
     with pytest.raises(ValueError, match="colour type"):
@@ -148,7 +150,7 @@ def test_train_cli_on_cpu(tmp_path, one_thread):
     assert parse_blender(data, "train").heights[0] == 64
     out = tmp_path / "run"
     res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
-                       "--init-npz", str(stats), "--seed", "1",
+                       "--scene-npz", str(stats), "--seed", "1",
                        "--max-num-iterations", "3", "--pixel-num", "2e4",
                        "--output-dir", str(out), "--device", "cpu"])
     hist = res["history"]
@@ -194,7 +196,7 @@ def test_train_cli_on_the_dense_tier(tmp_path, one_thread, monkeypatch,
                           split="test")
     out = tmp_path / "run"
     res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
-                       "--init-npz", str(stats), "--seed", "1",
+                       "--scene-npz", str(stats), "--seed", "1",
                        "--max-num-iterations", "2", *flags,
                        "--output-dir", str(out), "--device", "cpu"])
     hist = res["history"]
@@ -243,7 +245,7 @@ def test_train_cli_on_the_pair_tiers(tmp_path, one_thread, monkeypatch,
     calls.clear()
     out = tmp_path / "run"
     res = ttrain.main(["gstex-blender-nvs", "--data", str(data),
-                       "--init-npz", str(stats), "--seed", "1",
+                       "--scene-npz", str(stats), "--seed", "1",
                        "--max-num-iterations", "2", "--pixel-num", "2e4",
                        "--renderer", renderer, "--output-dir", str(out),
                        "--device", "cpu"])
@@ -298,8 +300,8 @@ def test_unported_methods_and_trainer_options_raise(tmp_path):
     from gstex_torch.configs.methods import get_method
     from gstex_torch.train.trainer import Trainer, TrainerConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_method("gstex-dtu-nvs")
+    # every method of the JAX package is ported; unknown names raise
+    assert get_method("gstex-dtu-nvs").dataparser == "nerfstudio"
     with pytest.raises(KeyError):
         get_method("nope")
     cfg = tmodel.GStexConfig()
@@ -352,3 +354,251 @@ def test_trainer_nan_gate_and_cap_growth(tmp_path, one_thread):
         trainer.train()
     dump = json.loads((tmp_path / "run" / "nan_dump_step0.json").read_text())
     assert dump["params"]["texture"]["finite_frac"] == 0.0
+
+
+@pytest.mark.parametrize("name", ["gstex-colmap-init", "gstex-dtu-nvs",
+                                  "gstex-dtu-lod"])
+def test_nerfstudio_methods_match_jax(name):
+    """The nerfstudio methods carry the JAX package's settings: the
+    dataparser, its downscale and eval split, black background and the
+    COLMAP axis fix; only the renderer differs, as for the Blender ones."""
+    import dataclasses
+
+    from gstex_torch.configs.methods import get_method
+    from gstex_tpu.configs import methods as jmethods
+
+    got, want = get_method(name), jmethods.get_method(name)
+    assert got.dataparser == want.dataparser == "nerfstudio"
+    assert (got.downscale_factor, got.eval_mode, got.eval_interval) == (
+        want.downscale_factor, want.eval_mode, want.eval_interval) == (
+        2, "interval", 8)
+    assert dataclasses.replace(got.model, renderer="x") == \
+        tmodel.GStexConfig(**{**dataclasses.asdict(want.model),
+                              "renderer": "x"})
+    assert got.model.fix_init and got.model.background_color == "black"
+    assert dataclasses.asdict(got.optim) == dataclasses.asdict(want.optim)
+    assert got.trainer.max_num_iterations == want.trainer.max_num_iterations
+    assert got.model.renderer == "pallas"
+
+
+def dtu_dataset(tmp_path, n=300, views=9, height=48, width=64):
+    """A nerfstudio dataset (masks, seed plys in COLMAP axes) rendered from
+    n of the asset's surfels, texels 5x the loader's fills so that
+    training from the seed ply has something to learn."""
+    from gstex_torch.data.synthetic import write_nerfstudio_dataset
+
+    stats = small_scene_npz(tmp_path / "scene.npz", n=n)
+    cfg = tmodel.GStexConfig(renderer="pallas", chart_pad=(8, 8),
+                             background_color="black")
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    params = params._replace(texture=5.0 * params.texture)
+    return write_nerfstudio_dataset(tmp_path / "data", cfg, params, buffers,
+                                    views, height, width)
+
+
+def test_train_cli_dtu_on_the_v1_tier(tmp_path, one_thread, monkeypatch):
+    """Three steps of ``gstex-dtu-nvs --renderer pallas1 --init-ply`` on
+    the CPU, on a nerfstudio dataset with masks: every training render
+    goes to ``rasterize_pl`` version 1 with its view's mask in the loss,
+    every eval render (the step-0 image, the closing pass over the interval
+    split's 2 views) to the dense-list eval path; the loss is finite and
+    falls, and ``--set`` reaches the config."""
+    import json
+
+    paths = dtu_dataset(tmp_path)
+    calls, masks = [], []
+    for name in ("rasterize_pl", "rasterize_pl_eval"):
+        real = getattr(tmodel, name)
+        monkeypatch.setattr(
+            tmodel, name,
+            lambda *a, _real=real, _name=name, **k: (
+                calls.append((_name, k.get("version"))), _real(*a, **k))[1])
+    real_loss = tmodel.loss_fn
+    monkeypatch.setattr(tmodel, "loss_fn", lambda *a, **k: (
+        masks.append(k.get("mask")), real_loss(*a, **k))[1])
+    out = tmp_path / "run"
+    res = ttrain.main(["gstex-dtu-nvs", "--data", str(paths["transforms"]
+                                                      .parent),
+                       "--init-ply", str(paths["init_ply"]),
+                       "--renderer", "pallas1", "--max-num-iterations", "3",
+                       "--set", "model.pixel_num=2e4",
+                       "--set", "trainer.steps_per_eval_image=2",
+                       "--output-dir", str(out), "--device", "cpu"])
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert all(np.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    assert all(h["overflow"] == 0 for h in hist)
+    assert res["eval"]["psnr"] > 20
+    assert (out / "checkpoints").is_dir()
+    assert sorted(calls) == sorted([("rasterize_pl", 1)] * 3
+                                   + [("rasterize_pl_eval", None)] * 4)
+    assert all(m is not None and m.shape[-1] == 1 for m in masks)
+    assert 0 < float(masks[0].mean()) < 1
+    run = json.loads((out / "config.json").read_text())
+    assert run["model"]["pixel_num"] == 2e4
+    assert run["model"]["renderer"] == "pallas1"
+    assert run["trainer"]["steps_per_eval_image"] == 2
+    assert run["dataparser"] == "nerfstudio"
+    # the seed ply's surfels, mapped back from COLMAP axes onto the scene
+    assert run["num_gaussians"] == 300
+
+
+def test_set_overrides_parse_and_refuse():
+    from gstex_torch.configs.methods import get_method
+
+    m = get_method("gstex-dtu-nvs")
+    for spec in ("model.pixel_num=3e5", "model.chart_pad=[16,24]",
+                 "model.background_color=white", "optim.xyz_lr_mult=2",
+                 "trainer.log_every=5"):
+        m = ttrain.apply_override(m, spec)
+    assert m.model.pixel_num == 3e5 and m.model.chart_pad == (16, 24)
+    assert m.model.background_color == "white"
+    assert m.optim.xyz_lr_mult == 2 and m.trainer.log_every == 5
+    for bad in ("model.pixel_num", "nope.x=1", "model.nope=1"):
+        with pytest.raises(SystemExit):
+            ttrain.apply_override(m, bad)
+
+
+def test_init_npz_reads_what_jax_reads(tmp_path):
+    """``--init-npz`` names the reference's point npz (xyz, colors,
+    opacity, scaling, rotation) in both CLIs: the port's init builder and
+    the JAX package's, given the same file, start from the same params."""
+    import argparse
+
+    from gstex_torch.configs.methods import get_method
+    from gstex_tpu.configs import methods as jmethods
+    from gstex_tpu.scripts import train as jtrain
+
+    rng = np.random.default_rng(11)
+    n = 200
+    q = rng.standard_normal((n, 4)).astype(np.float32)
+    np.savez(tmp_path / "init.npz",
+             xyz=rng.standard_normal((n, 3)).astype(np.float32),
+             colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+             opacity=rng.standard_normal((n, 1)).astype(np.float32),
+             scaling=rng.uniform(-5, -3, (n, 3)).astype(np.float32),
+             rotation=q / np.linalg.norm(q, axis=-1, keepdims=True))
+    args = argparse.Namespace(
+        init_ply=None, init_npz=str(tmp_path / "init.npz"),
+        init_lod_ply=None, init_pcd=None, num_random=10, scene_npz=None,
+        seed=0)
+    parsed = argparse.Namespace(points_xyz=None, points_rgb=None)
+    tp, tb = ttrain.build_model(args, get_method("gstex-dtu-nvs"), parsed,
+                                torch.device("cpu"))
+    jp, jb = jtrain.build_model(args, jmethods.get_method("gstex-dtu-nvs"),
+                                parsed)
+    assert tp.means.shape == (n, 3)
+    for k, got in zip(tmodel.GStexParams._fields, tp):
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   np.asarray(getattr(jp, k)), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+    np.testing.assert_array_equal(tb.texture_hw.numpy(),
+                                  np.asarray(jb.texture_hw))
+
+
+@pytest.mark.parametrize("renderer", ["pallas4", "pallas3", "pallas2",
+                                      "pallas1"])
+def test_lean_training_equals_full_on_the_dense_list_tiers(renderer,
+                                                           monkeypatch):
+    """The JAX package's ``rasterize_pl`` always computes the normal and
+    reg maps; the port's dense-list tiers skip them (lean) where the loss
+    weighs them by a static 0. Nothing else reads them from a training
+    render, so a step's loss and every gradient are the same either way,
+    to the bit."""
+    import test_torch_train as tt
+
+    jp, jb = tt.scene_state(n=64, pad=(4, 4))
+    cfg = tmodel.GStexConfig(renderer=renderer, chart_pad=(4, 4),
+                             pair_cap=8192, s_max=64,
+                             background_color="white")
+    assert tmodel.lean_losses(cfg)
+    from gstex_torch.models.convert import params_from_jax
+    from gstex_torch.ops import camera as tcam
+    from gstex_torch.data.synthetic import orbit_c2w
+
+    f = 1.2 * max(tt.H, tt.W)
+    cam = tcam.make_camera(f, f, tt.W / 2, tt.H / 2, tt.H, tt.W,
+                           orbit_c2w(3.0, 0.3), device="cpu")
+    image = torch.tensor(np.random.default_rng(5).uniform(
+        0, 1, (tt.H, tt.W, 3)).astype(np.float32))
+    runs = []
+    for lean in (True, False):
+        monkeypatch.setattr(tmodel, "lean_losses", lambda c, _l=lean: _l)
+        tp, tb = params_from_jax(tt.to_np(jp), tt.to_np(jb), device="cpu")
+        state = tstep.init_state(cfg, toptim.OptimConfig(), tp, tb)
+        state.step = 1000
+        out = tmodel.render(cfg, state.params, state.buffers, cam, 1000,
+                            torch.ones(3))
+        loss, _ = tmodel.loss_fn(cfg, out, image, 1000)
+        loss.backward()
+        runs.append((loss.detach(), [p.grad for p in state.params],
+                     float(out["reg"].detach().abs().max())))
+    (loss_l, grads_l, reg_l), (loss_f, grads_f, reg_f) = runs
+    assert reg_l == 0.0 < reg_f
+    assert torch.equal(loss_l, loss_f)
+    for k, (a, b) in enumerate(zip(grads_l, grads_f)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b), tmodel.GStexParams._fields[k]
+
+
+def test_train_step_on_the_v1_tier_matches_jax():
+    """One ``train_step`` under ``renderer="pallas1"`` (the v1 kernels'
+    plain versions here) from the same params, camera and ground truth as
+    JAX's ``make_train_step`` under its XLA tier, at
+    ``test_torch_train.py``'s tolerances: the loss within 1e-5 relative,
+    each leaf's update over its lr at atol 1e-3 but where the gradient is
+    below 1e-6 of its leaf's largest (at most 1e-3 of the elements)."""
+    import jax
+    import jax.numpy as jnp
+
+    import test_torch_train as tt
+    from gstex_torch.data.synthetic import orbit_c2w
+    from gstex_torch.models.convert import params_from_jax
+    from gstex_torch.ops import camera as tcam
+    from gstex_tpu.models import gstex as jmodel
+    from gstex_tpu.ops import camera as jcam
+    from gstex_tpu.train import optim as joptim
+    from gstex_tpu.train import step as jstep
+
+    jp, jb = tt.scene_state(n=64, pad=(4, 4))
+    cfg_kw = dict(chart_pad=(4, 4), pair_cap=8192, s_max=64,
+                  background_color="black", fix_init=True)
+    jcfg = jmodel.GStexConfig(renderer="xla", **cfg_kw)
+    tcfg = tmodel.GStexConfig(renderer="pallas1", **cfg_kw)
+    ocfg = dict(max_steps=15000, spatial_scale=2.0)
+    c2w = orbit_c2w(3.0, 0.3)
+    f = 1.2 * max(tt.H, tt.W)
+    rng = np.random.default_rng(6)
+    image = rng.uniform(0, 1, (tt.H, tt.W, 3)).astype(np.float32)
+
+    jp_np = tt.to_np(jp)
+    tp, tb = params_from_jax(jp_np, tt.to_np(jb), device="cpu")
+    jstate, tx = jstep.init_state(jcfg, joptim.OptimConfig(**ocfg), jp, jb,
+                                  jax.random.key(0))
+    jstate = jstate._replace(step=jnp.int32(1000))
+    jcam_ = jcam.make_camera(f, f, tt.W / 2, tt.H / 2, tt.H, tt.W, c2w)
+    jnew, jm = jstep.make_train_step(jcfg, tx)(jstate, jcam_,
+                                               jnp.asarray(image))
+    tstate = tstep.init_state(tcfg, toptim.OptimConfig(**ocfg), tp, tb)
+    tstate.step = 1000
+    tcam_ = tcam.make_camera(f, f, tt.W / 2, tt.H / 2, tt.H, tt.W, c2w,
+                             device="cpu")
+    tm = tstep.train_step(tcfg, toptim.OptimConfig(**ocfg), tstate, tcam_,
+                          torch.tensor(image))
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert tm["overflow"] == int(jm["overflow"]) == 0
+    lrs = toptim.group_lrs(toptim.OptimConfig(**ocfg))
+    for k, leaf in enumerate(tt.LEAVES):
+        lr = lrs[toptim.GROUP_OF_LEAF[k]]
+        lr = lr(0) if callable(lr) else lr
+        got = (tstate.params[k].detach().numpy() - jp_np[k]) / lr
+        want = (np.asarray(jnew.params[k]) - jp_np[k]) / lr
+        g = tstate.params[k].grad
+        grad = (np.zeros(want.shape, np.float32) if g is None
+                else g.abs().numpy())
+        bad = np.abs(got - want) > 1e-3
+        tiny = grad <= 1e-6 * grad.max()
+        assert not (bad & ~tiny).any(), leaf
+        assert bad.sum() <= 1e-3 * bad.size, leaf
