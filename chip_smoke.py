@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
 2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
-   process each, all at once (ptxas registers, spills, shared memory);
+   process each, all at once (ptxas registers, spills, shared memory; the
+   flat training kernels' shared memory per launch, which no chart pad
+   enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
    50k-surfel ``surface_scene``: the eval kernel (max abs <= 1e-4 per map),
@@ -43,11 +45,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. the large-chart main path: ``gstex_torch.scripts.train
    gstex-blender-nvs --pixel-num 4e6`` on phase 5's dataset plus a test
    split, 120 steps across the re-chart: the auto chart pad is (64, 128),
-   which the flat backward cannot stage, so every step launches the
-   dense-list forward and backward kernels once and the flat training
-   kernels never; the closing eval pass launches the dense-list eval
-   kernel; then 8 spiral frames through ``gstex_torch.scripts.render
-   --renderer pallas4``;
+   which the dispatch rule (``rasterize_api.flat_pad_rule``) sends to the
+   dense tier, so every step launches the dense-list forward and backward
+   kernels once and the flat training kernels never; the closing eval
+   pass launches the dense-list eval kernel; then 8 spiral frames
+   through ``gstex_torch.scripts.render --renderer pallas4``;
 7. the pair-space main path: ``gstex_torch.scripts.train
    gstex-blender-nvs --pixel-num 1e5 --renderer pallas3`` on phase 6's
    dataset, 120 steps across the re-chart: the auto chart pad is (16, 24);
@@ -113,7 +115,7 @@ STATS = ROOT / "assets" / "trained_scene_stats.npz"
 H = W = 800
 PAD = (8, 8)
 # the large-chart main path: this texel budget gives the trained scene an
-# auto chart pad of (64, 128), past what the flat backward can stage
+# auto chart pad of (64, 128), which the dispatch sends to the dense tier
 DENSE_PIXEL_NUM = 4e6
 DENSE_PAD = (64, 128)
 # few surfels, many texels each: 2000 of the trained scene's surfels at
@@ -1143,7 +1145,10 @@ def main():
          ptxas={k: [ln.strip() for ln in _build.build_logs.get(k, "")
                     .splitlines()
                     if "registers" in ln or "spill" in ln]
-                for k in kernels_src})
+                for k in kernels_src},
+         flat_launch_smem_bytes={
+             "rasterize_fwd": rfwd.launch_smem(),
+             "rasterize_bwd_32x32": rbwd.launch_smem(32, 32)})
 
     # 3. kernels vs plain, on the bins of each scene's first spiral view
     cam = orbit_camera(H, W, dist=4.0, device=DEVICE)
@@ -1328,9 +1333,9 @@ def main():
     require(Path(res["checkpoint"]).exists(), "no checkpoint")
 
     # 6. the large-chart main path: the same command with a texel budget
-    # whose charts the flat path cannot take, on the same dataset plus a
-    # test split (two views between the training views), so that the run
-    # closes with an eval pass
+    # whose charts the dispatch sends to the dense tier, on the same
+    # dataset plus a test split (two views between the training views), so
+    # that the run closes with an eval pass
     write_blender_dataset(data, cfg0, p0, b0, TEST_VIEWS, H, W, split="test",
                           azimuth0=0.4)
     del p0, b0

@@ -1,8 +1,8 @@
 """Method registry (counterpart of ``gstex_tpu/configs/methods.py``): the
 GStex methods with the JAX package's model, optimizer, trainer and
 dataparser settings. They render on the kernel path (``renderer="pallas"``:
-the flat kernels where they take the scene's chart pad, else the
-dense-list ones).
+the flat kernels where the dispatch rule keeps the scene's chart pad on
+them, else the dense-list ones).
 
 | method             | dataparser | pixel_num | bg    | fix_init | iters | xyz lr    |
 |--------------------|------------|-----------|-------|----------|-------|-----------|

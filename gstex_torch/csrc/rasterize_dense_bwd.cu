@@ -14,13 +14,12 @@
 // texels of the bilinear fetch into d_charts (N, Ch, Cw, 3). Fields 12-14,
 // 16-18 (the detached uv frame) get none.
 //
-// What bounds it on the H100: operations (~300 fp32 operations per applied
-// (pixel, pair), ~40 per walked one); the bytes are one record read and one
+// What bounds it on the H100: operations (~350 fp32 operations per applied
+// (pixel, pair), ~34 per walked one); the bytes are one record read and one
 // record gradient added per pair per tile, four texels read and four texel
 // gradients added per applied (pixel, pair).
 //
-// What the design does about it, and where it departs from the flat kernel
-// (csrc/rasterize_bwd.cu):
+// What the design does about it:
 // - One block per tile, 256 threads with 4 pixels each; the tile's 12
 //   cotangent planes and its alpha and m1 maps sit in shared memory.
 // - Nothing in shared memory depends on the chart pad. Records are staged
@@ -29,19 +28,17 @@
 //   and leave with one global atomicAdd per non-zero field. Texels are read
 //   from device memory (L2), and each texel gradient goes straight to
 //   d_charts with a global atomicAdd: no pair-space gradient buffer exists,
-//   so there is nothing to batch over tiles. The flat kernel stages every
-//   splat's whole pad twice (chart and gradient), which is what fails above
-//   about (80, 88).
+//   so there is nothing to batch over tiles.
 // - The fetch is the forward's 2 x 2 bilinear form, so its weights are the
 //   forward's to the last bit; its derivative in x is row1 - row0 (and
 //   likewise in y). That is the hat-function form of the TPU kernel and of
-//   the flat kernel everywhere but where a sample sits exactly on a texel,
+//   the plain versions everywhere but where a sample sits exactly on a texel,
 //   which is handled apart: there the derivative is two-sided, as theirs.
 // - A pixel skips a splat at once where it has no weight (rank >=
 //   ncontrib, or alpha == 0): every gradient term of such a pair is zero.
 // - The walk and chain rule are backward_tile in tile_walk.cuh, shared
-//   with the v2 kernel; this file says how a slot's record and chart are
-//   found and where its gradients go.
+//   with the flat, v2 and v1 kernels; here a slot's record and chart are
+//   found through ids and its gradients added per gaussian (IdSlots).
 //
 // Precision: no --use_fast_math and --fmad=false. The plain version
 // (ops/rasterize.py:backward_walk) pulls the local math back with autograd
@@ -54,46 +51,6 @@
 namespace {
 
 constexpr int kChunk = 32;
-
-// A tile's slot k is gaussian ids[tile, k]: its record and chart are read
-// through the id, and its gradients are added into the gaussian's rows of
-// d_records and d_charts, which other tiles add to as well.
-struct DenseSlots {
-  const float* records;
-  const int* tile_ids;
-  const float* charts;
-  float* d_records;
-  float* d_charts;
-  long long chw3;
-  int* s_id;  // the chunk's ids, in shared memory
-
-  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
-                        int tid) const {
-    if (tid < n) s_id[tid] = tile_ids[base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const int s = i / kRec;
-      s_rec[i] = records[static_cast<long long>(s_id[s]) * kRec + (i - s * kRec)];
-      s_drec[i] = 0.0f;
-    }
-  }
-  __device__ const float* chart(int s, int) const {
-    return charts + static_cast<long long>(s_id[s]) * chw3;
-  }
-  __device__ float* dchart(int s, int) const {
-    return d_charts + static_cast<long long>(s_id[s]) * chw3;
-  }
-  // the chunk's per-tile record sums into the per-gaussian gradients
-  __device__ void end(int, int n, const float* s_drec, int tid) const {
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const float x = s_drec[i];
-      const int s = i / kRec;
-      if (x != 0.0f)
-        atomicAdd(d_records + static_cast<long long>(s_id[s]) * kRec +
-                      (i - s * kRec), x);
-    }
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 rasterize_dense_bwd_kernel(const float* __restrict__ records,
@@ -109,12 +66,14 @@ rasterize_dense_bwd_kernel(const float* __restrict__ records,
                            int tile_w, int height, int width, int ch, int cw,
                            int s_max, int lean) {
   __shared__ int s_id[kChunk];
-  const DenseSlots slots{records,
-                         ids + static_cast<long long>(blockIdx.x) * s_max,
-                         charts, d_records, d_charts,
-                         static_cast<long long>(ch) * cw * 3, s_id};
-  backward_tile<kChunk>(slots, counts, cam_info, maps, ncontrib, gmaps, ntx,
-                        tile_h, tile_w, height, width, ch, cw, s_max, lean);
+  // slot k of the tile is gaussian ids[tile, k]
+  const IdSlots<kChunk> slots{records,
+                              ids + static_cast<long long>(blockIdx.x) * s_max,
+                              charts, d_records, d_charts,
+                              static_cast<long long>(ch) * cw * 3, s_id};
+  backward_tile<kChunk>(slots, blockIdx.x, counts, cam_info, maps, ncontrib,
+                        gmaps, ntx, tile_h, tile_w, height, width, ch, cw,
+                        s_max, lean);
 }
 
 }  // namespace

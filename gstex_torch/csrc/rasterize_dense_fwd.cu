@@ -14,22 +14,22 @@
 // reads TileBins.ids, the (N, 32) records and the (N, Ch, Cw, 3) charts as
 // they are.
 //
-// What bounds it on the H100: operations, as for the flat kernel: ~40 fp32
-// operations per (pixel, pair) response and ~90 per blend, against one
+// What bounds it on the H100: operations, as for the flat kernel: ~34 fp32
+// operations per (pixel, pair) response and ~75 per blend, against one
 // 128 B record per pair per tile and four texels per blend.
 //
-// What the design does about it, and where it departs from the flat kernel:
+// What the design does about it:
 // - One block per tile, 256 threads with 4 pixels each; a pixel's ray, T
 //   and sums stay in registers; the tile leaves its walk once no in-image
 //   pixel has T > T_EPS.
 // - Only the records are staged in shared memory, 32 splats a chunk (4 KB,
-//   whatever the chart pad). The flat kernel stages each splat's whole pad,
-//   which is what fails for large charts and leaves one splat a chunk at
-//   pads like (40, 80). Here a blend fetches its four texels from device
+//   whatever the chart pad). A blend fetches its four texels from device
 //   memory: the active texels of a scene sit in the 50 MB L2, and
 //   neighbouring pixels fetch neighbouring texels.
-// - The walk is forward_tile in tile_walk.cuh, shared with the v2 kernel;
-//   this file says how a slot finds its record and chart (through ids).
+// - The walk is forward_tile in tile_walk.cuh, shared with the flat, v2 and
+//   v1 kernels; here a slot finds its record and chart through ids
+//   (IdSlots). The flat kernel adds a cp.async ring of records and a
+//   longest-first tile order on the same walk.
 //
 // Precision: no --use_fast_math and --fmad=false; every operation rounds
 // as the plain version's (ops/rasterize.py:forward_scan) does, in the same
@@ -40,28 +40,6 @@
 namespace {
 
 constexpr int kChunk = 32;
-
-// A tile's slot k is gaussian ids[tile, k]: its record and chart are read
-// through the id.
-struct DenseSlots {
-  const float* records;
-  const int* tile_ids;
-  const float* charts;
-  long long chw3;
-  int* s_id;  // the chunk's ids, in shared memory
-
-  __device__ void stage(int base, int n, float* s_rec, int tid) const {
-    if (tid < n) s_id[tid] = tile_ids[base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const int s = i / kRec;
-      s_rec[i] = records[static_cast<long long>(s_id[s]) * kRec + (i - s * kRec)];
-    }
-  }
-  __device__ const float* chart(int s, int) const {
-    return charts + static_cast<long long>(s_id[s]) * chw3;
-  }
-};
 
 __global__ void __launch_bounds__(kThreads)
 rasterize_dense_fwd_kernel(const float* __restrict__ records,
@@ -74,11 +52,13 @@ rasterize_dense_fwd_kernel(const float* __restrict__ records,
                            int tile_w, int height, int width, int ch, int cw,
                            int s_max, int lean) {
   __shared__ int s_id[kChunk];
-  const DenseSlots slots{records,
-                         ids + static_cast<long long>(blockIdx.x) * s_max,
-                         charts, static_cast<long long>(ch) * cw * 3, s_id};
-  forward_tile<kChunk>(slots, counts, cam_info, out, ncontrib, ntx, tile_h,
-                       tile_w, height, width, cw, s_max, lean);
+  // slot k of the tile is gaussian ids[tile, k]
+  const IdSlots<kChunk> slots{records,
+                              ids + static_cast<long long>(blockIdx.x) * s_max,
+                              charts, nullptr, nullptr,
+                              static_cast<long long>(ch) * cw * 3, s_id};
+  forward_tile<kChunk>(slots, blockIdx.x, counts, cam_info, out, ncontrib,
+                       ntx, tile_h, tile_w, height, width, cw, s_max, lean);
 }
 
 }  // namespace

@@ -64,8 +64,8 @@ rasterize_v1_bwd_kernel(const float* __restrict__ records_t,
       records_t, charts_g, d_records_t, d_charts_g, ch, cw, s_max,
       stage ? s_dyn + kPlanes * tile_h * tile_w : nullptr);
   backward_tile<kPairChunk, PairGradSlots, true>(
-      slots, counts, cam_info, maps, ncontrib, gmaps, ntx, tile_h, tile_w,
-      height, width, ch, cw, s_max, lean);
+      slots, blockIdx.x, counts, cam_info, maps, ncontrib, gmaps, ntx, tile_h,
+      tile_w, height, width, ch, cw, s_max, lean);
 }
 
 }  // namespace

@@ -46,8 +46,9 @@ rasterize_v2_fwd_kernel(const float* __restrict__ records_t,
                         int ntx, int tile_h, int tile_w, int height,
                         int width, int ch, int cw, int s_max, int lean) {
   const PairSlots slots(records_t, charts_g, ch, cw, s_max);
-  forward_tile<kPairChunk>(slots, counts, cam_info, out, ncontrib, ntx,
-                           tile_h, tile_w, height, width, cw, s_max, lean);
+  forward_tile<kPairChunk>(slots, blockIdx.x, counts, cam_info, out,
+                           ncontrib, ntx, tile_h, tile_w, height, width, cw,
+                           s_max, lean);
 }
 
 }  // namespace

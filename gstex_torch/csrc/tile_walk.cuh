@@ -1,13 +1,15 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
-// shared by the dense-list kernels (rasterize_dense_fwd.cu,
-// rasterize_dense_bwd.cu) and the v2 and v1 pair-space kernels
-// (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu, rasterize_v1_fwd.cu,
-// rasterize_v1_bwd.cu). The tiers compute the same function and differ
-// only in how a tile's slot finds its record and chart (through
-// TileBins.ids, or the slot's own copy) and where its gradients go (added
-// per gaussian with atomics, or stored per slot). Each kernel file defines
-// that as a `Slots` type and instantiates `forward_tile` or
-// `backward_tile` from its own __global__ function.
+// shared by the flat training kernels (rasterize_fwd.cu, rasterize_bwd.cu),
+// the dense-list kernels (rasterize_dense_fwd.cu, rasterize_dense_bwd.cu)
+// and the v2 and v1 pair-space kernels (rasterize_v2_fwd.cu,
+// rasterize_v2_bwd.cu, rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The
+// tiers compute the same function and differ only in how a tile's slot
+// finds its record and chart (through the flat list's gids or
+// TileBins.ids: IdSlots below; or the slot's own copy) and where its
+// gradients go (added per gaussian with atomics, or stored per slot). Each
+// kernel file names its `Slots` type and instantiates `forward_tile` or
+// `backward_tile` from its own __global__ function, for the tile it
+// chooses.
 //
 // kV1 selects the v1 kernels' arithmetic (gstex_tpu/ops/rasterize_pallas.py
 // and rasterize_pallas_bwd.py), which differs from the others' in rounding
@@ -30,7 +32,17 @@
 //     stage, zero s_drec and whatever the slots accumulate per chunk.
 //   float* dchart(int s, int k): where slot k's texel gradients are added.
 //   void end(int base, int n, const float* s_drec, int tid): the chunk's
-//     summed record gradients (and staged chart gradients) out.
+//     summed record gradients (and staged chart gradients) out, reading
+//     s_drec[i] for i = tid, tid + kThreads, ... < n * kRec.
+// With kRing (the flat kernels only) the records of a tile's chunks go
+// through a ring of two buffers: chunk c + 1's copy is in flight while
+// chunk c is walked, one barrier pair a chunk. Its Slots replace stage
+// and begin by
+//   void prefetch(int base, int n, float* s_rec, int tid): start the
+//     asynchronous copy (cp_async16) of the records of slots
+//     base..base+n-1 into s_rec; the walk commits and waits.
+// and chart, dchart and end must not rely on what an earlier chunk's
+// prefetch left in shared memory two chunks ago.
 //
 // Precision: no --use_fast_math and --fmad=false; see the kernel files for
 // the plain versions each is held to.
@@ -96,23 +108,117 @@ __device__ __forceinline__ float depth_map(float t, float safe_nd, float a_n,
   }
 }
 
+// 16 bytes from global to shared memory, asynchronously (cp.async.cg: L2
+// only, the records are read once per tile); completion by the commit and
+// wait below.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Slots found through a list of gaussian ids: slot k of a tile is gaussian
+// tile_ids[k] (a row of TileBins.ids, or the tile's segment of the flat
+// list); its record and chart are read through the id, and its gradients
+// are added into the gaussian's rows of d_records and d_charts, which
+// other tiles add to as well (the forward leaves those null). s_id holds
+// kIdBufs chunks of ids in shared memory: one for stage/begin, three for
+// the ring's prefetch, where chunk c + 1's ids arrive while chunk c is
+// walked and chunk c - 1's end() may still read its own.
+template <int kChunk, int kIdBufs = 1>
+struct IdSlots {
+  const float* records;
+  const int* tile_ids;
+  const float* charts;
+  float* d_records;
+  float* d_charts;
+  long long chw3;
+  int* s_id;
+
+  __device__ int* ids(int base) const {
+    return s_id + ((base / kChunk) % kIdBufs) * kChunk;
+  }
+  __device__ void stage(int base, int n, float* s_rec, int tid) const {
+    int* id = ids(base);
+    if (tid < n) id[tid] = tile_ids[base + tid];
+    __syncthreads();
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      const int s = i / kRec;
+      s_rec[i] = records[static_cast<long long>(id[s]) * kRec + (i - s * kRec)];
+    }
+  }
+  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
+                        int tid) const {
+    int* id = ids(base);
+    if (tid < n) id[tid] = tile_ids[base + tid];
+    __syncthreads();
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      const int s = i / kRec;
+      s_rec[i] = records[static_cast<long long>(id[s]) * kRec + (i - s * kRec)];
+      s_drec[i] = 0.0f;
+    }
+  }
+  // a record is 8 copies of 16 B; the thread that copies a record's first
+  // 16 B also keeps its id
+  __device__ void prefetch(int base, int n, float* s_rec, int tid) const {
+    int* id = ids(base);
+    for (int i = tid; i < n * (kRec / 4); i += kThreads) {
+      const int s = i / (kRec / 4);
+      const int q = i - s * (kRec / 4);
+      const int g = tile_ids[base + s];
+      if (q == 0) id[s] = g;
+      cp_async16(s_rec + s * kRec + 4 * q,
+                 records + static_cast<long long>(g) * kRec + 4 * q);
+    }
+  }
+  __device__ const float* chart(int s, int k) const {
+    return charts + static_cast<long long>(ids(k)[s]) * chw3;
+  }
+  __device__ float* dchart(int s, int k) const {
+    return d_charts + static_cast<long long>(ids(k)[s]) * chw3;
+  }
+  // the chunk's per-tile record sums into the per-gaussian gradients
+  __device__ void end(int base, int n, const float* s_drec, int tid) const {
+    const int* id = ids(base);
+    for (int i = tid; i < n * kRec; i += kThreads) {
+      const float x = s_drec[i];
+      const int s = i / kRec;
+      if (x != 0.0f)
+        atomicAdd(d_records + static_cast<long long>(id[s]) * kRec +
+                      (i - s * kRec), x);
+    }
+  }
+};
+
 // One block per tile, 256 threads with 4 pixels each; a pixel's ray, T and
 // sums stay in registers; the tile leaves its walk once no in-image pixel
 // has T > T_EPS. Writes the fourteen planes and ncontrib.
-template <int kChunk, class Slots, bool kV1 = false>
+template <int kChunk, class Slots, bool kV1 = false, bool kRing = false>
 __device__ __forceinline__ void forward_tile(
-    const Slots& slots, const int* __restrict__ counts,
+    const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, float* __restrict__ out,
     int* __restrict__ ncontrib, int ntx, int tile_h, int tile_w, int height,
     int width, int cw, int s_max, int lean) {
-  __shared__ float s_rec[kChunk * kRec];
+  // kRing: two buffers, 16-byte aligned for cp.async
+  __shared__ __align__(kRing ? 16 : 4)
+      float s_ring[(kRing ? 2 : 1) * kChunk * kRec];
   __shared__ float cam[kCam];
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   if (tid < kCam) cam[tid] = cam_info[tid];
   __syncthreads();
 
   const int count = min(counts[tile], s_max);
+  if constexpr (kRing) {
+    if (count > 0) slots.prefetch(0, min(kChunk, count), s_ring, tid);
+    cp_async_commit();
+  }
   const int pix = tile_h * tile_w;
   const int tx = tile % ntx;
   const int ty = tile / ntx;
@@ -150,7 +256,18 @@ __device__ __forceinline__ void forward_tile(
     // also keeps the previous chunk's readers ahead of this chunk's writes
     if (!__syncthreads_or(alive)) break;
     const int n = min(kChunk, count - base);
-    slots.stage(base, n, s_rec, tid);
+    const float* s_rec = s_ring;
+    if constexpr (kRing) {
+      s_rec = s_ring + ((base / kChunk) & 1) * kChunk * kRec;
+      const int next = base + kChunk;
+      if (next < count)
+        slots.prefetch(next, min(kChunk, count - next),
+                       s_ring + ((next / kChunk) & 1) * kChunk * kRec, tid);
+      cp_async_commit();
+      cp_async_wait<1>();  // this chunk's copies, not the next one's
+    } else {
+      slots.stage(base, n, s_ring, tid);
+    }
     __syncthreads();
 
     for (int s = 0; s < n; ++s) {
@@ -232,6 +349,7 @@ __device__ __forceinline__ void forward_tile(
     for (int j = 0; j < kPixPerThread; ++j)
       alive = alive || (inside[j] && T[j] > kTEps);
   }
+  if constexpr (kRing) cp_async_wait<0>();  // a copy the walk left unread
 
   const long long plane = static_cast<long long>(height) * width;
 #pragma unroll
@@ -262,20 +380,21 @@ __device__ __forceinline__ void forward_tile(
 // likewise in y). That is the TPU kernels' hat-function form everywhere but
 // where a sample sits exactly on a texel, which is handled apart: there the
 // derivative is two-sided, as theirs.
-template <int kChunk, class Slots, bool kV1 = false>
+template <int kChunk, class Slots, bool kV1 = false, bool kRing = false>
 __device__ __forceinline__ void backward_tile(
-    const Slots& slots, const int* __restrict__ counts,
+    const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, const float* __restrict__ maps,
     const int* __restrict__ ncontrib, const float* __restrict__ gmaps,
     int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
     int s_max, int lean) {
   extern __shared__ float s_pl[];  // kPlanes * pix, then what Slots keeps
-  __shared__ float s_rec[kChunk * kRec];
+  // kRing: two buffers, 16-byte aligned for cp.async
+  __shared__ __align__(kRing ? 16 : 4)
+      float s_ring[(kRing ? 2 : 1) * kChunk * kRec];
   __shared__ float s_drec[kChunk * kRec];
   __shared__ float cam[kCam];
   __shared__ int s_top;
   const int pix = tile_h * tile_w;
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   if (tid < kCam) cam[tid] = cam_info[tid];
@@ -324,13 +443,34 @@ __device__ __forceinline__ void backward_tile(
     }
   }
   if (top >= 0) atomicMax(&s_top, top);
+  if constexpr (kRing)
+    for (int i = tid; i < kChunk * kRec; i += kThreads) s_drec[i] = 0.0f;
   __syncthreads();
   const int walk = min(count, s_top + 1);
+  const int last = ((walk - 1) / kChunk) * kChunk;
+  if constexpr (kRing) {
+    if (walk > 0)
+      slots.prefetch(last, walk - last,
+                     s_ring + ((last / kChunk) & 1) * kChunk * kRec, tid);
+    cp_async_commit();
+  }
 
-  for (int base = ((walk - 1) / kChunk) * kChunk; base >= 0 && walk > 0;
-       base -= kChunk) {
+  for (int base = last; base >= 0 && walk > 0; base -= kChunk) {
     const int n = min(kChunk, walk - base);
-    slots.begin(base, n, s_rec, s_drec, tid);
+    const float* s_rec = s_ring;
+    if constexpr (kRing) {
+      // the next buffer was last read by the walk of the chunk above,
+      // which the barrier before its end() closed
+      s_rec = s_ring + ((base / kChunk) & 1) * kChunk * kRec;
+      const int next = base - kChunk;
+      if (next >= 0)
+        slots.prefetch(next, kChunk,
+                       s_ring + ((next / kChunk) & 1) * kChunk * kRec, tid);
+      cp_async_commit();
+      cp_async_wait<1>();  // this chunk's copies, not the next one's
+    } else {
+      slots.begin(base, n, s_ring, s_drec, tid);
+    }
     __syncthreads();
 
     for (int s = n - 1; s >= 0; --s) {
@@ -562,8 +702,15 @@ __device__ __forceinline__ void backward_tile(
     }
     __syncthreads();
     slots.end(base, n, s_drec, tid);
-    __syncthreads();
+    if constexpr (kRing) {
+      // each thread zeroes what its end() read: no barrier before the
+      // next chunk's prefetch, the one after it covers the next walk
+      for (int i = tid; i < n * kRec; i += kThreads) s_drec[i] = 0.0f;
+    } else {
+      __syncthreads();
+    }
   }
+  if constexpr (kRing) cp_async_wait<0>();
 }
 
 }  // namespace

@@ -3,7 +3,7 @@
 (``rasterize_pl5``, ``rasterize_pl5_eval``), the dense-list path
 (``rasterize_pl``, ``rasterize_pl_eval``; ``rasterize_pl`` also trains on
 the pair-space v3, v2 and v1 kernels over the same lists) and the rule that
-chooses between flat and dense (``use_flat_path``,
+chooses between flat and dense (``use_flat_path``, ``flat_pad_rule``,
 ``dense_pallas_fits``)."""
 
 from __future__ import annotations
@@ -14,16 +14,15 @@ from torch.profiler import record_function
 from .binning import FlatBins, TileBins, TileGrid
 from .camera import Camera
 from .pair_inputs import check_pair_shapes, pair_inputs
-from .rasterize_bwd import fits as flat_bwd_fits
 from .rasterize_bwd import rasterize_bwd
 from .rasterize_dense import (rasterize_dense_bwd, rasterize_dense_eval,
                               rasterize_dense_fwd)
 from .rasterize_eval import rasterize_eval
-from .rasterize_fwd import MAX_TILE_PIXELS, NG, rasterize_fwd
+from .rasterize_fwd import MAX_TILE_PIXELS, NG, rasterize_fwd, tile_order
 from .rasterize_v1 import rasterize_v1_bwd, rasterize_v1_fwd
 from .rasterize_v2 import rasterize_v2_bwd, rasterize_v2_fwd
 from .rasterize_v3 import rasterize_v3_bwd, rasterize_v3_fwd
-from .records import assemble_records, cam_info
+from .records import F_REC, assemble_records, cam_info
 from .surfel import SplatGeom
 
 # renderers that name the flat pair-list kernel path; "_interpret" is the
@@ -33,22 +32,41 @@ FLAT_RENDERERS = ("pallas", "pallas5", "pallas_interpret",
                   "pallas5_interpret")
 
 
-def use_flat_path(renderer: str, chart_pad, tile_pixels: int) -> bool:
-    """Route ``renderer="pallas"`` to the flat path unless its kernels
-    cannot take the chart pad. One decision per (renderer, chart pad, tile
-    size), the same for training and eval, so a scene trained on one tier
-    is served by it.
+# the flat tier's chart-pad rule (``flat_pad_rule``): the bytes a flat
+# backward block of the first port staged, against the card's shared
+# memory per block
+FLAT_RULE_SMEM = 227 * 1024
+FLAT_RULE_PIXEL_PLANES = 14
 
-    The JAX package's rule bounds a pair-space gradient buffer in TPU HBM.
-    The flat CUDA kernels have no such buffer; what bounds them on the H100
-    is shared memory: the flat backward stages a splat's whole chart and
-    its gradient beside the tile's planes (``rasterize_bwd.fits``: (14 ·
-    pixels + 64 + 6·Ch·Cw) · 4 B <= 227 KB, about (80, 88) at 32 x 32
-    tiles)."""
+
+def flat_pad_rule(chart_pad, tile_pixels: int) -> bool:
+    """Does ``renderer="pallas"`` keep this chart pad on the flat tier?
+
+    A dispatch rule, no longer a limit of the kernels: the flat training
+    kernels stage records only and take any pad. The first port's flat
+    backward staged one splat's whole chart and its gradient beside the
+    tile's planes, ``(14 · pixels + 2 · (32 + 3·Ch·Cw)) · 4 B <= 227 KB``
+    (about (80, 88) at 32 x 32 tiles), and the pads above went to the
+    dense tier. The rule is kept as it was, so that each pad takes the
+    tier it took before, until ``PERF.md`` §7's open question (should the
+    flat tier stay the default?) is decided by measurement."""
+    per_splat = (2 * F_REC + 6 * chart_pad[0] * chart_pad[1]) * 4
+    return (FLAT_RULE_PIXEL_PLANES * tile_pixels * 4 + per_splat
+            <= FLAT_RULE_SMEM)
+
+
+def use_flat_path(renderer: str, chart_pad, tile_pixels: int) -> bool:
+    """Route ``renderer="pallas"`` to the flat path where the flat kernels
+    take the tile size and ``flat_pad_rule`` keeps the chart pad there.
+    One decision per (renderer, chart pad, tile size), the same for
+    training and eval, so a scene trained on one tier is served by it.
+
+    The JAX package's rule bounds a pair-space gradient buffer in TPU HBM;
+    the flat CUDA kernels have no such buffer."""
     if renderer not in FLAT_RENDERERS:
         return False
     return (tile_pixels <= MAX_TILE_PIXELS
-            and flat_bwd_fits(chart_pad, tile_pixels))
+            and flat_pad_rule(chart_pad, tile_pixels))
 
 
 def dense_pallas_fits(chart_pad, s_max: int) -> bool:
@@ -103,26 +121,29 @@ def rasterize_pl5_eval(geom: SplatGeom, texture: torch.Tensor,
 class _Rasterize5(torch.autograd.Function):
     """(records, charts) -> (14, H, W) maps, ncontrib; the backward runs
     ``rasterize_bwd`` on the cotangents of the first 12 maps (the
-    counterpart of ``_core5``'s custom VJP)."""
+    counterpart of ``_core5``'s custom VJP). Both kernels take the tiles in
+    one order, computed once."""
 
     @staticmethod
     def forward(ctx, records, charts, gids, starts, counts, info, grid,
                 s_cap, lean):
+        order = tile_order(counts, s_cap)
         maps, ncon = rasterize_fwd(records, gids, starts, counts, charts,
-                                   info, grid, s_cap, lean=lean)
+                                   info, grid, s_cap, lean=lean, order=order)
         ctx.save_for_backward(records, charts, gids, starts, counts, info,
-                              maps, ncon)
+                              maps, ncon, order)
         ctx.grid, ctx.s_cap, ctx.lean = grid, s_cap, lean
         ctx.mark_non_differentiable(ncon)
         return maps, ncon
 
     @staticmethod
     def backward(ctx, g_maps, g_ncon):
-        records, charts, gids, starts, counts, info, maps, ncon = \
+        records, charts, gids, starts, counts, info, maps, ncon, order = \
             ctx.saved_tensors
         d_rec, d_ch = rasterize_bwd(
             records, gids, starts, counts, charts, info, maps, ncon,
-            g_maps[:NG].contiguous(), ctx.grid, ctx.s_cap, lean=ctx.lean)
+            g_maps[:NG].contiguous(), ctx.grid, ctx.s_cap, lean=ctx.lean,
+            order=order)
         return d_rec, d_ch, None, None, None, None, None, None, None
 
 

@@ -12,10 +12,13 @@ not lean), and adds each pair's record-field and chart gradients into
 ``d_records (N, 32)`` and ``d_charts (N, Ch, Cw, 3)``. Fields 12-14,
 16-18 (the detached uv frame) and 26-31 get no gradient.
 
-The texel gradients use the TPU kernel's hat-function form of the
-bilinear fetch: weights ``max(0, 1 − |x − a|)`` over rows ``a`` and their
-derivative ``−sign(x − a)`` where ``|x − a| ≤ 1``, on the 3 x 3 texels
-around the sample; texels outside the padded chart read as zero.
+The plain version's texel gradients use the TPU kernel's hat-function
+form of the bilinear fetch: weights ``max(0, 1 − |x − a|)`` over rows
+``a`` and their derivative ``−sign(x − a)`` where ``|x − a| ≤ 1``, on the
+3 x 3 texels around the sample; texels outside the padded chart read as
+zero. The kernel takes the forward's 2 x 2 fetch and its differences,
+which is the same function (two-sided where a sample sits exactly on a
+texel).
 """
 
 from __future__ import annotations
@@ -26,40 +29,9 @@ import torch
 
 from .binning import TileGrid
 from .rasterize_fwd import (KFAC_NEAR, NCH, NG, check_inputs, pixel_grid,
-                            response)
+                            response, tile_order)
 from .records import F_REC
 from .surfel import AA_SIGMA2, ALPHA_CLAMP, ALPHA_CUTOFF, REG_NEAR
-
-MAX_CHUNK = 32
-# per-pixel shared-memory planes: 12 cotangents, the alpha and m1 maps
-PIXEL_PLANES = 14
-# shared memory per block that keeps two blocks on an SM
-_SMEM_TARGET = 112 * 1024
-_SMEM_MAX = 227 * 1024
-
-
-def _smem(chart_pad, pixels: int) -> tuple[int, int]:
-    """(bytes per staged splat, bytes of the pixel planes)."""
-    per = (2 * F_REC + 2 * chart_pad[0] * chart_pad[1] * 3) * 4
-    return per, PIXEL_PLANES * pixels * 4
-
-
-def fits(chart_pad, pixels: int) -> bool:
-    """Can the kernel stage one splat of this chart pad beside a tile of
-    ``pixels`` pixels?"""
-    per, fixed = _smem(chart_pad, pixels)
-    return fixed + per <= _SMEM_MAX
-
-
-def chunk_size(chart_pad, pixels: int) -> int:
-    """Splats staged per chunk: their records and charts, and the
-    chunk's record and chart gradient sums."""
-    if not fits(chart_pad, pixels):
-        raise ValueError(f"chart pad {tuple(chart_pad)} with {pixels}-pixel "
-                         f"tiles needs more than the kernel's {_SMEM_MAX} B "
-                         f"of shared memory")
-    per, fixed = _smem(chart_pad, pixels)
-    return max(1, min(MAX_CHUNK, (_SMEM_TARGET - fixed) // per))
 
 
 def check_residuals(maps, ncontrib, gmaps, dev, grid: TileGrid) -> None:
@@ -299,17 +271,18 @@ def rasterize_bwd_reference(records, gids, starts, counts, charts,
 
 def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
                   ncontrib, gmaps, grid: TileGrid, s_cap: int,
-                  lean: bool = False):
+                  lean: bool = False, order=None):
     """Gradients of the training forward's first 12 maps: returns
     ``(d_records (N, 32), d_charts (N, Ch, Cw, 3))``.
 
     ``maps`` (14, H, W) and ``ncontrib`` (H, W) are ``rasterize_fwd``'s
     outputs for the same inputs, ``gmaps`` (12, H, W) the cotangents of
-    its first 12 channels. CPU tensors run the plain version; CUDA
+    its first 12 channels; ``order`` is ``rasterize_fwd.tile_order``'s,
+    computed here if not given. CPU tensors run the plain version; CUDA
     tensors launch the kernel (and raise if it cannot launch).
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
-                 s_cap)
+                 s_cap, order)
     dev = records.device
     check_residuals(maps, ncontrib, gmaps, dev, grid)
     if dev.type == "cpu":
@@ -322,21 +295,22 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
 
     lib = _build.load("rasterize_bwd")
     fn = lib.gstex_rasterize_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ch, cw = charts.shape[1], charts.shape[2]
-    chunk = chunk_size((ch, cw), grid.tile_h * grid.tile_w)
     d_rec = torch.zeros_like(records)
     d_ch = torch.zeros_like(charts)
     with torch.cuda.device(dev):
+        if order is None:
+            order = tile_order(counts, s_cap)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(records.data_ptr(), gids.data_ptr(), starts.data_ptr(),
                 counts.data_ptr(), charts.data_ptr(), cam_info.data_ptr(),
                 maps.data_ptr(), ncontrib.data_ptr(), gmaps.data_ptr(),
-                d_rec.data_ptr(), d_ch.data_ptr(), grid.num_tiles, grid.ntx,
-                grid.tile_h, grid.tile_w, grid.height, grid.width, ch, cw,
-                s_cap, chunk, int(lean), stream)
+                d_rec.data_ptr(), d_ch.data_ptr(), order.data_ptr(),
+                grid.num_tiles, grid.ntx, grid.tile_h, grid.tile_w,
+                grid.height, grid.width, ch, cw, s_cap, int(lean), stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_bwd kernel launch failed: "
                            f"cudaError {rc}")
@@ -346,3 +320,15 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
 
 # kernel launches since the last reset (CPU calls do not count)
 rasterize_bwd.launches = 0
+
+
+def launch_smem(tile_h: int, tile_w: int) -> int:
+    """Bytes of shared memory a launch of the backward kernel takes at
+    ``tile_h x tile_w`` tiles: its static arrays and the tile's 14
+    per-pixel planes. The chart pad does not enter it."""
+    from . import _build
+
+    fn = _build.load("rasterize_bwd").gstex_rasterize_bwd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(tile_h, tile_w)

@@ -28,8 +28,8 @@ from .surfel import (AA_SIGMA2, ALPHA_CLAMP, ALPHA_CUTOFF, EXTENT_SIGMA,
 THREADS = 256
 MAX_TILE_PIXELS = THREADS * 4
 MAX_CHUNK = 32
-# staging budget per chunk of the eval and forward kernels; above 48 KB
-# the kernel opts in to more
+# staging budget per chunk of the eval kernel; above 48 KB the kernel opts
+# in to more
 _SMEM_TARGET = 48 * 1024
 _SMEM_MAX = 227 * 1024
 CH_NAMES = ("img0", "img1", "img2", "tex0", "tex1", "tex2", "depth",
@@ -70,8 +70,8 @@ def pixel_grid(grid: TileGrid, cam_info: torch.Tensor):
 
 
 def chunk_size(chart_pad) -> int:
-    """Splats staged per chunk in the eval and forward kernels' shared
-    memory."""
+    """Splats staged per chunk in the eval kernel's shared memory (records
+    and active charts)."""
     per = (F_REC + chart_pad[0] * chart_pad[1] * 3) * 4
     chunk = max(1, min(MAX_CHUNK, _SMEM_TARGET // per))
     if chunk * per > _SMEM_MAX:
@@ -81,9 +81,19 @@ def chunk_size(chart_pad) -> int:
     return chunk
 
 
+def tile_order(counts, s_cap: int) -> torch.Tensor:
+    """The order in which the flat training kernels' blocks take their
+    tiles: by capped count, longest first, so the long tiles do not trail
+    the grid. int32 ``(num_tiles,)``."""
+    return torch.argsort(torch.clamp(counts, max=s_cap),
+                         descending=True).to(torch.int32)
+
+
 def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
-                 s_cap):
-    """Raise on inputs the flat-path kernels do not take."""
+                 s_cap, order=None):
+    """Raise on inputs the flat-path kernels do not take. ``records`` must
+    be 16-byte aligned: the training kernels copy them 16 B at a time
+    (cp.async)."""
     dev = records.device
     n = records.shape[0]
     if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:
@@ -97,6 +107,8 @@ def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
         "charts": (charts, torch.float32, None),
         "cam_info": (cam_info, torch.float32, (18,)),
     }
+    if order is not None:
+        spec["order"] = (order, torch.int32, (grid.num_tiles,))
     for name, (x, dtype, shape) in spec.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, records on {dev}")
@@ -114,6 +126,8 @@ def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                          f"{tuple(charts.shape)}")
     if s_cap < 0:
         raise ValueError("s_cap must be >= 0")
+    if records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
 
 
 def response(r, dirs, gx, gy, v1: bool = False) -> dict:
@@ -324,15 +338,17 @@ def rasterize_fwd_reference(records, gids, starts, counts, charts,
 
 
 def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
-                  grid: TileGrid, s_cap: int, lean: bool = False):
+                  grid: TileGrid, s_cap: int, lean: bool = False,
+                  order=None):
     """Training forward; returns ``(maps (14, H, W), ncontrib (H, W))``.
 
-    Arguments as ``rasterize_eval.rasterize_eval``. CPU tensors run the
-    plain version; CUDA tensors launch the kernel (and raise if it cannot
-    launch).
+    Arguments as ``rasterize_eval.rasterize_eval``; ``order`` is
+    ``tile_order(counts, s_cap)``, computed here if not given. CPU tensors
+    run the plain version; CUDA tensors launch the kernel (and raise if it
+    cannot launch).
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
-                 s_cap)
+                 s_cap, order)
     dev = records.device
     if dev.type == "cpu":
         return rasterize_fwd_reference(records, gids, starts, counts,
@@ -344,7 +360,7 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
 
     lib = _build.load("rasterize_fwd")
     fn = lib.gstex_rasterize_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ch, cw = charts.shape[1], charts.shape[2]
@@ -353,12 +369,14 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
     ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
                        device=dev)
     with torch.cuda.device(dev):
+        if order is None:
+            order = tile_order(counts, s_cap)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(records.data_ptr(), gids.data_ptr(), starts.data_ptr(),
                 counts.data_ptr(), charts.data_ptr(), cam_info.data_ptr(),
-                out.data_ptr(), ncon.data_ptr(), grid.num_tiles, grid.ntx,
-                grid.tile_h, grid.tile_w, grid.height, grid.width, ch, cw,
-                s_cap, chunk_size((ch, cw)), int(lean), stream)
+                out.data_ptr(), ncon.data_ptr(), order.data_ptr(),
+                grid.num_tiles, grid.ntx, grid.tile_h, grid.tile_w,
+                grid.height, grid.width, ch, cw, s_cap, int(lean), stream)
     if rc != 0:
         raise RuntimeError(f"rasterize_fwd kernel launch failed: "
                            f"cudaError {rc}")
@@ -368,3 +386,14 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
 
 # kernel launches since the last reset (CPU calls do not count)
 rasterize_fwd.launches = 0
+
+
+def launch_smem() -> int:
+    """Bytes of shared memory a launch of the forward kernel takes: its
+    static arrays, the same for every tile size and chart pad."""
+    from . import _build
+
+    fn = _build.load("rasterize_fwd").gstex_rasterize_fwd_smem
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()

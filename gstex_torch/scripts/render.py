@@ -12,7 +12,8 @@ Modes:
 Pair capacities are sized from one demand pass over every camera
 (``settle_caps``), so no frame overflows. ``--renderer`` names the tier
 (``models.gstex.render``): the default ``pallas`` takes the flat kernels
-where they fit the scene's chart pad and the dense-list kernels otherwise;
+where the dispatch rule keeps the scene's chart pad on them (up to about
+(80, 88) at 32x32 tiles) and the dense-list kernels otherwise;
 ``pallas4`` the dense-list kernels, as do ``pallas3``, ``pallas2`` and
 ``pallas1`` (their pair-space kernels train; a frame takes the
 dense-list eval kernel); ``xla`` the pure-torch tier.
@@ -122,8 +123,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random fills of a statistics file")
     p.add_argument("--renderer", default="pallas",
-                   help="render tier: pallas (flat kernels where they fit "
-                        "the chart pad, else dense), pallas4, pallas3, "
+                   help="render tier: pallas (flat kernels up to about "
+                        "(80, 88) charts, else dense), pallas4, pallas3, "
                         "pallas2, pallas1 (dense-list eval kernel), xla "
                         "(pure torch), oracle")
     p.add_argument("--device", default=None,

@@ -26,9 +26,9 @@ import torch
 from ..data.manager import FullImageCache
 from ..models import gstex as model
 from ..ops.binning import settle_caps
-from ..ops.ssim import psnr, ssim
 from ..scripts.render import demand_caps, eval_background
 from ..utils import checkpoint as ckpt_io
+from ..utils.metrics import image_metrics
 from . import optim
 from . import step as step_mod
 
@@ -201,11 +201,11 @@ class Trainer:
         bg = eval_background(self.mcfg, img.device)
         out = step_mod.eval_step(self.mcfg, self.state, cam, bg)
         gt = model.composite_gt(img, bg)
-        return {"psnr": float(psnr(out["rgb"], gt)),
-                "ssim": float(ssim(gt, out["rgb"]))}
+        return image_metrics(out["rgb"], gt)
 
     def eval_one(self, step: int) -> dict:
-        """PSNR and SSIM of one eval view, cycling through the eval set."""
+        """PSNR, SSIM and LPIPS (``None``) of one eval view, cycling
+        through the eval set."""
         i = self._eval_counter % len(self.eval_cache)
         self._eval_counter += 1
         m = self._eval_metrics(i)
@@ -214,9 +214,10 @@ class Trainer:
         return m
 
     def eval_all(self) -> dict:
-        """Mean PSNR and SSIM over the eval set."""
+        """Mean PSNR and SSIM over the eval set; LPIPS ``None``."""
         rows = [self._eval_metrics(i) for i in range(len(self.eval_cache))]
-        return {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+        return {k: None if rows[0][k] is None
+                else sum(r[k] for r in rows) / len(rows) for k in rows[0]}
 
     def save(self) -> Path:
         path = ckpt_io.save_checkpoint(

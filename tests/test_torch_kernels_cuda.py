@@ -21,11 +21,14 @@ gradient.
 
 The chart pads include a non-square one, whose active charts are drawn
 up to the full pad in each direction, and one large enough that each
-chunk of both kernels stages a single splat, as the training main path's
-scene-sized pads do.
+chunk of the eval kernel stages a single splat, as the training main
+path's scene-sized pads do. The flat training kernels stage records only
+(no shared memory sized by the pad), so they also run at (88, 88) and
+(128, 128), past what their first port staged, and on an 88x120 image
+whose last row and column of tiles are partial.
 
-The dense-list kernels run the same cases plus a pad the flat backward
-cannot stage, (88, 88). Their eval and forward kernels follow their plain
+The dense-list kernels run the same cases plus the pads that the dispatch
+sends to them, (88, 88) and (128, 128). Their eval and forward kernels follow their plain
 version operation for operation (1e-4, ncontrib equal). Their backward's
 plain version pulls the per-splat math back with autograd where the
 kernel writes the chain rule out, so the two differ by rounding: the same
@@ -58,11 +61,14 @@ from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                      build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
 from gstex_torch.ops.pair_inputs import pair_inputs
+from gstex_torch.ops.rasterize_api import use_flat_path
 from gstex_torch.ops.prepare import prepare_splats
 from gstex_torch.ops.records import assemble_records, cam_info
 from gstex_torch.ops.sh import sh_to_rgb
 
 H, W = 96, 128
+# an image whose last row and column of 32x32 tiles are partial
+PARTIAL = (88, 120)
 CASES = [((8, 8), 32, 1024), ((4, 4), 16, 1024), ((8, 8), 32, 16),
          ((6, 10), 16, 1024), ((40, 56), 32, 1024)]
 CASE_IDS = ["pad8_tile32", "pad4_tile16", "clamped_s_cap", "pad6x10_tile16",
@@ -148,11 +154,23 @@ def test_kernel_matches_plain(cuda, pad, tile, s_cap):
     assert float(out[7].max()) > 0.3
 
 
+# the flat training kernels also at pads past their first port's shared
+# memory; few surfels where the charts are large (300 x (128, 128) is 59 MB)
+FLAT_CASES = CASES + [((88, 88), 32, 1024), ((128, 128), 32, 1024)]
+FLAT_IDS = CASE_IDS + ["pad88x88_past_staging", "pad128x128_max"]
+
+
+def flat_inputs(cuda, pad, tile, s_cap, hw=(H, W), dense=False):
+    n = 300 if pad[0] >= 88 else 2000
+    return kernel_inputs(cuda, pad, tile, s_cap, n=n, height=hw[0],
+                         width=hw[1], dense=dense)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("pad,tile,s_cap", FLAT_CASES, ids=FLAT_IDS)
 def test_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
-    inputs, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
+    inputs, grid, _ = flat_inputs(cuda, pad, tile, s_cap)
     before = rfwd.rasterize_fwd.launches
     maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
     torch.cuda.synchronize()
@@ -168,12 +186,12 @@ def test_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("pad,tile,s_cap", FLAT_CASES, ids=FLAT_IDS)
 def test_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
-    inputs, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
-    if pad == (40, 56):
-        assert rfwd.chunk_size(pad) == 1
-        assert rbwd.chunk_size(pad, tile * tile) == 1
+    inputs, grid, _ = flat_inputs(cuda, pad, tile, s_cap)
+    # the launch's shared memory is the tile's 14 planes and a fixed part
+    assert (rbwd.launch_smem(tile, tile)
+            == 14 * tile * tile * 4 + rbwd.launch_smem(0, 0))
     maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
     g = cotangents(cuda)
     before = rbwd.rasterize_bwd.launches
@@ -189,6 +207,79 @@ def test_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
     assert flip <= 1e-5
     assert float(ref_rec.abs().max()) > 0
     assert float(d_rec[:, [12, 13, 14, 16, 17, 18]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad", [(8, 8), (40, 80), (128, 128)],
+                         ids=["pad8", "pad40x80", "pad128x128"])
+def test_flat_training_kernels_on_partial_tiles(cuda, pad, lean):
+    """An 88x120 image: the last row and column of 32x32 tiles are
+    partial. The forward writes every pixel of the image bit for bit as
+    its plain version; the backward holds the gates above."""
+    inputs, grid, _ = flat_inputs(cuda, pad, 32, 1024, hw=PARTIAL)
+    assert grid.height % 32 and grid.width % 32
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, 1024, lean=lean)
+    ref, ref_ncon = rfwd.rasterize_fwd_reference(*inputs, grid, 1024,
+                                                 lean=lean)
+    assert torch.equal(maps, ref) and torch.equal(ncon, ref_ncon)
+    assert float(maps[7].max()) > 0.3
+    g = cotangents(cuda, *PARTIAL)
+    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, 1024,
+                                     lean=lean)
+    ref_rec, ref_ch = rbwd.rasterize_bwd_reference(*inputs, maps, ncon, g,
+                                                   grid, 1024, lean=lean)
+    errs = backward_errors(d_rec, d_ch, ref_rec, ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+    assert float(ref_ch.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_flat_training_kernels_shared_memory_is_pad_free(cuda):
+    """Neither flat training kernel keeps anything sized by the chart pad
+    in shared memory: the forward has only its static arrays (the record
+    ring, ids and camera), the backward those and the tile's 14 planes. So
+    at 32x32 tiles two backward blocks fit an SM's 228 KB."""
+    fwd = rfwd.launch_smem()
+    fixed = rbwd.launch_smem(0, 0)
+    assert 0 < fwd <= 24 * 1024 and 0 < fixed <= 32 * 1024
+    assert 2 * (rbwd.launch_smem(32, 32) + 1024) <= 228 * 1024
+    # and the kernels take pads far past any staging: (192, 256) charts
+    inputs, grid, _ = kernel_inputs(cuda, (192, 256), 32, 1024, n=100)
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, 1024, lean=True)
+    ref, ref_ncon = rfwd.rasterize_fwd_reference(*inputs, grid, 1024,
+                                                 lean=True)
+    assert torch.equal(maps, ref) and torch.equal(ncon, ref_ncon)
+    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, cotangents(cuda),
+                                     grid, 1024, lean=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(d_ch).all()) and float(d_ch.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "longest_first", "reversed"])
+def test_flat_tile_schedules_agree(cuda, schedule):
+    """The order in which blocks take tiles changes nothing a tile
+    computes: the forward is bit for bit the same, the backward within the
+    order of its atomics."""
+    inputs, grid, _ = kernel_inputs(cuda, (16, 24), 16, 1024)
+    counts = inputs[3]
+    g = cotangents(cuda)
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, 1024)
+    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, 1024)
+    order = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                   device=cuda),
+             "longest_first": rfwd.tile_order(counts, 1024),
+             "reversed": rfwd.tile_order(counts, 1024).flip(0)}[schedule]
+    maps2, ncon2 = rfwd.rasterize_fwd(*inputs, grid, 1024, order=order)
+    assert torch.equal(maps, maps2) and torch.equal(ncon, ncon2)
+    d_rec2, d_ch2 = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, 1024,
+                                       order=order)
+    errs = backward_errors(d_rec2, d_ch2, d_rec, d_ch)
+    assert errs.pop("texture_flip_frac") <= 1e-5
+    assert max(errs.values()) <= 1e-5, errs
 
 
 @pytest.mark.cuda
@@ -280,7 +371,7 @@ def test_dense_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
 def test_dense_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
     inputs, grid, _ = dense_inputs(cuda, pad, tile, s_cap)
     if pad[0] >= 88:
-        assert not rbwd.fits(pad, tile * tile)
+        assert not use_flat_path("pallas", pad, tile * tile)
     maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid, lean=lean)
     g = cotangents(cuda)
     before = rdense.rasterize_dense_bwd.launches
@@ -300,13 +391,12 @@ def test_dense_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("pad,tile,s_cap", FLAT_CASES, ids=FLAT_IDS)
 def test_dense_kernels_match_flat_kernels(cuda, pad, tile, s_cap, lean):
     """The two tiers compute one function: same maps (same operations in
-    the same per-pixel order) and same gradients (sums in another order;
-    the texel derivative in its 2 x 2 and its hat-function form)."""
-    flat, grid, _ = kernel_inputs(cuda, pad, tile, s_cap)
-    dense, _, _ = kernel_inputs(cuda, pad, tile, s_cap, dense=True)
+    the same per-pixel order) and same gradients (sums in another order)."""
+    flat, grid, _ = flat_inputs(cuda, pad, tile, s_cap)
+    dense, _, _ = flat_inputs(cuda, pad, tile, s_cap, dense=True)
     torch.testing.assert_close(rdense.rasterize_dense_eval(*dense, grid),
                                reval.rasterize_eval(*flat, grid, s_cap),
                                atol=1e-4, rtol=0)
@@ -352,7 +442,6 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
 # memory, so its chart gradients go to device memory. (pad, s_cap, image
 # height and width): an 88x120 image ends in a partial row and column of
 # tiles (the nerfstudio path's 600 rows are 18 tiles and 24 rows).
-PARTIAL = (88, 120)
 PAIR_CASES = [((4, 4), 1024, (H, W)), ((16, 24), 1024, (H, W)),
               ((16, 24), 16, (H, W)), ((40, 8), 1024, (H, W)),
               ((40, 56), 1024, (H, W)), ((16, 24), 1024, PARTIAL),

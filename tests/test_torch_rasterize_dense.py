@@ -175,8 +175,8 @@ def test_rgb_composite_and_unported_versions():
                                       ((64, 128), False),
                                       ((128, 128), False)])
 def test_dispatch_rule(pad, flat):
-    """Flat where the flat backward's shared memory takes the pad at 32x32
-    tiles, dense above; ``pallas4`` is always dense; the dense kernels take
+    """Flat where the dispatch rule (the first flat backward's shared
+    memory) keeps the pad at 32x32 tiles, dense above; ``pallas4`` is always dense; the dense kernels take
     every pad."""
     for renderer in ("pallas", "pallas5", "pallas_interpret"):
         assert use_flat_path(renderer, pad, 32 * 32) == flat

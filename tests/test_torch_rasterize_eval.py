@@ -17,7 +17,9 @@ import torch
 from gstex_torch.data.synthetic import orbit_c2w, random_scene, surface_scene
 from gstex_torch.ops import binning as tbin
 from gstex_torch.ops import camera as tcam
+from gstex_torch.ops import rasterize_bwd as rbwd
 from gstex_torch.ops import rasterize_eval as treval
+from gstex_torch.ops import rasterize_fwd as rfwd
 from gstex_torch.ops import surfel as tsurf
 from gstex_torch.ops.rasterize_api import rasterize_pl5_eval as t_pl5_eval
 from gstex_torch.ops.records import assemble_records, cam_info
@@ -133,6 +135,45 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         treval.rasterize_eval(records, gids, starts, counts,
                               charts.transpose(1, 2), info, TGRID, 256)
+
+
+def test_training_wrappers_check_alignment_and_order():
+    """The flat training kernels copy records 16 B at a time (cp.async), so
+    a contiguous view at an offset that is not a multiple of 16 B is
+    refused, as is a tile order of the wrong type or length."""
+    records, gids, starts, counts, charts, info = _kernel_inputs()
+    buf = torch.empty(records.numel() + 1)
+    shifted = buf[1:].view(records.shape)
+    shifted.copy_(records)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    maps = torch.zeros((rfwd.NCH, H, W))
+    ncon = torch.zeros((H, W), dtype=torch.int32)
+    gmaps = torch.zeros((rfwd.NG, H, W))
+    with pytest.raises(ValueError, match="aligned"):
+        rfwd.rasterize_fwd(shifted, gids, starts, counts, charts, info,
+                           TGRID, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        rbwd.rasterize_bwd(shifted, gids, starts, counts, charts, info, maps,
+                           ncon, gmaps, TGRID, 256)
+    order = rfwd.tile_order(counts, 256)
+    with pytest.raises(TypeError):
+        rfwd.rasterize_fwd(records, gids, starts, counts, charts, info,
+                           TGRID, 256, order=order.long())
+    with pytest.raises(ValueError):
+        rbwd.rasterize_bwd(records, gids, starts, counts, charts, info, maps,
+                           ncon, gmaps, TGRID, 256, order=order[:-1])
+
+
+def test_tile_order_is_longest_first():
+    """Blocks take the tiles by capped count, longest first: a permutation
+    of the tiles."""
+    counts = torch.tensor([3, 900, 0, 40, 700, 40], dtype=torch.int32)
+    order = rfwd.tile_order(counts, 256)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(6))
+    capped = torch.clamp(counts, max=256)[order.long()]
+    assert bool((capped[:-1] >= capped[1:]).all())
+    assert set(order[:2].tolist()) == {1, 4}
 
 
 def test_cpu_calls_do_not_count_launches():

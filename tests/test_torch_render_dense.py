@@ -154,8 +154,8 @@ def test_default_config_renders():
 @pytest.mark.parametrize("eval_only", [True, False], ids=["eval", "train"])
 def test_dispatch_takes_one_tier_for_training_and_eval(
         monkeypatch, renderer, pad, tile, want, eval_only):
-    """Flat where the flat backward's shared memory takes the pad, dense
-    above it, and the same answer for a training and an eval render, so a
+    """Flat where the dispatch rule (the first flat backward's shared
+    memory) keeps the pad, dense above it, and the same answer for a training and an eval render, so a
     scene trained on one tier is served by it. Large pads render (they
     raised before the dense tier)."""
     taken = []
