@@ -9,11 +9,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device: the card's name and power limit (exit 1 without a CUDA card);
 2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory; the
-   flat training kernels' shared memory per launch, which no chart pad
-   enters);
+   flat kernels' and the dense backward's shared memory per launch, which
+   no chart pad enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
-   50k-surfel ``surface_scene``: the eval kernel (max abs <= 1e-4 per map),
+   50k-surfel ``surface_scene``: the eval kernel (bit for bit),
    the forward kernel lean and full (max abs <= 1e-4 on all 14 planes,
    ncontrib equal), the backward kernel lean and full under seeded
    cotangents (per record-field group and for the charts, max abs <= 1e-4
@@ -23,7 +23,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    <= 3e-5 of the float64 max), and to each other (the loss to 1e-6, the
    gradient to twice 3e-5); then, on the trained scene's dense lists of
    the same view, the three dense-list kernels against their plain
-   versions and against the flat kernels, under the same gates; then the
+   versions and against the flat kernels, under the same gates, and the
+   dense backward under three tile orders (block, longest first,
+   reversed: within 1e-5 of each field group's max); then the
    pair-space v3, v2 and v1 kernels on per-slot copies of those dense
    lists, and of the trained scene at pixel_num 1e5, re-charted, at
    (16, 24): each against its plain version, lean and full; v3 and v2,
@@ -72,9 +74,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
    2000-surfel subsample of it at (88, 88), the last two on the dense
    tier), the tier's forward and backward kernels against their plain
-   versions, lean and full, with the gates of phase 3 (and the dense eval
-   kernel on the dense tier; dense against flat at (40, 80)); then an eval
-   frame and a training step timed whole on the host clock (median of 20),
+   versions, lean and full, with the gates of phase 3, and its eval kernel
+   (the flat one bit for bit); dense against flat at (40, 80); at
+   (64, 128) the three flat kernels timed beside the three dense ones on
+   the same view (informational: the dispatch sends that pad to dense);
+   then an eval frame of the state served at its training pad and a
+   training step, each timed whole on the host clock (median of 20),
    the card's busy time and each ``gstex.*`` stage's host and device time
    from a ``torch.profiler`` trace, and each kernel alone beside its plain
    version and its bound; then the trained scene at pixel_num 1e5,
@@ -90,8 +95,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (the last tile row is partial; the backward's chart gradients are
    past shared memory), and alone beside their bounds;
 10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
-    nerfstudio view, where their main path runs them), the nvidia-smi
-    line and the final result.
+    nerfstudio view, where their main path runs them; the flat eval
+    kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense backward's at
+    (64, 128) and (16, 24)), the nvidia-smi line and the final result.
 
 Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
@@ -137,6 +143,7 @@ V1_BWD_TOL = 1e-5     # of each field group's max, against v2
 PAIR_NCON_FRAC = 1e-5
 TOL = 1e-4
 BWD_TOL = 1e-4        # of the plain version's max abs, per field group
+SCHEDULE_TOL = 1e-5   # one backward under two tile orders, per field group
 FLIP_TOL = 1e-5       # texture gradient sign flips
 ERR_SLICE = 1 << 28   # elements per slice of an error's temporaries (1 GB)
 SSIM_LOSS_TOL = 1e-6
@@ -692,23 +699,26 @@ def check_fwd_bwd(tier, inputs, grid, s_cap, lean, **where):
     return {fwd_name: (err, fwd_plain_ms), bwd_name: (abs_err, bwd_plain_ms)}
 
 
-def check_dense_eval(frame, **where):
-    """The dense eval kernel against its plain version on a dense frame's
-    inputs; returns the max abs error, the plain version's ms and the
-    walk's statistics."""
+def check_eval(frame, **where):
+    """A frame's eval kernel against its plain version (the first eight
+    planes of the lean forward walk, which both tiers' eval kernels follow):
+    the flat kernel bit for bit, the dense one within TOL. Returns the max
+    abs error, the plain version's ms and the walk's statistics."""
+    name = frame.tier.names[0]
     maps = frame.tier.eval(frame.inputs, frame.grid, frame.cfg.s_max)
     plain_ms, (ref, stats) = once_ms(frame.plain)
     errs = {k: float((maps[sl] - ref[sl]).abs().max())
             for k, sl in MAPS.items()}
-    emit("kernel_vs_plain", kernel="rasterize_dense_eval", max_abs_err=errs,
-         tol=TOL, s_max=frame.cfg.s_max, total_pairs=frame.bins.total_pairs,
-         overflow=frame.bins.overflow,
+    equal = bool(torch.equal(maps, ref))
+    emit("kernel_vs_plain", kernel=name, bit_equal=equal, max_abs_err=errs,
+         tol=TOL if frame.dense else 0.0, s_max=frame.cfg.s_max,
+         total_pairs=frame.bins.total_pairs, overflow=frame.bins.overflow,
          max_tile_count=int(frame.bins.counts.max()),
          alpha_coverage=float((maps[7] > 0).float().mean()), **where)
-    require(frame.bins.overflow == 0, f"{where}: dense binning overflowed")
-    require(all(e <= TOL for e in errs.values()),
-            f"{where}: dense eval kernel and plain version differ by "
-            f"{max(errs.values())} > {TOL}")
+    require(frame.bins.overflow == 0, f"{where}: binning overflowed")
+    require(all(e <= TOL for e in errs.values()) if frame.dense else equal,
+            f"{where}: {name} and its plain version differ by "
+            f"{max(errs.values())}")
     return max(errs.values()), plain_ms, stats
 
 
@@ -739,6 +749,35 @@ def check_dense_vs_flat(flat_frame, dense_frame, lean, **where):
     require(max(errs.values()) <= BWD_TOL and flip <= FLIP_TOL,
             f"{where}: dense and flat backward differ (lean={lean}): "
             f"{errs}, flips {flip}")
+
+
+def check_dense_schedules(dframe, lean, **where):
+    """The dense backward under three tile orders (block, longest first,
+    reversed): the gradients agree within the order of the atomics, 1e-5
+    of each field group's max, no more than FLIP_TOL sign flips."""
+    from gstex_torch.ops import rasterize_dense as rd
+    from gstex_torch.ops.rasterize_fwd import tile_order
+
+    tier, i, grid = dframe.tier, dframe.inputs, dframe.grid
+    counts, s_max = i[2], i[1].shape[1]
+    maps, ncon = tier.fwd(i, grid, s_max, lean)
+    g = cotangents(grid.height, grid.width)
+    ref = tier.bwd(i, maps, ncon, g, grid, s_max, lean)
+    orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                    device=DEVICE),
+              "longest_first": tile_order(counts, s_max),
+              "reversed": tile_order(counts, s_max).flip(0).contiguous()}
+    errs = {}
+    for name, order in orders.items():
+        got = rd.rasterize_dense_bwd(*i, maps, ncon, g, grid, lean=lean,
+                                     order=order)
+        e, flip, _ = bwd_errors(*got, *ref)
+        errs[name] = (max(e.values()), flip)
+    emit("dense_schedules", lean=lean, max_rel_err_and_flips=errs,
+         tol=SCHEDULE_TOL, flip_tol=FLIP_TOL, **where)
+    require(all(e <= SCHEDULE_TOL and f <= FLIP_TOL
+                for e, f in errs.values()),
+            f"{where}: the dense backward's tile orders disagree: {errs}")
 
 
 def check_pair_vs_dense(dframe, pinputs, tier, lean, **where):
@@ -1146,9 +1185,11 @@ def main():
                     .splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k in kernels_src},
-         flat_launch_smem_bytes={
+         launch_smem_bytes={
+             "rasterize_eval": reval.launch_smem(),
              "rasterize_fwd": rfwd.launch_smem(),
-             "rasterize_bwd_32x32": rbwd.launch_smem(32, 32)})
+             "rasterize_bwd_32x32": rbwd.launch_smem(32, 32),
+             "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32)})
 
     # 3. kernels vs plain, on the bins of each scene's first spiral view
     cam = orbit_camera(H, W, dist=4.0, device=DEVICE)
@@ -1166,23 +1207,10 @@ def main():
             frame = Frame(cfg, params, buffers, cam,
                           render_cli.eval_background(cfg, DEVICE))
             frame.run()
-            ref, stats = frame.plain()
-            torch.cuda.synchronize()
-            errs = {k: float((frame.maps[sl] - ref[sl]).abs().max())
-                    for k, sl in MAPS.items()}
-            worst["rasterize_eval"] = max(worst["rasterize_eval"],
-                                          *errs.values())
+            err, _, stats = check_eval(frame, scene=name, pair_cap=pair_cap,
+                                       chart_pad=list(PAD))
+            worst["rasterize_eval"] = max(worst["rasterize_eval"], err)
             frames[name] = (frame, stats)
-            emit("kernel_vs_plain", kernel="rasterize_eval", scene=name,
-                 max_abs_err=errs, tol=TOL, pair_cap=pair_cap, s_cap=s_cap,
-                 total_pairs=frame.bins.total_pairs,
-                 overflow=frame.bins.overflow,
-                 max_tile_count=int(frame.bins.counts.max()),
-                 alpha_coverage=float((frame.maps[7] > 0).float().mean()))
-            require(frame.bins.overflow == 0, f"{name}: binning overflowed")
-            require(all(e <= TOL for e in errs.values()),
-                    f"{name}: eval kernel and plain version differ by "
-                    f"{max(errs.values())} > {TOL}")
 
             for lean in (True, False):
                 check_fwd_bwd(frame.tier, frame.inputs, frame.grid, s_cap,
@@ -1194,12 +1222,12 @@ def main():
             where = dict(scene=name, chart_pad=list(PAD))
             dframe = Frame(cfg, params, buffers, cam, frame.bg, dense=True)
             dframe.run()
-            worst["rasterize_dense_eval"] = check_dense_eval(dframe,
-                                                             **where)[0]
+            worst["rasterize_dense_eval"] = check_eval(dframe, **where)[0]
             for lean in (True, False):
                 note(check_fwd_bwd(dframe.tier, dframe.inputs, dframe.grid,
                                    s_cap, lean, **where))
                 check_dense_vs_flat(frame, dframe, lean, **where)
+                check_dense_schedules(dframe, lean, **where)
             for f in (frame, dframe):
                 time_kernels(f, True, card=smi, **where)
             # the pair-space kernels on per-slot copies of the same lists
@@ -1590,13 +1618,9 @@ def main():
                     f"subsample_{SUBSAMPLE}"):
             for c in checks.values():
                 note(c)
-        if dense:
-            with torch.no_grad():
-                err, eval_plain_ms, stats = check_dense_eval(frame, **where)
-            worst[eval_name] = max(worst[eval_name], err)
-        else:
-            with torch.no_grad():
-                _, stats = frame.plain()
+        with torch.no_grad():
+            err, eval_plain_ms, stats = check_eval(frame, **where)
+        worst[eval_name] = max(worst[eval_name], err)
         if name == "trained_scene_stats":
             # both tiers take (40, 80): the dense kernels against the flat
             with torch.no_grad():
@@ -1609,6 +1633,21 @@ def main():
             for f in (frame, dframe):
                 time_kernels(f, lean, card=smi, **where)
             del dframe
+        if name == "trained_scene_4e6":
+            # informational, for the flat-or-dense question: the three
+            # flat kernels on this view's pairs beside the three dense
+            # ones (the dispatch sends this pad to dense), before the
+            # timed steps move the state
+            with torch.no_grad():
+                fframe = Frame(cfg, state.params, state.buffers, tcam, None)
+                for stage in ("prepare", "cull_binning", "records"):
+                    getattr(fframe, stage)()
+            check_dense_vs_flat(fframe, frame, lean, **where)
+            emit("flat_vs_dense", card=smi, lean=lean,
+                 flat_kernel_ms=time_kernels(fframe, lean, card=smi, **where),
+                 dense_kernel_ms=time_kernels(frame, lean, card=smi, **where),
+                 **where)
+            del fframe
 
         timing = step_timing(lambda: train_step.train_step(
             cfg, method.optim, state, tcam, img), all_counters, H * W)
@@ -1635,29 +1674,29 @@ def main():
                              s_cap=s_cap, total_pairs=frame.bins.total_pairs,
                              kernels=kt, **charts)
         emit("timing", path="train", scene=name, card=smi, **train_t[name])
-        if dense:
-            # the dense eval kernel alone, and an eval frame of this state
-            kt[eval_name] = dict(
-                ms=cuda_ms(lambda: tier.eval(k_in, grid, s_cap), 50),
-                plain_ms=eval_plain_ms,
-                **fwd_bound(flat_in, tex_hw, grid, stats, True, planes=8,
-                            list_arrays=arrays))
-            bg = render_cli.eval_background(cfg, DEVICE)
+        # the tier's eval kernel alone, and an eval frame of this state
+        # served at its training pad
+        kt[eval_name] = dict(
+            ms=cuda_ms(lambda: tier.eval(k_in, grid, s_cap), 50),
+            plain_ms=eval_plain_ms,
+            **fwd_bound(flat_in, tex_hw, grid, stats, True, planes=8,
+                        list_arrays=arrays))
+        bg = render_cli.eval_background(cfg, DEVICE)
 
-            def whole():
-                with torch.no_grad():
-                    return model.render(cfg, state.params, state.buffers,
-                                        tcam, STEP, bg, eval_only=True)
-            frame_ms, lo, hi = host_ms(whole)
-            busy_ms, top, trace = device_ms(whole, 5)
-            emit("timing", path="eval", scene=name, card=smi,
-                 kernel_ms=kt[eval_name]["ms"], plain_ms=eval_plain_ms,
-                 frame_ms=frame_ms, frame_ms_min=lo, frame_ms_max=hi,
-                 trace_stage_ms=trace, device_busy_ms=busy_ms,
-                 device_idle_share=1.0 - busy_ms / frame_ms,
-                 device_top_ms=top, mpix_per_s=H * W / frame_ms / 1e3,
-                 **{k: v for k, v in kt[eval_name].items()
-                    if k not in ("ms", "plain_ms")}, **charts)
+        def whole():
+            with torch.no_grad():
+                return model.render(cfg, state.params, state.buffers, tcam,
+                                    STEP, bg, eval_only=True)
+        frame_ms, lo, hi = host_ms(whole)
+        busy_ms, top, trace = device_ms(whole, 5)
+        emit("timing", path="eval", scene=name, card=smi,
+             kernel=eval_name, kernel_ms=kt[eval_name]["ms"],
+             plain_ms=eval_plain_ms, frame_ms=frame_ms, frame_ms_min=lo,
+             frame_ms_max=hi, trace_stage_ms=trace, device_busy_ms=busy_ms,
+             device_idle_share=1.0 - busy_ms / frame_ms, device_top_ms=top,
+             mpix_per_s=H * W / frame_ms / 1e3,
+             **{k: v for k, v in kt[eval_name].items()
+                if k not in ("ms", "plain_ms")}, **charts)
         del state, frame, k_in, flat_in, maps, ncon, tier
         torch.cuda.empty_cache()
 
@@ -1736,6 +1775,9 @@ def main():
         "bound_ms": main_e["bound_ms"],
         "bound_by": main_e["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this
+        # served at (8, 8), and at the trained scene's training pad
+        "ms_by_pad": {"8x8": main_e["kernel_ms"], "40x80": main_t[
+            "rasterize_eval"]["ms"]},
     }]
     # kernel: (the TPU kernel it replaces, the counter and the main-path
     # run that drove it)
@@ -1777,6 +1819,9 @@ def main():
             # plain version is five conv2d calls plus autograd)
             "library_ms": None,
         })
+    kernels[[k["name"] for k in kernels].index("rasterize_dense_bwd")][
+        "ms_by_pad"] = {"64x128": main_t["rasterize_dense_bwd"]["ms"],
+                        "16x24": dense_ms["rasterize_dense_bwd"]}
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel of the main paths never launched: "
             f"{[(k['name'], k['launches']) for k in kernels]}")

@@ -1,15 +1,15 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
-// shared by the flat training kernels (rasterize_fwd.cu, rasterize_bwd.cu),
-// the dense-list kernels (rasterize_dense_fwd.cu, rasterize_dense_bwd.cu)
-// and the v2 and v1 pair-space kernels (rasterize_v2_fwd.cu,
-// rasterize_v2_bwd.cu, rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The
-// tiers compute the same function and differ only in how a tile's slot
-// finds its record and chart (through the flat list's gids or
-// TileBins.ids: IdSlots below; or the slot's own copy) and where its
-// gradients go (added per gaussian with atomics, or stored per slot). Each
-// kernel file names its `Slots` type and instantiates `forward_tile` or
-// `backward_tile` from its own __global__ function, for the tile it
-// chooses.
+// shared by the flat kernels (rasterize_eval.cu, rasterize_fwd.cu,
+// rasterize_bwd.cu), the dense-list training kernels
+// (rasterize_dense_fwd.cu, rasterize_dense_bwd.cu) and the v2 and v1
+// pair-space kernels (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu,
+// rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The tiers compute the same
+// function and differ only in how a tile's slot finds its record and chart
+// (through the flat list's gids or TileBins.ids: IdSlots below; or the
+// slot's own copy) and where its gradients go (added per gaussian with
+// atomics, or stored per slot). Each kernel file names its `Slots` type and
+// instantiates `forward_tile` or `backward_tile` from its own __global__
+// function, for the tile it chooses.
 //
 // kV1 selects the v1 kernels' arithmetic (gstex_tpu/ops/rasterize_pallas.py
 // and rasterize_pallas_bwd.py), which differs from the others' in rounding
@@ -33,16 +33,22 @@
 //   float* dchart(int s, int k): where slot k's texel gradients are added.
 //   void end(int base, int n, const float* s_drec, int tid): the chunk's
 //     summed record gradients (and staged chart gradients) out, reading
-//     s_drec[i] for i = tid, tid + kThreads, ... < n * kRec.
-// With kRing (the flat kernels only) the records of a tile's chunks go
-// through a ring of two buffers: chunk c + 1's copy is in flight while
-// chunk c is walked, one barrier pair a chunk. Its Slots replace stage
-// and begin by
+//     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
+//     block's threads).
+// With kRing (the flat kernels and the dense backward) the records of a
+// tile's chunks go through a ring of two buffers: chunk c + 1's copy is in
+// flight while chunk c is walked, one barrier pair a chunk. Its Slots
+// replace stage and begin by
 //   void prefetch(int base, int n, float* s_rec, int tid): start the
 //     asynchronous copy (cp_async16) of the records of slots
 //     base..base+n-1 into s_rec; the walk commits and waits.
 // and chart, dchart and end must not rely on what an earlier chunk's
 // prefetch left in shared memory two chunks ago.
+//
+// backward_tile's kShflT (the record gradients' transposed warp reduction)
+// and kBlock (threads a block, 1024 / kBlock pixels each, rounded up; the
+// Slots must stride by the same count) are the dense backward's options;
+// the flat, v2 and v1 backwards keep the lane-0 reduction and 256 threads.
 //
 // Precision: no --use_fast_math and --fmad=false; see the kernel files for
 // the plain versions each is held to.
@@ -124,6 +130,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
+// One round of a transposed warp reduction of 2 * kHalf values a lane:
+// each lane keeps the half of its values that its lane bit kHalf selects
+// (the upper half where it is set) and receives that half from the lane
+// that differs in that bit, which keeps the other; x[0..kHalf) ends as the
+// pair's sums of the kept half. After the rounds 16, 8, 4, 2 and 1, lane
+// l holds the warp's sum of value l.
+template <int kHalf>
+__device__ __forceinline__ void warp_fold(const float* in, float* x,
+                                          int lane) {
+  const bool hi = (lane & kHalf) != 0;
+#pragma unroll
+  for (int f = 0; f < kHalf; ++f) {
+    const float keep = hi ? in[f + kHalf] : in[f];
+    const float give = hi ? in[f] : in[f + kHalf];
+    x[f] = keep + __shfl_xor_sync(0xffffffffu, give, kHalf);
+  }
+}
+
 // Slots found through a list of gaussian ids: slot k of a tile is gaussian
 // tile_ids[k] (a row of TileBins.ids, or the tile's segment of the flat
 // list); its record and chart are read through the id, and its gradients
@@ -132,7 +156,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // kIdBufs chunks of ids in shared memory: one for stage/begin, three for
 // the ring's prefetch, where chunk c + 1's ids arrive while chunk c is
 // walked and chunk c - 1's end() may still read its own.
-template <int kChunk, int kIdBufs = 1>
+template <int kChunk, int kIdBufs = 1, int kBlock = kThreads>
 struct IdSlots {
   const float* records;
   const int* tile_ids;
@@ -149,7 +173,7 @@ struct IdSlots {
     int* id = ids(base);
     if (tid < n) id[tid] = tile_ids[base + tid];
     __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
+    for (int i = tid; i < n * kRec; i += kBlock) {
       const int s = i / kRec;
       s_rec[i] = records[static_cast<long long>(id[s]) * kRec + (i - s * kRec)];
     }
@@ -159,7 +183,7 @@ struct IdSlots {
     int* id = ids(base);
     if (tid < n) id[tid] = tile_ids[base + tid];
     __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
+    for (int i = tid; i < n * kRec; i += kBlock) {
       const int s = i / kRec;
       s_rec[i] = records[static_cast<long long>(id[s]) * kRec + (i - s * kRec)];
       s_drec[i] = 0.0f;
@@ -169,7 +193,7 @@ struct IdSlots {
   // 16 B also keeps its id
   __device__ void prefetch(int base, int n, float* s_rec, int tid) const {
     int* id = ids(base);
-    for (int i = tid; i < n * (kRec / 4); i += kThreads) {
+    for (int i = tid; i < n * (kRec / 4); i += kBlock) {
       const int s = i / (kRec / 4);
       const int q = i - s * (kRec / 4);
       const int g = tile_ids[base + s];
@@ -187,7 +211,7 @@ struct IdSlots {
   // the chunk's per-tile record sums into the per-gaussian gradients
   __device__ void end(int base, int n, const float* s_drec, int tid) const {
     const int* id = ids(base);
-    for (int i = tid; i < n * kRec; i += kThreads) {
+    for (int i = tid; i < n * kRec; i += kBlock) {
       const float x = s_drec[i];
       const int s = i / kRec;
       if (x != 0.0f)
@@ -199,8 +223,11 @@ struct IdSlots {
 
 // One block per tile, 256 threads with 4 pixels each; a pixel's ray, T and
 // sums stay in registers; the tile leaves its walk once no in-image pixel
-// has T > T_EPS. Writes the fourteen planes and ncontrib.
-template <int kChunk, class Slots, bool kV1 = false, bool kRing = false>
+// has T > T_EPS. Writes the fourteen planes and ncontrib; with kEval (the
+// eval kernel's output policy) the first eight planes only, blended lean,
+// and neither t_final, m1 nor ncontrib (ncontrib may be null).
+template <int kChunk, class Slots, bool kV1 = false, bool kRing = false,
+          bool kEval = false>
 __device__ __forceinline__ void forward_tile(
     const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, float* __restrict__ out,
@@ -227,7 +254,7 @@ __device__ __forceinline__ void forward_tile(
   float d0[kPixPerThread], d1[kPixPerThread], d2[kPixPerThread];
   float T[kPixPerThread], t_fin[kPixPerThread];
   // img(3) tex(3) depth alpha normal(3) reg m1
-  float acc[13][kPixPerThread];
+  float acc[kEval ? 8 : 13][kPixPerThread];
   int ncon[kPixPerThread];
   bool inside[kPixPerThread];
   bool alive = false;
@@ -248,7 +275,7 @@ __device__ __forceinline__ void forward_tile(
     t_fin[j] = 1.0f;
     ncon[j] = s_max;
 #pragma unroll
-    for (int c = 0; c < 13; ++c) acc[c][j] = 0.0f;
+    for (int c = 0; c < (kEval ? 8 : 13); ++c) acc[c][j] = 0.0f;
     alive = alive || inside[j];
   }
 
@@ -327,14 +354,18 @@ __device__ __forceinline__ void forward_tile(
             acc[3 + c][j] = acc[3 + c][j] + w * tex;
           }
           acc[6][j] = acc[6][j] + w * t;
-          if (!lean) {
-            float invtc;
-            const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
-            const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
+          if constexpr (!kEval) {
+            if (!lean) {
+              float invtc;
+              const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
+              const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) acc[8 + c][j] = acc[8 + c][j] + r[c] * wfl;
-            acc[11][j] = acc[11][j] + 2.0f * w * (m * acc[7][j] - acc[12][j]);
-            acc[12][j] = acc[12][j] + w * m;
+              for (int c = 0; c < 3; ++c)
+                acc[8 + c][j] = acc[8 + c][j] + r[c] * wfl;
+              acc[11][j] =
+                  acc[11][j] + 2.0f * w * (m * acc[7][j] - acc[12][j]);
+              acc[12][j] = acc[12][j] + w * m;
+            }
           }
           acc[7][j] = acc[7][j] + w;
           t_fin[j] = t_new;
@@ -358,35 +389,46 @@ __device__ __forceinline__ void forward_tile(
     const int p = tid + j * kThreads;
     const long long o = static_cast<long long>(ty * tile_h + p / tile_w) * width
                         + tx * tile_w + p % tile_w;
+    if constexpr (kEval) {
 #pragma unroll
-    for (int c = 0; c < 12; ++c) out[c * plane + o] = acc[c][j];
-    out[12 * plane + o] = t_fin[j];
-    out[13 * plane + o] = acc[12][j];
-    ncontrib[o] = ncon[j];
+      for (int c = 0; c < 8; ++c) out[c * plane + o] = acc[c][j];
+    } else {
+#pragma unroll
+      for (int c = 0; c < 12; ++c) out[c * plane + o] = acc[c][j];
+      out[12 * plane + o] = t_fin[j];
+      out[13 * plane + o] = acc[12][j];
+      ncontrib[o] = ncon[j];
+    }
   }
 }
 
-// One block per tile, 256 threads with 4 pixels each; the tile's 12
-// cotangent planes and its alpha and m1 maps sit in the first kPlanes * pix
-// floats of dynamic shared memory. Each pixel walks the tile's slots from
-// min(count, max ncontrib + 1) down to 0 and skips a splat at once where it
-// has no weight (rank >= ncontrib, or alpha == 0): every gradient term of
-// such a pair is zero. Record gradients are summed per chunk in s_drec (a
-// warp shuffle reduction, one shared atomic per warp and field) and handed
-// to slots.end; texel gradients are added at slots.dchart.
+// One block per tile, 256 threads with 4 pixels each (kBlock threads:
+// 1024 / kBlock each, rounded up); the tile's 12 cotangent planes and its
+// alpha and m1 maps sit in the first kPlanes * pix floats of dynamic
+// shared memory. Each pixel
+// walks the tile's slots from min(count, max ncontrib + 1) down to 0 and
+// skips a splat at once where it has no weight (rank >= ncontrib, or
+// alpha == 0): every gradient term of such a pair is zero. Record
+// gradients are summed per chunk in s_drec (a warp shuffle reduction, one
+// shared atomic per warp and field; with kShflT transposed, so that lane f
+// makes field f's) and handed to slots.end; texel gradients are added at
+// slots.dchart.
 //
 // The fetch is the forward's 2 x 2 bilinear form, so its weights are the
 // forward's to the last bit; its derivative in x is row1 - row0 (and
 // likewise in y). That is the TPU kernels' hat-function form everywhere but
 // where a sample sits exactly on a texel, which is handled apart: there the
 // derivative is two-sided, as theirs.
-template <int kChunk, class Slots, bool kV1 = false, bool kRing = false>
+template <int kChunk, class Slots, bool kV1 = false, bool kRing = false,
+          bool kShflT = false, int kBlock = kThreads>
 __device__ __forceinline__ void backward_tile(
     const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, const float* __restrict__ maps,
     const int* __restrict__ ncontrib, const float* __restrict__ gmaps,
     int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
     int s_max, int lean) {
+  // kBlock threads share the tile's 1024 pixel slots
+  constexpr int kPix = (kThreads * kPixPerThread + kBlock - 1) / kBlock;
   extern __shared__ float s_pl[];  // kPlanes * pix, then what Slots keeps
   // kRing: two buffers, 16-byte aligned for cp.async
   __shared__ __align__(kRing ? 16 : 4)
@@ -406,16 +448,15 @@ __device__ __forceinline__ void backward_tile(
   const int ty = tile / ntx;
   const long long plane = static_cast<long long>(height) * width;
 
-  float gx[kPixPerThread], gy[kPixPerThread];
-  float d0[kPixPerThread], d1[kPixPerThread], d2[kPixPerThread];
-  float T[kPixPerThread], BS[kPixPerThread], E[kPixPerThread],
-      D[kPixPerThread];
-  int ncon[kPixPerThread];
-  bool inside[kPixPerThread];
+  float gx[kPix], gy[kPix];
+  float d0[kPix], d1[kPix], d2[kPix];
+  float T[kPix], BS[kPix], E[kPix], D[kPix];
+  int ncon[kPix];
+  bool inside[kPix];
   int top = -1;
 #pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    const int p = tid + j * kThreads;
+  for (int j = 0; j < kPix; ++j) {
+    const int p = tid + j * kBlock;
     const int ix = tx * tile_w + p % tile_w;
     const int iy = ty * tile_h + p / tile_w;
     inside[j] = p < pix && ix < width && iy < height;
@@ -444,7 +485,7 @@ __device__ __forceinline__ void backward_tile(
   }
   if (top >= 0) atomicMax(&s_top, top);
   if constexpr (kRing)
-    for (int i = tid; i < kChunk * kRec; i += kThreads) s_drec[i] = 0.0f;
+    for (int i = tid; i < kChunk * kRec; i += kBlock) s_drec[i] = 0.0f;
   __syncthreads();
   const int walk = min(count, s_top + 1);
   const int last = ((walk - 1) / kChunk) * kChunk;
@@ -478,14 +519,15 @@ __device__ __forceinline__ void backward_tile(
       const float* r = s_rec + s * kRec;
       const float* chart = slots.chart(s, k);
       float* dch = slots.dchart(s, k);
-      float v[kFields];
+      // kShflT pads the fields to a warp's 32 lanes
+      float v[kShflT ? 32 : kFields];
 #pragma unroll
-      for (int f = 0; f < kFields; ++f) v[f] = 0.0f;
+      for (int f = 0; f < (kShflT ? 32 : kFields); ++f) v[f] = 0.0f;
       bool any = false;
 #pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j) {
+      for (int j = 0; j < kPix; ++j) {
         if (!inside[j] || k >= ncon[j]) continue;
-        const int p = tid + j * kThreads;
+        const int p = tid + j * kBlock;
         const float nd = r[0] * d0[j] + r[1] * d1[j] + r[2] * d2[j];
         const float safe_nd =
             fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
@@ -689,14 +731,30 @@ __device__ __forceinline__ void backward_tile(
       }
       // record grads: warp sums, then one shared atomic per warp and field
       if (__any_sync(0xffffffffu, any)) {
+        if constexpr (kShflT) {
+          // transposed: the 20 fields padded to 32, folded 32 -> 16 -> 8
+          // -> 4 -> 2 -> 1 (31 shuffles); lane f ends with field f's sum
+          warp_fold<16>(v, v, lane);
+          warp_fold<8>(v, v, lane);
+          warp_fold<4>(v, v, lane);
+          warp_fold<2>(v, v, lane);
+          warp_fold<1>(v, v, lane);
+          // kFieldOf[lane], without a divergent constant-memory read
+          const int field = lane < 12   ? lane
+                            : lane < 14 ? 15 + 4 * (lane - 12)
+                                        : lane + 6;
+          if (lane < kFields && v[0] != 0.0f)
+            atomicAdd(s_drec + s * kRec + field, v[0]);
+        } else {
 #pragma unroll
-        for (int f = 0; f < kFields; ++f) {
-          float x = v[f];
+          for (int f = 0; f < kFields; ++f) {
+            float x = v[f];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_down_sync(0xffffffffu, x, off);
-          if (lane == 0 && x != 0.0f)
-            atomicAdd(s_drec + s * kRec + kFieldOf[f], x);
+            for (int off = 16; off > 0; off >>= 1)
+              x += __shfl_down_sync(0xffffffffu, x, off);
+            if (lane == 0 && x != 0.0f)
+              atomicAdd(s_drec + s * kRec + kFieldOf[f], x);
+          }
         }
       }
     }
@@ -705,7 +763,7 @@ __device__ __forceinline__ void backward_tile(
     if constexpr (kRing) {
       // each thread zeroes what its end() read: no barrier before the
       // next chunk's prefetch, the one after it covers the next walk
-      for (int i = tid; i < n * kRec; i += kThreads) s_drec[i] = 0.0f;
+      for (int i = tid; i < n * kRec; i += kBlock) s_drec[i] = 0.0f;
     } else {
       __syncthreads();
     }

@@ -42,14 +42,15 @@ FLAT_RULE_PIXEL_PLANES = 14
 def flat_pad_rule(chart_pad, tile_pixels: int) -> bool:
     """Does ``renderer="pallas"`` keep this chart pad on the flat tier?
 
-    A dispatch rule, no longer a limit of the kernels: the flat training
-    kernels stage records only and take any pad. The first port's flat
-    backward staged one splat's whole chart and its gradient beside the
-    tile's planes, ``(14 · pixels + 2 · (32 + 3·Ch·Cw)) · 4 B <= 227 KB``
-    (about (80, 88) at 32 x 32 tiles), and the pads above went to the
-    dense tier. The rule is kept as it was, so that each pad takes the
-    tier it took before, until ``PERF.md`` §7's open question (should the
-    flat tier stay the default?) is decided by measurement."""
+    A dispatch rule, no longer a limit of the kernels: all three flat
+    kernels (eval, training forward and backward) stage records only and
+    take any pad. The first port's flat backward staged one splat's whole
+    chart and its gradient beside the tile's planes, ``(14 · pixels + 2 ·
+    (32 + 3·Ch·Cw)) · 4 B <= 227 KB`` (about (80, 88) at 32 x 32 tiles),
+    and the pads above went to the dense tier. The rule is kept as it was,
+    so that each pad takes the tier it took before, until ``PERF.md`` §7's
+    open question (should the flat tier stay the default?) is decided by
+    measurement."""
     per_splat = (2 * F_REC + 6 * chart_pad[0] * chart_pad[1]) * 4
     return (FLAT_RULE_PIXEL_PLANES * tile_pixels * 4 + per_splat
             <= FLAT_RULE_SMEM)
@@ -75,12 +76,12 @@ def dense_pallas_fits(chart_pad, s_max: int) -> bool:
 
     The JAX package's rule bounds the TPU backward's per-tile chart-gradient
     window in VMEM. The dense CUDA kernels hold nothing in pair space and
-    nothing chart-sized on chip: records are staged 32 at a time, texels
-    are read from and texel gradients added to the ``(N, Ch, Cw, 3)``
-    tensors in device memory. So every pad and every ``s_max`` fits; what
-    bounds a scene on the H100 is device memory for the charts themselves
-    (with gradient and Adam moments, 48 · N · Ch · Cw bytes) and for the
-    ``num_tiles x s_max`` int32 id list."""
+    nothing chart-sized on chip: records are staged a chunk at a time,
+    texels are read from and texel gradients added to the ``(N, Ch, Cw,
+    3)`` tensors in device memory. So every pad and every ``s_max`` fits;
+    what bounds a scene on the H100 is device memory for the charts
+    themselves (with gradient and Adam moments, 48 · N · Ch · Cw bytes) and
+    for the ``num_tiles x s_max`` int32 id list."""
     return True
 
 
@@ -106,14 +107,16 @@ def rasterize_pl5_eval(geom: SplatGeom, texture: torch.Tensor,
                        px_offset=None, background=None) -> dict:
     """Flat-path forward-only render: ``img`` and ``texture_rgb`` (H, W, 3),
     ``depth`` and ``alpha`` (H, W), and, given a ``background`` (3,),
-    ``rgb`` = clip(img + tex + (1−α)·bg, 0, 1)."""
+    ``rgb`` = clip(img + tex + (1−α)·bg, 0, 1). The kernel takes the tiles
+    longest first, in an order computed once a frame."""
     with record_function("gstex.records"):
         records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
         info = cam_info(cam, px_offset)
     with record_function("gstex.eval_kernel"):
+        order = tile_order(fbins.counts, s_cap)
         maps = rasterize_eval(records, fbins.gids, fbins.starts,
                               fbins.counts, texture.contiguous(), info, grid,
-                              s_cap)
+                              s_cap, order=order)
     with record_function("gstex.compose"):
         return _compose(maps, background)
 
@@ -190,23 +193,27 @@ class _Rasterize4(torch.autograd.Function):
     """(records, charts) -> (14, H, W) maps, ncontrib over the dense lists;
     the backward runs ``rasterize_dense_bwd`` on the cotangents of the
     first 12 maps (the counterpart of ``_core4``'s custom VJP, with its
-    segment sums inside the kernel)."""
+    segment sums inside the kernel), taking the tiles longest first in an
+    order computed once, in the forward."""
 
     @staticmethod
     def forward(ctx, records, charts, ids, counts, info, grid, lean):
+        order = tile_order(counts, ids.shape[1])
         maps, ncon = rasterize_dense_fwd(records, ids, counts, charts, info,
                                          grid, lean=lean)
-        ctx.save_for_backward(records, charts, ids, counts, info, maps, ncon)
+        ctx.save_for_backward(records, charts, ids, counts, info, maps, ncon,
+                              order)
         ctx.grid, ctx.lean = grid, lean
         ctx.mark_non_differentiable(ncon)
         return maps, ncon
 
     @staticmethod
     def backward(ctx, g_maps, g_ncon):
-        records, charts, ids, counts, info, maps, ncon = ctx.saved_tensors
+        records, charts, ids, counts, info, maps, ncon, order = \
+            ctx.saved_tensors
         d_rec, d_ch = rasterize_dense_bwd(
             records, ids, counts, charts, info, maps, ncon,
-            g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean)
+            g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean, order=order)
         return d_rec, d_ch, None, None, None, None, None
 
 

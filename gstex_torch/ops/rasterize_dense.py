@@ -9,13 +9,15 @@ Counterpart of ``gstex_tpu/ops/rasterize_pallas4.py``:
 (``_fwd_kernel4``) and ``rasterize_pallas4_bwd`` (``_bwd_kernel4``)
 together with the per-gaussian reduction that follows it
 (``rasterize_pallas_api.py:_reduce_d_charts``). They compute what the flat
-kernels compute (``ops/rasterize_fwd.py``, ``ops/rasterize_bwd.py``), and
-differ in what they hold on chip: a chunk of records only. Texels are
-fetched from the ``(N, Ch, Cw, 3)`` charts in device memory and texel
-gradients are added there, so their shared memory does not grow with the
-chart pad and every pad is served. Maps come back as ``(C, H, W)`` planes
-in ``rasterize_fwd.CH_NAMES`` order; ncontrib is ``s_max`` where a pixel's
-walk never broke.
+kernels compute (``ops/rasterize_fwd.py``, ``ops/rasterize_bwd.py``) on
+the same walk, and hold a chunk of records on chip. Texels are fetched
+from the ``(N, Ch, Cw, 3)`` charts in device memory and texel gradients
+are added there, so their shared memory does not grow with the chart pad
+and every pad is served. The backward, as the flat kernels, copies its
+records through a ``cp.async`` ring and takes its tiles longest first
+(``rasterize_fwd.tile_order`` on the counts capped at ``s_max``). Maps
+come back as ``(C, H, W)`` planes in ``rasterize_fwd.CH_NAMES`` order;
+ncontrib is ``s_max`` where a pixel's walk never broke.
 """
 
 from __future__ import annotations
@@ -27,12 +29,16 @@ import torch
 from . import rasterize as plain
 from .binning import TileGrid
 from .rasterize_bwd import check_residuals
-from .rasterize_fwd import MAX_TILE_PIXELS, NCH
+from .rasterize_fwd import MAX_TILE_PIXELS, NCH, tile_order
 from .records import F_REC
 
 
-def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid):
-    """Raise on inputs the dense-list kernels do not take."""
+def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid,
+                 order=None, aligned: bool = False):
+    """Raise on inputs the dense-list kernels do not take: ``order`` (given)
+    must be an int32 ``(num_tiles,)`` tile order, and with ``aligned``
+    ``records`` must be 16-byte aligned (the backward copies them 16 B at
+    a time, cp.async)."""
     dev = records.device
     n = records.shape[0]
     if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:
@@ -45,6 +51,8 @@ def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid):
         "charts": (charts, torch.float32, None),
         "cam_info": (cam_info, torch.float32, (18,)),
     }
+    if order is not None:
+        spec["order"] = (order, torch.int32, (grid.num_tiles,))
     for name, (x, dtype, shape) in spec.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, records on {dev}")
@@ -64,6 +72,8 @@ def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the dense-list kernels run on cpu or cuda, not "
                          f"{dev}")
+    if aligned and records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
 
 
 def _launch(name: str, n_ptr: int, pointers, ints, dev):
@@ -148,17 +158,20 @@ def rasterize_dense_fwd(records, ids, counts, charts, cam_info,
 
 
 def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
-                        ncontrib, gmaps, grid: TileGrid, lean: bool = False):
+                        ncontrib, gmaps, grid: TileGrid, lean: bool = False,
+                        order=None):
     """Gradients of the training forward's first 12 maps: returns
     ``(d_records (N, 32), d_charts (N, Ch, Cw, 3))``.
 
     ``maps`` (14, H, W) and ``ncontrib`` (H, W) are ``rasterize_dense_fwd``'s
     outputs for the same inputs, ``gmaps`` (12, H, W) the cotangents of its
-    first 12 channels. CPU tensors run the plain version
-    (``rasterize.backward_walk``); CUDA tensors launch the kernel (and
-    raise if it cannot launch).
+    first 12 channels; ``order`` is ``tile_order(counts, s_max)``, computed
+    here if not given. ``records`` must be 16-byte aligned. CPU tensors run
+    the plain version (``rasterize.backward_walk``); CUDA tensors launch
+    the kernel (and raise if it cannot launch).
     """
-    check_inputs(records, ids, counts, charts, cam_info, grid)
+    check_inputs(records, ids, counts, charts, cam_info, grid, order,
+                 aligned=True)
     dev = records.device
     check_residuals(maps, ncontrib, gmaps, dev, grid)
     if dev.type == "cpu":
@@ -166,9 +179,11 @@ def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
                                    maps, ncontrib, gmaps, grid, lean=lean)
     d_rec = torch.zeros_like(records)
     d_ch = torch.zeros_like(charts)
-    _launch("rasterize_dense_bwd", 10,
+    if order is None:
+        order = tile_order(counts, ids.shape[1])
+    _launch("rasterize_dense_bwd", 11,
             (records, ids, counts, charts, cam_info, maps, ncontrib, gmaps,
-             d_rec, d_ch),
+             d_rec, d_ch, order),
             (*_geometry(grid, charts, ids), int(lean)), dev)
     rasterize_dense_bwd.launches += 1
     return d_rec, d_ch
@@ -178,3 +193,15 @@ def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
 rasterize_dense_eval.launches = 0
 rasterize_dense_fwd.launches = 0
 rasterize_dense_bwd.launches = 0
+
+
+def bwd_launch_smem(tile_h: int, tile_w: int) -> int:
+    """Bytes of shared memory a launch of the dense backward takes at
+    ``tile_h x tile_w`` tiles: its static arrays and the tile's 14
+    per-pixel planes. The chart pad does not enter it."""
+    from . import _build
+
+    fn = _build.load("rasterize_dense_bwd").gstex_rasterize_dense_bwd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(tile_h, tile_w)

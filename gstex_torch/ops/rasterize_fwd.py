@@ -27,11 +27,6 @@ from .surfel import (AA_SIGMA2, ALPHA_CLAMP, ALPHA_CUTOFF, EXTENT_SIGMA,
 
 THREADS = 256
 MAX_TILE_PIXELS = THREADS * 4
-MAX_CHUNK = 32
-# staging budget per chunk of the eval kernel; above 48 KB the kernel opts
-# in to more
-_SMEM_TARGET = 48 * 1024
-_SMEM_MAX = 227 * 1024
 CH_NAMES = ("img0", "img1", "img2", "tex0", "tex1", "tex2", "depth",
             "alpha", "n0", "n1", "n2", "reg", "t_final", "m1")
 NCH = len(CH_NAMES)
@@ -69,22 +64,11 @@ def pixel_grid(grid: TileGrid, cam_info: torch.Tensor):
     return gx, gy, dirs, inside
 
 
-def chunk_size(chart_pad) -> int:
-    """Splats staged per chunk in the eval kernel's shared memory (records
-    and active charts)."""
-    per = (F_REC + chart_pad[0] * chart_pad[1] * 3) * 4
-    chunk = max(1, min(MAX_CHUNK, _SMEM_TARGET // per))
-    if chunk * per > _SMEM_MAX:
-        raise ValueError(f"chart pad {tuple(chart_pad)} needs {per} B of "
-                         f"shared memory per splat; the kernel has "
-                         f"{_SMEM_MAX} B")
-    return chunk
-
-
 def tile_order(counts, s_cap: int) -> torch.Tensor:
-    """The order in which the flat training kernels' blocks take their
-    tiles: by capped count, longest first, so the long tiles do not trail
-    the grid. int32 ``(num_tiles,)``."""
+    """The order in which the flat kernels' and the dense backward's blocks
+    take their tiles: by count capped at ``s_cap`` (the dense lists'
+    ``s_max``), longest first, so the long tiles do not trail the grid.
+    int32 ``(num_tiles,)``."""
     return torch.argsort(torch.clamp(counts, max=s_cap),
                          descending=True).to(torch.int32)
 
@@ -92,8 +76,7 @@ def tile_order(counts, s_cap: int) -> torch.Tensor:
 def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                  s_cap, order=None):
     """Raise on inputs the flat-path kernels do not take. ``records`` must
-    be 16-byte aligned: the training kernels copy them 16 B at a time
-    (cp.async)."""
+    be 16-byte aligned: the kernels copy them 16 B at a time (cp.async)."""
     dev = records.device
     n = records.shape[0]
     if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:

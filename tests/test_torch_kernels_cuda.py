@@ -8,8 +8,9 @@ the port is installed:
 
 The eval and forward kernels and their plain versions run the same
 float32 operations in the same per-pixel order (the kernels are built
-without FMA contraction), so they are held to 1e-4, the tolerance
-``chip_smoke.py`` uses. The backward kernel sums over pixels and tiles in
+without FMA contraction): the flat eval kernel is held to its plain
+version bit for bit, the others to 1e-4, the tolerance ``chip_smoke.py``
+uses. The backward kernel sums over pixels and tiles in
 another order (shuffles and atomics), so it is held to 1e-4 of each
 field group's largest plain value, and the texture gradient to a sign
 flip fraction of 1e-5. The SSIM kernel and its plain version both run in
@@ -20,12 +21,12 @@ gradient; and to each other: 1e-6 on the value, twice 3e-5 on the
 gradient.
 
 The chart pads include a non-square one, whose active charts are drawn
-up to the full pad in each direction, and one large enough that each
-chunk of the eval kernel stages a single splat, as the training main
-path's scene-sized pads do. The flat training kernels stage records only
-(no shared memory sized by the pad), so they also run at (88, 88) and
-(128, 128), past what their first port staged, and on an 88x120 image
-whose last row and column of tiles are partial.
+up to the full pad in each direction, and a scene-sized (40, 56), at
+which the first eval kernel staged one splat a chunk. The three flat
+kernels stage records only (no shared memory sized by the pad), so they
+also run at (88, 88) and (128, 128), past what their first port staged,
+and the training kernels on an 88x120 image whose last row and column of
+tiles are partial.
 
 The dense-list kernels run the same cases plus the pads that the dispatch
 sends to them, (88, 88) and (128, 128). Their eval and forward kernels follow their plain
@@ -72,7 +73,7 @@ PARTIAL = (88, 120)
 CASES = [((8, 8), 32, 1024), ((4, 4), 16, 1024), ((8, 8), 32, 16),
          ((6, 10), 16, 1024), ((40, 56), 32, 1024)]
 CASE_IDS = ["pad8_tile32", "pad4_tile16", "clamped_s_cap", "pad6x10_tile16",
-            "pad40x56_chunk1"]
+            "pad40x56"]
 SSIM_LOSS_TOL = 1e-6
 SSIM_GRAD_TOL = 3e-5   # of the float64 gradient's max
 # record fields by what they carry, for the backward's per-group gate
@@ -139,23 +140,8 @@ def backward_errors(d_rec, d_ch, ref_rec, ref_ch):
     return errs
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pad,tile,s_cap", CASES, ids=CASE_IDS)
-def test_kernel_matches_plain(cuda, pad, tile, s_cap):
-    inputs, grid, bins = kernel_inputs(cuda, pad, tile, s_cap)
-    if s_cap == 16:
-        assert bins.overflow > 0
-    before = reval.rasterize_eval.launches
-    out = reval.rasterize_eval(*inputs, grid, s_cap)
-    torch.cuda.synchronize()
-    assert reval.rasterize_eval.launches == before + 1
-    ref, _ = reval.rasterize_eval_reference(*inputs, grid, s_cap)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-    assert float(out[7].max()) > 0.3
-
-
-# the flat training kernels also at pads past their first port's shared
-# memory; few surfels where the charts are large (300 x (128, 128) is 59 MB)
+# the flat kernels also at pads past their first port's shared memory;
+# few surfels where the charts are large (300 x (128, 128) is 59 MB)
 FLAT_CASES = CASES + [((88, 88), 32, 1024), ((128, 128), 32, 1024)]
 FLAT_IDS = CASE_IDS + ["pad88x88_past_staging", "pad128x128_max"]
 
@@ -164,6 +150,22 @@ def flat_inputs(cuda, pad, tile, s_cap, hw=(H, W), dense=False):
     n = 300 if pad[0] >= 88 else 2000
     return kernel_inputs(cuda, pad, tile, s_cap, n=n, height=hw[0],
                          width=hw[1], dense=dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad,tile,s_cap", FLAT_CASES, ids=FLAT_IDS)
+def test_kernel_matches_plain(cuda, pad, tile, s_cap):
+    """The flat eval kernel writes its plain version's maps bit for bit."""
+    inputs, grid, bins = flat_inputs(cuda, pad, tile, s_cap)
+    if s_cap == 16:
+        assert bins.overflow > 0
+    before = reval.rasterize_eval.launches
+    out = reval.rasterize_eval(*inputs, grid, s_cap)
+    torch.cuda.synchronize()
+    assert reval.rasterize_eval.launches == before + 1
+    ref, _ = reval.rasterize_eval_reference(*inputs, grid, s_cap)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert float(out[7].max()) > 0.3
 
 
 @pytest.mark.cuda
@@ -238,16 +240,21 @@ def test_flat_training_kernels_on_partial_tiles(cuda, pad, lean):
 
 @pytest.mark.cuda
 def test_flat_training_kernels_shared_memory_is_pad_free(cuda):
-    """Neither flat training kernel keeps anything sized by the chart pad
-    in shared memory: the forward has only its static arrays (the record
-    ring, ids and camera), the backward those and the tile's 14 planes. So
-    at 32x32 tiles two backward blocks fit an SM's 228 KB."""
+    """No flat kernel keeps anything sized by the chart pad in shared
+    memory: the eval and forward kernels have only their static arrays
+    (the record ring, ids and camera), the backward those and the tile's
+    14 planes. So at 32x32 tiles two backward blocks fit an SM's 228 KB."""
     fwd = rfwd.launch_smem()
+    ev = reval.launch_smem()
     fixed = rbwd.launch_smem(0, 0)
     assert 0 < fwd <= 24 * 1024 and 0 < fixed <= 32 * 1024
+    assert 0 < ev <= fwd
     assert 2 * (rbwd.launch_smem(32, 32) + 1024) <= 228 * 1024
     # and the kernels take pads far past any staging: (192, 256) charts
     inputs, grid, _ = kernel_inputs(cuda, (192, 256), 32, 1024, n=100)
+    out = reval.rasterize_eval(*inputs, grid, 1024)
+    ref, _ = reval.rasterize_eval_reference(*inputs, grid, 1024)
+    assert torch.equal(out, ref) and float(out[7].max()) > 0.3
     maps, ncon = rfwd.rasterize_fwd(*inputs, grid, 1024, lean=True)
     ref, ref_ncon = rfwd.rasterize_fwd_reference(*inputs, grid, 1024,
                                                  lean=True)
@@ -275,6 +282,8 @@ def test_flat_tile_schedules_agree(cuda, schedule):
              "reversed": rfwd.tile_order(counts, 1024).flip(0)}[schedule]
     maps2, ncon2 = rfwd.rasterize_fwd(*inputs, grid, 1024, order=order)
     assert torch.equal(maps, maps2) and torch.equal(ncon, ncon2)
+    assert torch.equal(reval.rasterize_eval(*inputs, grid, 1024, order=order),
+                       maps[:8])
     d_rec2, d_ch2 = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, 1024,
                                        order=order)
     errs = backward_errors(d_rec2, d_ch2, d_rec, d_ch)
@@ -418,6 +427,32 @@ def test_dense_kernels_match_flat_kernels(cuda, pad, tile, s_cap, lean):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "longest_first", "reversed"])
+def test_dense_tile_schedules_agree(cuda, schedule):
+    """The order in which the dense backward's blocks take tiles changes
+    nothing a tile computes: the gradients agree within the order of the
+    atomics. The dense lists are clamped at s_max = 128 (two chunks of the
+    record ring) here, so that the capped counts, not the raw ones, decide
+    the order."""
+    inputs, grid, bins = kernel_inputs(cuda, (16, 24), 16, 128, dense=True)
+    assert bins.overflow > 0
+    counts, s_max = inputs[2], inputs[1].shape[1]
+    g = cotangents(cuda)
+    maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid)
+    d_rec, d_ch = rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid)
+    order = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                   device=cuda),
+             "longest_first": rfwd.tile_order(counts, s_max),
+             "reversed": rfwd.tile_order(counts, s_max).flip(0)}[schedule]
+    d_rec2, d_ch2 = rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid,
+                                               order=order)
+    errs = backward_errors(d_rec2, d_ch2, d_rec, d_ch)
+    assert errs.pop("texture_flip_frac") <= 1e-5
+    assert max(errs.values()) <= 1e-5, errs
+    assert float(d_rec.abs().max()) > 0
+
+
+@pytest.mark.cuda
 def test_dense_wrappers_raise_instead_of_falling_back(cuda):
     inputs, grid, _ = kernel_inputs(cuda, (8, 8), 32, 1024, n=200,
                                     dense=True)
@@ -433,8 +468,16 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="is on"):
         rdense.rasterize_dense_fwd(records, ids.cpu(), counts, charts, info,
                                    grid)
+    maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid)
+    g = cotangents(cuda)
+    bwd_before = rdense.rasterize_dense_bwd.launches
+    with pytest.raises(ValueError, match="order"):
+        rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid,
+                                   order=torch.zeros(1, dtype=torch.int32,
+                                                     device=cuda))
+    assert rdense.rasterize_dense_bwd.launches == bwd_before
     assert (rdense.rasterize_dense_eval.launches,
-            rdense.rasterize_dense_fwd.launches) == before
+            rdense.rasterize_dense_fwd.launches) == (before[0], before[1] + 1)
 
 
 # the pair-space kernels: 32x32 tiles only; charts of at most 40 rows for

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time a flat-tier training step of the tree at ``--root`` on one card.
+"""Time a training step or an eval frame of the tree at ``--root`` on one
+card, on the flat or the dense tier.
 
-    python3 tools/flat_step_ab.py --root DIR [--tag NAME]
+    python3 tools/flat_step_ab.py --root DIR [--tier flat|dense]
+        [--mode step|eval] [--tag NAME]
 
 Imports ``chip_smoke.py`` and ``gstex_torch`` from ``--root`` (this
-repository, or a checkout of another commit), builds that tree's flat
-kernels, and times one ``gstex-blender-nvs`` training step as
-``chip_smoke.py``'s phase 9 does: the trained-scene statistics at their
-auto chart pad (40, 80), re-charted, on the 800x800 view of its phase 9,
-against a seeded ground-truth image. Prints one JSON line: the step's
-host ms (median of 20, min and max), the card's busy ms and idle share,
-and each ``gstex.*`` stage's device ms from a ``torch.profiler`` trace.
-Run it on two trees in turns within one call (A, B, B, A) to compare
-them on one card.
+repository, or a checkout of another commit), builds that tree's kernels
+of the tier, and times one ``gstex-blender-nvs`` training step (``--mode
+step``) or one eval frame of the same state (``--mode eval``, the
+forward-only ``models.gstex.render``) as ``chip_smoke.py``'s phase 9
+does: the trained-scene statistics at their auto chart pad, re-charted,
+on the 800x800 view of its phase 9, against a seeded ground-truth image.
+``--tier flat`` takes pixel_num 1e6, pad (40, 80); ``--tier dense``
+pixel_num 4e6, pad (64, 128), which the dispatch sends to the dense
+kernels. Prints one JSON line: the step's or frame's host ms (``ms``,
+median of 20, ``ms_min`` and ``ms_max``), the card's busy ms and idle
+share, and each ``gstex.*`` stage's device ms from a ``torch.profiler``
+trace. Run it on two trees in turns within one call (A, B, B, A) to
+compare them on one card.
 """
 
 import argparse
@@ -26,6 +32,8 @@ from pathlib import Path
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
+    ap.add_argument("--tier", choices=("flat", "dense"), default="flat")
+    ap.add_argument("--mode", choices=("step", "eval"), default="step")
     ap.add_argument("--tag", default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -39,18 +47,30 @@ def main():
     from gstex_torch.configs.methods import get_method
     from gstex_torch.data.synthetic import orbit_c2w
     from gstex_torch.models import init_io
+    from gstex_torch.models import gstex as model
     from gstex_torch.ops import _build
     from gstex_torch.ops import rasterize_bwd as rbwd
+    from gstex_torch.ops import rasterize_dense as rdense
+    from gstex_torch.ops import rasterize_eval as reval
     from gstex_torch.ops import rasterize_fwd as rfwd
     from gstex_torch.ops.camera import make_camera
+    from gstex_torch.scripts import render as render_cli
     from gstex_torch.train import step as train_step
 
     if Path(cs.__file__).resolve().parent != root:
         raise SystemExit(f"flat_step_ab: imported {cs.__file__}, not the "
                          f"tree at {root}")
-    _build.build(["rasterize_fwd", "rasterize_bwd", "ssim_fused"])
+    dense = args.tier == "dense"
+    if dense:
+        kernels = (rdense.rasterize_dense_eval, rdense.rasterize_dense_fwd,
+                   rdense.rasterize_dense_bwd)
+    else:
+        kernels = (reval.rasterize_eval, rfwd.rasterize_fwd,
+                   rbwd.rasterize_bwd)
+    _build.build([fn.__name__ for fn in kernels] + ["ssim_fused"])
     method = get_method("gstex-blender-nvs")
-    cfg = method.model
+    cfg = dataclasses.replace(method.model, pixel_num=(
+        cs.DENSE_PIXEL_NUM if dense else method.model.pixel_num))
     params, buffers = init_io.load_scene_npz(cfg, cs.STATS, seed=1,
                                              device=cs.DEVICE)
     cfg = dataclasses.replace(cfg, chart_pad=tuple(params.texture.shape[1:3]))
@@ -59,18 +79,36 @@ def main():
     cfg, state = cs.recharted_state(cfg, method.optim, params, buffers, cam)
     gen = torch.Generator(device=cs.DEVICE).manual_seed(0)
     img = torch.rand((cs.H, cs.W, 3), generator=gen, device=cs.DEVICE)
-    timing = cs.step_timing(lambda: train_step.train_step(
-        cfg, method.optim, state, cam, img),
-        (rfwd.rasterize_fwd, rbwd.rasterize_bwd), cs.H * cs.W)
+    if args.mode == "step":
+        timing = cs.step_timing(lambda: train_step.train_step(
+            cfg, method.optim, state, cam, img), kernels[1:], cs.H * cs.W)
+    else:
+        bg = render_cli.eval_background(cfg, cs.DEVICE)
+
+        def frame():
+            with torch.no_grad():
+                return model.render(cfg, state.params, state.buffers, cam,
+                                    cs.STEP, bg, eval_only=True)
+        kernels[0].launches = 0
+        ms, lo, hi = cs.host_ms(frame)
+        busy, _, trace = cs.device_ms(frame, 5)
+        timing = dict(step_ms=ms, step_ms_min=lo, step_ms_max=hi,
+                      device_busy_ms=busy,
+                      device_idle_share=1.0 - busy / ms,
+                      launches_per_step={kernels[0].__name__:
+                                         kernels[0].launches / 21},
+                      trace_stage_ms=trace)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "tag": args.tag or str(root), "card": smi,
-        "chart_pad": list(cfg.chart_pad),
-        **{k: timing[k] for k in ("step_ms", "step_ms_min", "step_ms_max",
-                                  "device_busy_ms", "device_idle_share",
+        "tag": args.tag or str(root), "card": smi, "tier": args.tier,
+        "mode": args.mode, "chart_pad": list(cfg.chart_pad),
+        # a step's or an eval frame's host ms
+        "ms": timing["step_ms"], "ms_min": timing["step_ms_min"],
+        "ms_max": timing["step_ms_max"],
+        **{k: timing[k] for k in ("device_busy_ms", "device_idle_share",
                                   "launches_per_step")},
         "stage_device_ms": {k: v.get("device_ms")
                             for k, v in timing["trace_stage_ms"].items()},
