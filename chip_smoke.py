@@ -18,14 +18,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ncontrib equal), the backward kernel lean and full under seeded
    cotangents (per record-field group and for the charts, max abs <= 1e-4
    of the plain version's max abs; texture sign flips <= 1e-5), and the
-   SSIM kernel and its float32 plain version on a render and a noisy copy,
-   each against a float64 evaluation (|loss| <= 1e-6, gradient max abs
+   SSIM kernel and its float32 plain version on a render and a noisy copy
+   (800x800, and its first 600 rows: the DTU path's 800x600), each
+   against a float64 evaluation (|loss| <= 1e-6, gradient max abs
    <= 3e-5 of the float64 max), and to each other (the loss to 1e-6, the
    gradient to twice 3e-5); then, on the trained scene's dense lists of
    the same view, the three dense-list kernels against their plain
    versions and against the flat kernels, under the same gates, and the
-   dense backward under three tile orders (block, longest first,
-   reversed: within 1e-5 of each field group's max); then the
+   dense forward and backward under three tile orders (block, longest
+   first, reversed: the forward's maps and ncontrib bit-equal to its plain
+   version, the backward within 1e-5 of each field group's max); then the
    pair-space v3, v2 and v1 kernels on per-slot copies of those dense
    lists, and of the trained scene at pixel_num 1e5, re-charted, at
    (16, 24): each against its plain version, lean and full; v3 and v2,
@@ -96,8 +98,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    past shared memory), and alone beside their bounds;
 10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
     nerfstudio view, where their main path runs them; the flat eval
-    kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense backward's at
-    (64, 128) and (16, 24)), the nvidia-smi line and the final result.
+    kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
+    backward's at (64, 128) and (16, 24), the SSIM kernel's
+    ``ms_by_shape`` at 800x800x3 and 600x800x3), the nvidia-smi line and
+    the final result.
 
 Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
@@ -189,7 +193,7 @@ STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",
                                 "rasterize_v3_fwd_kernel",
                                 "rasterize_v2_fwd_kernel",
                                 "rasterize_v1_fwd_kernel"),
-                 "ssim_kernel": ("ssim_tile_kernel", "ssim_sum_kernel"),
+                 "ssim_kernel": ("ssim_fused_kernel",),
                  "bwd_kernel": ("rasterize_bwd_kernel",
                                 "rasterize_dense_bwd_kernel",
                                 "rasterize_v3_bwd_kernel",
@@ -221,6 +225,21 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device ms of ``fn()``'s launches, replayed from a CUDA graph
+    captured after one warm-up run, so that no host work between launches
+    enters the time (for a kernel shorter than its wrapper's host
+    overhead)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
 
 
 def once_ms(fn):
@@ -752,32 +771,73 @@ def check_dense_vs_flat(flat_frame, dense_frame, lean, **where):
 
 
 def check_dense_schedules(dframe, lean, **where):
-    """The dense backward under three tile orders (block, longest first,
-    reversed): the gradients agree within the order of the atomics, 1e-5
-    of each field group's max, no more than FLIP_TOL sign flips."""
+    """The dense forward and backward under three tile orders (block,
+    longest first, reversed): the forward's maps and ncontrib bit-equal to
+    its plain version under each (a tile order changes no pixel's
+    operations); the gradients agree within the order of the atomics,
+    1e-5 of each field group's max, no more than FLIP_TOL sign flips."""
     from gstex_torch.ops import rasterize_dense as rd
     from gstex_torch.ops.rasterize_fwd import tile_order
 
     tier, i, grid = dframe.tier, dframe.inputs, dframe.grid
     counts, s_max = i[2], i[1].shape[1]
     maps, ncon = tier.fwd(i, grid, s_max, lean)
+    ref_maps, ref_ncon = tier.fwd_plain(i, grid, s_max, lean)
     g = cotangents(grid.height, grid.width)
     ref = tier.bwd(i, maps, ncon, g, grid, s_max, lean)
     orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
                                     device=DEVICE),
               "longest_first": tile_order(counts, s_max),
               "reversed": tile_order(counts, s_max).flip(0).contiguous()}
-    errs = {}
+    errs, fwd_equal = {}, {}
     for name, order in orders.items():
+        o_maps, o_ncon = rd.rasterize_dense_fwd(*i, grid, lean=lean,
+                                                order=order)
+        fwd_equal[name] = bool(torch.equal(o_maps, ref_maps)
+                               and torch.equal(o_ncon, ref_ncon))
         got = rd.rasterize_dense_bwd(*i, maps, ncon, g, grid, lean=lean,
                                      order=order)
         e, flip, _ = bwd_errors(*got, *ref)
         errs[name] = (max(e.values()), flip)
-    emit("dense_schedules", lean=lean, max_rel_err_and_flips=errs,
-         tol=SCHEDULE_TOL, flip_tol=FLIP_TOL, **where)
+    emit("dense_schedules", lean=lean, fwd_bit_equal_to_plain=fwd_equal,
+         bwd_max_rel_err_and_flips=errs, tol=SCHEDULE_TOL,
+         flip_tol=FLIP_TOL, **where)
+    require(all(fwd_equal.values()),
+            f"{where}: the dense forward differs from its plain version "
+            f"under a tile order: {fwd_equal}")
     require(all(e <= SCHEDULE_TOL and f <= FLIP_TOL
                 for e, f in errs.values()),
             f"{where}: the dense backward's tile orders disagree: {errs}")
+
+
+def check_ssim(ssim_fused, pred, noisy):
+    """The SSIM kernel and its float32 plain version, each against a
+    float64 evaluation (they compute in float32, each with its own
+    roundoff), and so to each other at twice the gradient gate. Returns
+    the kernel's largest error against the plain version."""
+    kernel = ssim_fused.fused_ssim_value_and_grad(pred, noisy)
+    plain = ssim_fused.fused_ssim_reference(pred, noisy)
+    exact = ssim_fused.fused_ssim_reference(pred.double(), noisy.double())
+    scale = float(exact[1].abs().max())
+
+    def ssim_errors(got, ref):
+        grad_abs = float((got[1].double() - ref[1].double()).abs().max())
+        return abs(float(got[0]) - float(ref[0])), grad_abs / scale
+
+    errs = {"kernel_vs_float64": ssim_errors(kernel, exact),
+            "plain_vs_float64": ssim_errors(plain, exact),
+            "kernel_vs_plain": ssim_errors(kernel, plain)}
+    emit("kernel_vs_plain", kernel="ssim_fused", shape=list(pred.shape),
+         loss=float(kernel[0]), grad_max=scale,
+         loss_abs_err_and_grad_rel_err=errs, loss_tol=SSIM_LOSS_TOL,
+         grad_tol=SSIM_GRAD_TOL, kernel_vs_plain_grad_tol_factor=2)
+    for k, (loss_err, grad_err) in errs.items():
+        f = 2 if k == "kernel_vs_plain" else 1
+        require(loss_err <= SSIM_LOSS_TOL and grad_err <= f * SSIM_GRAD_TOL,
+                f"SSIM {k} at {list(pred.shape)}: loss {loss_err}, "
+                f"gradient {grad_err}")
+    return max(errs["kernel_vs_plain"][0],
+               float((kernel[1] - plain[1]).abs().max()))
 
 
 def check_pair_vs_dense(dframe, pinputs, tier, lean, **where):
@@ -1189,7 +1249,8 @@ def main():
              "rasterize_eval": reval.launch_smem(),
              "rasterize_fwd": rfwd.launch_smem(),
              "rasterize_bwd_32x32": rbwd.launch_smem(32, 32),
-             "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32)})
+             "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32),
+             "ssim_fused": ssim_fused.launch_smem()})
 
     # 3. kernels vs plain, on the bins of each scene's first spiral view
     cam = orbit_camera(H, W, dist=4.0, device=DEVICE)
@@ -1258,38 +1319,18 @@ def main():
         del pframe, pp, pb
         torch.cuda.empty_cache()
 
-        # SSIM on a render and a noisy copy of it
+        # SSIM on a render and a noisy copy of it, at the Blender path's
+        # 800x800 and, cut to its rows, the DTU path's 800x600
         pred = frames["trained_scene_stats"][0].rgb.contiguous()
         gen = torch.Generator(device=DEVICE).manual_seed(3)
         noisy = torch.clamp(pred + 0.05 * torch.randn(
             pred.shape, generator=gen, device=DEVICE), 0, 1).contiguous()
-        # kernel and plain version compute in float32, each with its own
-        # roundoff; both are held to a float64 evaluation, and so to each
-        # other at twice the gradient gate
-        kernel = ssim_fused.fused_ssim_value_and_grad(pred, noisy)
-        plain = ssim_fused.fused_ssim_reference(pred, noisy)
-        exact = ssim_fused.fused_ssim_reference(pred.double(),
-                                                noisy.double())
-        scale = float(exact[1].abs().max())
-
-        def ssim_errors(got, ref):
-            grad_abs = float((got[1].double() - ref[1].double()).abs().max())
-            return abs(float(got[0]) - float(ref[0])), grad_abs / scale
-
-        errs = {"kernel_vs_float64": ssim_errors(kernel, exact),
-                "plain_vs_float64": ssim_errors(plain, exact),
-                "kernel_vs_plain": ssim_errors(kernel, plain)}
-        grad_abs = float((kernel[1] - plain[1]).abs().max())
-        worst["ssim_fused"] = max(errs["kernel_vs_plain"][0], grad_abs)
-        emit("kernel_vs_plain", kernel="ssim_fused", shape=list(pred.shape),
-             loss=float(kernel[0]), grad_max=scale,
-             loss_abs_err_and_grad_rel_err=errs, loss_tol=SSIM_LOSS_TOL,
-             grad_tol=SSIM_GRAD_TOL, kernel_vs_plain_grad_tol_factor=2)
-        for k, (loss_err, grad_err) in errs.items():
-            f = 2 if k == "kernel_vs_plain" else 1
-            require(loss_err <= SSIM_LOSS_TOL
-                    and grad_err <= f * SSIM_GRAD_TOL,
-                    f"SSIM {k}: loss {loss_err}, gradient {grad_err}")
+        ssim_pairs = {f"{h}x{w}x3": (pred[:h].contiguous(),
+                                     noisy[:h].contiguous())
+                      for h, w in ((H, W), (DTU_H, DTU_W))}
+        for shape, (a, b) in ssim_pairs.items():
+            worst["ssim_fused"] = max(worst["ssim_fused"],
+                                      check_ssim(ssim_fused, a, b))
 
         # 4. eval main path, through the CLI a user calls
         reval.rasterize_eval.launches = 0
@@ -1743,17 +1784,25 @@ def main():
     dtu_t = dtu_step_timing(Path(tmp.name), all_counters, smi, note)
     torch.cuda.empty_cache()
     tmp.cleanup()
-    # the SSIM kernel on phase 3's 800x800 pair, the training loss's shape;
-    # its time does not depend on the data
-    ssim_t = dict(
-        ms=cuda_ms(lambda: ssim_fused.fused_ssim_value_and_grad(pred, noisy),
-                   20),
-        plain_ms=cuda_ms(lambda: ssim_fused.fused_ssim_reference(
-            pred, noisy), 5),
-        float64_ms=cuda_ms(lambda: ssim_fused.fused_ssim_reference(
-            pred.double(), noisy.double()), 5),
-        **ssim_bound(pred.shape))
-    emit("timing", path="ssim", card=smi, shape=list(pred.shape), **ssim_t)
+    # the SSIM kernel on phase 3's pairs, the training loss's shapes (its
+    # time does not depend on the data); the 800x800 one for the kernels
+    # line
+    ssim_by_shape = {}
+    for shape, (a, b) in ssim_pairs.items():
+        ssim_by_shape[shape] = dict(
+            ms=graph_ms(lambda: ssim_fused.fused_ssim_value_and_grad(a, b),
+                        100),
+            # the same call with its wrapper's host work, as a step pays it
+            call_ms=cuda_ms(
+                lambda: ssim_fused.fused_ssim_value_and_grad(a, b), 100),
+            plain_ms=cuda_ms(lambda: ssim_fused.fused_ssim_reference(a, b),
+                             5),
+            float64_ms=cuda_ms(lambda: ssim_fused.fused_ssim_reference(
+                a.double(), b.double()), 5),
+            **ssim_bound(a.shape))
+        emit("timing", path="ssim", card=smi, shape=list(a.shape),
+             launches_per_call=1, **ssim_by_shape[shape])
+    ssim_t = ssim_by_shape[f"{H}x{W}x3"]
 
     main_e = timings["trained_scene_stats"]
     main_t = dict(train_t["trained_scene_stats"]["kernels"],
@@ -1819,9 +1868,12 @@ def main():
             # plain version is five conv2d calls plus autograd)
             "library_ms": None,
         })
-    kernels[[k["name"] for k in kernels].index("rasterize_dense_bwd")][
-        "ms_by_pad"] = {"64x128": main_t["rasterize_dense_bwd"]["ms"],
-                        "16x24": dense_ms["rasterize_dense_bwd"]}
+    by_name = {k["name"]: k for k in kernels}
+    for k in ("rasterize_dense_fwd", "rasterize_dense_bwd"):
+        by_name[k]["ms_by_pad"] = {"64x128": main_t[k]["ms"],
+                                   "16x24": dense_ms[k]}
+    by_name["ssim_fused"]["ms_by_shape"] = {
+        shape: t["ms"] for shape, t in ssim_by_shape.items()}
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel of the main paths never launched: "
             f"{[(k['name'], k['launches']) for k in kernels]}")

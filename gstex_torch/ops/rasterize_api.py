@@ -193,14 +193,14 @@ class _Rasterize4(torch.autograd.Function):
     """(records, charts) -> (14, H, W) maps, ncontrib over the dense lists;
     the backward runs ``rasterize_dense_bwd`` on the cotangents of the
     first 12 maps (the counterpart of ``_core4``'s custom VJP, with its
-    segment sums inside the kernel), taking the tiles longest first in an
-    order computed once, in the forward."""
+    segment sums inside the kernel). Both kernels take the tiles longest
+    first, in one order computed once, in the forward."""
 
     @staticmethod
     def forward(ctx, records, charts, ids, counts, info, grid, lean):
         order = tile_order(counts, ids.shape[1])
         maps, ncon = rasterize_dense_fwd(records, ids, counts, charts, info,
-                                         grid, lean=lean)
+                                         grid, lean=lean, order=order)
         ctx.save_for_backward(records, charts, ids, counts, info, maps, ncon,
                               order)
         ctx.grid, ctx.lean = grid, lean

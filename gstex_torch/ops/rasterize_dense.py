@@ -13,11 +13,12 @@ kernels compute (``ops/rasterize_fwd.py``, ``ops/rasterize_bwd.py``) on
 the same walk, and hold a chunk of records on chip. Texels are fetched
 from the ``(N, Ch, Cw, 3)`` charts in device memory and texel gradients
 are added there, so their shared memory does not grow with the chart pad
-and every pad is served. The backward, as the flat kernels, copies its
-records through a ``cp.async`` ring and takes its tiles longest first
-(``rasterize_fwd.tile_order`` on the counts capped at ``s_max``). Maps
-come back as ``(C, H, W)`` planes in ``rasterize_fwd.CH_NAMES`` order;
-ncontrib is ``s_max`` where a pixel's walk never broke.
+and every pad is served. The training forward and the backward, as the
+flat kernels, copy their records through a ``cp.async`` ring and take
+their tiles longest first (``rasterize_fwd.tile_order`` on the counts
+capped at ``s_max``). Maps come back as ``(C, H, W)`` planes in
+``rasterize_fwd.CH_NAMES`` order; ncontrib is ``s_max`` where a pixel's
+walk never broke.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid,
                  order=None, aligned: bool = False):
     """Raise on inputs the dense-list kernels do not take: ``order`` (given)
     must be an int32 ``(num_tiles,)`` tile order, and with ``aligned``
-    ``records`` must be 16-byte aligned (the backward copies them 16 B at
-    a time, cp.async)."""
+    ``records`` must be 16-byte aligned (the training kernels copy them
+    16 B at a time, cp.async)."""
     dev = records.device
     n = records.shape[0]
     if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:
@@ -137,11 +138,16 @@ def rasterize_dense_eval(records, ids, counts, charts, cam_info,
 
 
 def rasterize_dense_fwd(records, ids, counts, charts, cam_info,
-                        grid: TileGrid, lean: bool = False):
+                        grid: TileGrid, lean: bool = False, order=None):
     """Training forward; returns ``(maps (14, H, W), ncontrib (H, W)
     int32)``. ``lean=True`` skips the normal and reg chains; their planes
-    stay zero. Arguments as ``rasterize_dense_eval``."""
-    check_inputs(records, ids, counts, charts, cam_info, grid)
+    stay zero. Arguments as ``rasterize_dense_eval``; ``order`` is
+    ``tile_order(counts, s_max)``, computed here if not given, and
+    ``records`` must be 16-byte aligned. The tile order changes no pixel's
+    operations: the maps are bit-equal to the plain version's under any
+    order."""
+    check_inputs(records, ids, counts, charts, cam_info, grid, order,
+                 aligned=True)
     dev = records.device
     if dev.type == "cpu":
         return plain.forward_scan(records, ids, counts, charts, cam_info,
@@ -150,8 +156,10 @@ def rasterize_dense_fwd(records, ids, counts, charts, cam_info,
                       device=dev)
     ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
                        device=dev)
-    _launch("rasterize_dense_fwd", 7,
-            (records, ids, counts, charts, cam_info, out, ncon),
+    if order is None:
+        order = tile_order(counts, ids.shape[1])
+    _launch("rasterize_dense_fwd", 8,
+            (records, ids, counts, charts, cam_info, out, ncon, order),
             (*_geometry(grid, charts, ids), int(lean)), dev)
     rasterize_dense_fwd.launches += 1
     return out, ncon

@@ -1,13 +1,13 @@
 """The tile orders and record alignment that the flat eval kernel and the
-dense backward take, checked by their wrappers on the CPU.
+dense training kernels take, checked by their wrappers on the CPU.
 
-Both kernels copy records 16 B at a time (cp.async) and take their tiles
+These kernels copy records 16 B at a time (cp.async) and take their tiles
 longest first, in an order computed once a frame (``rasterize_pl5_eval``)
-or once a training step (``_Rasterize4``, in its forward, for the
-backward). The wrappers refuse misaligned records and orders of the wrong
-type or length before they dispatch, so the CPU path checks what the card
-path would launch. The kernels themselves run only on the card
-(``test_torch_kernels_cuda.py``).
+or once a training step (``_Rasterize4``, in its forward, for the dense
+forward and backward both). The wrappers refuse misaligned records and
+orders of the wrong type or length before they dispatch, so the CPU path
+checks what the card path would launch. The kernels themselves run only
+on the card (``test_torch_kernels_cuda.py``).
 """
 
 import pytest
@@ -102,7 +102,7 @@ def test_dense_backward_refuses_misaligned_records():
     with pytest.raises(ValueError, match="aligned"):
         rdense.rasterize_dense_bwd(misaligned(records), ids, counts, charts,
                                    info, maps, ncon, gmaps, grid)
-    # the dense forward and eval kernels stage records with plain loads
+    # the dense eval kernel stages records with plain loads
     out = rdense.rasterize_dense_eval(misaligned(records), ids, counts,
                                       charts, info, grid)
     assert out.shape == (8, H, W)
@@ -119,6 +119,43 @@ def test_dense_backward_refuses_a_bad_tile_order(bad):
     with pytest.raises(err, match="order"):
         rdense.rasterize_dense_bwd(records, ids, counts, charts, info, maps,
                                    ncon, gmaps, grid, order=wrong)
+
+
+def test_dense_forward_refuses_misaligned_records():
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    before = rdense.rasterize_dense_fwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        rdense.rasterize_dense_fwd(misaligned(records), ids, counts, charts,
+                                   info, grid)
+    assert rdense.rasterize_dense_fwd.launches == before
+
+
+@pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
+def test_dense_forward_refuses_a_bad_tile_order(bad):
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    order = rfwd.tile_order(counts, ids.shape[1])
+    wrong = {"int64": order.long(), "short": order[:-1],
+             "on_other_shape": order.reshape(1, -1)}[bad]
+    err = TypeError if bad == "int64" else ValueError
+    with pytest.raises(err, match="order"):
+        rdense.rasterize_dense_fwd(records, ids, counts, charts, info, grid,
+                                   order=wrong)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+def test_dense_forward_takes_an_order_and_computes_the_same_maps(lean):
+    """On the CPU the order only passes the checks: the plain version
+    computes each tile whatever the order, so any permutation gives the
+    same maps and ncontrib."""
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    maps, ncon = rdense.rasterize_dense_fwd(records, ids, counts, charts,
+                                            info, grid, lean=lean)
+    order = rfwd.tile_order(counts, ids.shape[1]).flip(0).contiguous()
+    maps2, ncon2 = rdense.rasterize_dense_fwd(records, ids, counts, charts,
+                                              info, grid, lean=lean,
+                                              order=order)
+    assert torch.equal(maps2, maps) and torch.equal(ncon2, ncon)
+    assert float(maps[7].max()) > 0.3
 
 
 def test_tile_order_clamps_dense_counts_at_s_max():
@@ -167,6 +204,42 @@ def test_rasterize4_computes_one_order_for_its_backward(monkeypatch, lean):
     assert passed[0] is made[0]
     assert torch.equal(passed[0], real_order(counts, ids.shape[1]))
     assert float(rec.grad.abs().max()) > 0 and float(ch.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+def test_rasterize4_hands_one_order_to_both_kernels(monkeypatch, lean):
+    """A training step through ``_Rasterize4`` calls ``tile_order`` once
+    and hands that one tensor to the dense forward and the dense
+    backward."""
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    calls, fwd_orders, bwd_orders = [], [], []
+    real_order = rasterize_api.tile_order
+    real_fwd = rasterize_api.rasterize_dense_fwd
+    real_bwd = rasterize_api.rasterize_dense_bwd
+
+    def order_spy(c, s):
+        calls.append(real_order(c, s))
+        return calls[-1]
+
+    def fwd_spy(*args, order=None, **kwargs):
+        fwd_orders.append(order)
+        return real_fwd(*args, order=order, **kwargs)
+
+    def bwd_spy(*args, order=None, **kwargs):
+        bwd_orders.append(order)
+        return real_bwd(*args, order=order, **kwargs)
+    monkeypatch.setattr(rasterize_api, "tile_order", order_spy)
+    monkeypatch.setattr(rasterize_api, "rasterize_dense_fwd", fwd_spy)
+    monkeypatch.setattr(rasterize_api, "rasterize_dense_bwd", bwd_spy)
+    rec = records.clone().requires_grad_()
+    ch = charts.clone().requires_grad_()
+    maps, _ = rasterize_api._Rasterize4.apply(rec, ch, ids, counts, info,
+                                              grid, lean)
+    maps[:8].sum().backward()
+    assert len(calls) == 1
+    assert len(fwd_orders) == 1 and len(bwd_orders) == 1
+    assert fwd_orders[0] is calls[0] and bwd_orders[0] is calls[0]
+    assert torch.equal(calls[0], real_order(counts, ids.shape[1]))
 
 
 def test_pl5_eval_computes_one_order_a_frame(monkeypatch):

@@ -29,8 +29,10 @@ and the training kernels on an 88x120 image whose last row and column of
 tiles are partial.
 
 The dense-list kernels run the same cases plus the pads that the dispatch
-sends to them, (88, 88) and (128, 128). Their eval and forward kernels follow their plain
-version operation for operation (1e-4, ncontrib equal). Their backward's
+sends to them, (88, 88) and (128, 128). Their eval and forward kernels
+follow their plain version operation for operation (the eval kernel to
+1e-4; the forward bit for bit, maps and ncontrib, under every tile
+order). Their backward's
 plain version pulls the per-splat math back with autograd where the
 kernel writes the chain rule out, so the two differ by rounding: the same
 1e-4 of each field group's largest value and 1e-5 sign flips. On the pads
@@ -292,7 +294,9 @@ def test_flat_tile_schedules_agree(cuda, schedule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 96, 3), (120, 64, 3), (800, 800, 3)])
+@pytest.mark.parametrize("shape", [(64, 96, 3), (120, 64, 3), (800, 800, 3),
+                                   (800, 600, 3), (600, 800, 3),
+                                   (120, 100, 3)])
 def test_ssim_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(device=cuda).manual_seed(2)
     a = torch.rand(shape, generator=gen, device=cuda)
@@ -317,6 +321,26 @@ def test_ssim_kernel_matches_plain(cuda, shape):
         assert loss_err <= SSIM_LOSS_TOL and grad_err <= SSIM_GRAD_TOL
     loss_err, grad_err = errors(value, grad, plain_value, plain_grad)
     assert loss_err <= SSIM_LOSS_TOL and grad_err <= 2 * SSIM_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_ssim_kernel_is_deterministic(cuda):
+    """The last block adds the blocks' sums in a fixed order, and resets
+    its ticket: two launches give the same loss and gradient to the bit,
+    on two shapes in turn."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    runs = []
+    for shape in ((800, 600, 3), (120, 100, 3), (800, 600, 3)):
+        a = torch.rand(shape, generator=gen, device=cuda)
+        b = torch.rand(shape, generator=gen, device=cuda)
+        runs.append((a, b, ssim_fused.fused_ssim_value_and_grad(a, b)))
+    a, b, (v0, g0) = runs[0]
+    v1, g1 = ssim_fused.fused_ssim_value_and_grad(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(v0, v1) and torch.equal(g0, g1)
+    ref_v, _ = ssim_fused.fused_ssim_reference(a.double(), b.double())
+    assert abs(float(v0) - float(ref_v)) <= SSIM_LOSS_TOL
+    assert abs(float(runs[2][2][0]) - float(v0)) > 0  # other inputs
 
 
 @pytest.mark.cuda
@@ -367,7 +391,7 @@ def test_dense_forward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
     torch.cuda.synchronize()
     assert rdense.rasterize_dense_fwd.launches == before + 1
     ref, ref_ncon = rdense.plain.forward_scan(*inputs, grid, lean=lean)
-    torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    assert torch.equal(maps, ref)
     assert torch.equal(ncon, ref_ncon)
     assert float(maps[7].max()) > 0.3
     if lean:
@@ -453,6 +477,32 @@ def test_dense_tile_schedules_agree(cuda, schedule):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("schedule", ["block", "longest_first", "reversed"])
+def test_dense_forward_tile_orders_bit_equal(cuda, schedule, lean):
+    """The order in which the dense forward's blocks take tiles changes no
+    pixel's operations: maps and ncontrib are bit-equal to the plain
+    version under every order, with one launch each. The lists are clamped
+    at s_max = 128 (two chunks of the record ring)."""
+    inputs, grid, bins = kernel_inputs(cuda, (16, 24), 16, 128, dense=True)
+    assert bins.overflow > 0
+    counts, s_max = inputs[2], inputs[1].shape[1]
+    order = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                   device=cuda),
+             "longest_first": rfwd.tile_order(counts, s_max),
+             "reversed": rfwd.tile_order(counts, s_max).flip(0)
+             .contiguous()}[schedule]
+    before = rdense.rasterize_dense_fwd.launches
+    maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid, lean=lean,
+                                            order=order)
+    torch.cuda.synchronize()
+    assert rdense.rasterize_dense_fwd.launches == before + 1
+    ref, ref_ncon = rdense.plain.forward_scan(*inputs, grid, lean=lean)
+    assert torch.equal(maps, ref) and torch.equal(ncon, ref_ncon)
+    assert float(maps[7].max()) > 0.3
+
+
+@pytest.mark.cuda
 def test_dense_wrappers_raise_instead_of_falling_back(cuda):
     inputs, grid, _ = kernel_inputs(cuda, (8, 8), 32, 1024, n=200,
                                     dense=True)
@@ -471,10 +521,11 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
     maps, ncon = rdense.rasterize_dense_fwd(*inputs, grid)
     g = cotangents(cuda)
     bwd_before = rdense.rasterize_dense_bwd.launches
+    short = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="order"):
-        rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid,
-                                   order=torch.zeros(1, dtype=torch.int32,
-                                                     device=cuda))
+        rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid, order=short)
+    with pytest.raises(ValueError, match="order"):
+        rdense.rasterize_dense_fwd(*inputs, grid, order=short)
     assert rdense.rasterize_dense_bwd.launches == bwd_before
     assert (rdense.rasterize_dense_eval.launches,
             rdense.rasterize_dense_fwd.launches) == (before[0], before[1] + 1)

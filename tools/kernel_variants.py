@@ -2,23 +2,31 @@
 """Time compile-time variants of the port's kernels on one card, on the
 main path's shapes.
 
-    python3 tools/kernel_variants.py [--kernels eval dense_bwd ...]
-        [--reps N]
+    python3 tools/kernel_variants.py [--kernels eval dense_fwd ssim ...]
+        [--reps N] [--ssim-parent CSRC]
 
 Each variant is this tree's ``gstex_torch/csrc`` with a few source lines
 substituted (a chunk size, a launch bound, the ring, the tile order, a
-walk option), built by ``nvcc`` with the port's flags into
-``build/variants/`` and swapped in under the kernel's wrapper, so that
-every variant runs through the same Python call. A variant whose
-substitution no longer matches the source is reported as absent. The
-scenes are ``chip_smoke.py``'s: the trained-scene statistics at (8, 8) on
-phase 3's view, and re-charted on phase 9's view at their auto pad
-(40, 80), at pixel_num 4e6 (64, 128) and at 1e5 (16, 24); the v2 and v1
-backwards on per-slot copies of the (16, 24) lists. Per scene each
+walk option, a band height, a second launch), built by ``nvcc`` with
+the port's flags into ``build/variants/`` and swapped in under the
+kernel's wrapper, so that every variant runs through the same Python
+call; an SSIM variant may also fix the strips' height
+(``ssim_fused.launch_geometry``'s ``tile_h``). A variant whose
+substitution no longer matches the source is reported as absent. The scenes are ``chip_smoke.py``'s: the
+trained-scene statistics at (8, 8) on phase 3's view, and re-charted on
+phase 9's view at their auto pad (40, 80), at pixel_num 4e6 (64, 128)
+and at 1e5 (16, 24); the v2 and v1 backwards on per-slot copies of the
+(16, 24) lists; SSIM on seeded 800x800x3 and 800x600x3 image pairs (the
+training loss's shapes on the Blender and the DTU path). Per scene each
 variant is timed in two turns (CUDA events, mean of ``--reps``), in the
 listed order and then reversed, and held to the first variant's output
-(eval: bit for bit; backwards: chip_smoke's gates). Prints one JSON line
-per variant with its ``ptxas`` registers and spills, and one per (scene,
+(eval and the dense forward: bit for bit; backwards: chip_smoke's
+gates; SSIM: the float64 gates of chip_smoke, and whether its gradient
+is bit-equal to the first), SSIM by CUDA-graph replay (``chip_smoke.
+graph_ms``: its wrapper's host work would hide it). With
+``--ssim-parent CSRC`` the SSIM kernel of an older tree (its C entry as
+at 21285d5) runs beside the SSIM variants. Prints one JSON line per
+variant with its ``ptxas`` registers and spills, and one per (scene,
 variant) with its times.
 """
 
@@ -57,10 +65,50 @@ BLOCK_ORDER = (r"order\[blockIdx\.x\]", "blockIdx.x")
 RING = [walk_ring(True), const("kChunk", 64), const("kIdBufs", 3)]
 C_256 = [const("kShflT", "true"), const("kBlock", 256)]
 
+# the SSIM kernel's loss in a second, one-block launch, as the first port
+# added it: no ticket, a fold kernel after the tile kernel
+SSIM_FOLD_KERNEL = r"""__global__ void ssim_fold_kernel(const double* __restrict__ partial,
+                                 int n, double m, float* __restrict__ loss) {
+  __shared__ double red[kThreads / 32];
+  double acc = 0.0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += partial[i];
+  const double total = block_sum(acc, red);
+  if (threadIdx.x == 0) *loss = static_cast<float>(total / m);
+}
+
+}  // namespace"""
+SSIM_FOLD_LAUNCH = r"""const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return static_cast<int>(e1);
+  ssim_fold_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(partial),
+      static_cast<int>(grid.x * grid.y * grid.z),
+      static_cast<double>(height - kR) * (width - kR) * channels,
+      static_cast<float*>(loss));
+  return static_cast<int>(cudaGetLastError());
+}"""
+SSIM_TWO_LAUNCHES = [
+    (r"last = atomicAdd\(&g_ticket, 1u\) == n - 1;", "last = false;"),
+    (r"\}  // namespace", SSIM_FOLD_KERNEL),
+    (r"return static_cast<int>\(cudaGetLastError\(\)\);\n\}\s*$",
+     SSIM_FOLD_LAUNCH),
+]
+
+
+SSIM_IEEE_DIV = [(r"div_rn\(1\.0f, b1 \* b2\)", "1.0f / (b1 * b2)"),
+                 (r"div_rn\(-s_map, b2\)", "-s_map / b2"),
+                 (r"div_rn\(-s_map, b1\)", "-s_map / b1")]
+
+
+def ssim_bound(n):
+    return (r"__launch_bounds__\(kThreads, \d+\)",
+            f"__launch_bounds__(kThreads, {n})")
+
+
 # kernel -> (source name, scenes, [(variant, [(pattern, replacement),
-# ...])]); each pattern must match the source once (a pattern given as
-# (file, pattern, replacement) the named csrc header); the first variant
-# is the source as it stands
+# ...][, strip height])]); each pattern must match the source once (a
+# pattern given as (file, pattern, replacement) the named csrc header);
+# the first variant is the source as it stands; an SSIM variant's strip
+# height replaces the one-wave choice of ssim_fused.launch_geometry
 VARIANTS = {
     "eval": ("rasterize_eval", "flat", [
         ("as built", []),
@@ -102,6 +150,34 @@ VARIANTS = {
             walk_ring(True), const("kChunk", 32), const("kIdBufs", 3)]
          + C_256),
     ]),
+    "dense_fwd": ("rasterize_dense_fwd", "dense", [
+        ("as built", []),
+        ("the dense walk as at 21285d5: 32 a chunk, no ring, block order, "
+         "no launch-bound minimum",
+         [const("kChunk", 32), const("kIdBufs", 1), walk_ring(False),
+          BLOCK_ORDER, min_blocks(0)]),
+        ("32 a chunk", [const("kChunk", 32)]),
+        ("no ring (staged by plain loads)", [walk_ring(False)]),
+        ("tiles in block order", [BLOCK_ORDER]),
+        ("no launch-bound minimum (the compiler's choice)", [min_blocks(0)]),
+        ("3 blocks an SM", [min_blocks(3)]),
+    ]),
+    "ssim": ("ssim_fused", "ssim", [
+        ("as built: bands of 8 rows (512 threads, 1 block an SM), strips "
+         "118 wide, one wave, branch-free divisions", []),
+        ("strips of 67 rows (two waves)", [], 67),
+        ("strips of 200 rows", [], 200),
+        ("bands of 4 rows (256 threads, 2 blocks an SM)",
+         [const("kBand", 4), ssim_bound(2)]),
+        ("bands of 2 rows (128 threads, 3 blocks an SM)",
+         [const("kBand", 2), ssim_bound(3)]),
+        ("strips 54 wide (256 threads, 2 blocks an SM)",
+         [const("kMapW", 64), ssim_bound(2)]),
+        ("IEEE division (a / b: its range check and slow-path branch)",
+         SSIM_IEEE_DIV),
+        ("two launches (the loss in a one-block fold kernel)",
+         SSIM_TWO_LAUNCHES),
+    ]),
     # the transposed reduction (c) on the backwards that share the walk
     "flat_bwd": ("rasterize_bwd", "flat", [
         ("as built", []),
@@ -133,14 +209,15 @@ def build_variants(kernel, cases):
     name = VARIANTS[kernel][0]
     procs = {}
     absent = []
-    for i, (label, subs) in enumerate(cases):
+    for i, (label, subs, *_) in enumerate(cases):
         texts = {p.name: p.read_text()
                  for p in [src_dir / f"{name}.cu", *src_dir.glob("*.cuh")]}
         missing = []
         for sub in subs:
             file, pattern, repl = sub if len(sub) == 3 else (f"{name}.cu",
                                                              *sub)
-            texts[file], n = re.subn(pattern, repl, texts[file])
+            texts[file], n = re.subn(pattern, repl, texts[file],
+                                     flags=re.MULTILINE)
             if n != 1:
                 missing.append(pattern)
         if missing:
@@ -221,6 +298,121 @@ def phase9_frame(cs, pixel_num, dense):
     return frame_of(cs, cfg, state.params, state.buffers, cam, dense)
 
 
+def ssim_pairs(cs):
+    """(shape, prediction, ground truth): seeded pairs at the training
+    loss's shapes; the kernel's time does not depend on the data."""
+    import torch
+
+    for shape in ((cs.H, cs.W, 3), (600, cs.W, 3)):
+        gen = torch.Generator(device=cs.DEVICE).manual_seed(3)
+        pred = torch.rand(shape, generator=gen, device=cs.DEVICE)
+        noisy = torch.clamp(pred + 0.05 * torch.randn(
+            shape, generator=gen, device=cs.DEVICE), 0, 1)
+        yield shape, pred, noisy
+
+
+PARENT_SSIM = "the kernel as at 21285d5 (32 x 32 tiles of one channel)"
+
+
+def parent_ssim(csrc):
+    """The SSIM kernel of an older source tree whose C entry is
+    ``gstex_ssim_fused(x, y, taps (device), partial, loss, grad, h, w, c,
+    c1, c2, stream)`` with one partial sum per 32 x 32 tile and channel
+    (the tree at 21285d5), built with the port's flags; returns a call
+    ``(pred, gt) -> (loss, grad)``."""
+    import torch
+    from gstex_torch.ops import _build
+    from gstex_torch.ops.ssim import gaussian_window
+
+    out = ROOT / "build" / "variants" / "ssim-parent"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libssim_fused.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(Path(csrc) / "ssim_fused.cu")], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).gstex_ssim_fused
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    taps = torch.as_tensor(gaussian_window(11, 1.5), device="cuda")
+
+    def run(pred, gt):
+        h, w, c = pred.shape
+        partial = torch.empty(-(-h // 32) * -(-w // 32) * c,
+                              dtype=torch.float64, device=pred.device)
+        loss = torch.empty((), dtype=torch.float32, device=pred.device)
+        grad = torch.empty_like(pred)
+        rc = fn(pred.data_ptr(), gt.data_ptr(), taps.data_ptr(),
+                partial.data_ptr(), loss.data_ptr(), grad.data_ptr(), h, w,
+                c, 1e-4, 9e-4, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's ssim_fused failed: {rc}")
+        return loss, grad
+    return run
+
+
+def time_ssim(cs, built, heights, reps, smi, parent=None):
+    """Each SSIM variant (and, given, the parent tree's kernel) on each
+    pair, held to the float64 evaluation by chip_smoke's gates."""
+    import functools
+
+    import torch
+    from gstex_torch.ops import _build, ssim_fused
+
+    labels = list(built) + ([PARENT_SSIM] if parent else [])
+    one_wave = ssim_fused.launch_geometry
+
+    def use(label):
+        if label == PARENT_SSIM:
+            return
+        _build._loaded["ssim_fused"] = ctypes.CDLL(str(built[label][0]))
+        ssim_fused._kernels.clear()
+        ssim_fused.launch_geometry = (
+            functools.partial(one_wave, tile_h=heights[label])
+            if label in heights else one_wave)
+    for shape, pred, noisy in ssim_pairs(cs):
+        exact = ssim_fused.fused_ssim_reference(pred.double(),
+                                                noisy.double())
+        scale = float(exact[1].abs().max())
+        calls = {label: (lambda: ssim_fused.fused_ssim_value_and_grad(
+            pred, noisy)) for label in built}
+        if parent:
+            calls[PARENT_SSIM] = lambda: parent(pred, noisy)
+        times = {label: [] for label in labels}
+        checks = {}
+        first = None
+        try:
+            for turn in (labels, labels[::-1]):
+                for label in turn:
+                    use(label)
+                    run = calls[label]
+                    loss, grad = run()
+                    torch.cuda.synchronize()
+                    first = grad if first is None else first
+                    loss_err = abs(float(loss) - float(exact[0]))
+                    grad_err = float((grad.double() - exact[1]).abs()
+                                     .max()) / scale
+                    cs.require(loss_err <= cs.SSIM_LOSS_TOL
+                               and grad_err <= cs.SSIM_GRAD_TOL,
+                               f"{shape}: SSIM variant '{label}': loss "
+                               f"{loss_err}, gradient {grad_err}")
+                    checks[label] = dict(
+                        loss_abs_err=loss_err, grad_rel_err=grad_err,
+                        grad_bit_equal_to_first=bool(torch.equal(grad,
+                                                                 first)))
+                    times[label].append(cs.graph_ms(run, reps))
+        finally:
+            ssim_fused.launch_geometry = one_wave
+            _build._loaded.pop("ssim_fused")
+            ssim_fused._kernels.clear()
+        for label, ms in times.items():
+            print(json.dumps({"kernel": "ssim", "shape": list(shape),
+                              "variant": label,
+                              "tile_h": heights.get(label, "one wave"),
+                              **checks[label], "ms_turns": ms, "card": smi}),
+                  flush=True)
+
+
 def scenes(cs, kind):
     """(scene, frame, tier, inputs) of each scene a kernel is timed on."""
     from gstex_torch.configs.methods import get_method
@@ -260,6 +452,9 @@ def time_variants(cs, kernel, built, reps, smi):
         if kernel == "eval":
             def run():
                 return tier.eval(k_in, grid, s_cap)
+        elif kernel == "dense_fwd":
+            def run():
+                return tier.fwd(k_in, grid, s_cap, lean)
         else:
             maps, ncon = tier.fwd(k_in, grid, s_cap, lean)
             g = cs.cotangents()
@@ -278,6 +473,10 @@ def time_variants(cs, kernel, built, reps, smi):
                 elif kernel == "eval":
                     cs.require(torch.equal(out, first),
                                f"{scene}: eval variant '{label}' differs")
+                elif kernel == "dense_fwd":
+                    cs.require(torch.equal(out[0], first[0])
+                               and torch.equal(out[1], first[1]),
+                               f"{scene}: forward variant '{label}' differs")
                 else:
                     errs, flip, _ = cs.bwd_errors(*out, *first)
                     cs.require(max(errs.values()) <= cs.BWD_TOL
@@ -305,6 +504,10 @@ def main():
     ap.add_argument("--kernels", nargs="*", default=list(VARIANTS),
                     choices=list(VARIANTS))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ssim-parent", metavar="CSRC", default=None,
+                    help="also time, and compare bit for bit, the SSIM "
+                         "kernel of this csrc directory (its C entry as "
+                         "at 21285d5)")
     args = ap.parse_args()
     import torch
 
@@ -322,8 +525,15 @@ def main():
                   "rasterize_dense_bwd", "rasterize_v2_fwd",
                   "rasterize_v2_bwd", "rasterize_v1_fwd", "rasterize_v1_bwd"])
     for kernel in args.kernels:
-        built = build_variants(kernel, VARIANTS[kernel][2])
-        time_variants(cs, kernel, built, args.reps, smi)
+        cases = VARIANTS[kernel][2]
+        built = build_variants(kernel, cases)
+        if kernel == "ssim":
+            heights = {c[0]: c[2] for c in cases if len(c) > 2}
+            time_ssim(cs, built, heights, 2 * args.reps, smi,
+                      parent_ssim(args.ssim_parent) if args.ssim_parent
+                      else None)
+        else:
+            time_variants(cs, kernel, built, args.reps, smi)
 
 
 if __name__ == "__main__":
