@@ -9,8 +9,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device: the card's name and power limit (exit 1 without a CUDA card);
 2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory; the
-   flat kernels' and the dense backward's shared memory per launch, which
-   no chart pad enters);
+   flat kernels', the dense backward's and the v2 backward's shared memory
+   per launch, which no chart pad enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
    50k-surfel ``surface_scene``: the eval kernel (bit for bit),
@@ -25,13 +25,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gradient to twice 3e-5); then, on the trained scene's dense lists of
    the same view, the three dense-list kernels against their plain
    versions and against the flat kernels, under the same gates, and the
-   dense forward and backward under three tile orders (block, longest
-   first, reversed: the forward's maps and ncontrib bit-equal to its plain
-   version, the backward within 1e-5 of each field group's max); then the
-   pair-space v3, v2 and v1 kernels on per-slot copies of those dense
-   lists, and of the trained scene at pixel_num 1e5, re-charted, at
-   (16, 24): each against its plain version, lean and full; v3 and v2,
-   summed per gaussian, against the dense kernels on the same pairs (v3's
+   dense eval, forward and backward under three tile orders (block,
+   longest first, reversed: the eval's planes and the forward's maps and
+   ncontrib bit-equal to their plain versions, the backward within 1e-5
+   of each field group's max); then the pair-space v3, v2 and v1 kernels
+   on per-slot copies of those dense lists, and of the trained scene at
+   pixel_num 1e5, re-charted, at (16, 24) (there also the dense eval
+   kernel, bit for bit under the three orders): each against its plain
+   version, lean and full; the v2 backward also under the three tile
+   orders (within 1e-5 of each field group's max of its own order); v3
+   and v2, summed per gaussian, against the dense kernels on the same
+   pairs (v3's
    product scan may break a pixel's walk one slot apart from the serial
    product at no more than 1e-5 of the pixels; the maps are held to 1e-4
    elsewhere); v1 against v2, which it equals but for its rounding of the
@@ -77,7 +81,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    2000-surfel subsample of it at (88, 88), the last two on the dense
    tier), the tier's forward and backward kernels against their plain
    versions, lean and full, with the gates of phase 3, and its eval kernel
-   (the flat one bit for bit); dense against flat at (40, 80); at
+   (bit for bit; the dense one under the three tile orders); dense
+   against flat at (40, 80); at
    (64, 128) the three flat kernels timed beside the three dense ones on
    the same view (informational: the dispatch sends that pad to dense);
    then an eval frame of the state served at its training pad and a
@@ -99,7 +104,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
-    backward's at (64, 128) and (16, 24), the SSIM kernel's
+    backward's at (64, 128) and (16, 24), the dense eval kernel's at
+    (64, 128), (16, 24) and (88, 88) with ``bound_ms_by_pad``, the SSIM
+    kernel's
     ``ms_by_shape`` at 800x800x3 and 600x800x3), the nvidia-smi line and
     the final result.
 
@@ -718,26 +725,46 @@ def check_fwd_bwd(tier, inputs, grid, s_cap, lean, **where):
     return {fwd_name: (err, fwd_plain_ms), bwd_name: (abs_err, bwd_plain_ms)}
 
 
+def tile_orders(counts, s_max):
+    """Three orders in which blocks may take the tiles: block order,
+    longest first (the wrappers' own) and reversed."""
+    from gstex_torch.ops.rasterize_fwd import tile_order
+
+    first = tile_order(counts, s_max)
+    return {"block": torch.arange(counts.numel(), dtype=torch.int32,
+                                  device=DEVICE),
+            "longest_first": first, "reversed": first.flip(0).contiguous()}
+
+
 def check_eval(frame, **where):
     """A frame's eval kernel against its plain version (the first eight
-    planes of the lean forward walk, which both tiers' eval kernels follow):
-    the flat kernel bit for bit, the dense one within TOL. Returns the max
-    abs error, the plain version's ms and the walk's statistics."""
+    planes of the lean forward walk, which both tiers' eval kernels
+    follow), bit for bit; the dense one also under the three tile orders.
+    Returns the max abs error, the plain version's ms and the walk's
+    statistics."""
+    from gstex_torch.ops import rasterize_dense as rd
+
     name = frame.tier.names[0]
     maps = frame.tier.eval(frame.inputs, frame.grid, frame.cfg.s_max)
     plain_ms, (ref, stats) = once_ms(frame.plain)
     errs = {k: float((maps[sl] - ref[sl]).abs().max())
             for k, sl in MAPS.items()}
     equal = bool(torch.equal(maps, ref))
+    orders = {}
+    if frame.dense:
+        i = frame.inputs
+        orders = {k: bool(torch.equal(rd.rasterize_dense_eval(
+            *i, frame.grid, order=o), ref))
+            for k, o in tile_orders(i[2], i[1].shape[1]).items()}
     emit("kernel_vs_plain", kernel=name, bit_equal=equal, max_abs_err=errs,
-         tol=TOL if frame.dense else 0.0, s_max=frame.cfg.s_max,
+         tol=0.0, orders_bit_equal=orders, s_max=frame.cfg.s_max,
          total_pairs=frame.bins.total_pairs, overflow=frame.bins.overflow,
          max_tile_count=int(frame.bins.counts.max()),
          alpha_coverage=float((maps[7] > 0).float().mean()), **where)
     require(frame.bins.overflow == 0, f"{where}: binning overflowed")
-    require(all(e <= TOL for e in errs.values()) if frame.dense else equal,
+    require(equal and all(orders.values()),
             f"{where}: {name} and its plain version differ by "
-            f"{max(errs.values())}")
+            f"{max(errs.values())}; under the tile orders: {orders}")
     return max(errs.values()), plain_ms, stats
 
 
@@ -777,7 +804,6 @@ def check_dense_schedules(dframe, lean, **where):
     operations); the gradients agree within the order of the atomics,
     1e-5 of each field group's max, no more than FLIP_TOL sign flips."""
     from gstex_torch.ops import rasterize_dense as rd
-    from gstex_torch.ops.rasterize_fwd import tile_order
 
     tier, i, grid = dframe.tier, dframe.inputs, dframe.grid
     counts, s_max = i[2], i[1].shape[1]
@@ -785,12 +811,8 @@ def check_dense_schedules(dframe, lean, **where):
     ref_maps, ref_ncon = tier.fwd_plain(i, grid, s_max, lean)
     g = cotangents(grid.height, grid.width)
     ref = tier.bwd(i, maps, ncon, g, grid, s_max, lean)
-    orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
-                                    device=DEVICE),
-              "longest_first": tile_order(counts, s_max),
-              "reversed": tile_order(counts, s_max).flip(0).contiguous()}
     errs, fwd_equal = {}, {}
-    for name, order in orders.items():
+    for name, order in tile_orders(counts, s_max).items():
         o_maps, o_ncon = rd.rasterize_dense_fwd(*i, grid, lean=lean,
                                                 order=order)
         fwd_equal[name] = bool(torch.equal(o_maps, ref_maps)
@@ -906,10 +928,35 @@ def check_v1_vs_v2(pinputs, grid, s_cap, lean, **where):
             f"flips {flip}")
 
 
+def check_v2_orders(pinputs, grid, s_cap, lean, **where):
+    """The v2 backward under the three tile orders against its own order's
+    gradients: within SCHEDULE_TOL of each field group's max, no more than
+    FLIP_TOL sign flips (the texel atomics add in no fixed order)."""
+    from gstex_torch.ops import rasterize_v2 as rv2
+
+    tier = pair_tier(2)
+    maps, ncon = tier.fwd(pinputs, grid, s_cap, lean)
+    g = cotangents(grid.height, grid.width)
+    ref = tier.bwd(pinputs, maps, ncon, g, grid, s_cap, lean)
+    errs = {}
+    for name, order in tile_orders(pinputs[2],
+                                   pinputs[0].shape[1]).items():
+        d_rec, d_ch = rv2.rasterize_v2_bwd(*pinputs, maps, ncon, g, grid,
+                                           lean=lean, order=order)
+        e, flip, _ = bwd_errors(d_rec.reshape(ref[0].shape), d_ch, *ref)
+        errs[name] = (max(e.values()), flip)
+    emit("v2_bwd_schedules", lean=lean, bwd_max_rel_err_and_flips=errs,
+         tol=SCHEDULE_TOL, flip_tol=FLIP_TOL, **where)
+    require(all(e <= SCHEDULE_TOL and f <= FLIP_TOL
+                for e, f in errs.values()),
+            f"{where}: the v2 backward's tile orders disagree: {errs}")
+
+
 def check_pairs(dframe, note, **where):
     """The pair-space tiers on a dense frame's lists: each kernel against
     its plain version, lean and full; v3 and v2 against the dense kernels,
-    v1 against v2. Returns each kernel's plain ms in lean mode."""
+    v1 against v2; the v2 backward under three tile orders. Returns each
+    kernel's plain ms in lean mode."""
     pinputs = pair_copies(dframe)
     emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
                                        for x in pinputs[:2]),
@@ -928,6 +975,9 @@ def check_pairs(dframe, note, **where):
                                **where)
             else:
                 check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
+            if version == 2:
+                check_v2_orders(pinputs, dframe.grid, dframe.cfg.s_max, lean,
+                                **where)
     return plain_ms
 
 
@@ -1250,6 +1300,8 @@ def main():
              "rasterize_fwd": rfwd.launch_smem(),
              "rasterize_bwd_32x32": rbwd.launch_smem(32, 32),
              "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32),
+             "rasterize_v2_bwd_32x32_16x24": rv2.bwd_launch_smem(32, 32, 16,
+                                                                 24),
              "ssim_fused": ssim_fused.launch_smem()})
 
     # 3. kernels vs plain, on the bins of each scene's first spiral view
@@ -1312,10 +1364,11 @@ def main():
                        render_cli.eval_background(pcfg, DEVICE), dense=True)
         pframe.run()
         hw = pb.texture_hw
-        pair_plain_ms = check_pairs(
-            pframe, note, scene="trained_scene_1e5",
-            chart_pad=list(PAIR_PAD),
-            max_active_hw=[int(x) for x in hw.amax(0)])
+        where = dict(scene="trained_scene_1e5", chart_pad=list(PAIR_PAD),
+                     max_active_hw=[int(x) for x in hw.amax(0)])
+        worst["rasterize_dense_eval"] = max(worst["rasterize_dense_eval"],
+                                            check_eval(pframe, **where)[0])
+        pair_plain_ms = check_pairs(pframe, note, **where)
         del pframe, pp, pb
         torch.cuda.empty_cache()
 
@@ -1756,6 +1809,9 @@ def main():
     charts = dict(chart_pad=list(cfg.chart_pad), lists="dense",
                   max_active_hw=[int(x) for x in hw.amax(0)])
     frame, stats, p_in = pair_frame(cfg, state.params, state.buffers, tcam)
+    # the dense eval kernel's bound at this pad (its ms: dense_ms below)
+    eval_bound_1e5 = fwd_bound(frame.tier.flat(frame.inputs), hw, frame.grid,
+                               stats, True, planes=8, list_arrays=1)
     for renderer in ("pallas3", "pallas2", "pallas1", "pallas4"):
         rcfg = dataclasses.replace(cfg, renderer=renderer)
         r_state = train_step.init_state(cfg, method.optim, *start, seed=0)
@@ -1872,6 +1928,15 @@ def main():
     for k in ("rasterize_dense_fwd", "rasterize_dense_bwd"):
         by_name[k]["ms_by_pad"] = {"64x128": main_t[k]["ms"],
                                    "16x24": dense_ms[k]}
+    dense_eval = {"64x128": main_t["rasterize_dense_eval"],
+                  "16x24": dict(ms=dense_ms["rasterize_dense_eval"],
+                                **eval_bound_1e5),
+                  "88x88": train_t[f"subsample_{SUBSAMPLE}"]["kernels"][
+                      "rasterize_dense_eval"]}
+    by_name["rasterize_dense_eval"]["ms_by_pad"] = {
+        pad: t["ms"] for pad, t in dense_eval.items()}
+    by_name["rasterize_dense_eval"]["bound_ms_by_pad"] = {
+        pad: t["bound_ms"] for pad, t in dense_eval.items()}
     by_name["ssim_fused"]["ms_by_shape"] = {
         shape: t["ms"] for shape, t in ssim_by_shape.items()}
     require(all(k["launches"] > 0 for k in kernels),

@@ -1,6 +1,7 @@
 // Forward-only textured-surfel blend over the dense per-tile lists: ids
 // (num_tiles, s_max) with per-tile counts. The serving render of scenes
-// whose charts are too large for the flat path, and of renderer="pallas4".
+// whose charts the dispatch sends past the flat tier, of renderer="pallas4",
+// and the eval renders of the pair-space tiers (pallas3, pallas2, pallas1).
 //
 // Replaces: gstex_tpu/ops/rasterize_pallas4.py, _eval_kernel4 (launched by
 // rasterize_pallas4_eval). Computes what csrc/rasterize_eval.cu computes
@@ -11,191 +12,83 @@
 // tex(3), depth, alpha. It reads TileBins.ids, the (N, 32) records and the
 // (N, Ch, Cw, 3) charts as they are.
 //
-// What bounds it on the H100: operations (~40 fp32 operations per (pixel,
+// What bounds it on the H100: operations (~34 fp32 operations per (pixel,
 // pair) response, ~75 per blend) against one 128 B record per pair per tile
-// and four texels per blend.
+// and four texels per blend. The walk has no matrix product, so the tensor
+// cores have nothing to do.
 //
-// The design is csrc/rasterize_dense_fwd.cu's without the training
-// outputs: one block per tile, 256 threads with 4 pixels each, records
-// staged 32 splats a chunk in 4 KB of shared memory whatever the chart
-// pad, texels fetched from device memory (L2), and the tile leaves its walk
-// once no in-image pixel has T > T_EPS.
+// The design, for Hopper: the flat eval kernel's (csrc/rasterize_eval.cu)
+// on the dense ids, which is the dense training forward's
+// (csrc/rasterize_dense_fwd.cu) under the eval output policy.
+// - The walk is forward_tile in tile_walk.cuh with kEval: one block per
+//   tile, 256 threads with 4 pixels each, a pixel's ray, T and eight sums
+//   in registers; no t_final, m1 or ncontrib, the normal and reg chains
+//   compiled out. The tile leaves its walk once no in-image pixel has
+//   T > T_EPS. Slot k of a tile is gaussian ids[tile, k] (IdSlots).
+// - Only the records are staged in shared memory, kChunk a chunk in a ring
+//   of two buffers filled by cp.async (chunk c + 1's records are in flight
+//   while chunk c is walked), whatever the chart pad. A blend reads its
+//   four texels from device memory (the active texels sit in the 50 MB
+//   L2). The first port staged 32 records a chunk by plain loads, with a
+//   barrier pair a chunk.
+// - Tiles start longest first (`order`: the tiles by count capped at
+//   s_max, descending), so the long tiles do not trail the grid.
+// - __launch_bounds__ at 2 blocks an SM (at most 128 registers).
+// Each choice was measured against its alternatives (PERF.md §6).
 //
 // Precision: no --use_fast_math and --fmad=false; every operation rounds
-// as the plain version's (ops/rasterize.py:forward_scan) does, in the same
-// per-pixel order.
+// as the plain version's (ops/rasterize.py:forward_scan, lean) does, in the
+// same per-pixel order, so the eight planes are bit-equal to it under any
+// tile order.
 
-#include <cuda_runtime.h>
+#include "tile_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPixPerThread = 4;
-constexpr int kRec = 32;
-constexpr int kCam = 18;
-constexpr int kChunk = 32;
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kExtent2 = 9.0f;
-constexpr float kAaSigma2 = 0.5f;
+constexpr int kChunk = 64;
+constexpr int kIdBufs = 3;  // the ring's ids (IdSlots)
+using Slots = IdSlots<kChunk, kIdBufs>;
 
-__global__ void __launch_bounds__(kThreads)
+// Block b walks tile order[b].
+__global__ void __launch_bounds__(kThreads, 2)
 rasterize_dense_eval_kernel(const float* __restrict__ records,
-                           const int* __restrict__ ids,
-                           const int* __restrict__ counts,
-                           const float* __restrict__ charts,
-                           const float* __restrict__ cam_info,
-                           float* __restrict__ out, int ntx, int tile_h,
-                           int tile_w, int height, int width, int ch, int cw,
-                           int s_max) {
-  __shared__ float s_rec[kChunk * kRec];
-  __shared__ int s_id[kChunk];
-  __shared__ float cam[kCam];
-  const long long chw3 = static_cast<long long>(ch) * cw * 3;
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < kCam) cam[tid] = cam_info[tid];
-  __syncthreads();
-
-  const int* tile_ids = ids + static_cast<long long>(tile) * s_max;
-  const int count = min(counts[tile], s_max);
-  const int pix = tile_h * tile_w;
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-
-  float gx[kPixPerThread], gy[kPixPerThread];
-  float d0[kPixPerThread], d1[kPixPerThread], d2[kPixPerThread];
-  float T[kPixPerThread];
-  // img(3) tex(3) depth alpha
-  float acc[8][kPixPerThread];
-  bool inside[kPixPerThread];
-  bool alive = false;
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    const int p = tid + j * kThreads;
-    const int ix = tx * tile_w + p % tile_w;
-    const int iy = ty * tile_h + p / tile_w;
-    inside[j] = p < pix && ix < width && iy < height;
-    gx[j] = static_cast<float>(ix) + cam[4];
-    gy[j] = static_cast<float>(iy) + cam[5];
-    const float dx = (gx[j] + 0.5f - cam[2]) / cam[0];
-    const float dy = (gy[j] + 0.5f - cam[3]) / cam[1];
-    d0[j] = cam[9] * dx + cam[10] * dy + cam[11];
-    d1[j] = cam[12] * dx + cam[13] * dy + cam[14];
-    d2[j] = cam[15] * dx + cam[16] * dy + cam[17];
-    T[j] = 1.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c][j] = 0.0f;
-    alive = alive || inside[j];
-  }
-
-  for (int base = 0; base < count; base += kChunk) {
-    // also keeps the previous chunk's readers ahead of this chunk's writes
-    if (!__syncthreads_or(alive)) break;
-    const int n = min(kChunk, count - base);
-    if (tid < n) s_id[tid] = tile_ids[base + tid];
-    __syncthreads();
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      const int s = i / kRec;
-      s_rec[i] = records[static_cast<long long>(s_id[s]) * kRec + (i - s * kRec)];
-    }
-    __syncthreads();
-
-    for (int s = 0; s < n; ++s) {
-      const float* r = s_rec + s * kRec;
-      const float* chart = charts + static_cast<long long>(s_id[s]) * chw3;
-#pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j) {
-        if (!inside[j] || !(T[j] > kTEps)) continue;
-        const float nd = r[0] * d0[j] + r[1] * d1[j] + r[2] * d2[j];
-        const float safe_nd =
-            fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
-        const float t = r[3] / safe_nd;
-        const float b1d = r[4] * d0[j] + r[5] * d1[j] + r[6] * d2[j];
-        const float b2d = r[8] * d0[j] + r[9] * d1[j] + r[10] * d2[j];
-        const float u = r[7] + t * b1d;
-        const float v = r[11] + t * b2d;
-        const float r2 = u * u + v * v;
-        const float arg_s = r2 <= kExtent2 ? -0.5f * r2 : -1e30f;
-        const float dpx = gx[j] - r[24];
-        const float dpy = gy[j] - r[25];
-        const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
-        const float g = expf(fmaxf(arg_s, arg_c));
-        float alpha = fminf(r[20] * g, kAlphaClamp);
-        if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
-        if (!(alpha > 0.0f)) continue;  // T * (1 - 0) == T, weight 0
-
-        const float t_new = T[j] * (1.0f - alpha);
-        if (t_new > kTEps) {
-          const float w = alpha * T[j];
-          const float b1ud = r[12] * d0[j] + r[13] * d1[j] + r[14] * d2[j];
-          const float b2ud = r[16] * d0[j] + r[17] * d1[j] + r[18] * d2[j];
-          const float uvu = fminf(fmaxf(0.5f + r[15] + t * b1ud, 0.0f), 1.0f);
-          const float uvv = fminf(fmaxf(0.5f + r[19] + t * b2ud, 0.0f), 1.0f);
-          const float hf = r[26];
-          const float wf = r[27];
-          const float xf = fminf(fmaxf(uvu * hf, 0.0f), hf - 1.0f);
-          const float yf = fminf(fmaxf(uvv * wf, 0.0f), wf - 1.0f);
-          const float x0 = floorf(xf);
-          const float y0 = floorf(yf);
-          const float fx = xf - x0;
-          const float fy = yf - y0;
-          const int x0i = static_cast<int>(x0);
-          const int y0i = static_cast<int>(y0);
-          const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
-          const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
-          const float* c00 = chart + (x0i * cw + y0i) * 3;
-          const float* c01 = chart + (x0i * cw + y1i) * 3;
-          const float* c10 = chart + (x1i * cw + y0i) * 3;
-          const float* c11 = chart + (x1i * cw + y1i) * 3;
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float tex =
-                (1.0f - fx) * ((1.0f - fy) * __ldg(c00 + c) + fy * __ldg(c01 + c))
-                + fx * ((1.0f - fy) * __ldg(c10 + c) + fy * __ldg(c11 + c));
-            acc[c][j] = acc[c][j] + w * r[21 + c];
-            acc[3 + c][j] = acc[3 + c][j] + w * tex;
-          }
-          acc[6][j] = acc[6][j] + w * t;
-          acc[7][j] = acc[7][j] + w;
-        }  // else: the break splat, not blended
-        T[j] = t_new;
-      }
-    }
-    alive = false;
-#pragma unroll
-    for (int j = 0; j < kPixPerThread; ++j)
-      alive = alive || (inside[j] && T[j] > kTEps);
-  }
-
-  const long long plane = static_cast<long long>(height) * width;
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    if (!inside[j]) continue;
-    const int p = tid + j * kThreads;
-    const long long o = static_cast<long long>(ty * tile_h + p / tile_w) * width
-                        + tx * tile_w + p % tile_w;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) out[c * plane + o] = acc[c][j];
-  }
+                            const int* __restrict__ ids,
+                            const int* __restrict__ counts,
+                            const float* __restrict__ charts,
+                            const float* __restrict__ cam_info,
+                            float* __restrict__ out,
+                            const int* __restrict__ order, int ntx,
+                            int tile_h, int tile_w, int height, int width,
+                            int ch, int cw, int s_max) {
+  __shared__ int s_id[kIdBufs * kChunk];
+  const int tile = order[blockIdx.x];
+  // slot k of the tile is gaussian ids[tile, k]
+  const Slots slots{records, ids + static_cast<long long>(tile) * s_max,
+                    charts, nullptr, nullptr,
+                    static_cast<long long>(ch) * cw * 3, s_id};
+  forward_tile<kChunk, Slots, false, true, true>(
+      slots, tile, counts, cam_info, out, nullptr, ntx, tile_h, tile_w,
+      height, width, cw, s_max, 1);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. Pointers are device pointers; `stream` is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+// Plain C entry for ctypes. Pointers are device pointers; records must be
+// 16-byte aligned (cp.async); `order` holds the num_tiles tiles in the
+// order blocks take them; `stream` is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int gstex_rasterize_dense_eval(
     const void* records, const void* ids, const void* counts,
-    const void* charts, const void* cam_info, void* out, int num_tiles,
-    int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
-    int s_max, void* stream) {
+    const void* charts, const void* cam_info, void* out, const void* order,
+    int num_tiles, int ntx, int tile_h, int tile_w, int height, int width,
+    int ch, int cw, int s_max, void* stream) {
   if (num_tiles == 0) return 0;
   rasterize_dense_eval_kernel<<<num_tiles, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(records), static_cast<const int*>(ids),
       static_cast<const int*>(counts), static_cast<const float*>(charts),
-      static_cast<const float*>(cam_info), static_cast<float*>(out), ntx,
-      tile_h, tile_w, height, width, ch, cw, s_max);
+      static_cast<const float*>(cam_info), static_cast<float*>(out),
+      static_cast<const int*>(order), ntx, tile_h, tile_w, height, width, ch,
+      cw, s_max);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
 // shared by the flat kernels (rasterize_eval.cu, rasterize_fwd.cu,
-// rasterize_bwd.cu), the dense-list training kernels
-// (rasterize_dense_fwd.cu, rasterize_dense_bwd.cu) and the v2 and v1
+// rasterize_bwd.cu), the dense-list kernels (rasterize_dense_eval.cu,
+// rasterize_dense_fwd.cu, rasterize_dense_bwd.cu) and the v2 and v1
 // pair-space kernels (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu,
 // rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The tiers compute the same
 // function and differ only in how a tile's slot finds its record and chart
@@ -35,10 +35,10 @@
 //     summed record gradients (and staged chart gradients) out, reading
 //     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
 //     block's threads).
-// With kRing (the flat kernels and the dense backward) the records of a
-// tile's chunks go through a ring of two buffers: chunk c + 1's copy is in
-// flight while chunk c is walked, one barrier pair a chunk. Its Slots
-// replace stage and begin by
+// With kRing (the flat and the dense kernels, the v2 backward) the records
+// of a tile's chunks go through a ring of two buffers: chunk c + 1's copy
+// is in flight while chunk c is walked, one barrier pair a chunk. Its
+// Slots replace stage and begin by
 //   void prefetch(int base, int n, float* s_rec, int tid): start the
 //     asynchronous copy (cp_async16) of the records of slots
 //     base..base+n-1 into s_rec; the walk commits and waits.
@@ -47,8 +47,9 @@
 //
 // backward_tile's kShflT (the record gradients' transposed warp reduction)
 // and kBlock (threads a block, 1024 / kBlock pixels each, rounded up; the
-// Slots must stride by the same count) are the dense backward's options;
-// the flat, v2 and v1 backwards keep the lane-0 reduction and 256 threads.
+// Slots must stride by the same count) are the dense and the v2
+// backwards' options; the flat and v1 backwards keep the lane-0
+// reduction and 256 threads.
 //
 // Precision: no --use_fast_math and --fmad=false; see the kernel files for
 // the plain versions each is held to.

@@ -79,8 +79,9 @@ def pair_inputs(records: torch.Tensor, texture: torch.Tensor,
 
 
 def check_inputs(version: int, records_t, charts_g, counts, cam_info,
-                 grid: TileGrid) -> None:
-    """Raise on inputs the v3, v2 or v1 kernels do not take."""
+                 grid: TileGrid, order=None) -> None:
+    """Raise on inputs the v3, v2 or v1 kernels do not take; ``order``
+    (given) must be an int32 ``(num_tiles,)`` tile order."""
     check_pair_shapes(version, charts_g.shape[2:4], grid)
     dev = records_t.device
     if records_t.dim() != 3 or records_t.shape[0] != grid.num_tiles \
@@ -96,6 +97,8 @@ def check_inputs(version: int, records_t, charts_g, counts, cam_info,
             "charts_g": (charts_g, torch.float32, None),
             "counts": (counts, torch.int32, (grid.num_tiles,)),
             "cam_info": (cam_info, torch.float32, (18,))}
+    if order is not None:
+        spec["order"] = (order, torch.int32, (grid.num_tiles,))
     for name, (x, dtype, shape) in spec.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, records_t on {dev}")
@@ -132,15 +135,17 @@ def launch_fwd(name: str, records_t, charts_g, counts, cam_info,
 
 
 def launch_bwd(name: str, records_t, charts_g, counts, cam_info, maps,
-               ncontrib, gmaps, grid: TileGrid, lean: bool):
+               ncontrib, gmaps, grid: TileGrid, lean: bool, order=None):
     """Launch the backward kernel ``gstex_<name>`` on CUDA inputs; returns
     the pair-space ``(d_records_t, d_charts_g)``. Every slot belongs to one
     tile, so one block writes it: the kernels need no atomics across
-    blocks."""
+    blocks. A kernel that takes its tiles in an ``order`` (v2's) is given
+    it after ``d_charts_g``."""
     dev = records_t.device
     d_rec = torch.zeros_like(records_t)
     d_ch = torch.zeros_like(charts_g)
-    _launch(name, 9, (records_t, charts_g, counts, cam_info, maps, ncontrib,
-                      gmaps, d_rec, d_ch),
+    pointers = (records_t, charts_g, counts, cam_info, maps, ncontrib, gmaps,
+                d_rec, d_ch) + (() if order is None else (order,))
+    _launch(name, len(pointers), pointers,
             (*_geometry(grid, charts_g), int(lean)), dev)
     return d_rec, d_ch

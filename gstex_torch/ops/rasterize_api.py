@@ -178,13 +178,16 @@ def rasterize_pl_eval(geom: SplatGeom, texture: torch.Tensor,
                       grid: TileGrid, px_offset=None,
                       background=None) -> dict:
     """Dense-path forward-only render: the maps of ``rasterize_pl5_eval``
-    from the dense per-tile lists."""
+    from the dense per-tile lists. The kernel takes the tiles longest
+    first, in an order computed once a frame."""
     with record_function("gstex.records"):
         records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
         info = cam_info(cam, px_offset)
     with record_function("gstex.eval_kernel"):
+        order = tile_order(bins.counts, bins.ids.shape[1])
         maps = rasterize_dense_eval(records, bins.ids, bins.counts,
-                                    texture.contiguous(), info, grid)
+                                    texture.contiguous(), info, grid,
+                                    order=order)
     with record_function("gstex.compose"):
         return _compose(maps, background)
 
@@ -226,23 +229,31 @@ class _RasterizePairs(torch.autograd.Function):
     """(records_t, charts_g) -> (14, H, W) maps, ncontrib over the
     pair-space inputs, by the v3, v2 or v1 kernels; the backward returns their
     pair-space gradients, which autograd reduces through the gathers of
-    ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``)."""
+    ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``). The v2
+    backward takes the tiles longest first, in an order computed once, in
+    the forward."""
 
     @staticmethod
     def forward(ctx, records_t, charts_g, counts, info, grid, version, lean):
         fwd, _ = _PAIR_IMPLS[version]
         maps, ncon = fwd(records_t, charts_g, counts, info, grid, lean=lean)
-        ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon)
+        order = (tile_order(counts, records_t.shape[1]) if version == 2
+                 else None)
+        ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon,
+                              order)
         ctx.grid, ctx.version, ctx.lean = grid, version, lean
         ctx.mark_non_differentiable(ncon)
         return maps, ncon
 
     @staticmethod
     def backward(ctx, g_maps, g_ncon):
-        records_t, charts_g, counts, info, maps, ncon = ctx.saved_tensors
+        records_t, charts_g, counts, info, maps, ncon, order = \
+            ctx.saved_tensors
         _, bwd = _PAIR_IMPLS[ctx.version]
+        kwargs = {} if order is None else {"order": order}
         d_rec, d_ch = bwd(records_t, charts_g, counts, info, maps, ncon,
-                          g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean)
+                          g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean,
+                          **kwargs)
         return d_rec, d_ch, None, None, None, None, None
 
 

@@ -9,16 +9,16 @@ Counterpart of ``gstex_tpu/ops/rasterize_pallas4.py``:
 (``_fwd_kernel4``) and ``rasterize_pallas4_bwd`` (``_bwd_kernel4``)
 together with the per-gaussian reduction that follows it
 (``rasterize_pallas_api.py:_reduce_d_charts``). They compute what the flat
-kernels compute (``ops/rasterize_fwd.py``, ``ops/rasterize_bwd.py``) on
-the same walk, and hold a chunk of records on chip. Texels are fetched
-from the ``(N, Ch, Cw, 3)`` charts in device memory and texel gradients
-are added there, so their shared memory does not grow with the chart pad
-and every pad is served. The training forward and the backward, as the
-flat kernels, copy their records through a ``cp.async`` ring and take
-their tiles longest first (``rasterize_fwd.tile_order`` on the counts
-capped at ``s_max``). Maps come back as ``(C, H, W)`` planes in
-``rasterize_fwd.CH_NAMES`` order; ncontrib is ``s_max`` where a pixel's
-walk never broke.
+kernels compute (``ops/rasterize_eval.py``, ``ops/rasterize_fwd.py``,
+``ops/rasterize_bwd.py``) on the same walk, and hold a chunk of records on
+chip. Texels are fetched from the ``(N, Ch, Cw, 3)`` charts in device
+memory and texel gradients are added there, so their shared memory does
+not grow with the chart pad and every pad is served. All three, as the
+flat kernels, copy their records through a ``cp.async`` ring (so records
+must be 16-byte aligned) and take their tiles longest first
+(``rasterize_fwd.tile_order`` on the counts capped at ``s_max``). Maps
+come back as ``(C, H, W)`` planes in ``rasterize_fwd.CH_NAMES`` order;
+ncontrib is ``s_max`` where a pixel's walk never broke.
 """
 
 from __future__ import annotations
@@ -35,11 +35,10 @@ from .records import F_REC
 
 
 def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid,
-                 order=None, aligned: bool = False):
+                 order=None):
     """Raise on inputs the dense-list kernels do not take: ``order`` (given)
-    must be an int32 ``(num_tiles,)`` tile order, and with ``aligned``
-    ``records`` must be 16-byte aligned (the training kernels copy them
-    16 B at a time, cp.async)."""
+    must be an int32 ``(num_tiles,)`` tile order, and ``records`` must be
+    16-byte aligned (the kernels copy them 16 B at a time, cp.async)."""
     dev = records.device
     n = records.shape[0]
     if grid.tile_h * grid.tile_w > MAX_TILE_PIXELS:
@@ -73,7 +72,7 @@ def check_inputs(records, ids, counts, charts, cam_info, grid: TileGrid,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the dense-list kernels run on cpu or cuda, not "
                          f"{dev}")
-    if aligned and records.data_ptr() % 16:
+    if records.data_ptr() % 16:
         raise ValueError("records must be 16-byte aligned")
 
 
@@ -108,30 +107,35 @@ def rasterize_dense_eval_reference(records, ids, counts, charts, cam_info,
 
 
 def rasterize_dense_eval(records, ids, counts, charts, cam_info,
-                         grid: TileGrid) -> torch.Tensor:
+                         grid: TileGrid, order=None) -> torch.Tensor:
     """Forward-only blend; returns the ``(8, H, W)`` maps: img (3), tex
     (3), depth, alpha.
 
     Args:
-        records: (N, F_REC) float32 per-gaussian records.
+        records: (N, F_REC) float32 per-gaussian records, 16-byte aligned.
         ids: (num_tiles, s_max) int32 ``TileBins.ids``.
         counts: (num_tiles,) int32 ``TileBins.counts`` (clamped to s_max
             here and in the kernel).
         charts: (N, Ch, Cw, 3) float32 albedo charts.
         cam_info: (18,) float32.
+        order: ``tile_order(counts, s_max)``, computed here if not given.
+            The tile order changes no pixel's operations: the maps are
+            bit-equal to the plain version's under any order.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (and raise if it cannot launch).
     """
-    check_inputs(records, ids, counts, charts, cam_info, grid)
+    check_inputs(records, ids, counts, charts, cam_info, grid, order)
     dev = records.device
     if dev.type == "cpu":
         return rasterize_dense_eval_reference(records, ids, counts, charts,
                                               cam_info, grid)
     out = torch.empty((8, grid.height, grid.width), dtype=torch.float32,
                       device=dev)
-    _launch("rasterize_dense_eval", 6,
-            (records, ids, counts, charts, cam_info, out),
+    if order is None:
+        order = tile_order(counts, ids.shape[1])
+    _launch("rasterize_dense_eval", 7,
+            (records, ids, counts, charts, cam_info, out, order),
             _geometry(grid, charts, ids), dev)
     rasterize_dense_eval.launches += 1
     return out
@@ -141,13 +145,10 @@ def rasterize_dense_fwd(records, ids, counts, charts, cam_info,
                         grid: TileGrid, lean: bool = False, order=None):
     """Training forward; returns ``(maps (14, H, W), ncontrib (H, W)
     int32)``. ``lean=True`` skips the normal and reg chains; their planes
-    stay zero. Arguments as ``rasterize_dense_eval``; ``order`` is
-    ``tile_order(counts, s_max)``, computed here if not given, and
-    ``records`` must be 16-byte aligned. The tile order changes no pixel's
-    operations: the maps are bit-equal to the plain version's under any
-    order."""
-    check_inputs(records, ids, counts, charts, cam_info, grid, order,
-                 aligned=True)
+    stay zero. Arguments, ``order`` among them, as
+    ``rasterize_dense_eval``: the maps and ncontrib are bit-equal to the
+    plain version's under any tile order."""
+    check_inputs(records, ids, counts, charts, cam_info, grid, order)
     dev = records.device
     if dev.type == "cpu":
         return plain.forward_scan(records, ids, counts, charts, cam_info,
@@ -178,8 +179,7 @@ def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
     the plain version (``rasterize.backward_walk``); CUDA tensors launch
     the kernel (and raise if it cannot launch).
     """
-    check_inputs(records, ids, counts, charts, cam_info, grid, order,
-                 aligned=True)
+    check_inputs(records, ids, counts, charts, cam_info, grid, order)
     dev = records.device
     check_residuals(maps, ncontrib, gmaps, dev, grid)
     if dev.type == "cpu":

@@ -1,15 +1,18 @@
-"""The tile orders and record alignment that the flat eval kernel and the
-dense training kernels take, checked by their wrappers on the CPU.
+"""The tile orders and record alignment that the flat eval kernel, the
+three dense-list kernels and the v2 backward take, checked by their
+wrappers on the CPU.
 
 These kernels copy records 16 B at a time (cp.async) and take their tiles
-longest first, in an order computed once a frame (``rasterize_pl5_eval``)
-or once a training step (``_Rasterize4``, in its forward, for the dense
-forward and backward both). The wrappers refuse misaligned records and
-orders of the wrong type or length before they dispatch, so the CPU path
-checks what the card path would launch. The kernels themselves run only
-on the card (``test_torch_kernels_cuda.py``).
+longest first, in an order computed once a frame (``rasterize_pl5_eval``,
+``rasterize_pl_eval``) or once a training step (``_Rasterize4``, in its
+forward, for the dense forward and backward both; ``_RasterizePairs``, in
+its forward, for the v2 backward alone). The wrappers refuse misaligned
+records and orders of the wrong type or length before they dispatch, so
+the CPU path checks what the card path would launch. The kernels
+themselves run only on the card (``test_torch_kernels_cuda.py``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,9 +21,11 @@ from gstex_torch.ops import rasterize_api
 from gstex_torch.ops import rasterize_dense as rdense
 from gstex_torch.ops import rasterize_eval as reval
 from gstex_torch.ops import rasterize_fwd as rfwd
+from gstex_torch.ops import rasterize_v2 as rv2
 from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                      build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
+from gstex_torch.ops.pair_inputs import pair_inputs
 from gstex_torch.ops.prepare import prepare_splats
 from gstex_torch.ops.records import assemble_records, cam_info
 from gstex_torch.ops.sh import sh_to_rgb
@@ -29,20 +34,32 @@ H, W = 48, 64
 S_MAX = 24
 
 
-def inputs(dense, s_max=S_MAX, n=300):
-    """A small surface scene's kernel inputs on the CPU: (records, ids,
-    counts, charts, info) or (records, gids, starts, counts, charts,
-    info); the grid; the bins."""
-    s = surface_scene(n, chart_pad=(4, 6), seed=2, device="cpu")
+def scene():
+    """A small surface scene, its camera and its prepared splats."""
+    s = surface_scene(300, chart_pad=(4, 6), seed=2, device="cpu")
     cam = orbit_camera(H, W, dist=3.0, azimuth=0.4, device="cpu")
     prep = prepare_splats(s["means"], s["log_scales"], s["quats"],
                           s["opacity_logits"], s["features_dc"],
                           s["features_rest"], s["mappings"], cam,
                           active_sh_degree=3)
-    grid = TileGrid(height=H, width=W, tile_h=16, tile_w=16)
+    return s, cam, prep
+
+
+def bin_scene(cam, prep, dense, tile=16):
+    """The grid and the dense or flat lists of the scene's splats."""
+    grid = TileGrid(height=H, width=W, tile_h=tile, tile_w=tile)
     build = build_tile_bins if dense else build_tile_bins_flat
-    bins = build(prep.centers, prep.extents, prep.depths, prep.valid, grid,
-                 1 << 14, s_max, cull_fn=make_pair_cull(prep.geom, cam, grid))
+    return grid, build(prep.centers, prep.extents, prep.depths, prep.valid,
+                       grid, 1 << 14, S_MAX,
+                       cull_fn=make_pair_cull(prep.geom, cam, grid))
+
+
+def inputs(dense, tile=16):
+    """The scene's kernel inputs on the CPU: (records, ids, counts, charts,
+    info) or (records, gids, starts, counts, charts, info); the grid; the
+    bins."""
+    s, cam, prep = scene()
+    grid, bins = bin_scene(cam, prep, dense, tile)
     lists = ((bins.ids, bins.counts) if dense
              else (bins.gids, bins.starts, bins.counts))
     records = assemble_records(prep.geom, cam.c2w[:3, 3], s["texture_hw"])
@@ -102,10 +119,43 @@ def test_dense_backward_refuses_misaligned_records():
     with pytest.raises(ValueError, match="aligned"):
         rdense.rasterize_dense_bwd(misaligned(records), ids, counts, charts,
                                    info, maps, ncon, gmaps, grid)
-    # the dense eval kernel stages records with plain loads
-    out = rdense.rasterize_dense_eval(misaligned(records), ids, counts,
-                                      charts, info, grid)
-    assert out.shape == (8, H, W)
+    # the dense eval kernel copies its records through the ring as well
+    with pytest.raises(ValueError, match="aligned"):
+        rdense.rasterize_dense_eval(misaligned(records), ids, counts, charts,
+                                    info, grid)
+
+
+def test_dense_eval_refuses_misaligned_records():
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    before = rdense.rasterize_dense_eval.launches
+    with pytest.raises(ValueError, match="aligned"):
+        rdense.rasterize_dense_eval(misaligned(records), ids, counts, charts,
+                                    info, grid)
+    assert rdense.rasterize_dense_eval.launches == before
+
+
+@pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
+def test_dense_eval_refuses_a_bad_tile_order(bad):
+    (records, ids, counts, charts, info), grid, _ = inputs(dense=True)
+    order = rfwd.tile_order(counts, ids.shape[1])
+    wrong = {"int64": order.long(), "short": order[:-1],
+             "on_other_shape": order.reshape(1, -1)}[bad]
+    err = TypeError if bad == "int64" else ValueError
+    with pytest.raises(err, match="order"):
+        rdense.rasterize_dense_eval(records, ids, counts, charts, info, grid,
+                                    order=wrong)
+
+
+def test_dense_eval_takes_an_order_and_computes_the_same_maps():
+    """On the CPU the order only passes the checks: the plain version
+    computes each tile whatever the order, so any permutation gives the
+    same maps."""
+    args, grid, _ = inputs(dense=True)
+    base = rdense.rasterize_dense_eval(*args, grid)
+    order = rfwd.tile_order(args[2], S_MAX).flip(0).contiguous()
+    assert torch.equal(rdense.rasterize_dense_eval(*args, grid, order=order),
+                       base)
+    assert float(base[7].max()) > 0.3
 
 
 @pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
@@ -245,16 +295,8 @@ def test_rasterize4_hands_one_order_to_both_kernels(monkeypatch, lean):
 def test_pl5_eval_computes_one_order_a_frame(monkeypatch):
     """``rasterize_pl5_eval`` hands the eval kernel the frame's tile order,
     by capped count, longest first."""
-    s = surface_scene(300, chart_pad=(4, 6), seed=2, device="cpu")
-    cam = orbit_camera(H, W, dist=3.0, azimuth=0.4, device="cpu")
-    prep = prepare_splats(s["means"], s["log_scales"], s["quats"],
-                          s["opacity_logits"], s["features_dc"],
-                          s["features_rest"], s["mappings"], cam,
-                          active_sh_degree=3)
-    grid = TileGrid(height=H, width=W, tile_h=16, tile_w=16)
-    fbins = build_tile_bins_flat(prep.centers, prep.extents, prep.depths,
-                                 prep.valid, grid, 1 << 14, S_MAX,
-                                 cull_fn=make_pair_cull(prep.geom, cam, grid))
+    s, cam, prep = scene()
+    grid, fbins = bin_scene(cam, prep, dense=False)
     passed = []
     real_eval = rasterize_api.rasterize_eval
 
@@ -268,3 +310,124 @@ def test_pl5_eval_computes_one_order_a_frame(monkeypatch):
     assert len(passed) == 1
     assert torch.equal(passed[0], rfwd.tile_order(fbins.counts, S_MAX))
     assert float(out["alpha"].max()) > 0.3
+
+
+def test_pl_eval_computes_one_order_a_frame(monkeypatch):
+    """``rasterize_pl_eval`` computes the frame's tile order once, by
+    capped count, longest first, and hands it to the dense eval kernel,
+    which then computes none of its own."""
+    s, cam, prep = scene()
+    grid, bins = bin_scene(cam, prep, dense=True)
+    made, passed, inner = [], [], []
+    real_order = rasterize_api.tile_order
+    real_eval = rasterize_api.rasterize_dense_eval
+
+    def order_spy(c, n):
+        made.append(real_order(c, n))
+        return made[-1]
+
+    def eval_spy(*args, order=None):
+        passed.append(order)
+        return real_eval(*args, order=order)
+    monkeypatch.setattr(rasterize_api, "tile_order", order_spy)
+    monkeypatch.setattr(rasterize_api, "rasterize_dense_eval", eval_spy)
+    monkeypatch.setattr(rdense, "tile_order",
+                        lambda *a: inner.append(a) or real_order(*a))
+    out = rasterize_api.rasterize_pl_eval(prep.geom, s["texture"],
+                                          s["texture_hw"], bins, cam, grid)
+    assert len(made) == 1 and len(passed) == 1 and not inner
+    assert passed[0] is made[0]
+    assert torch.equal(made[0], rfwd.tile_order(bins.counts, S_MAX))
+    assert float(out["alpha"].max()) > 0.3
+
+
+def pair_case():
+    """A small surface scene's per-slot copies on the CPU, at the 32x32
+    tiles the pair-space kernels take: ((records_t, charts_g, counts,
+    info), grid)."""
+    (records, _, _, charts, info), grid, bins = inputs(dense=True, tile=32)
+    return (*pair_inputs(records, charts, bins), info), grid
+
+
+def pair_residuals(pairs, grid, lean=False):
+    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid, lean=lean)
+    g = torch.tensor(np.random.default_rng(1).standard_normal(
+        (rfwd.NG, H, W)).astype(np.float32))
+    return maps, ncon, g
+
+
+def test_v2_backward_refuses_misaligned_records():
+    pairs, grid = pair_case()
+    maps, ncon, g = pair_residuals(pairs, grid)
+    records_t = pairs[0]
+    shifted = misaligned(records_t.reshape(-1, 32)).view(records_t.shape)
+    before = rv2.rasterize_v2_bwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        rv2.rasterize_v2_bwd(shifted, *pairs[1:], maps, ncon, g, grid)
+    assert rv2.rasterize_v2_bwd.launches == before
+    # the v2 forward stages its records with plain loads
+    out, _ = rv2.rasterize_v2_fwd(shifted, *pairs[1:], grid)
+    assert torch.equal(out, maps)
+
+
+@pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
+def test_v2_backward_refuses_a_bad_tile_order(bad):
+    pairs, grid = pair_case()
+    maps, ncon, g = pair_residuals(pairs, grid)
+    order = rfwd.tile_order(pairs[2], pairs[0].shape[1])
+    wrong = {"int64": order.long(), "short": order[:-1],
+             "on_other_shape": order.reshape(1, -1)}[bad]
+    err = TypeError if bad == "int64" else ValueError
+    with pytest.raises(err, match="order"):
+        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid, order=wrong)
+
+
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+def test_v2_backward_takes_an_order_and_computes_the_same_gradients(lean):
+    """On the CPU the order only passes the checks: the plain version
+    computes each tile whatever the order."""
+    pairs, grid = pair_case()
+    maps, ncon, g = pair_residuals(pairs, grid, lean)
+    d_rec, d_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                                       lean=lean)
+    order = rfwd.tile_order(pairs[2], pairs[0].shape[1]).flip(0).contiguous()
+    d_rec2, d_ch2 = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                                         lean=lean, order=order)
+    assert torch.equal(d_rec2, d_rec) and torch.equal(d_ch2, d_ch)
+    assert float(d_rec.abs().max()) > 0 and float(d_ch.abs().max()) > 0
+
+
+@pytest.mark.parametrize("version", [2, 3, 1], ids=["v2", "v3", "v1"])
+def test_rasterize_pairs_computes_an_order_for_v2_alone(monkeypatch,
+                                                        version):
+    """``_RasterizePairs`` computes one tile order, in its forward, for the
+    v2 backward and hands that tensor to it; v3 and v1 take none."""
+    pairs, grid = pair_case()
+    made, passed = [], []
+    real_order = rasterize_api.tile_order
+
+    def order_spy(c, n):
+        made.append(real_order(c, n))
+        return made[-1]
+
+    def bwd_spy(real):
+        def bwd(*args, **kwargs):
+            passed.append(kwargs.get("order"))
+            return real(*args, **kwargs)
+        return bwd
+    monkeypatch.setattr(rasterize_api, "tile_order", order_spy)
+    monkeypatch.setattr(rasterize_api, "_PAIR_IMPLS", {
+        v: (f, bwd_spy(b)) for v, (f, b) in rasterize_api._PAIR_IMPLS.items()})
+    rec = pairs[0].clone().requires_grad_()
+    ch = pairs[1].clone().requires_grad_()
+    maps, _ = rasterize_api._RasterizePairs.apply(rec, ch, pairs[2], pairs[3],
+                                                  grid, version, True)
+    assert len(made) == (version == 2) and not passed
+    maps[:8].sum().backward()
+    assert len(made) == (version == 2) and len(passed) == 1
+    if version == 2:
+        assert passed[0] is made[0]
+        assert torch.equal(passed[0], real_order(pairs[2], S_MAX))
+    else:
+        assert passed[0] is None
+    assert float(rec.grad.abs().max()) > 0 and float(ch.grad.abs().max()) > 0

@@ -30,9 +30,9 @@ tiles are partial.
 
 The dense-list kernels run the same cases plus the pads that the dispatch
 sends to them, (88, 88) and (128, 128). Their eval and forward kernels
-follow their plain version operation for operation (the eval kernel to
-1e-4; the forward bit for bit, maps and ncontrib, under every tile
-order). Their backward's
+follow their plain version operation for operation, bit for bit under
+every tile order (the eval kernel's eight planes; the forward's maps and
+ncontrib). Their backward's
 plain version pulls the per-splat math back with autograd where the
 kernel writes the chain rule out, so the two differ by rounding: the same
 1e-4 of each field group's largest value and 1e-5 sign flips. On the pads
@@ -40,12 +40,13 @@ both tiers take, the dense kernels are also held to the flat ones.
 
 The pair-space v3, v2 and v1 kernels run on per-(tile, slot) copies of
 the dense lists' records and charts, at 32x32 tiles and pads up to their
-limits (40 rows for v3, 42 for v2 and v1), one of them past what their
+limits (40 rows for v3, 42 for v2 and v1), one of them past what the v1
 backward stages in shared memory. Each is held to its plain version by
 the gates above (v3's forward sums its chunks by a shuffle tree, so its
 maps to 1e-4; T and ncontrib exactly), v3 and v2, summed per gaussian, to
 the dense kernels on the same pairs, and v1 to v2, which it equals but
-for its rounding of the distortion depth.
+for its rounding of the distortion depth. The v2 backward takes its tiles
+in an order, and is held to its plain version under three.
 """
 
 import pytest
@@ -377,7 +378,7 @@ def test_dense_eval_kernel_matches_plain(cuda, pad, tile, s_cap):
     torch.cuda.synchronize()
     assert rdense.rasterize_dense_eval.launches == before + 1
     ref = rdense.rasterize_dense_eval_reference(*inputs, grid)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
     assert float(out[7].max()) > 0.3
 
 
@@ -503,6 +504,32 @@ def test_dense_forward_tile_orders_bit_equal(cuda, schedule, lean):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "longest_first", "reversed"])
+@pytest.mark.parametrize("pad", [(8, 8), (16, 24), (64, 128), (88, 88)],
+                         ids=["pad8", "pad16x24", "pad64x128", "pad88x88"])
+def test_dense_eval_tile_orders_bit_equal(cuda, pad, schedule):
+    """The order in which the dense eval kernel's blocks take tiles changes
+    no pixel's operations: its eight planes are bit-equal to the plain
+    version under every order, at the pads the main path serves. The
+    lists are clamped at s_max = 128 (two chunks of the record ring)."""
+    inputs, grid, _ = kernel_inputs(cuda, pad, 16, 128, dense=True,
+                                    n=300 if pad[0] >= 64 else 2000)
+    counts, s_max = inputs[2], inputs[1].shape[1]
+    order = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                   device=cuda),
+             "longest_first": rfwd.tile_order(counts, s_max),
+             "reversed": rfwd.tile_order(counts, s_max).flip(0)
+             .contiguous()}[schedule]
+    before = rdense.rasterize_dense_eval.launches
+    out = rdense.rasterize_dense_eval(*inputs, grid, order=order)
+    torch.cuda.synchronize()
+    assert rdense.rasterize_dense_eval.launches == before + 1
+    ref = rdense.rasterize_dense_eval_reference(*inputs, grid)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert float(out[7].max()) > 0.3
+
+
+@pytest.mark.cuda
 def test_dense_wrappers_raise_instead_of_falling_back(cuda):
     inputs, grid, _ = kernel_inputs(cuda, (8, 8), 32, 1024, n=200,
                                     dense=True)
@@ -526,6 +553,11 @@ def test_dense_wrappers_raise_instead_of_falling_back(cuda):
         rdense.rasterize_dense_bwd(*inputs, maps, ncon, g, grid, order=short)
     with pytest.raises(ValueError, match="order"):
         rdense.rasterize_dense_fwd(*inputs, grid, order=short)
+    with pytest.raises(ValueError, match="order"):
+        rdense.rasterize_dense_eval(*inputs, grid, order=short)
+    with pytest.raises(TypeError, match="order"):
+        rdense.rasterize_dense_eval(*inputs, grid,
+                                    order=rfwd.tile_order(counts, 1024).long())
     assert rdense.rasterize_dense_bwd.launches == bwd_before
     assert (rdense.rasterize_dense_eval.launches,
             rdense.rasterize_dense_fwd.launches) == (before[0], before[1] + 1)
@@ -717,3 +749,61 @@ def test_pair_wrappers_raise_instead_of_falling_back(cuda):
         rv1.rasterize_v1_fwd(records_t, tall, counts, info, grid)
     assert (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches,
             rv1.rasterize_v1_fwd.launches) == before
+    # the v2 backward's tile order and its cp.async record copies
+    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid)
+    g = cotangents(cuda)
+    bwd_before = rv2.rasterize_v2_bwd.launches
+    with pytest.raises(ValueError, match="order"):
+        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                             order=torch.zeros(1, dtype=torch.int32,
+                                               device=cuda))
+    with pytest.raises(TypeError, match="order"):
+        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                             order=rfwd.tile_order(counts, 1024).long())
+    buf = torch.empty(records_t.numel() + 4, device=cuda)
+    shifted = buf[1:1 + records_t.numel()].view(records_t.shape)
+    shifted.copy_(records_t)
+    with pytest.raises(ValueError, match="aligned"):
+        rv2.rasterize_v2_bwd(shifted, charts_g, counts, info, maps, ncon, g,
+                             grid)
+    assert rv2.rasterize_v2_bwd.launches == bwd_before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad", [(16, 24), (40, 42)],
+                         ids=["pad16x24", "pad40x42_past_staging"])
+def test_v2_backward_tile_orders_agree(cuda, pad, lean):
+    """The v2 backward under three tile orders (block, longest first,
+    reversed): each within the backward gates of its plain version, and
+    within 1e-5 of each field group's max of the wrapper's own order.
+    (40, 42) is the v2 row limit, whose chunk chart gradients the first
+    port could not stage in shared memory."""
+    _, pairs, grid, _ = pair_case(cuda, pad, 1024)
+    counts, s_max = pairs[2], pairs[0].shape[1]
+    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid, lean=lean)
+    g = cotangents(cuda)
+    ref_rec, ref_ch = rv2.rasterize_v2_bwd_reference(*pairs, maps, ncon, g,
+                                                     grid, lean=lean)
+    d_rec, d_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                                       lean=lean)
+    orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
+                                    device=cuda),
+              "longest_first": rfwd.tile_order(counts, s_max),
+              "reversed": rfwd.tile_order(counts, s_max).flip(0)
+              .contiguous()}
+    for name, order in orders.items():
+        before = rv2.rasterize_v2_bwd.launches
+        o_rec, o_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
+                                           lean=lean, order=order)
+        torch.cuda.synchronize()
+        assert rv2.rasterize_v2_bwd.launches == before + 1
+        errs = backward_errors(o_rec.reshape(-1, 32), o_ch,
+                               ref_rec.reshape(-1, 32), ref_ch)
+        flip = errs.pop("texture_flip_frac")
+        assert max(errs.values()) <= 1e-4 and flip <= 1e-5, (name, errs)
+        errs = backward_errors(o_rec.reshape(-1, 32), o_ch,
+                               d_rec.reshape(-1, 32), d_ch)
+        flip = errs.pop("texture_flip_frac")
+        assert max(errs.values()) <= 1e-5 and flip <= 1e-5, (name, errs)
+    assert float(ref_rec.abs().max()) > 0 and float(ref_ch.abs().max()) > 0

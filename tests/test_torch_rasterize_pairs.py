@@ -138,6 +138,35 @@ def test_gradients_match_jax_kernels_interpret(kernels, version):
     xla.assert_grads_close(got, want)
 
 
+def test_v2_gradients_under_a_given_order_match_jax_kernels_interpret(
+        kernels, monkeypatch):
+    """``_RasterizePairs`` computes one tile order in its forward and hands
+    it to the v2 backward; given another order (here the reversed one),
+    the backward still gives JAX's interpreted ``_bwd_kernel2``'s
+    gradients, at the tolerances above."""
+    from gstex_torch.ops import rasterize_api
+
+    (_, want, _), _ = kernels(2)
+    made, passed = [], []
+    real_order = rasterize_api.tile_order
+    fwd, bwd = rasterize_api._PAIR_IMPLS[2]
+
+    def reversed_order(counts, n):
+        made.append(real_order(counts, n).flip(0).contiguous())
+        return made[-1]
+
+    def bwd_spy(*args, order=None, **kwargs):
+        passed.append(order)
+        return bwd(*args, order=order, **kwargs)
+    monkeypatch.setattr(rasterize_api, "tile_order", reversed_order)
+    monkeypatch.setitem(rasterize_api._PAIR_IMPLS, 2, (fwd, bwd_spy))
+    tile, s_max, pad, n = CASES["truncating"]
+    _, got, _ = xla.torch_run(xla.scene_np(n=n, pad=pad), tile, s_max,
+                              cotangents(False), render=port(2))
+    assert len(made) == 1 and len(passed) == 1 and passed[0] is made[0]
+    xla.assert_grads_close(got, want)
+
+
 def dense_inputs(n=48, s_max=64, pad=(4, 4)):
     """The port's records, dense lists, charts and camera of the test
     scene."""

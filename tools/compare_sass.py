@@ -4,9 +4,10 @@
     python3 tools/compare_sass.py --old DIR [--new DIR] [NAME ...]
 
 Compiles each ``NAME.cu`` (by default the eleven kernels besides the
-dense forward and SSIM: the flat three, the dense eval and backward,
-v3, v2 and v1; the flat, dense, v2 and v1 ones share
-``csrc/tile_walk.cuh`` with the dense forward) from the ``--old`` and
+dense eval kernel and the v2 backward: the flat three, SSIM, the dense
+forward and backward, v3, the v2 forward and v1; the flat, dense, v2 and
+v1 ones share ``csrc/tile_walk.cuh`` with those two, and the v2 and v1
+ones ``csrc/pair_slots.cuh`` with the v2 backward) from the ``--old`` and
 ``--new`` csrc directories (``--new`` defaults to this
 tree's ``gstex_torch/csrc``) to ``sm_90a`` cubins with the port's
 compiler flags, disassembles them with ``cuobjdump -sass`` and compares
@@ -27,10 +28,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
-           "rasterize_dense_eval", "rasterize_dense_bwd", "rasterize_v3_fwd",
-           "rasterize_v3_bwd", "rasterize_v2_fwd", "rasterize_v2_bwd",
-           "rasterize_v1_fwd", "rasterize_v1_bwd"]
+KERNELS = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd", "ssim_fused",
+           "rasterize_dense_fwd", "rasterize_dense_bwd", "rasterize_v3_fwd",
+           "rasterize_v3_bwd", "rasterize_v2_fwd", "rasterize_v1_fwd",
+           "rasterize_v1_bwd"]
 
 
 def sass(nvcc, cuobjdump, src: Path, out: Path) -> list[str]:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time a training step or an eval frame of the tree at ``--root`` on one
-card, on the flat or the dense tier.
+card, on the flat, the dense or the v2 pair-space tier.
 
-    python3 tools/flat_step_ab.py --root DIR [--tier flat|dense]
+    python3 tools/flat_step_ab.py --root DIR [--tier flat|dense|pallas2]
         [--mode step|eval] [--tag NAME]
 
 Imports ``chip_smoke.py`` and ``gstex_torch`` from ``--root`` (this
@@ -14,11 +14,13 @@ does: the trained-scene statistics at their auto chart pad, re-charted,
 on the 800x800 view of its phase 9, against a seeded ground-truth image.
 ``--tier flat`` takes pixel_num 1e6, pad (40, 80); ``--tier dense``
 pixel_num 4e6, pad (64, 128), which the dispatch sends to the dense
-kernels. Prints one JSON line: the step's or frame's host ms (``ms``,
-median of 20, ``ms_min`` and ``ms_max``), the card's busy ms and idle
-share, and each ``gstex.*`` stage's device ms from a ``torch.profiler``
-trace. Run it on two trees in turns within one call (A, B, B, A) to
-compare them on one card.
+kernels; ``--tier pallas2`` pixel_num 1e5, pad (16, 24), on
+``renderer="pallas2"`` (the v2 training kernels; its eval frame takes the
+dense eval kernel). Prints one JSON line: the step's or frame's host ms
+(``ms``, median of 20, ``ms_min`` and ``ms_max``), the card's busy ms
+and idle share, and each ``gstex.*`` stage's device ms from a
+``torch.profiler`` trace. Run it on two trees in turns within one call
+(A, B, B, A) to compare them on one card.
 """
 
 import argparse
@@ -32,7 +34,8 @@ from pathlib import Path
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--tier", choices=("flat", "dense"), default="flat")
+    ap.add_argument("--tier", choices=("flat", "dense", "pallas2"),
+                    default="flat")
     ap.add_argument("--mode", choices=("step", "eval"), default="step")
     ap.add_argument("--tag", default=None)
     args = ap.parse_args()
@@ -53,6 +56,7 @@ def main():
     from gstex_torch.ops import rasterize_dense as rdense
     from gstex_torch.ops import rasterize_eval as reval
     from gstex_torch.ops import rasterize_fwd as rfwd
+    from gstex_torch.ops import rasterize_v2 as rv2
     from gstex_torch.ops.camera import make_camera
     from gstex_torch.scripts import render as render_cli
     from gstex_torch.train import step as train_step
@@ -60,23 +64,26 @@ def main():
     if Path(cs.__file__).resolve().parent != root:
         raise SystemExit(f"flat_step_ab: imported {cs.__file__}, not the "
                          f"tree at {root}")
-    dense = args.tier == "dense"
-    if dense:
-        kernels = (rdense.rasterize_dense_eval, rdense.rasterize_dense_fwd,
-                   rdense.rasterize_dense_bwd)
-    else:
-        kernels = (reval.rasterize_eval, rfwd.rasterize_fwd,
-                   rbwd.rasterize_bwd)
+    # (eval, forward, backward) kernels of the tier; its texel budget
+    kernels, pixel_num = {
+        "flat": ((reval.rasterize_eval, rfwd.rasterize_fwd,
+                  rbwd.rasterize_bwd), None),
+        "dense": ((rdense.rasterize_dense_eval, rdense.rasterize_dense_fwd,
+                   rdense.rasterize_dense_bwd), cs.DENSE_PIXEL_NUM),
+        "pallas2": ((rdense.rasterize_dense_eval, rv2.rasterize_v2_fwd,
+                     rv2.rasterize_v2_bwd), cs.PAIR_PIXEL_NUM)}[args.tier]
     _build.build([fn.__name__ for fn in kernels] + ["ssim_fused"])
     method = get_method("gstex-blender-nvs")
     cfg = dataclasses.replace(method.model, pixel_num=(
-        cs.DENSE_PIXEL_NUM if dense else method.model.pixel_num))
+        pixel_num or method.model.pixel_num))
     params, buffers = init_io.load_scene_npz(cfg, cs.STATS, seed=1,
                                              device=cs.DEVICE)
     cfg = dataclasses.replace(cfg, chart_pad=tuple(params.texture.shape[1:3]))
     cam = make_camera(1.2 * cs.H, 1.2 * cs.H, cs.W / 2, cs.H / 2, cs.H, cs.W,
                       orbit_c2w(4.0, 0.0), device=cs.DEVICE)
     cfg, state = cs.recharted_state(cfg, method.optim, params, buffers, cam)
+    if args.tier == "pallas2":
+        cfg = dataclasses.replace(cfg, renderer="pallas2")
     gen = torch.Generator(device=cs.DEVICE).manual_seed(0)
     img = torch.rand((cs.H, cs.W, 3), generator=gen, device=cs.DEVICE)
     if args.mode == "step":

@@ -3,7 +3,7 @@
 main path's shapes.
 
     python3 tools/kernel_variants.py [--kernels eval dense_fwd ssim ...]
-        [--reps N] [--ssim-parent CSRC]
+        [--reps N] [--ssim-parent CSRC] [--parent CSRC]
 
 Each variant is this tree's ``gstex_torch/csrc`` with a few source lines
 substituted (a chunk size, a launch bound, the ring, the tile order, a
@@ -20,14 +20,16 @@ and at 1e5 (16, 24); the v2 and v1 backwards on per-slot copies of the
 training loss's shapes on the Blender and the DTU path). Per scene each
 variant is timed in two turns (CUDA events, mean of ``--reps``), in the
 listed order and then reversed, and held to the first variant's output
-(eval and the dense forward: bit for bit; backwards: chip_smoke's
-gates; SSIM: the float64 gates of chip_smoke, and whether its gradient
-is bit-equal to the first), SSIM by CUDA-graph replay (``chip_smoke.
-graph_ms``: its wrapper's host work would hide it). With
+(the eval kernels and the dense forward: bit for bit; backwards:
+chip_smoke's gates; SSIM: the float64 gates of chip_smoke, and whether
+its gradient is bit-equal to the first), SSIM by CUDA-graph replay
+(``chip_smoke.graph_ms``: its wrapper's host work would hide it). With
 ``--ssim-parent CSRC`` the SSIM kernel of an older tree (its C entry as
-at 21285d5) runs beside the SSIM variants. Prints one JSON line per
-variant with its ``ptxas`` registers and spills, and one per (scene,
-variant) with its times.
+at 21285d5) runs beside the SSIM variants; with ``--parent CSRC`` the
+dense eval kernel and the v2 backward of an older tree (their C entries
+as at 1b0b481, which take no tile order) run beside theirs. Prints one
+JSON line per variant with its ``ptxas`` registers and spills, and one
+per (scene, variant) with its times.
 """
 
 import argparse
@@ -39,6 +41,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -62,6 +65,17 @@ def min_blocks(n):
 
 
 BLOCK_ORDER = (r"order\[blockIdx\.x\]", "blockIdx.x")
+# the eval kernels: the training forward's accumulators and run-time lean
+# switch, writing the eval planes
+LEAN_AT_RUN_TIME = [
+    ("tile_walk.cuh", r"float acc\[kEval \? 8 : 13\]", "float acc[13]"),
+    ("tile_walk.cuh", r"c < \(kEval \? 8 : 13\)", "c < 13"),
+    ("tile_walk.cuh", r"if constexpr \(!kEval\) \{\n(\s*)if \(!lean\)",
+     r"{\n\1if (!lean)")]
+# forward_tile's loop over a chunk's splats kept rolled
+NO_SPLAT_UNROLL = (
+    "tile_walk.cuh", r"\n([ ]*)for \(int s = 0; s < n; \+\+s\) \{",
+    r"\n\1#pragma unroll 1\n\1for (int s = 0; s < n; ++s) {")
 RING = [walk_ring(True), const("kChunk", 64), const("kIdBufs", 3)]
 C_256 = [const("kShflT", "true"), const("kBlock", 256)]
 
@@ -119,15 +133,8 @@ VARIANTS = {
                                          min_blocks(0)]),
         ("tiles in block order", [BLOCK_ORDER]),
         ("no ring", [walk_ring(False)]),
-        # the training forward's accumulators and run-time lean switch,
-        # writing the eval planes
-        ("the lean switch at run time", [
-            ("tile_walk.cuh", r"float acc\[kEval \? 8 : 13\]",
-             "float acc[13]"),
-            ("tile_walk.cuh", r"c < \(kEval \? 8 : 13\)", "c < 13"),
-            ("tile_walk.cuh",
-             r"if constexpr \(!kEval\) \{\n(\s*)if \(!lean\)",
-             r"{\n\1if (!lean)")]),
+        ("the lean switch at run time", LEAN_AT_RUN_TIME),
+        ("the splat loop not unrolled", [NO_SPLAT_UNROLL]),
     ]),
     "dense_bwd": ("rasterize_dense_bwd", "dense", [
         ("as built", []),
@@ -185,11 +192,34 @@ VARIANTS = {
          [(r"backward_tile<kChunk, Slots, false, true>\(",
            "backward_tile<kChunk, Slots, false, true, true>(")]),
     ]),
+    "dense_eval": ("rasterize_dense_eval", "dense", [
+        ("as built: 64 a chunk, ring, longest first, 2 blocks an SM", []),
+        ("32 a chunk", [const("kChunk", 32)]),
+        ("no ring (staged by plain loads)", [walk_ring(False)]),
+        ("tiles in block order", [BLOCK_ORDER]),
+        ("no launch-bound minimum (the compiler's choice)", [min_blocks(0)]),
+        ("the first port's walk on forward_tile: 32 a chunk, no ring, block "
+         "order, no minimum",
+         [const("kChunk", 32), const("kIdBufs", 1), walk_ring(False),
+          BLOCK_ORDER, min_blocks(0)]),
+        ("the lean switch at run time", LEAN_AT_RUN_TIME),
+        ("the splat loop not unrolled", [NO_SPLAT_UNROLL]),
+    ]),
     "v2_bwd": ("rasterize_v2_bwd", "v2", [
-        ("as built", []),
-        ("+ (c) transposed reduction",
-         [(r"backward_tile<kPairChunk>\(",
-           "backward_tile<kPairChunk, PairGradSlots, false, false, true>(")]),
+        ("as built: 64 a chunk, ring, longest first, transposed reduction, "
+         "384 threads, texel REDs", []),
+        ("32 a chunk", [const("kChunk", 32)]),
+        ("16 a chunk", [const("kChunk", 16)]),
+        ("texel gradients staged in shared memory, 16 a chunk",
+         [const("kStage", "true"), const("kChunk", 16)]),
+        ("no ring (staged by plain loads)", [walk_ring(False)]),
+        ("tiles in block order", [BLOCK_ORDER]),
+        ("lane-0 reduction", [const("kShflT", "false")]),
+        ("256 threads", [const("kBlock", 256)]),
+        ("the first port's options on the new slots: 16 a chunk, staged, no "
+         "ring, block order, lane-0 reduction, 256 threads",
+         [const("kChunk", 16), const("kStage", "true"), walk_ring(False),
+          BLOCK_ORDER, const("kShflT", "false"), const("kBlock", 256)]),
     ]),
     "v1_bwd": ("rasterize_v1_bwd", "v1", [
         ("as built", []),
@@ -249,6 +279,59 @@ def build_variants(kernel, cases):
         print(json.dumps({"kernel": kernel, "variant": label,
                           "absent": missing}), flush=True)
     return built
+
+
+# the kernels whose C entry as at 1b0b481 took no tile order: the index of
+# the order among the current entry's pointers
+PARENT_ORDER_ARG = {"dense_eval": 6, "v2_bwd": 9}
+PARENT = "the kernel as at 1b0b481"
+
+
+class OrderlessEntry:
+    """A C entry that takes no tile order behind the current entry's
+    arguments: the wrapper sets ``argtypes`` and calls with the order
+    pointer at ``at``, which is dropped."""
+
+    def __init__(self, fn, at):
+        self.fn, self.at = fn, at
+        self.argtypes, self.restype = None, ctypes.c_int
+
+    def __call__(self, *args):
+        def drop(xs):
+            return list(xs[:self.at]) + list(xs[self.at + 1:])
+        self.fn.argtypes = drop(self.argtypes)
+        self.fn.restype = self.restype
+        return self.fn(*drop(args))
+
+
+def parent_variant(kernel, csrc):
+    """Build ``kernel``'s source of another tree (its C entry as at
+    1b0b481) with the port's flags; returns (lib path, ptxas lines)."""
+    from gstex_torch.ops import _build
+
+    name = VARIANTS[kernel][0]
+    out = ROOT / "build" / "variants" / f"{kernel}-parent"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, out)
+    lib = out / f"lib{name}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(out / f"{name}.cu")], capture_output=True,
+                          text=True, check=True)
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(json.dumps({"kernel": kernel, "variant": PARENT, "ptxas": ptxas}),
+          flush=True)
+    return lib, ptxas
+
+
+def load_variant(kernel, label, lib):
+    """What ``_build.load`` would return for this variant's library."""
+    cdll = ctypes.CDLL(str(lib))
+    if label != PARENT:
+        return cdll
+    name = VARIANTS[kernel][0]
+    return SimpleNamespace(**{f"gstex_{name}": OrderlessEntry(
+        getattr(cdll, f"gstex_{name}"), PARENT_ORDER_ARG[kernel])})
 
 
 def frame_of(cs, cfg, params, buffers, cam, dense):
@@ -449,7 +532,7 @@ def time_variants(cs, kernel, built, reps, smi):
     for scene, frame, tier, k_in in scenes(cs, kind):
         grid, s_cap = frame.grid, frame.cfg.s_max
         lean = model.lean_losses(frame.cfg)
-        if kernel == "eval":
+        if kernel in ("eval", "dense_eval"):
             def run():
                 return tier.eval(k_in, grid, s_cap)
         elif kernel == "dense_fwd":
@@ -465,12 +548,13 @@ def time_variants(cs, kernel, built, reps, smi):
         first = None
         for turn in (labels, labels[::-1]):
             for label in turn:
-                _build._loaded[name] = ctypes.CDLL(str(built[label][0]))
+                _build._loaded[name] = load_variant(kernel, label,
+                                                    built[label][0])
                 out = run()
                 torch.cuda.synchronize()
                 if first is None:
                     first = out
-                elif kernel == "eval":
+                elif kernel in ("eval", "dense_eval"):
                     cs.require(torch.equal(out, first),
                                f"{scene}: eval variant '{label}' differs")
                 elif kernel == "dense_fwd":
@@ -490,6 +574,10 @@ def time_variants(cs, kernel, built, reps, smi):
                 cs.cuda_ms(lambda: rfwd.rasterize_fwd(*k_in, grid, s_cap,
                                                       lean=True), reps)
                 for _ in range(2)]
+        if kernel == "dense_eval":
+            times["reference: the dense training forward, lean"] = [
+                cs.cuda_ms(lambda: tier.fwd(k_in, grid, s_cap, True), reps)
+                for _ in range(2)]
         for label, ms in times.items():
             print(json.dumps({"kernel": kernel, "scene": scene,
                               "chart_pad": list(frame.cfg.chart_pad),
@@ -508,6 +596,10 @@ def main():
                     help="also time, and compare bit for bit, the SSIM "
                          "kernel of this csrc directory (its C entry as "
                          "at 21285d5)")
+    ap.add_argument("--parent", metavar="CSRC", default=None,
+                    help="also time, and hold to the first variant, the "
+                         "dense eval kernel and the v2 backward of this "
+                         "csrc directory (their C entries as at 1b0b481)")
     args = ap.parse_args()
     import torch
 
@@ -527,6 +619,8 @@ def main():
     for kernel in args.kernels:
         cases = VARIANTS[kernel][2]
         built = build_variants(kernel, cases)
+        if args.parent and kernel in PARENT_ORDER_ARG:
+            built[PARENT] = parent_variant(kernel, args.parent)
         if kernel == "ssim":
             heights = {c[0]: c[2] for c in cases if len(c) > 2}
             time_ssim(cs, built, heights, 2 * args.reps, smi,
