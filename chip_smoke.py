@@ -9,8 +9,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device: the card's name and power limit (exit 1 without a CUDA card);
 2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory; the
-   flat kernels', the dense backward's and the v2 backward's shared memory
-   per launch, which no chart pad enters);
+   flat kernels', the dense backward's and the three pair-space backwards'
+   shared memory per launch, which no chart pad enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
    50k-surfel ``surface_scene``: the eval kernel (bit for bit),
@@ -32,10 +32,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on per-slot copies of those dense lists, and of the trained scene at
    pixel_num 1e5, re-charted, at (16, 24) (there also the dense eval
    kernel, bit for bit under the three orders): each against its plain
-   version, lean and full; the v2 backward also under the three tile
-   orders (within 1e-5 of each field group's max of its own order); v3
-   and v2, summed per gaussian, against the dense kernels on the same
-   pairs (v3's
+   version, lean and full; the v3, v2 and v1 backwards also under the
+   three tile orders (within 1e-5 of each field group's max of their own
+   order); v3 and v2, summed per gaussian, against the dense kernels on
+   the same pairs (v3's
    product scan may break a pixel's walk one slot apart from the serial
    product at no more than 1e-5 of the pixels; the maps are held to 1e-4
    elsewhere); v1 against v2, which it equals but for its rounding of the
@@ -99,8 +99,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    re-charted, on a masked 800x600 train view): a ``pallas1`` step timed
    the same way, and on that view's per-slot copies the v1 kernels
    against their plain versions, lean and full, under phase 3's gates
-   (the last tile row is partial; the backward's chart gradients are
-   past shared memory), and alone beside their bounds;
+   (the last tile row is partial), and alone beside their bounds;
 10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
@@ -401,7 +400,9 @@ def dense_tier():
 def pair_tier(version):
     """The v3, v2 or v1 pair-space kernels and their plain versions behind
     the same calls: ``inputs`` is (records_t, charts_g, counts, cam_info);
-    the record gradients come back as ``(T·S, 32)`` rows, one per slot."""
+    the record gradients come back as ``(T·S, 32)`` rows, one per slot;
+    the kernel's backward takes a tile ``order`` (its wrapper's own where
+    none is given)."""
     from gstex_torch.ops import rasterize_v1, rasterize_v2, rasterize_v3
 
     mod = {3: rasterize_v3, 2: rasterize_v2, 1: rasterize_v1}[version]
@@ -416,8 +417,8 @@ def pair_tier(version):
         names=(None, f"{name}_fwd", f"{name}_bwd"),
         fwd=lambda i, g, s, lean: fwd(*i, g, lean=lean),
         fwd_plain=lambda i, g, s, lean: fwd_ref(*i, g, lean=lean),
-        bwd=lambda i, m, n, c, g, s, lean: rows(bwd(*i, m, n, c, g,
-                                                    lean=lean)),
+        bwd=lambda i, m, n, c, g, s, lean, order=None: rows(bwd(
+            *i, m, n, c, g, lean=lean, order=order)),
         bwd_plain=lambda i, m, n, c, g, s, lean: rows(bwd_ref(
             *i, m, n, c, g, lean=lean)))
 
@@ -928,34 +929,33 @@ def check_v1_vs_v2(pinputs, grid, s_cap, lean, **where):
             f"flips {flip}")
 
 
-def check_v2_orders(pinputs, grid, s_cap, lean, **where):
-    """The v2 backward under the three tile orders against its own order's
-    gradients: within SCHEDULE_TOL of each field group's max, no more than
-    FLIP_TOL sign flips (the texel atomics add in no fixed order)."""
-    from gstex_torch.ops import rasterize_v2 as rv2
-
-    tier = pair_tier(2)
+def check_orders(version, pinputs, grid, s_cap, lean, **where):
+    """A pair-space backward under the three tile orders against its own
+    order's gradients: within SCHEDULE_TOL of each field group's max, no
+    more than FLIP_TOL sign flips (the texel atomics add in no fixed
+    order)."""
+    tier = pair_tier(version)
     maps, ncon = tier.fwd(pinputs, grid, s_cap, lean)
     g = cotangents(grid.height, grid.width)
     ref = tier.bwd(pinputs, maps, ncon, g, grid, s_cap, lean)
     errs = {}
     for name, order in tile_orders(pinputs[2],
                                    pinputs[0].shape[1]).items():
-        d_rec, d_ch = rv2.rasterize_v2_bwd(*pinputs, maps, ncon, g, grid,
-                                           lean=lean, order=order)
-        e, flip, _ = bwd_errors(d_rec.reshape(ref[0].shape), d_ch, *ref)
+        e, flip, _ = bwd_errors(*tier.bwd(pinputs, maps, ncon, g, grid,
+                                          s_cap, lean, order=order), *ref)
         errs[name] = (max(e.values()), flip)
-    emit("v2_bwd_schedules", lean=lean, bwd_max_rel_err_and_flips=errs,
-         tol=SCHEDULE_TOL, flip_tol=FLIP_TOL, **where)
+    emit("pair_bwd_schedules", kernel=tier.names[2], lean=lean,
+         bwd_max_rel_err_and_flips=errs, tol=SCHEDULE_TOL,
+         flip_tol=FLIP_TOL, **where)
     require(all(e <= SCHEDULE_TOL and f <= FLIP_TOL
                 for e, f in errs.values()),
-            f"{where}: the v2 backward's tile orders disagree: {errs}")
+            f"{where}: the {tier.names[2]} tile orders disagree: {errs}")
 
 
 def check_pairs(dframe, note, **where):
     """The pair-space tiers on a dense frame's lists: each kernel against
     its plain version, lean and full; v3 and v2 against the dense kernels,
-    v1 against v2; the v2 backward under three tile orders. Returns each
+    v1 against v2; each backward under three tile orders. Returns each
     kernel's plain ms in lean mode."""
     pinputs = pair_copies(dframe)
     emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
@@ -975,9 +975,8 @@ def check_pairs(dframe, note, **where):
                                **where)
             else:
                 check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
-            if version == 2:
-                check_v2_orders(pinputs, dframe.grid, dframe.cfg.s_max, lean,
-                                **where)
+            check_orders(version, pinputs, dframe.grid, dframe.cfg.s_max,
+                         lean, **where)
     return plain_ms
 
 
@@ -1172,10 +1171,9 @@ def dtu_step_timing(root, counters, smi, note):
     the v1 tier: a training step on a train view with its mask, timed
     whole and traced by stage; then on that view's per-slot copies the v1
     kernels against their plain versions, lean and full, under phase 3's
-    gates (at 800x600 the bottom row of tiles is partial, and at (40, 80)
-    the backward adds the chart gradients in device memory, not shared
-    memory), and alone beside their bounds. Returns the kernels'
-    timings."""
+    gates (at 800x600 the bottom row of tiles is partial; one tile order,
+    as three more backwards' gradients would not fit beside the copies),
+    and alone beside their bounds. Returns the kernels' timings."""
     from gstex_torch.configs.methods import get_method
     from gstex_torch.data.manager import FullImageCache
     from gstex_torch.data.nerfstudio_parser import parse_nerfstudio
@@ -1263,6 +1261,7 @@ def main():
     from gstex_torch.ops import rasterize_v3 as rv3
     from gstex_torch.ops import ssim_fused
     from gstex_torch.ops.camera import make_camera
+    from gstex_torch.ops.pair_inputs import bwd_launch_smem
     from gstex_torch.ops.rasterize_api import use_flat_path
     from gstex_torch.scripts import render as render_cli
     from gstex_torch.scripts import train as train_cli
@@ -1300,8 +1299,8 @@ def main():
              "rasterize_fwd": rfwd.launch_smem(),
              "rasterize_bwd_32x32": rbwd.launch_smem(32, 32),
              "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32),
-             "rasterize_v2_bwd_32x32_16x24": rv2.bwd_launch_smem(32, 32, 16,
-                                                                 24),
+             **{f"rasterize_v{v}_bwd_32x32_16x24": bwd_launch_smem(
+                 v, 32, 32, 16, 24) for v in (3, 2, 1)},
              "ssim_fused": ssim_fused.launch_smem()})
 
     # 3. kernels vs plain, on the bins of each scene's first spiral view

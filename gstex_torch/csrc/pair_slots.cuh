@@ -1,7 +1,7 @@
-// How the pair-space kernels (rasterize_v2_*.cu, rasterize_v1_*.cu) find a
-// tile's slots for the shared walk of tile_walk.cuh: PairSlots and
-// PairGradSlots for the v2 forward and the v1 kernels (block b walks tile
-// b), PairRingSlots for the v2 backward (tiles in a given order, the
+// How the pair-space kernels (rasterize_v3_bwd.cu, rasterize_v2_*.cu,
+// rasterize_v1_*.cu) find a tile's slots for the shared walk of
+// tile_walk.cuh: PairSlots for the v2 and v1 forwards (block b walks tile
+// b), PairRingSlots for the three backwards (tiles in a given order, the
 // record ring, kBlock threads). Slot k of tile t has
 // its own copy of its splat's record, at (t, k) of records_t (T, S, 32),
 // and of its chart, at (t, k) of charts_g (T, S, Ch, Cw, 3), and its own
@@ -14,11 +14,9 @@
 
 namespace {
 
-// records staged per chunk (the TPU kernels' CHUNK is a layout choice of
-// theirs and is not carried over)
+// records staged per chunk by the forwards (the TPU kernels' CHUNK is a
+// layout choice of theirs and is not carried over)
 constexpr int kPairChunk = 16;
-// shared memory a block may use
-constexpr size_t kSmemMax = 227 * 1024;
 
 struct PairSlots {
   const float* tile_rec;
@@ -41,47 +39,7 @@ struct PairSlots {
   }
 };
 
-// The backward's slots: where the chunk's chart gradients fit beside the
-// planes they are summed in shared memory (s_dch) and stored once, else
-// added into the slot's own region of d_charts_g.
-struct PairGradSlots : PairSlots {
-  float* tile_drec;
-  float* tile_dcharts;
-  float* s_dch;  // the chunk's chart gradients in shared memory, or null
-
-  __device__ PairGradSlots(const float* records_t, const float* charts_g,
-                           float* d_records_t, float* d_charts_g, int ch,
-                           int cw, int s_max, float* staged)
-      : PairSlots(records_t, charts_g, ch, cw, s_max), s_dch(staged) {
-    const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
-    tile_drec = d_records_t + slot0 * kRec;
-    tile_dcharts = d_charts_g + slot0 * chw3;
-  }
-  __device__ void begin(int base, int n, float* s_rec, float* s_drec,
-                        int tid) const {
-    for (int i = tid; i < n * kRec; i += kThreads) {
-      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
-      s_drec[i] = 0.0f;
-    }
-    if (s_dch)
-      for (long long i = tid; i < n * chw3; i += kThreads) s_dch[i] = 0.0f;
-  }
-  // the slot's chart gradient: staged, or in its own region of d_charts_g
-  __device__ float* dchart(int s, int k) const {
-    return s_dch ? s_dch + s * chw3
-                 : tile_dcharts + static_cast<long long>(k) * chw3;
-  }
-  // the chunk's record and chart gradients, one plain store each
-  __device__ void end(int base, int n, const float* s_drec, int tid) const {
-    for (int i = tid; i < n * kRec; i += kThreads)
-      tile_drec[static_cast<long long>(base) * kRec + i] = s_drec[i];
-    if (s_dch)
-      for (long long i = tid; i < n * chw3; i += kThreads)
-        tile_dcharts[base * chw3 + i] = s_dch[i];
-  }
-};
-
-// The v2 backward's slots: tile `tile`'s, whichever block walks it, for
+// The backwards' slots: tile `tile`'s, whichever block walks it, for
 // the walk's record ring (prefetch) and a block of kBlock threads (begin
 // and end stride by it). Slot k's record gradients leave with one plain
 // store per field in end; its texel gradients go straight into its own
@@ -145,19 +103,5 @@ struct PairRingSlots {
       }
   }
 };
-
-// Dynamic shared memory of a pair-space backward block: the kPlanes
-// per-pixel planes and, where they fit beside them, the chunk's chart
-// gradients (`stage`).
-inline size_t pair_bwd_smem(int tile_h, int tile_w, int ch, int cw,
-                            int* stage) {
-  const size_t planes =
-      static_cast<size_t>(kPlanes) * tile_h * tile_w * sizeof(float);
-  const size_t staged =
-      static_cast<size_t>(kPairChunk) * ch * cw * 3 * sizeof(float);
-  const size_t fixed = 2 * kPairChunk * kRec * sizeof(float) + 256;
-  *stage = planes + staged + fixed <= kSmemMax;
-  return planes + (*stage ? staged : 0);
-}
 
 }  // namespace

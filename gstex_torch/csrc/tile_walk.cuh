@@ -1,9 +1,10 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
 // shared by the flat kernels (rasterize_eval.cu, rasterize_fwd.cu,
 // rasterize_bwd.cu), the dense-list kernels (rasterize_dense_eval.cu,
-// rasterize_dense_fwd.cu, rasterize_dense_bwd.cu) and the v2 and v1
+// rasterize_dense_fwd.cu, rasterize_dense_bwd.cu), the v2 and v1
 // pair-space kernels (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu,
-// rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The tiers compute the same
+// rasterize_v1_fwd.cu, rasterize_v1_bwd.cu) and the v3 backward
+// (rasterize_v3_bwd.cu). The tiers compute the same
 // function and differ only in how a tile's slot finds its record and chart
 // (through the flat list's gids or TileBins.ids: IdSlots below; or the
 // slot's own copy) and where its gradients go (added per gaussian with
@@ -22,6 +23,14 @@
 // kV1 false every operation is the one the dense and v2 kernels always
 // ran.
 //
+// kV3 selects the v3 backward's recovery of T (gstex_tpu/ops/
+// rasterize_pallas3.py, _bwd_kernel3): from the end of each chunk of 16
+// slots (t_final for the last), T before an applied slot k is
+// t_end / prod_{j >= k in its chunk} (1 - alpha_j), and
+// dL/dalpha = T_k * s_k - Bs / (1 - alpha_k), both by divides, where the
+// others divide T after slot k by (1 - alpha_k) and multiply by that
+// reciprocal.
+//
 // forward_tile's Slots:
 //   void stage(int base, int n, float* s_rec, int tid): the records of
 //     slots base..base+n-1 into s_rec (n * kRec floats); the caller
@@ -35,10 +44,10 @@
 //     summed record gradients (and staged chart gradients) out, reading
 //     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
 //     block's threads).
-// With kRing (the flat and the dense kernels, the v2 backward) the records
-// of a tile's chunks go through a ring of two buffers: chunk c + 1's copy
-// is in flight while chunk c is walked, one barrier pair a chunk. Its
-// Slots replace stage and begin by
+// With kRing (the flat and the dense kernels, the pair-space backwards)
+// the records of a tile's chunks go through a ring of two buffers: chunk
+// c + 1's copy is in flight while chunk c is walked, one barrier pair a
+// chunk. Its Slots replace stage and begin by
 //   void prefetch(int base, int n, float* s_rec, int tid): start the
 //     asynchronous copy (cp_async16) of the records of slots
 //     base..base+n-1 into s_rec; the walk commits and waits.
@@ -47,9 +56,9 @@
 //
 // backward_tile's kShflT (the record gradients' transposed warp reduction)
 // and kBlock (threads a block, 1024 / kBlock pixels each, rounded up; the
-// Slots must stride by the same count) are the dense and the v2
-// backwards' options; the flat and v1 backwards keep the lane-0
-// reduction and 256 threads.
+// Slots must stride by the same count) are the dense and the pair-space
+// backwards' options; the flat backward keeps the lane-0 reduction and
+// 256 threads.
 //
 // Precision: no --use_fast_math and --fmad=false; see the kernel files for
 // the plain versions each is held to.
@@ -421,7 +430,7 @@ __device__ __forceinline__ void forward_tile(
 // where a sample sits exactly on a texel, which is handled apart: there the
 // derivative is two-sided, as theirs.
 template <int kChunk, class Slots, bool kV1 = false, bool kRing = false,
-          bool kShflT = false, int kBlock = kThreads>
+          bool kShflT = false, int kBlock = kThreads, bool kV3 = false>
 __device__ __forceinline__ void backward_tile(
     const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, const float* __restrict__ maps,
@@ -451,7 +460,10 @@ __device__ __forceinline__ void backward_tile(
 
   float gx[kPix], gy[kPix];
   float d0[kPix], d1[kPix], d2[kPix];
+  // T: after the slot walked last; kV3: after the chunk (t_end), and P
+  // the product of 1 - alpha over the chunk's slots walked since
   float T[kPix], BS[kPix], E[kPix], D[kPix];
+  float P[kV3 ? kPix : 1];
   int ncon[kPix];
   bool inside[kPix];
   int top = -1;
@@ -472,6 +484,7 @@ __device__ __forceinline__ void backward_tile(
     E[j] = 0.0f;
     D[j] = 0.0f;
     T[j] = 1.0f;
+    if constexpr (kV3) P[j] = 1.0f;
     ncon[j] = 0;
     if (inside[j]) {
       const long long o = static_cast<long long>(iy) * width + ix;
@@ -550,8 +563,15 @@ __device__ __forceinline__ void backward_tile(
         if (!(alpha > 0.0f)) continue;  // no weight: every term is zero
         any = true;
 
-        const float inv_q = 1.0f / (1.0f - alpha);
-        const float t_k = T[j] * inv_q;
+        float inv_q, one_minus, t_k;
+        if constexpr (kV3) {
+          one_minus = 1.0f - alpha;
+          P[j] = one_minus * P[j];
+          t_k = T[j] / P[j];
+        } else {
+          inv_q = 1.0f / (1.0f - alpha);
+          t_k = T[j] * inv_q;
+        }
         const float w = alpha * t_k;
         const float* gp = s_pl + p;  // plane c at gp[c * pix]
         const float g_reg = gp[11 * pix];
@@ -654,7 +674,11 @@ __device__ __forceinline__ void backward_tile(
           s_k = s_k + 2.0f * g_reg * ((m * big_a - big_c) + (D[j] - m * E[j]));
         }
         const float sw = s_k * w;
-        const float d_alpha = t_k * s_k - BS[j] * inv_q;
+        float d_alpha;
+        if constexpr (kV3)
+          d_alpha = t_k * s_k - BS[j] / one_minus;
+        else
+          d_alpha = t_k * s_k - BS[j] * inv_q;
 
         if (!(x_raw >= 0.0f && x_raw <= hf - 1.0f)) d_x = 0.0f;
         if (!(y_raw >= 0.0f && y_raw <= wf - 1.0f)) d_y = 0.0f;
@@ -728,7 +752,19 @@ __device__ __forceinline__ void backward_tile(
           E[j] = E[j] + w;
           D[j] = D[j] + wm;
         }
-        T[j] = t_k;
+        if constexpr (!kV3) T[j] = t_k;
+      }
+      // kV3: slot k begins a chunk of 16, so T after the chunk before it
+      // is this chunk's t_end over its product, at every pixel, whichever
+      // slots it skipped
+      if constexpr (kV3) {
+        if ((k & 15) == 0) {
+#pragma unroll
+          for (int j = 0; j < kPix; ++j) {
+            T[j] = T[j] / P[j];
+            P[j] = 1.0f;
+          }
+        }
       }
       // record grads: warp sums, then one shared atomic per warp and field
       if (__any_sync(0xffffffffu, any)) {

@@ -15,7 +15,9 @@ package. The pair buffer and its gradient take ``2 · T · s_max · Ch · Cw
 such buffer.
 
 Also here, what the v3, v2 and v1 wrappers share: their input checks and
-their launches.
+their launches. The three backward kernels take their tiles longest first
+(an ``order``) and copy their records 16 B at a time, so they need
+16-byte-aligned records; the forwards take neither.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from typing import NamedTuple
 import torch
 
 from .binning import TileBins, TileGrid
+from .rasterize_bwd import check_residuals
 from .rasterize_dense import _launch
-from .rasterize_fwd import NCH
+from .rasterize_fwd import NCH, tile_order
 from .records import F_REC
 
 # the JAX package's limits on the chart height: v3 packs charts c-major
@@ -114,6 +117,17 @@ def check_inputs(version: int, records_t, charts_g, counts, cam_info,
                          f"{dev}")
 
 
+def check_bwd_inputs(version: int, records_t, charts_g, counts, cam_info,
+                     maps, ncontrib, gmaps, grid: TileGrid, order) -> None:
+    """Raise on inputs the v3, v2 or v1 backward does not take: those of
+    ``check_inputs``, records that are not 16-byte aligned (the kernels
+    copy them by cp.async), and residuals of the wrong shape."""
+    check_inputs(version, records_t, charts_g, counts, cam_info, grid, order)
+    if records_t.data_ptr() % 16:
+        raise ValueError("records_t must be 16-byte aligned")
+    check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
+
+
 def _geometry(grid: TileGrid, charts_g):
     return (grid.num_tiles, grid.ntx, grid.tile_h, grid.tile_w, grid.height,
             grid.width, charts_g.shape[2], charts_g.shape[3],
@@ -139,13 +153,33 @@ def launch_bwd(name: str, records_t, charts_g, counts, cam_info, maps,
     """Launch the backward kernel ``gstex_<name>`` on CUDA inputs; returns
     the pair-space ``(d_records_t, d_charts_g)``. Every slot belongs to one
     tile, so one block writes it: the kernels need no atomics across
-    blocks. A kernel that takes its tiles in an ``order`` (v2's) is given
-    it after ``d_charts_g``."""
+    blocks. The kernel takes its tiles in ``order``, after ``d_charts_g``
+    (``tile_order(counts, S)`` where none is given)."""
     dev = records_t.device
+    if order is None:
+        order = tile_order(counts, records_t.shape[1])
     d_rec = torch.zeros_like(records_t)
     d_ch = torch.zeros_like(charts_g)
     pointers = (records_t, charts_g, counts, cam_info, maps, ncontrib, gmaps,
-                d_rec, d_ch) + (() if order is None else (order,))
+                d_rec, d_ch, order)
     _launch(name, len(pointers), pointers,
             (*_geometry(grid, charts_g), int(lean)), dev)
     return d_rec, d_ch
+
+
+def bwd_launch_smem(version: int, tile_h: int, tile_w: int, ch: int,
+                    cw: int) -> int:
+    """Bytes of shared memory a launch of the v3, v2 or v1 backward takes
+    at ``tile_h x tile_w`` tiles and ``(ch, cw)`` charts: its static arrays
+    and the tile's 14 per-pixel planes (v2's C entry also takes the pad,
+    for its staged option; no pad enters the others)."""
+    import ctypes
+
+    from . import _build
+
+    fn = getattr(_build.load(f"rasterize_v{version}_bwd"),
+                 f"gstex_rasterize_v{version}_bwd_smem")
+    dims = (tile_h, tile_w, ch, cw) if version == 2 else (tile_h, tile_w)
+    fn.argtypes = [ctypes.c_int] * len(dims)
+    fn.restype = ctypes.c_int
+    return fn(*dims)

@@ -229,16 +229,15 @@ class _RasterizePairs(torch.autograd.Function):
     """(records_t, charts_g) -> (14, H, W) maps, ncontrib over the
     pair-space inputs, by the v3, v2 or v1 kernels; the backward returns their
     pair-space gradients, which autograd reduces through the gathers of
-    ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``). The v2
-    backward takes the tiles longest first, in an order computed once, in
-    the forward."""
+    ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``). Each
+    version's backward takes the tiles longest first, in an order computed
+    once, in the forward."""
 
     @staticmethod
     def forward(ctx, records_t, charts_g, counts, info, grid, version, lean):
         fwd, _ = _PAIR_IMPLS[version]
         maps, ncon = fwd(records_t, charts_g, counts, info, grid, lean=lean)
-        order = (tile_order(counts, records_t.shape[1]) if version == 2
-                 else None)
+        order = tile_order(counts, records_t.shape[1])
         ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon,
                               order)
         ctx.grid, ctx.version, ctx.lean = grid, version, lean
@@ -250,10 +249,9 @@ class _RasterizePairs(torch.autograd.Function):
         records_t, charts_g, counts, info, maps, ncon, order = \
             ctx.saved_tensors
         _, bwd = _PAIR_IMPLS[ctx.version]
-        kwargs = {} if order is None else {"order": order}
         d_rec, d_ch = bwd(records_t, charts_g, counts, info, maps, ncon,
                           g_maps[:NG].contiguous(), ctx.grid, lean=ctx.lean,
-                          **kwargs)
+                          order=order)
         return d_rec, d_ch, None, None, None, None, None
 
 

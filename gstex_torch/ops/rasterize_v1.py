@@ -21,8 +21,8 @@ from __future__ import annotations
 
 from . import rasterize as plain
 from .binning import TileGrid
-from .pair_inputs import check_inputs, launch_bwd, launch_fwd
-from .rasterize_bwd import check_residuals
+from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
+                          launch_fwd)
 from .rasterize_v2 import pair_view
 
 
@@ -73,19 +73,21 @@ def rasterize_v1_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
 
 
 def rasterize_v1_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
-                     gmaps, grid: TileGrid, lean: bool = False):
+                     gmaps, grid: TileGrid, lean: bool = False, order=None):
     """Gradients of the training forward's first 12 maps under the
     cotangents ``gmaps`` (12, H, W): the pair-space ``(d_records_t (T, S,
     32), d_charts_g (T, S, Ch, Cw, 3))``. ``maps`` and ``ncontrib`` are
-    ``rasterize_v1_fwd``'s outputs for the same inputs."""
-    check_inputs(1, records_t, charts_g, counts, cam_info, grid)
-    check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
+    ``rasterize_v1_fwd``'s outputs for the same inputs. Tile ``order`` and
+    the 16-byte alignment of ``records_t`` as
+    ``rasterize_v2.rasterize_v2_bwd``."""
+    check_bwd_inputs(1, records_t, charts_g, counts, cam_info, maps,
+                     ncontrib, gmaps, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v1_bwd_reference(records_t, charts_g, counts,
                                           cam_info, maps, ncontrib, gmaps,
                                           grid, lean=lean)
     out = launch_bwd("rasterize_v1_bwd", records_t, charts_g, counts,
-                     cam_info, maps, ncontrib, gmaps, grid, lean)
+                     cam_info, maps, ncontrib, gmaps, grid, lean, order)
     rasterize_v1_bwd.launches += 1
     return out
 

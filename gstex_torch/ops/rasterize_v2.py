@@ -23,9 +23,8 @@ import torch
 
 from . import rasterize as plain
 from .binning import TileGrid
-from .pair_inputs import check_inputs, launch_bwd, launch_fwd
-from .rasterize_bwd import check_residuals
-from .rasterize_fwd import tile_order
+from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
+                          launch_fwd)
 from .records import F_REC
 
 
@@ -95,16 +94,12 @@ def rasterize_v2_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
     16-byte aligned, 16 B at a time. The tile order changes nothing a
     tile computes; its texel gradients' atomics add in no fixed order
     under any."""
-    check_inputs(2, records_t, charts_g, counts, cam_info, grid, order)
-    if records_t.data_ptr() % 16:
-        raise ValueError("records_t must be 16-byte aligned")
-    check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
+    check_bwd_inputs(2, records_t, charts_g, counts, cam_info, maps,
+                     ncontrib, gmaps, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v2_bwd_reference(records_t, charts_g, counts,
                                           cam_info, maps, ncontrib, gmaps,
                                           grid, lean=lean)
-    if order is None:
-        order = tile_order(counts, records_t.shape[1])
     out = launch_bwd("rasterize_v2_bwd", records_t, charts_g, counts,
                      cam_info, maps, ncontrib, gmaps, grid, lean, order)
     rasterize_v2_bwd.launches += 1
@@ -115,16 +110,3 @@ def rasterize_v2_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
 rasterize_v2_fwd.launches = 0
 rasterize_v2_bwd.launches = 0
 
-
-def bwd_launch_smem(tile_h: int, tile_w: int, ch: int, cw: int) -> int:
-    """Bytes of shared memory a launch of the backward kernel takes at
-    ``tile_h x tile_w`` tiles and ``(ch, cw)`` charts: its static arrays
-    and the tile's 14 per-pixel planes."""
-    import ctypes
-
-    from . import _build
-
-    fn = _build.load("rasterize_v2_bwd").gstex_rasterize_v2_bwd_smem
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
-    return fn(tile_h, tile_w, ch, cw)

@@ -35,9 +35,10 @@ from __future__ import annotations
 import torch
 
 from .binning import TileGrid
-from .pair_inputs import check_inputs, launch_bwd, launch_fwd
-from .rasterize_bwd import (check_residuals, direct_terms, record_terms,
-                            texel_terms, tile_planes, walk_starts)
+from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
+                          launch_fwd)
+from .rasterize_bwd import (direct_terms, record_terms, texel_terms,
+                            tile_planes, walk_starts)
 from .rasterize_fwd import NCH, fetch, pixel_grid, response, untile
 from .records import F_REC
 from .surfel import T_EPS
@@ -247,18 +248,19 @@ def rasterize_v3_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
 
 
 def rasterize_v3_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
-                     gmaps, grid: TileGrid, lean: bool = False):
+                     gmaps, grid: TileGrid, lean: bool = False, order=None):
     """Gradients of the chunk-scan forward's first 12 maps: the pair-space
-    ``(d_records_t (T, S, 32), d_charts_g (T, S, Ch, Cw, 3))``. Arguments
-    as ``rasterize_v2.rasterize_v2_bwd``."""
-    check_inputs(3, records_t, charts_g, counts, cam_info, grid)
-    check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
+    ``(d_records_t (T, S, 32), d_charts_g (T, S, Ch, Cw, 3))``. Arguments,
+    tile ``order`` and the 16-byte alignment of ``records_t`` as
+    ``rasterize_v2.rasterize_v2_bwd``."""
+    check_bwd_inputs(3, records_t, charts_g, counts, cam_info, maps,
+                     ncontrib, gmaps, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v3_bwd_reference(records_t, charts_g, counts,
                                           cam_info, maps, ncontrib, gmaps,
                                           grid, lean=lean)
     out = launch_bwd("rasterize_v3_bwd", records_t, charts_g, counts,
-                     cam_info, maps, ncontrib, gmaps, grid, lean)
+                     cam_info, maps, ncontrib, gmaps, grid, lean, order)
     rasterize_v3_bwd.launches += 1
     return out
 

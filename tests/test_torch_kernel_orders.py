@@ -1,12 +1,12 @@
 """The tile orders and record alignment that the flat eval kernel, the
-three dense-list kernels and the v2 backward take, checked by their
-wrappers on the CPU.
+three dense-list kernels and the three pair-space backwards take, checked
+by their wrappers on the CPU.
 
 These kernels copy records 16 B at a time (cp.async) and take their tiles
 longest first, in an order computed once a frame (``rasterize_pl5_eval``,
 ``rasterize_pl_eval``) or once a training step (``_Rasterize4``, in its
 forward, for the dense forward and backward both; ``_RasterizePairs``, in
-its forward, for the v2 backward alone). The wrappers refuse misaligned
+its forward, for the v3, v2 or v1 backward). The wrappers refuse misaligned
 records and orders of the wrong type or length before they dispatch, so
 the CPU path checks what the card path would launch. The kernels
 themselves run only on the card (``test_torch_kernels_cuda.py``).
@@ -21,7 +21,9 @@ from gstex_torch.ops import rasterize_api
 from gstex_torch.ops import rasterize_dense as rdense
 from gstex_torch.ops import rasterize_eval as reval
 from gstex_torch.ops import rasterize_fwd as rfwd
+from gstex_torch.ops import rasterize_v1 as rv1
 from gstex_torch.ops import rasterize_v2 as rv2
+from gstex_torch.ops import rasterize_v3 as rv3
 from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                      build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
@@ -349,59 +351,71 @@ def pair_case():
     return (*pair_inputs(records, charts, bins), info), grid
 
 
-def pair_residuals(pairs, grid, lean=False):
-    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid, lean=lean)
+# each pair-space version's (forward, backward)
+PAIR = {3: (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd),
+        2: (rv2.rasterize_v2_fwd, rv2.rasterize_v2_bwd),
+        1: (rv1.rasterize_v1_fwd, rv1.rasterize_v1_bwd)}
+VERSIONS = pytest.mark.parametrize("version", [2, 3, 1],
+                                   ids=["v2", "v3", "v1"])
+
+
+def pair_residuals(pairs, grid, version, lean=False):
+    maps, ncon = PAIR[version][0](*pairs, grid, lean=lean)
     g = torch.tensor(np.random.default_rng(1).standard_normal(
         (rfwd.NG, H, W)).astype(np.float32))
     return maps, ncon, g
 
 
-def test_v2_backward_refuses_misaligned_records():
+@VERSIONS
+def test_pair_backward_refuses_misaligned_records(version):
+    fwd, bwd = PAIR[version]
     pairs, grid = pair_case()
-    maps, ncon, g = pair_residuals(pairs, grid)
+    maps, ncon, g = pair_residuals(pairs, grid, version)
     records_t = pairs[0]
     shifted = misaligned(records_t.reshape(-1, 32)).view(records_t.shape)
-    before = rv2.rasterize_v2_bwd.launches
+    before = bwd.launches
     with pytest.raises(ValueError, match="aligned"):
-        rv2.rasterize_v2_bwd(shifted, *pairs[1:], maps, ncon, g, grid)
-    assert rv2.rasterize_v2_bwd.launches == before
-    # the v2 forward stages its records with plain loads
-    out, _ = rv2.rasterize_v2_fwd(shifted, *pairs[1:], grid)
+        bwd(shifted, *pairs[1:], maps, ncon, g, grid)
+    assert bwd.launches == before
+    # the forwards stage their records with plain loads
+    out, _ = fwd(shifted, *pairs[1:], grid)
     assert torch.equal(out, maps)
 
 
+@VERSIONS
 @pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
-def test_v2_backward_refuses_a_bad_tile_order(bad):
+def test_pair_backward_refuses_a_bad_tile_order(bad, version):
     pairs, grid = pair_case()
-    maps, ncon, g = pair_residuals(pairs, grid)
+    maps, ncon, g = pair_residuals(pairs, grid, version)
     order = rfwd.tile_order(pairs[2], pairs[0].shape[1])
     wrong = {"int64": order.long(), "short": order[:-1],
              "on_other_shape": order.reshape(1, -1)}[bad]
     err = TypeError if bad == "int64" else ValueError
     with pytest.raises(err, match="order"):
-        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid, order=wrong)
+        PAIR[version][1](*pairs, maps, ncon, g, grid, order=wrong)
 
 
+@VERSIONS
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-def test_v2_backward_takes_an_order_and_computes_the_same_gradients(lean):
+def test_pair_backward_takes_an_order_and_computes_the_same_gradients(
+        lean, version):
     """On the CPU the order only passes the checks: the plain version
     computes each tile whatever the order."""
+    bwd = PAIR[version][1]
     pairs, grid = pair_case()
-    maps, ncon, g = pair_residuals(pairs, grid, lean)
-    d_rec, d_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                                       lean=lean)
+    maps, ncon, g = pair_residuals(pairs, grid, version, lean)
+    d_rec, d_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean)
     order = rfwd.tile_order(pairs[2], pairs[0].shape[1]).flip(0).contiguous()
-    d_rec2, d_ch2 = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                                         lean=lean, order=order)
+    d_rec2, d_ch2 = bwd(*pairs, maps, ncon, g, grid, lean=lean, order=order)
     assert torch.equal(d_rec2, d_rec) and torch.equal(d_ch2, d_ch)
     assert float(d_rec.abs().max()) > 0 and float(d_ch.abs().max()) > 0
 
 
-@pytest.mark.parametrize("version", [2, 3, 1], ids=["v2", "v3", "v1"])
-def test_rasterize_pairs_computes_an_order_for_v2_alone(monkeypatch,
-                                                        version):
-    """``_RasterizePairs`` computes one tile order, in its forward, for the
-    v2 backward and hands that tensor to it; v3 and v1 take none."""
+@VERSIONS
+def test_rasterize_pairs_computes_an_order_for_each_version(monkeypatch,
+                                                            version):
+    """``_RasterizePairs`` computes one tile order, in its forward, and
+    hands that tensor to the version's backward."""
     pairs, grid = pair_case()
     made, passed = [], []
     real_order = rasterize_api.tile_order
@@ -422,12 +436,9 @@ def test_rasterize_pairs_computes_an_order_for_v2_alone(monkeypatch,
     ch = pairs[1].clone().requires_grad_()
     maps, _ = rasterize_api._RasterizePairs.apply(rec, ch, pairs[2], pairs[3],
                                                   grid, version, True)
-    assert len(made) == (version == 2) and not passed
+    assert len(made) == 1 and not passed
     maps[:8].sum().backward()
-    assert len(made) == (version == 2) and len(passed) == 1
-    if version == 2:
-        assert passed[0] is made[0]
-        assert torch.equal(passed[0], real_order(pairs[2], S_MAX))
-    else:
-        assert passed[0] is None
+    assert len(made) == 1 and len(passed) == 1
+    assert passed[0] is made[0]
+    assert torch.equal(passed[0], real_order(pairs[2], S_MAX))
     assert float(rec.grad.abs().max()) > 0 and float(ch.grad.abs().max()) > 0

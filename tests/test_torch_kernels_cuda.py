@@ -45,8 +45,10 @@ backward stages in shared memory. Each is held to its plain version by
 the gates above (v3's forward sums its chunks by a shuffle tree, so its
 maps to 1e-4; T and ncontrib exactly), v3 and v2, summed per gaussian, to
 the dense kernels on the same pairs, and v1 to v2, which it equals but
-for its rounding of the distortion depth. The v2 backward takes its tiles
-in an order, and is held to its plain version under three.
+for its rounding of the distortion depth. The three pair-space backwards
+take their tiles in an order, and each is held to its plain version under
+three: v3 also where its pixels apply slots in three or more of its
+chunks of 16, and v1 at the nerfstudio path's pad and image.
 """
 
 import pytest
@@ -64,7 +66,8 @@ from gstex_torch.ops import ssim_fused
 from gstex_torch.ops.binning import (TileGrid, build_tile_bins,
                                      build_tile_bins_flat)
 from gstex_torch.ops.cull import make_pair_cull
-from gstex_torch.ops.pair_inputs import pair_inputs
+from gstex_torch.ops.pair_inputs import bwd_launch_smem, pair_inputs
+from gstex_torch.ops.rasterize_bwd import tile_planes
 from gstex_torch.ops.rasterize_api import use_flat_path
 from gstex_torch.ops.prepare import prepare_splats
 from gstex_torch.ops.records import assemble_records, cam_info
@@ -749,55 +752,106 @@ def test_pair_wrappers_raise_instead_of_falling_back(cuda):
         rv1.rasterize_v1_fwd(records_t, tall, counts, info, grid)
     assert (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches,
             rv1.rasterize_v1_fwd.launches) == before
-    # the v2 backward's tile order and its cp.async record copies
-    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid)
+    # the backwards' tile orders and their cp.async record copies
     g = cotangents(cuda)
-    bwd_before = rv2.rasterize_v2_bwd.launches
-    with pytest.raises(ValueError, match="order"):
-        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                             order=torch.zeros(1, dtype=torch.int32,
-                                               device=cuda))
-    with pytest.raises(TypeError, match="order"):
-        rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                             order=rfwd.tile_order(counts, 1024).long())
     buf = torch.empty(records_t.numel() + 4, device=cuda)
     shifted = buf[1:1 + records_t.numel()].view(records_t.shape)
     shifted.copy_(records_t)
-    with pytest.raises(ValueError, match="aligned"):
-        rv2.rasterize_v2_bwd(shifted, charts_g, counts, info, maps, ncon, g,
-                             grid)
-    assert rv2.rasterize_v2_bwd.launches == bwd_before
+    for version in (3, 2, 1):
+        fwd, bwd, _, _ = pair_kernels(version)
+        maps, ncon = fwd(*pairs, grid)
+        bwd_before = bwd.launches
+        with pytest.raises(ValueError, match="order"):
+            bwd(*pairs, maps, ncon, g, grid,
+                order=torch.zeros(1, dtype=torch.int32, device=cuda))
+        with pytest.raises(TypeError, match="order"):
+            bwd(*pairs, maps, ncon, g, grid,
+                order=rfwd.tile_order(counts, 1024).long())
+        with pytest.raises(ValueError, match="order"):
+            bwd(*pairs, maps, ncon, g, grid,
+                order=rfwd.tile_order(counts, 1024).cpu())
+        with pytest.raises(ValueError, match="aligned"):
+            bwd(shifted, charts_g, counts, info, maps, ncon, g, grid)
+        assert bwd.launches == bwd_before
+
+
+@pytest.mark.cuda
+def test_pair_backwards_shared_memory_is_pad_free(cuda):
+    """The three pair-space backwards keep the tile's 14 per-pixel planes
+    in dynamic shared memory and nothing that the chart pad sizes."""
+    for version in (3, 2, 1):
+        fixed = bwd_launch_smem(version, 0, 0, 0, 0)
+        for pad in ((16, 24), (40, 40), (40, 80)):
+            assert (bwd_launch_smem(version, 32, 32, *pad)
+                    == 14 * 32 * 32 * 4 + fixed), (version, pad)
+        assert 14 * 32 * 32 * 4 + fixed <= 227 * 1024
+
+
+def applied_chunks(pairs, grid, ncon):
+    """Per in-image pixel, the number of v3's chunks of 16 slots in which
+    it applies a slot (alpha > 0 below its ncontrib)."""
+    records_t, _, counts, info = pairs
+    nt, s_max = records_t.shape[:2]
+    gx, gy, dirs, inside = rfwd.pixel_grid(grid, info)
+    ncon_t = tile_planes(ncon[None].to(torch.float32), grid)[0]
+    records = records_t.reshape(nt * s_max, -1)
+    act = torch.arange(nt, device=records.device)
+    walk = torch.clamp(counts.long(), max=s_max)
+    n = torch.zeros_like(ncon_t, dtype=torch.int32)
+    for base in range(0, int(walk.max()), rv3.CHUNK):
+        slot, valid, _, _, resp = rv3._chunk(records, act, base, s_max, walk,
+                                             dirs, gx, gy)
+        applied = (valid[..., None] & (resp["alpha"] > 0)
+                   & (slot[None, :, None] < ncon_t[:, None]))
+        n += applied.any(1).to(torch.int32)
+    return n[inside]
+
+
+# (version, pad, s_cap, image): v3 at (16, 24), at its row limit (40, 40)
+# and on lists cut at 48 slots, three chunks of 16 whose carries every
+# walked pixel crosses; v2 at (16, 24) and its row limit (40, 42); v1 at
+# (16, 24) and at the nerfstudio path's pad (40, 80) on an 800x600 image,
+# whose last row of tiles is partial
+ORDER_CASES = [(3, (16, 24), 1024, (H, W)), (3, (40, 40), 1024, (H, W)),
+               (3, (8, 8), 48, (H, W)), (2, (16, 24), 1024, (H, W)),
+               (2, (40, 42), 1024, (H, W)), (1, (16, 24), 1024, (H, W)),
+               (1, (40, 80), 128, (600, 800))]
+ORDER_IDS = ["v3-pad16x24", "v3-pad40x40", "v3-three_chunks",
+             "v2-pad16x24", "v2-pad40x42", "v1-pad16x24",
+             "v1-pad40x80_800x600"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
-@pytest.mark.parametrize("pad", [(16, 24), (40, 42)],
-                         ids=["pad16x24", "pad40x42_past_staging"])
-def test_v2_backward_tile_orders_agree(cuda, pad, lean):
-    """The v2 backward under three tile orders (block, longest first,
-    reversed): each within the backward gates of its plain version, and
-    within 1e-5 of each field group's max of the wrapper's own order.
-    (40, 42) is the v2 row limit, whose chunk chart gradients the first
-    port could not stage in shared memory."""
-    _, pairs, grid, _ = pair_case(cuda, pad, 1024)
+@pytest.mark.parametrize("version,pad,s_cap,hw", ORDER_CASES, ids=ORDER_IDS)
+def test_pair_backward_tile_orders_agree(cuda, version, pad, s_cap, hw,
+                                         lean):
+    """A pair-space backward under three tile orders (block, longest
+    first, reversed): each within the backward gates of its plain
+    version, and within 1e-5 of each field group's max of the wrapper's
+    own order. Where v3's pixels apply slots in three or more chunks of 16,
+    every chunk's carry of T, Bs, E and D is exercised."""
+    _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
+    assert bins.overflow == 0 or s_cap == 48
     counts, s_max = pairs[2], pairs[0].shape[1]
-    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid, lean=lean)
-    g = cotangents(cuda)
-    ref_rec, ref_ch = rv2.rasterize_v2_bwd_reference(*pairs, maps, ncon, g,
-                                                     grid, lean=lean)
-    d_rec, d_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                                       lean=lean)
+    fwd, bwd, _, bwd_plain = pair_kernels(version)
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    if version == 3:
+        assert int((applied_chunks(pairs, grid, ncon) >= 3).sum()) > 0
+    g = cotangents(cuda, *hw)
+    ref_rec, ref_ch = bwd_plain(*pairs, maps, ncon, g, grid, lean=lean)
+    d_rec, d_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean)
     orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
                                     device=cuda),
               "longest_first": rfwd.tile_order(counts, s_max),
               "reversed": rfwd.tile_order(counts, s_max).flip(0)
               .contiguous()}
     for name, order in orders.items():
-        before = rv2.rasterize_v2_bwd.launches
-        o_rec, o_ch = rv2.rasterize_v2_bwd(*pairs, maps, ncon, g, grid,
-                                           lean=lean, order=order)
+        before = bwd.launches
+        o_rec, o_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean,
+                          order=order)
         torch.cuda.synchronize()
-        assert rv2.rasterize_v2_bwd.launches == before + 1
+        assert bwd.launches == before + 1
         errs = backward_errors(o_rec.reshape(-1, 32), o_ch,
                                ref_rec.reshape(-1, 32), ref_ch)
         flip = errs.pop("texture_flip_frac")
@@ -806,4 +860,5 @@ def test_v2_backward_tile_orders_agree(cuda, pad, lean):
                                d_rec.reshape(-1, 32), d_ch)
         flip = errs.pop("texture_flip_frac")
         assert max(errs.values()) <= 1e-5 and flip <= 1e-5, (name, errs)
+        del o_rec, o_ch
     assert float(ref_rec.abs().max()) > 0 and float(ref_ch.abs().max()) > 0

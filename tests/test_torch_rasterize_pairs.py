@@ -138,18 +138,29 @@ def test_gradients_match_jax_kernels_interpret(kernels, version):
     xla.assert_grads_close(got, want)
 
 
-def test_v2_gradients_under_a_given_order_match_jax_kernels_interpret(
-        kernels, monkeypatch):
+@pytest.mark.parametrize("version", VERSIONS, ids=["v3", "v2"])
+def test_gradients_under_a_given_order_match_jax_kernels_interpret(
+        kernels, monkeypatch, version):
     """``_RasterizePairs`` computes one tile order in its forward and hands
-    it to the v2 backward; given another order (here the reversed one),
-    the backward still gives JAX's interpreted ``_bwd_kernel2``'s
-    gradients, at the tolerances above."""
+    it to the version's backward; given another order (here the reversed
+    one), the backward still gives JAX's interpreted ``_bwd_kernel3``'s or
+    ``_bwd_kernel2``'s gradients, at the tolerances above."""
+    (_, want, _), _ = kernels(version)
+    got, made, passed = run_under_reversed_order(monkeypatch, port(version),
+                                                 version)
+    assert len(made) == 1 and len(passed) == 1 and passed[0] is made[0]
+    xla.assert_grads_close(got, want)
+
+
+def run_under_reversed_order(monkeypatch, render, version):
+    """The port's truncating case through ``render`` with
+    ``_RasterizePairs``' tile order reversed: (gradients, the orders made,
+    the orders the version's backward was given)."""
     from gstex_torch.ops import rasterize_api
 
-    (_, want, _), _ = kernels(2)
     made, passed = [], []
     real_order = rasterize_api.tile_order
-    fwd, bwd = rasterize_api._PAIR_IMPLS[2]
+    fwd, bwd = rasterize_api._PAIR_IMPLS[version]
 
     def reversed_order(counts, n):
         made.append(real_order(counts, n).flip(0).contiguous())
@@ -159,12 +170,11 @@ def test_v2_gradients_under_a_given_order_match_jax_kernels_interpret(
         passed.append(order)
         return bwd(*args, order=order, **kwargs)
     monkeypatch.setattr(rasterize_api, "tile_order", reversed_order)
-    monkeypatch.setitem(rasterize_api._PAIR_IMPLS, 2, (fwd, bwd_spy))
+    monkeypatch.setitem(rasterize_api._PAIR_IMPLS, version, (fwd, bwd_spy))
     tile, s_max, pad, n = CASES["truncating"]
     _, got, _ = xla.torch_run(xla.scene_np(n=n, pad=pad), tile, s_max,
-                              cotangents(False), render=port(2))
-    assert len(made) == 1 and len(passed) == 1 and passed[0] is made[0]
-    xla.assert_grads_close(got, want)
+                              cotangents(False), render=render)
+    return got, made, passed
 
 
 def dense_inputs(n=48, s_max=64, pad=(4, 4)):

@@ -99,6 +99,18 @@ def test_gradients_match_jax_v1_kernel_interpret(runs):
     xla.assert_grads_close(got, want)
 
 
+def test_gradients_under_a_given_order_match_jax_v1_kernel_interpret(
+        runs, monkeypatch):
+    """``_RasterizePairs`` hands the v1 backward the tile order it computes
+    in its forward; given another order (here the reversed one), the
+    backward still gives JAX's interpreted ``_bwd_kernel``'s gradients."""
+    _, want, _ = runs("jax_v1")
+    got, made, passed = pairs.run_under_reversed_order(
+        monkeypatch, pairs.port(1), 1)
+    assert len(made) == 1 and len(passed) == 1 and passed[0] is made[0]
+    xla.assert_grads_close(got, want)
+
+
 def test_lean_maps_match_jax_v1_kernel_interpret(runs):
     """JAX's kernel always computes the normal and reg chains; under the
     lean cotangents (none on the maps lean leaves out) its eval maps and

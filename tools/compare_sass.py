@@ -3,12 +3,12 @@
 
     python3 tools/compare_sass.py --old DIR [--new DIR] [NAME ...]
 
-Compiles each ``NAME.cu`` (by default the eleven kernels besides the
-dense eval kernel and the v2 backward: the flat three, SSIM, the dense
-forward and backward, v3, the v2 forward and v1; the flat, dense, v2 and
+Compiles each ``NAME.cu`` (by default the eleven kernels besides the v1
+and v3 backwards: the flat three, SSIM, the dense three, the v3 forward,
+the v2 forward and backward and the v1 forward; the flat, dense, v2 and
 v1 ones share ``csrc/tile_walk.cuh`` with those two, and the v2 and v1
-ones ``csrc/pair_slots.cuh`` with the v2 backward) from the ``--old`` and
-``--new`` csrc directories (``--new`` defaults to this
+ones ``csrc/pair_slots.cuh``) from the ``--old`` and ``--new`` csrc
+directories (``--new`` defaults to this
 tree's ``gstex_torch/csrc``) to ``sm_90a`` cubins with the port's
 compiler flags, disassembles them with ``cuobjdump -sass`` and compares
 the instructions. The anonymous namespace's mangled name carries a hash
@@ -29,9 +29,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 KERNELS = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd", "ssim_fused",
-           "rasterize_dense_fwd", "rasterize_dense_bwd", "rasterize_v3_fwd",
-           "rasterize_v3_bwd", "rasterize_v2_fwd", "rasterize_v1_fwd",
-           "rasterize_v1_bwd"]
+           "rasterize_dense_eval", "rasterize_dense_fwd",
+           "rasterize_dense_bwd", "rasterize_v3_fwd", "rasterize_v2_fwd",
+           "rasterize_v2_bwd", "rasterize_v1_fwd"]
 
 
 def sass(nvcc, cuobjdump, src: Path, out: Path) -> list[str]:

@@ -15,8 +15,8 @@ call; an SSIM variant may also fix the strips' height
 substitution no longer matches the source is reported as absent. The scenes are ``chip_smoke.py``'s: the
 trained-scene statistics at (8, 8) on phase 3's view, and re-charted on
 phase 9's view at their auto pad (40, 80), at pixel_num 4e6 (64, 128)
-and at 1e5 (16, 24); the v2 and v1 backwards on per-slot copies of the
-(16, 24) lists; SSIM on seeded 800x800x3 and 800x600x3 image pairs (the
+and at 1e5 (16, 24); the v3, v2 and v1 backwards on per-slot copies of
+the (16, 24) lists; SSIM on seeded 800x800x3 and 800x600x3 image pairs (the
 training loss's shapes on the Blender and the DTU path). Per scene each
 variant is timed in two turns (CUDA events, mean of ``--reps``), in the
 listed order and then reversed, and held to the first variant's output
@@ -26,8 +26,8 @@ its gradient is bit-equal to the first), SSIM by CUDA-graph replay
 (``chip_smoke.graph_ms``: its wrapper's host work would hide it). With
 ``--ssim-parent CSRC`` the SSIM kernel of an older tree (its C entry as
 at 21285d5) runs beside the SSIM variants; with ``--parent CSRC`` the
-dense eval kernel and the v2 backward of an older tree (their C entries
-as at 1b0b481, which take no tile order) run beside theirs. Prints one
+v1 and v3 backwards of an older tree (their C entries as at d391e5c,
+which take no tile order) run beside theirs. Prints one
 JSON line per variant with its ``ptxas`` registers and spills, and one
 per (scene, variant) with its times.
 """
@@ -54,7 +54,7 @@ def const(name, value):
 
 def walk_ring(on):
     """The ring argument of the kernel's forward_tile / backward_tile."""
-    return (r"(_tile<kChunk, Slots, false, )(true|false)",
+    return (r"(_tile<kChunk, Slots, (?:true|false), )(true|false)",
             rf"\g<1>{'true' if on else 'false'}")
 
 
@@ -117,6 +117,19 @@ def ssim_bound(n):
     return (r"__launch_bounds__\(kThreads, \d+\)",
             f"__launch_bounds__(kThreads, {n})")
 
+
+# the v1 and v3 backwards' options: each against the v2 backward's
+# configuration that both took
+PAIR_BWD = [
+    ("as built: 64 a chunk, ring, longest first, transposed reduction, "
+     "384 threads, texel REDs", []),
+    ("32 a chunk", [const("kChunk", 32)]),
+    ("16 a chunk", [const("kChunk", 16)]),
+    ("no ring (staged by plain loads)", [walk_ring(False)]),
+    ("tiles in block order", [BLOCK_ORDER]),
+    ("lane-0 reduction", [const("kShflT", "false")]),
+    ("256 threads", [const("kBlock", 256)]),
+]
 
 # kernel -> (source name, scenes, [(variant, [(pattern, replacement),
 # ...][, strip height])]); each pattern must match the source once (a
@@ -221,12 +234,8 @@ VARIANTS = {
          [const("kChunk", 16), const("kStage", "true"), walk_ring(False),
           BLOCK_ORDER, const("kShflT", "false"), const("kBlock", 256)]),
     ]),
-    "v1_bwd": ("rasterize_v1_bwd", "v1", [
-        ("as built", []),
-        ("+ (c) transposed reduction",
-         [(r"backward_tile<kPairChunk, PairGradSlots, true>\(",
-           "backward_tile<kPairChunk, PairGradSlots, true, false, true>(")]),
-    ]),
+    "v1_bwd": ("rasterize_v1_bwd", "v1", PAIR_BWD),
+    "v3_bwd": ("rasterize_v3_bwd", "v3", PAIR_BWD),
 }
 
 
@@ -281,10 +290,10 @@ def build_variants(kernel, cases):
     return built
 
 
-# the kernels whose C entry as at 1b0b481 took no tile order: the index of
+# the kernels whose C entry as at d391e5c took no tile order: the index of
 # the order among the current entry's pointers
-PARENT_ORDER_ARG = {"dense_eval": 6, "v2_bwd": 9}
-PARENT = "the kernel as at 1b0b481"
+PARENT_ORDER_ARG = {"v1_bwd": 9, "v3_bwd": 9}
+PARENT = "the kernel as at d391e5c"
 
 
 class OrderlessEntry:
@@ -306,7 +315,7 @@ class OrderlessEntry:
 
 def parent_variant(kernel, csrc):
     """Build ``kernel``'s source of another tree (its C entry as at
-    1b0b481) with the port's flags; returns (lib path, ptxas lines)."""
+    d391e5c) with the port's flags; returns (lib path, ptxas lines)."""
     from gstex_torch.ops import _build
 
     name = VARIANTS[kernel][0]
@@ -598,8 +607,8 @@ def main():
                          "at 21285d5)")
     ap.add_argument("--parent", metavar="CSRC", default=None,
                     help="also time, and hold to the first variant, the "
-                         "dense eval kernel and the v2 backward of this "
-                         "csrc directory (their C entries as at 1b0b481)")
+                         "v1 and v3 backwards of this csrc directory "
+                         "(their C entries as at d391e5c)")
     args = ap.parse_args()
     import torch
 
@@ -614,8 +623,9 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     _build.build(["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
                   "rasterize_dense_eval", "rasterize_dense_fwd",
-                  "rasterize_dense_bwd", "rasterize_v2_fwd",
-                  "rasterize_v2_bwd", "rasterize_v1_fwd", "rasterize_v1_bwd"])
+                  "rasterize_dense_bwd", "rasterize_v3_fwd",
+                  "rasterize_v3_bwd", "rasterize_v2_fwd", "rasterize_v2_bwd",
+                  "rasterize_v1_fwd", "rasterize_v1_bwd"])
     for kernel in args.kernels:
         cases = VARIANTS[kernel][2]
         built = build_variants(kernel, cases)
