@@ -41,7 +41,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    elsewhere); v1 against v2, which it equals but for its rounding of the
    distortion depth m (ncontrib and every plane but reg and m1 bit for
    bit, those within 1e-6 of their max; gradients within 1e-5 of each
-   field group's max, no sign flips);
+   field group's max, no sign flips); the v3 and v1 forwards under the
+   three tile orders, each bit-equal to its own order's output and to
+   its plain version's ncontrib and t_final (v1: every plane);
 4. eval main path: ``gstex_torch.scripts.render spiral`` renders 8 frames
    of the trained scene; the eval kernel must launch once per frame;
 5. training main path: an 8-view 800x800 Blender dataset rendered from the
@@ -99,7 +101,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    re-charted, on a masked 800x600 train view): a ``pallas1`` step timed
    the same way, and on that view's per-slot copies the v1 kernels
    against their plain versions, lean and full, under phase 3's gates
-   (the last tile row is partial), and alone beside their bounds;
+   (the last tile row is partial; the forward also under the three tile
+   orders, bit for bit), and alone beside their bounds;
 10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
@@ -401,8 +404,8 @@ def pair_tier(version):
     """The v3, v2 or v1 pair-space kernels and their plain versions behind
     the same calls: ``inputs`` is (records_t, charts_g, counts, cam_info);
     the record gradients come back as ``(T·S, 32)`` rows, one per slot;
-    the kernel's backward takes a tile ``order`` (its wrapper's own where
-    none is given)."""
+    the kernel's backward, and the v3 and v1 forwards, take a tile
+    ``order`` (their wrapper's own where none is given)."""
     from gstex_torch.ops import rasterize_v1, rasterize_v2, rasterize_v3
 
     mod = {3: rasterize_v3, 2: rasterize_v2, 1: rasterize_v1}[version]
@@ -415,7 +418,7 @@ def pair_tier(version):
         return d[0].reshape(-1, d[0].shape[-1]), d[1]
     return SimpleNamespace(
         names=(None, f"{name}_fwd", f"{name}_bwd"),
-        fwd=lambda i, g, s, lean: fwd(*i, g, lean=lean),
+        fwd=lambda i, g, s, lean, **order: fwd(*i, g, lean=lean, **order),
         fwd_plain=lambda i, g, s, lean: fwd_ref(*i, g, lean=lean),
         bwd=lambda i, m, n, c, g, s, lean, order=None: rows(bwd(
             *i, m, n, c, g, lean=lean, order=order)),
@@ -952,11 +955,38 @@ def check_orders(version, pinputs, grid, s_cap, lean, **where):
             f"{where}: the {tier.names[2]} tile orders disagree: {errs}")
 
 
+def check_fwd_orders(version, pinputs, grid, s_cap, lean, **where):
+    """The v3 or v1 forward under the three tile orders: under each, its
+    maps and ncontrib bit-equal to its own order's (a tile order changes
+    no pixel's operations), and its ncontrib and t_final (v1: every plane)
+    bit-equal to its plain version's."""
+    tier = pair_tier(version)
+    ref_maps, ref_ncon = tier.fwd_plain(pinputs, grid, s_cap, lean)
+    own_maps, own_ncon = tier.fwd(pinputs, grid, s_cap, lean)
+    equal = {}
+    for name, order in tile_orders(pinputs[2],
+                                   pinputs[0].shape[1]).items():
+        maps, ncon = tier.fwd(pinputs, grid, s_cap, lean, order=order)
+        equal[name] = dict(
+            own_order=bool(torch.equal(maps, own_maps)
+                           and torch.equal(ncon, own_ncon)),
+            plain_ncontrib=bool(torch.equal(ncon, ref_ncon)),
+            plain_t_final=bool(torch.equal(maps[12], ref_maps[12])),
+            plain_maps=bool(torch.equal(maps, ref_maps)))
+    emit("pair_fwd_schedules", kernel=tier.names[1], lean=lean,
+         bit_equal=equal, **where)
+    gate = ("own_order", "plain_ncontrib",
+            "plain_maps" if version == 1 else "plain_t_final")
+    require(all(e[k] for e in equal.values() for k in gate),
+            f"{where}: the {tier.names[1]} tile orders are not bit-equal: "
+            f"{equal}")
+
+
 def check_pairs(dframe, note, **where):
     """The pair-space tiers on a dense frame's lists: each kernel against
     its plain version, lean and full; v3 and v2 against the dense kernels,
-    v1 against v2; each backward under three tile orders. Returns each
-    kernel's plain ms in lean mode."""
+    v1 against v2; each backward, and the v3 and v1 forwards, under three
+    tile orders. Returns each kernel's plain ms in lean mode."""
     pinputs = pair_copies(dframe)
     emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
                                        for x in pinputs[:2]),
@@ -977,6 +1007,9 @@ def check_pairs(dframe, note, **where):
                 check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
             check_orders(version, pinputs, dframe.grid, dframe.cfg.s_max,
                          lean, **where)
+            if version != 2:
+                check_fwd_orders(version, pinputs, dframe.grid,
+                                 dframe.cfg.s_max, lean, **where)
     return plain_ms
 
 
@@ -1171,9 +1204,10 @@ def dtu_step_timing(root, counters, smi, note):
     the v1 tier: a training step on a train view with its mask, timed
     whole and traced by stage; then on that view's per-slot copies the v1
     kernels against their plain versions, lean and full, under phase 3's
-    gates (at 800x600 the bottom row of tiles is partial; one tile order,
-    as three more backwards' gradients would not fit beside the copies),
-    and alone beside their bounds. Returns the kernels' timings."""
+    gates (at 800x600 the bottom row of tiles is partial; the backward
+    under one tile order, as three more backwards' gradients would not fit
+    beside the copies, the forward under three, bit for bit), and alone
+    beside their bounds. Returns the kernels' timings."""
     from gstex_torch.configs.methods import get_method
     from gstex_torch.data.manager import FullImageCache
     from gstex_torch.data.nerfstudio_parser import parse_nerfstudio
@@ -1217,6 +1251,8 @@ def dtu_step_timing(root, counters, smi, note):
         checks = check_fwd_bwd(pair_tier(1), p_in, frame.grid, cfg.s_max,
                                mode, scene="dtu_800x600", **charts)
         note(checks)
+        check_fwd_orders(1, p_in, frame.grid, cfg.s_max, mode,
+                         scene="dtu_800x600", **charts)
         if mode == lean:
             plain_ms = {k: v[1] for k, v in checks.items()}
     kt, copies = time_pair_kernels((1,), p_in, frame, stats, lean, plain_ms)

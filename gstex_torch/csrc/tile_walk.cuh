@@ -1,11 +1,11 @@
 // The per-pixel blend walk of one tile and its back-to-front chain rule,
 // shared by the flat kernels (rasterize_eval.cu, rasterize_fwd.cu,
 // rasterize_bwd.cu), the dense-list kernels (rasterize_dense_eval.cu,
-// rasterize_dense_fwd.cu, rasterize_dense_bwd.cu), the v2 and v1
-// pair-space kernels (rasterize_v2_fwd.cu, rasterize_v2_bwd.cu,
-// rasterize_v1_fwd.cu, rasterize_v1_bwd.cu) and the v3 backward
-// (rasterize_v3_bwd.cu). The tiers compute the same
-// function and differ only in how a tile's slot finds its record and chart
+// rasterize_dense_fwd.cu, rasterize_dense_bwd.cu) and the pair-space
+// kernels (rasterize_v3_fwd.cu, rasterize_v3_bwd.cu, rasterize_v2_fwd.cu,
+// rasterize_v2_bwd.cu, rasterize_v1_fwd.cu, rasterize_v1_bwd.cu). The
+// tiers compute the same function and differ only in how a tile's slot
+// finds its record and chart
 // (through the flat list's gids or TileBins.ids: IdSlots below; or the
 // slot's own copy) and where its gradients go (added per gaussian with
 // atomics, or stored per slot). Each kernel file names its `Slots` type and
@@ -23,13 +23,32 @@
 // kV1 false every operation is the one the dense and v2 kernels always
 // ran.
 //
-// kV3 selects the v3 backward's recovery of T (gstex_tpu/ops/
-// rasterize_pallas3.py, _bwd_kernel3): from the end of each chunk of 16
-// slots (t_final for the last), T before an applied slot k is
-// t_end / prod_{j >= k in its chunk} (1 - alpha_j), and
+// In backward_tile, kV3 selects the v3 backward's recovery of T
+// (gstex_tpu/ops/rasterize_pallas3.py, _bwd_kernel3): from the end of
+// each chunk of 16 slots (t_final for the last), T before an applied slot
+// k is t_end / prod_{j >= k in its chunk} (1 - alpha_j), and
 // dL/dalpha = T_k * s_k - Bs / (1 - alpha_k), both by divides, where the
 // others divide T after slot k by (1 - alpha_k) and multiply by that
 // reciprocal.
+//
+// In forward_tile, kV3 selects the v3 forward's transmittance
+// (rasterize_pallas3.py, _fwd_kernel3): per chunk of kScan = 16 slots
+// from slot 0, with T_in the transmittance entering it and
+// q_j = 1 - alpha_j, incl_k = T_in * (q_0 ... q_k) by the TPU kernel's
+// log-step scan (strides 1, 2, 4, 8) and excl_k = incl_{k-1} (T_in for
+// k = 0); slot k blends with w = alpha_k * excl_k where alpha_k > 0 and
+// incl_k > T_EPS, breaks (ncontrib) where alpha_k > 0 and
+// incl_k <= T_EPS < excl_k, and t_final is the least incl_k > T_EPS of
+// every slot walked; T = incl_15 after the chunk. A pixel alive at a
+// chunk's start walks all 16 of its slots (those past count with
+// alpha = 0, reading no record), so that the scan's association, and with
+// it every bit of T, t_final and ncontrib, is the plain version's. The
+// scan streams through the slots:
+//   p2_k = q_k q_{k-1}, p4_k = p2_k p2_{k-2}, p8_k = p4_k p4_{k-4},
+//   incl_k = (p8_k p8_{k-8}) T_in,
+// a factor of negative index being 1 (exact), which are the scan's
+// products to the bit; a pixel keeps the window of the last q, two p2,
+// four p4 and eight p8.
 //
 // forward_tile's Slots:
 //   void stage(int base, int n, float* s_rec, int tid): the records of
@@ -44,7 +63,8 @@
 //     summed record gradients (and staged chart gradients) out, reading
 //     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
 //     block's threads).
-// With kRing (the flat and the dense kernels, the pair-space backwards)
+// With kRing (the flat and the dense kernels, the v3 and v1 forwards, the
+// pair-space backwards)
 // the records of a tile's chunks go through a ring of two buffers: chunk
 // c + 1's copy is in flight while chunk c is walked, one barrier pair a
 // chunk. Its Slots replace stage and begin by
@@ -231,18 +251,43 @@ struct IdSlots {
   }
 };
 
-// One block per tile, 256 threads with 4 pixels each; a pixel's ray, T and
-// sums stay in registers; the tile leaves its walk once no in-image pixel
-// has T > T_EPS. Writes the fourteen planes and ncontrib; with kEval (the
-// eval kernel's output policy) the first eight planes only, blended lean,
-// and neither t_final, m1 nor ncontrib (ncontrib may be null).
+// v3's chunk of slots, and the slots of it unrolled in the walk: the
+// scan's windows are indexed by the slot's place in an unrolled run
+constexpr int kScan = 16;
+constexpr int kScanUnroll = 8;
+
+// a[0] <- a[1] <- ... <- a[kN - 1] <- a[0]
+template <int kN, class X>
+__device__ __forceinline__ void rotate_left(X (&a)[kN]) {
+  const X first = a[0];
+#pragma unroll
+  for (int i = 0; i + 1 < kN; ++i) a[i] = a[i + 1];
+  a[kN - 1] = first;
+}
+
+// One block per tile, 256 threads with 4 pixels each (kBlock threads:
+// 1024 / kBlock each, rounded up; the Slots must stride by the same count);
+// a pixel's ray, T and sums stay in registers; the tile leaves its walk
+// once no in-image pixel has T > T_EPS. Writes the fourteen planes and
+// ncontrib; with kEval (the eval kernel's output policy) the first eight
+// planes only, blended lean, and neither t_final, m1 nor ncontrib
+// (ncontrib may be null). Each slot is walked for every pixel in turn,
+// the record read once for them all; with kV3 each pixel walks a chunk of
+// 16 slots in turn, its ray recomputed at the chunk's start, and one copy
+// of that walk serves every pixel (their state is rotated through index
+// 0), so that the scan's window fits in registers beside the pixels'
+// state.
 template <int kChunk, class Slots, bool kV1 = false, bool kRing = false,
-          bool kEval = false>
+          bool kEval = false, int kBlock = kThreads, bool kV3 = false>
 __device__ __forceinline__ void forward_tile(
     const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, float* __restrict__ out,
     int* __restrict__ ncontrib, int ntx, int tile_h, int tile_w, int height,
     int width, int cw, int s_max, int lean) {
+  static_assert(!kV3 || (!kV1 && !kEval && kChunk % kScan == 0),
+                "v3 walks whole chunks of 16 slots, in v2's arithmetic");
+  // kBlock threads share the tile's 1024 pixel slots
+  constexpr int kPix = (kThreads * kPixPerThread + kBlock - 1) / kBlock;
   // kRing: two buffers, 16-byte aligned for cp.async
   __shared__ __align__(kRing ? 16 : 4)
       float s_ring[(kRing ? 2 : 1) * kChunk * kRec];
@@ -260,17 +305,17 @@ __device__ __forceinline__ void forward_tile(
   const int tx = tile % ntx;
   const int ty = tile / ntx;
 
-  float gx[kPixPerThread], gy[kPixPerThread];
-  float d0[kPixPerThread], d1[kPixPerThread], d2[kPixPerThread];
-  float T[kPixPerThread], t_fin[kPixPerThread];
+  float gx[kPix], gy[kPix];
+  float d0[kPix], d1[kPix], d2[kPix];
+  float T[kPix], t_fin[kPix];
   // img(3) tex(3) depth alpha normal(3) reg m1
-  float acc[kEval ? 8 : 13][kPixPerThread];
-  int ncon[kPixPerThread];
-  bool inside[kPixPerThread];
+  float acc[kEval ? 8 : 13][kPix];
+  int ncon[kPix];
+  bool inside[kPix];
   bool alive = false;
 #pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
-    const int p = tid + j * kThreads;
+  for (int j = 0; j < kPix; ++j) {
+    const int p = tid + j * kBlock;
     const int ix = tx * tile_w + p % tile_w;
     const int iy = ty * tile_h + p / tile_w;
     inside[j] = p < pix && ix < width && iy < height;
@@ -307,96 +352,228 @@ __device__ __forceinline__ void forward_tile(
     }
     __syncthreads();
 
-    for (int s = 0; s < n; ++s) {
-      const float* r = s_rec + s * kRec;
-      const float* chart = slots.chart(s, base + s);
+    if constexpr (kV3) {
+      // the ring's chunk holds whole chunks of 16; a pixel's state is at
+      // index 0 on its turn
+      for (int c0 = 0; c0 < n; c0 += kScan) {
+#pragma unroll 1
+        for (int j = 0; j < kPix; ++j) {
+          if (inside[0] && T[0] > kTEps) {
+            const int p = tid + j * kBlock;
+            const float px =
+                static_cast<float>(tx * tile_w + p % tile_w) + cam[4];
+            const float py =
+                static_cast<float>(ty * tile_h + p / tile_w) + cam[5];
+            const float dx = (px + 0.5f - cam[2]) / cam[0];
+            const float dy = (py + 0.5f - cam[3]) / cam[1];
+            const float e0 = cam[9] * dx + cam[10] * dy + cam[11];
+            const float e1 = cam[12] * dx + cam[13] * dy + cam[14];
+            const float e2 = cam[15] * dx + cam[16] * dy + cam[17];
+            const float t_in = T[0];
+            float excl = t_in;
+            // the scan's windows: qN[i] the product of q over the N slots
+            // that end at slot i of the run; 1 before the chunk
+            float q1[kScanUnroll], q2[kScanUnroll], q4[kScanUnroll],
+                q8[kScanUnroll];
 #pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j) {
-        if (!inside[j] || !(T[j] > kTEps)) continue;
-        const float nd = r[0] * d0[j] + r[1] * d1[j] + r[2] * d2[j];
-        const float safe_nd =
-            fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
-        const float t = r[3] / safe_nd;
-        const float b1d = r[4] * d0[j] + r[5] * d1[j] + r[6] * d2[j];
-        const float b2d = r[8] * d0[j] + r[9] * d1[j] + r[10] * d2[j];
-        const float u = r[7] + t * b1d;
-        const float v = r[11] + t * b2d;
-        const float r2 = u * u + v * v;
-        const float arg_s = r2 <= kExtent2 ? -0.5f * r2 : -1e30f;
-        const float dpx = gx[j] - r[24];
-        const float dpy = gy[j] - r[25];
-        const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
-        bool surf;
-        const float g = falloff<kV1>(r2, arg_s, arg_c, surf);
-        float alpha = fminf(r[20] * g, kAlphaClamp);
-        if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
-        if (!(alpha > 0.0f)) continue;  // T * (1 - 0) == T, weight 0
-
-        const float t_new = T[j] * (1.0f - alpha);
-        if (t_new > kTEps) {
-          const float w = alpha * T[j];
-          const float b1ud = r[12] * d0[j] + r[13] * d1[j] + r[14] * d2[j];
-          const float b2ud = r[16] * d0[j] + r[17] * d1[j] + r[18] * d2[j];
-          const float uvu = fminf(fmaxf(0.5f + r[15] + t * b1ud, 0.0f), 1.0f);
-          const float uvv = fminf(fmaxf(0.5f + r[19] + t * b2ud, 0.0f), 1.0f);
-          const float hf = r[26];
-          const float wf = r[27];
-          const float xf = fminf(fmaxf(uvu * hf, 0.0f), hf - 1.0f);
-          const float yf = fminf(fmaxf(uvv * wf, 0.0f), wf - 1.0f);
-          const float x0 = floorf(xf);
-          const float y0 = floorf(yf);
-          const float fx = xf - x0;
-          const float fy = yf - y0;
-          const int x0i = static_cast<int>(x0);
-          const int y0i = static_cast<int>(y0);
-          const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
-          const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
-          const float* c00 = chart + (x0i * cw + y0i) * 3;
-          const float* c01 = chart + (x0i * cw + y1i) * 3;
-          const float* c10 = chart + (x1i * cw + y0i) * 3;
-          const float* c11 = chart + (x1i * cw + y1i) * 3;
+            for (int i = 0; i < kScanUnroll; ++i)
+              q1[i] = q2[i] = q4[i] = q8[i] = 1.0f;
+            for (int h = 0; h < kScan; h += kScanUnroll) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float tex =
-                (1.0f - fx) * ((1.0f - fy) * __ldg(c00 + c) + fy * __ldg(c01 + c))
-                + fx * ((1.0f - fy) * __ldg(c10 + c) + fy * __ldg(c11 + c));
-            acc[c][j] = acc[c][j] + w * r[21 + c];
-            acc[3 + c][j] = acc[3 + c][j] + w * tex;
-          }
-          acc[6][j] = acc[6][j] + w * t;
-          if constexpr (!kEval) {
-            if (!lean) {
-              float invtc;
-              const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
-              const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
+              for (int i = 0; i < kScanUnroll; ++i) {
+                const int s = c0 + h + i;
+                const float* r = s_rec + s * kRec;
+                float alpha = 0.0f, nd = 0.0f, safe_nd = 1.0f, t = 0.0f;
+                if (s < n) {  // past count: alpha = 0, no record
+                  nd = r[0] * e0 + r[1] * e1 + r[2] * e2;
+                  safe_nd =
+                      fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
+                  t = r[3] / safe_nd;
+                  const float b1d = r[4] * e0 + r[5] * e1 + r[6] * e2;
+                  const float b2d = r[8] * e0 + r[9] * e1 + r[10] * e2;
+                  const float u = r[7] + t * b1d;
+                  const float v = r[11] + t * b2d;
+                  const float r2 = u * u + v * v;
+                  const float arg_s = r2 <= kExtent2 ? -0.5f * r2 : -1e30f;
+                  const float dpx = px - r[24];
+                  const float dpy = py - r[25];
+                  const float arg_c =
+                      (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
+                  bool surf;
+                  const float g = falloff<kV1>(r2, arg_s, arg_c, surf);
+                  alpha = fminf(r[20] * g, kAlphaClamp);
+                  if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
+                }
+                const float q = 1.0f - alpha;
+                const float p2 = q * q1[(i + kScanUnroll - 1) % kScanUnroll];
+                const float p4 = p2 * q2[(i + kScanUnroll - 2) % kScanUnroll];
+                const float p8 = p4 * q4[(i + kScanUnroll - 4) % kScanUnroll];
+                const float incl =
+                    (p8 * q8[(i + kScanUnroll - 8) % kScanUnroll]) * t_in;
+                q1[i] = q;
+                q2[i] = p2;
+                q4[i] = p4;
+                q8[i] = p8;
+                if (incl > kTEps) t_fin[0] = fminf(t_fin[0], incl);
+                if (alpha > 0.0f && incl > kTEps) {
+                  const float* chart = slots.chart(s, base + s);
+                  const float w = alpha * excl;
+                  const float b1ud = r[12] * e0 + r[13] * e1 + r[14] * e2;
+                  const float b2ud = r[16] * e0 + r[17] * e1 + r[18] * e2;
+                  const float uvu =
+                      fminf(fmaxf(0.5f + r[15] + t * b1ud, 0.0f), 1.0f);
+                  const float uvv =
+                      fminf(fmaxf(0.5f + r[19] + t * b2ud, 0.0f), 1.0f);
+                  const float hf = r[26];
+                  const float wf = r[27];
+                  const float xf = fminf(fmaxf(uvu * hf, 0.0f), hf - 1.0f);
+                  const float yf = fminf(fmaxf(uvv * wf, 0.0f), wf - 1.0f);
+                  const float x0 = floorf(xf);
+                  const float y0 = floorf(yf);
+                  const float fx = xf - x0;
+                  const float fy = yf - y0;
+                  const int x0i = static_cast<int>(x0);
+                  const int y0i = static_cast<int>(y0);
+                  const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
+                  const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
+                  const float* c00 = chart + (x0i * cw + y0i) * 3;
+                  const float* c01 = chart + (x0i * cw + y1i) * 3;
+                  const float* c10 = chart + (x1i * cw + y0i) * 3;
+                  const float* c11 = chart + (x1i * cw + y1i) * 3;
 #pragma unroll
-              for (int c = 0; c < 3; ++c)
-                acc[8 + c][j] = acc[8 + c][j] + r[c] * wfl;
-              acc[11][j] =
-                  acc[11][j] + 2.0f * w * (m * acc[7][j] - acc[12][j]);
-              acc[12][j] = acc[12][j] + w * m;
+                  for (int c = 0; c < 3; ++c) {
+                    const float tex =
+                        (1.0f - fx) * ((1.0f - fy) * __ldg(c00 + c) +
+                                       fy * __ldg(c01 + c)) +
+                        fx * ((1.0f - fy) * __ldg(c10 + c) +
+                              fy * __ldg(c11 + c));
+                    acc[c][0] = acc[c][0] + w * r[21 + c];
+                    acc[3 + c][0] = acc[3 + c][0] + w * tex;
+                  }
+                  acc[6][0] = acc[6][0] + w * t;
+                  if (!lean) {
+                    float invtc;
+                    const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
+                    const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
+#pragma unroll
+                    for (int c = 0; c < 3; ++c)
+                      acc[8 + c][0] = acc[8 + c][0] + r[c] * wfl;
+                    acc[11][0] =
+                        acc[11][0] + 2.0f * w * (m * acc[7][0] - acc[12][0]);
+                    acc[12][0] = acc[12][0] + w * m;
+                  }
+                  acc[7][0] = acc[7][0] + w;
+                } else if (alpha > 0.0f && excl > kTEps) {
+                  ncon[0] = min(ncon[0], base + s);  // the break: not blended
+                }
+                excl = incl;
+              }
             }
+            T[0] = excl;
           }
-          acc[7][j] = acc[7][j] + w;
-          t_fin[j] = t_new;
-        } else {
-          ncon[j] = base + s;  // the break splat: not blended
+          rotate_left(T);
+          rotate_left(t_fin);
+          rotate_left(ncon);
+          rotate_left(inside);
+#pragma unroll
+          for (int c = 0; c < 13; ++c) rotate_left(acc[c]);
         }
-        T[j] = t_new;
+      }
+    } else {
+      for (int s = 0; s < n; ++s) {
+        const float* r = s_rec + s * kRec;
+        const float* chart = slots.chart(s, base + s);
+#pragma unroll
+        for (int j = 0; j < kPix; ++j) {
+          if (!inside[j] || !(T[j] > kTEps)) continue;
+          const float nd = r[0] * d0[j] + r[1] * d1[j] + r[2] * d2[j];
+          const float safe_nd =
+              fabsf(nd) < 1e-9f ? (nd < 0.0f ? -1e-9f : 1e-9f) : nd;
+          const float t = r[3] / safe_nd;
+          const float b1d = r[4] * d0[j] + r[5] * d1[j] + r[6] * d2[j];
+          const float b2d = r[8] * d0[j] + r[9] * d1[j] + r[10] * d2[j];
+          const float u = r[7] + t * b1d;
+          const float v = r[11] + t * b2d;
+          const float r2 = u * u + v * v;
+          const float arg_s = r2 <= kExtent2 ? -0.5f * r2 : -1e30f;
+          const float dpx = gx[j] - r[24];
+          const float dpy = gy[j] - r[25];
+          const float arg_c = (-0.5f / kAaSigma2) * (dpx * dpx + dpy * dpy);
+          bool surf;
+          const float g = falloff<kV1>(r2, arg_s, arg_c, surf);
+          float alpha = fminf(r[20] * g, kAlphaClamp);
+          if (alpha < kAlphaCutoff || !(t > 1e-6f)) alpha = 0.0f;
+          if (!(alpha > 0.0f)) continue;  // T * (1 - 0) == T, weight 0
+
+          const float t_new = T[j] * (1.0f - alpha);
+          if (t_new > kTEps) {
+            const float w = alpha * T[j];
+            const float b1ud = r[12] * d0[j] + r[13] * d1[j] + r[14] * d2[j];
+            const float b2ud = r[16] * d0[j] + r[17] * d1[j] + r[18] * d2[j];
+            const float uvu =
+                fminf(fmaxf(0.5f + r[15] + t * b1ud, 0.0f), 1.0f);
+            const float uvv =
+                fminf(fmaxf(0.5f + r[19] + t * b2ud, 0.0f), 1.0f);
+            const float hf = r[26];
+            const float wf = r[27];
+            const float xf = fminf(fmaxf(uvu * hf, 0.0f), hf - 1.0f);
+            const float yf = fminf(fmaxf(uvv * wf, 0.0f), wf - 1.0f);
+            const float x0 = floorf(xf);
+            const float y0 = floorf(yf);
+            const float fx = xf - x0;
+            const float fy = yf - y0;
+            const int x0i = static_cast<int>(x0);
+            const int y0i = static_cast<int>(y0);
+            const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
+            const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
+            const float* c00 = chart + (x0i * cw + y0i) * 3;
+            const float* c01 = chart + (x0i * cw + y1i) * 3;
+            const float* c10 = chart + (x1i * cw + y0i) * 3;
+            const float* c11 = chart + (x1i * cw + y1i) * 3;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              const float tex =
+                  (1.0f - fx) *
+                      ((1.0f - fy) * __ldg(c00 + c) + fy * __ldg(c01 + c)) +
+                  fx * ((1.0f - fy) * __ldg(c10 + c) + fy * __ldg(c11 + c));
+              acc[c][j] = acc[c][j] + w * r[21 + c];
+              acc[3 + c][j] = acc[3 + c][j] + w * tex;
+            }
+            acc[6][j] = acc[6][j] + w * t;
+            if constexpr (!kEval) {
+              if (!lean) {
+                float invtc;
+                const float m = depth_map<kV1>(t, safe_nd, r[3], invtc);
+                const float wfl = w * (nd > 0.0f ? -1.0f : 1.0f);
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                  acc[8 + c][j] = acc[8 + c][j] + r[c] * wfl;
+                acc[11][j] =
+                    acc[11][j] + 2.0f * w * (m * acc[7][j] - acc[12][j]);
+                acc[12][j] = acc[12][j] + w * m;
+              }
+            }
+            acc[7][j] = acc[7][j] + w;
+            t_fin[j] = t_new;
+          } else {
+            ncon[j] = base + s;  // the break splat: not blended
+          }
+          T[j] = t_new;
+        }
       }
     }
     alive = false;
 #pragma unroll
-    for (int j = 0; j < kPixPerThread; ++j)
+    for (int j = 0; j < kPix; ++j)
       alive = alive || (inside[j] && T[j] > kTEps);
   }
   if constexpr (kRing) cp_async_wait<0>();  // a copy the walk left unread
 
   const long long plane = static_cast<long long>(height) * width;
 #pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) {
+  for (int j = 0; j < kPix; ++j) {
     if (!inside[j]) continue;
-    const int p = tid + j * kThreads;
+    const int p = tid + j * kBlock;
     const long long o = static_cast<long long>(ty * tile_h + p / tile_w) * width
                         + tx * tile_w + p % tile_w;
     if constexpr (kEval) {

@@ -15,9 +15,10 @@ package. The pair buffer and its gradient take ``2 · T · s_max · Ch · Cw
 such buffer.
 
 Also here, what the v3, v2 and v1 wrappers share: their input checks and
-their launches. The three backward kernels take their tiles longest first
-(an ``order``) and copy their records 16 B at a time, so they need
-16-byte-aligned records; the forwards take neither.
+their launches. The three backward kernels and the v3 and v1 forwards take
+their tiles longest first (an ``order``) and copy their records 16 B at a
+time, so they need 16-byte-aligned records; the v2 forward takes neither
+(block b walks tile b, its records staged by plain loads).
 """
 
 from __future__ import annotations
@@ -117,14 +118,23 @@ def check_inputs(version: int, records_t, charts_g, counts, cam_info,
                          f"{dev}")
 
 
-def check_bwd_inputs(version: int, records_t, charts_g, counts, cam_info,
-                     maps, ncontrib, gmaps, grid: TileGrid, order) -> None:
-    """Raise on inputs the v3, v2 or v1 backward does not take: those of
-    ``check_inputs``, records that are not 16-byte aligned (the kernels
-    copy them by cp.async), and residuals of the wrong shape."""
+def check_ordered_inputs(version: int, records_t, charts_g, counts,
+                         cam_info, grid: TileGrid, order) -> None:
+    """Raise on inputs a kernel that takes a tile order (the v3 and v1
+    forwards, the three backwards) does not take: those of
+    ``check_inputs`` and records that are not 16-byte aligned (the kernels
+    copy them by cp.async)."""
     check_inputs(version, records_t, charts_g, counts, cam_info, grid, order)
     if records_t.data_ptr() % 16:
         raise ValueError("records_t must be 16-byte aligned")
+
+
+def check_bwd_inputs(version: int, records_t, charts_g, counts, cam_info,
+                     maps, ncontrib, gmaps, grid: TileGrid, order) -> None:
+    """Raise on inputs the v3, v2 or v1 backward does not take: those of
+    ``check_ordered_inputs`` and residuals of the wrong shape."""
+    check_ordered_inputs(version, records_t, charts_g, counts, cam_info,
+                         grid, order)
     check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
 
 
@@ -135,15 +145,19 @@ def _geometry(grid: TileGrid, charts_g):
 
 
 def launch_fwd(name: str, records_t, charts_g, counts, cam_info,
-               grid: TileGrid, lean: bool):
+               grid: TileGrid, lean: bool, order=None):
     """Launch the forward kernel ``gstex_<name>`` on CUDA inputs; returns
-    ``(maps (14, H, W), ncontrib (H, W) int32)``."""
+    ``(maps (14, H, W), ncontrib (H, W) int32)``. A kernel that takes its
+    tiles in an ``order`` gets it after ``ncontrib``."""
     dev = records_t.device
     out = torch.empty((NCH, grid.height, grid.width), dtype=torch.float32,
                       device=dev)
     ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
                        device=dev)
-    _launch(name, 6, (records_t, charts_g, counts, cam_info, out, ncon),
+    pointers = (records_t, charts_g, counts, cam_info, out, ncon)
+    if order is not None:
+        pointers += (order,)
+    _launch(name, len(pointers), pointers,
             (*_geometry(grid, charts_g), int(lean)), dev)
     return out, ncon
 

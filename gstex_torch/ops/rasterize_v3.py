@@ -25,9 +25,12 @@ scans, and then the per-pair chain rule of the other tiers
 
 The plain versions run the scans in the JAX helpers' order
 (``_cumprod_incl``, ``_cumsum_excl``, ``_sufprod_incl``, ``_sufsum_excl``)
-over (tiles, 16, pixels) tensors, as the kernels run them across a
-half-warp's 16 lanes; the forward kernel matches its plain version bit for
-bit where the sums over a chunk do not reorder (T, ncontrib).
+over (tiles, 16, pixels) tensors. The forward kernel streams the product
+scan through each pixel's slots in the same association, so its T,
+``t_final`` and ncontrib match the plain version bit for bit; its sums are
+running sums, which round otherwise than the plain version's per-chunk
+sums and prefix scans. The backward kernel recovers T by serial divides
+and sums serially (``csrc/rasterize_v3_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ from __future__ import annotations
 import torch
 
 from .binning import TileGrid
-from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
+from .pair_inputs import (check_bwd_inputs, check_ordered_inputs, launch_bwd,
                           launch_fwd)
 from .rasterize_bwd import (direct_terms, record_terms, texel_terms,
                             tile_planes, walk_starts)
-from .rasterize_fwd import NCH, fetch, pixel_grid, response, untile
+from .rasterize_fwd import (NCH, fetch, pixel_grid, response, tile_order,
+                            untile)
 from .records import F_REC
 from .surfel import T_EPS
 
@@ -231,18 +235,25 @@ def rasterize_v3_bwd_reference(records_t, charts_g, counts, cam_info, maps,
 
 
 def rasterize_v3_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
-                     lean: bool = False):
+                     lean: bool = False, order=None):
     """Training forward by the chunk scan; returns ``(maps (14, H, W),
     ncontrib (H, W) int32)``. Arguments as
-    ``rasterize_v2.rasterize_v2_fwd``; charts of at most 40 rows. CPU
-    tensors run the plain version; CUDA tensors launch the kernel (and
-    raise if it cannot launch)."""
-    check_inputs(3, records_t, charts_g, counts, cam_info, grid)
+    ``rasterize_v2.rasterize_v2_fwd``; charts of at most 40 rows. The
+    kernel takes its tiles longest first, in ``order``
+    (``tile_order(counts, S)``, computed here if not given), and copies
+    ``records_t``, which must be 16-byte aligned, 16 B at a time; a tile
+    order changes no pixel's operations. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (and raise if it cannot
+    launch)."""
+    check_ordered_inputs(3, records_t, charts_g, counts, cam_info, grid,
+                         order)
     if records_t.device.type == "cpu":
         return rasterize_v3_fwd_reference(records_t, charts_g, counts,
                                           cam_info, grid, lean=lean)
+    if order is None:
+        order = tile_order(counts, records_t.shape[1])
     out = launch_fwd("rasterize_v3_fwd", records_t, charts_g, counts,
-                     cam_info, grid, lean)
+                     cam_info, grid, lean, order)
     rasterize_v3_fwd.launches += 1
     return out
 

@@ -1,15 +1,16 @@
 """The tile orders and record alignment that the flat eval kernel, the
-three dense-list kernels and the three pair-space backwards take, checked
-by their wrappers on the CPU.
+three dense-list kernels, the three pair-space backwards and the v3 and v1
+forwards take, checked by their wrappers on the CPU.
 
 These kernels copy records 16 B at a time (cp.async) and take their tiles
 longest first, in an order computed once a frame (``rasterize_pl5_eval``,
 ``rasterize_pl_eval``) or once a training step (``_Rasterize4``, in its
 forward, for the dense forward and backward both; ``_RasterizePairs``, in
-its forward, for the v3, v2 or v1 backward). The wrappers refuse misaligned
-records and orders of the wrong type or length before they dispatch, so
-the CPU path checks what the card path would launch. The kernels
-themselves run only on the card (``test_torch_kernels_cuda.py``).
+its forward, for the v3, v2 or v1 backward and the v3 or v1 forward; the
+v2 forward takes neither an order nor aligned records). The wrappers
+refuse misaligned records and orders of the wrong type or length before
+they dispatch, so the CPU path checks what the card path would launch. The
+kernels themselves run only on the card (``test_torch_kernels_cuda.py``).
 """
 
 import numpy as np
@@ -357,6 +358,8 @@ PAIR = {3: (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd),
         1: (rv1.rasterize_v1_fwd, rv1.rasterize_v1_bwd)}
 VERSIONS = pytest.mark.parametrize("version", [2, 3, 1],
                                    ids=["v2", "v3", "v1"])
+# the versions whose forward takes a tile order and aligned records
+ORDERED_FWD = pytest.mark.parametrize("version", [3, 1], ids=["v3", "v1"])
 
 
 def pair_residuals(pairs, grid, version, lean=False):
@@ -377,9 +380,52 @@ def test_pair_backward_refuses_misaligned_records(version):
     with pytest.raises(ValueError, match="aligned"):
         bwd(shifted, *pairs[1:], maps, ncon, g, grid)
     assert bwd.launches == before
-    # the forwards stage their records with plain loads
-    out, _ = fwd(shifted, *pairs[1:], grid)
-    assert torch.equal(out, maps)
+    if version == 2:
+        # the v2 forward stages its records with plain loads
+        out, _ = fwd(shifted, *pairs[1:], grid)
+        assert torch.equal(out, maps)
+
+
+@ORDERED_FWD
+def test_pair_forward_refuses_misaligned_records(version):
+    """The v3 and v1 forwards copy their records through the cp.async
+    ring."""
+    fwd = PAIR[version][0]
+    pairs, grid = pair_case()
+    records_t = pairs[0]
+    shifted = misaligned(records_t.reshape(-1, 32)).view(records_t.shape)
+    before = fwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fwd(shifted, *pairs[1:], grid)
+    assert fwd.launches == before
+
+
+@ORDERED_FWD
+@pytest.mark.parametrize("bad", ["int64", "short", "on_other_shape"])
+def test_pair_forward_refuses_a_bad_tile_order(bad, version):
+    pairs, grid = pair_case()
+    order = rfwd.tile_order(pairs[2], pairs[0].shape[1])
+    wrong = {"int64": order.long(), "short": order[:-1],
+             "on_other_shape": order.reshape(1, -1)}[bad]
+    err = TypeError if bad == "int64" else ValueError
+    with pytest.raises(err, match="order"):
+        PAIR[version][0](*pairs, grid, order=wrong)
+
+
+@ORDERED_FWD
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+def test_pair_forward_takes_an_order_and_computes_the_same_maps(lean,
+                                                                version):
+    """On the CPU the order only passes the checks: the plain version
+    computes each tile whatever the order, so any permutation gives the
+    same maps and ncontrib."""
+    fwd = PAIR[version][0]
+    pairs, grid = pair_case()
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    order = rfwd.tile_order(pairs[2], pairs[0].shape[1]).flip(0).contiguous()
+    maps2, ncon2 = fwd(*pairs, grid, lean=lean, order=order)
+    assert torch.equal(maps2, maps) and torch.equal(ncon2, ncon)
+    assert float(maps[7].max()) > 0.3
 
 
 @VERSIONS
@@ -442,3 +488,42 @@ def test_rasterize_pairs_computes_an_order_for_each_version(monkeypatch,
     assert passed[0] is made[0]
     assert torch.equal(passed[0], real_order(pairs[2], S_MAX))
     assert float(rec.grad.abs().max()) > 0 and float(ch.grad.abs().max()) > 0
+
+
+@VERSIONS
+def test_rasterize_pairs_hands_one_order_to_both_kernels(monkeypatch,
+                                                         version):
+    """A training step through ``_RasterizePairs`` calls ``tile_order``
+    once, before the forward, and hands that one tensor to the v3 or v1
+    forward and to the version's backward; the v2 forward gets none."""
+    pairs, grid = pair_case()
+    calls, fwd_orders, bwd_orders = [], [], []
+    real_order = rasterize_api.tile_order
+
+    def order_spy(c, n):
+        calls.append(real_order(c, n))
+        return calls[-1]
+
+    def spy(real, seen):
+        def kernel(*args, **kwargs):
+            assert len(calls) == 1    # the order exists before the forward
+            seen.append(kwargs.get("order"))
+            return real(*args, **kwargs)
+        return kernel
+    monkeypatch.setattr(rasterize_api, "tile_order", order_spy)
+    monkeypatch.setattr(rasterize_api, "_PAIR_IMPLS", {
+        v: (spy(f, fwd_orders), spy(b, bwd_orders))
+        for v, (f, b) in rasterize_api._PAIR_IMPLS.items()})
+    rec = pairs[0].clone().requires_grad_()
+    ch = pairs[1].clone().requires_grad_()
+    maps, _ = rasterize_api._RasterizePairs.apply(rec, ch, pairs[2], pairs[3],
+                                                  grid, version, True)
+    maps[:8].sum().backward()
+    assert len(calls) == 1
+    assert len(fwd_orders) == 1 and len(bwd_orders) == 1
+    assert bwd_orders[0] is calls[0]
+    if version == 2:
+        assert fwd_orders[0] is None
+    else:
+        assert fwd_orders[0] is calls[0]
+    assert torch.equal(calls[0], real_order(pairs[2], S_MAX))

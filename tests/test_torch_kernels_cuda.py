@@ -42,13 +42,16 @@ The pair-space v3, v2 and v1 kernels run on per-(tile, slot) copies of
 the dense lists' records and charts, at 32x32 tiles and pads up to their
 limits (40 rows for v3, 42 for v2 and v1), one of them past what the v1
 backward stages in shared memory. Each is held to its plain version by
-the gates above (v3's forward sums its chunks by a shuffle tree, so its
-maps to 1e-4; T and ncontrib exactly), v3 and v2, summed per gaussian, to
-the dense kernels on the same pairs, and v1 to v2, which it equals but
-for its rounding of the distortion depth. The three pair-space backwards
-take their tiles in an order, and each is held to its plain version under
-three: v3 also where its pixels apply slots in three or more of its
-chunks of 16, and v1 at the nerfstudio path's pad and image.
+the gates above (v1's forward bit for bit; v3's forward sums its chunks'
+slots in another order than its plain version, so its maps to 1e-4, and
+t_final and ncontrib exactly), v3 and v2, summed per gaussian, to the
+dense kernels on the same pairs, and v1 to v2, which it equals but for its
+rounding of the distortion depth. The three pair-space backwards and the
+v3 and v1 forwards take their tiles in an order, and each is held to its
+plain version under three (the forwards also bit for bit to their own
+output under each): v3 also where its pixels apply slots in three or more
+of its chunks of 16 and where tiles end inside a chunk, and v1 at the
+nerfstudio path's pad and image.
 """
 
 import pytest
@@ -620,8 +623,9 @@ def per_gaussian(d_rec_t, d_ch_g, ids, n):
 def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
                                            lean):
     """The kernel and its plain version run the same float32 operations
-    (the v3 scans in the same order), so T and ncontrib agree bit for bit;
-    v3's sums over a chunk's 16 slots are reordered (1e-4)."""
+    (the v3 scan in the same association), so T and ncontrib agree bit
+    for bit, and v1's maps too; v3's sums over a chunk's slots are
+    reordered (1e-4), its t_final is bit-equal."""
     _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
     if s_cap == 16:
         assert bins.overflow > 0
@@ -633,6 +637,10 @@ def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
     ref, ref_ncon = fwd_plain(*pairs, grid, lean=lean)
     torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
     assert torch.equal(ncon, ref_ncon)
+    if version == 1:
+        assert torch.equal(maps, ref)
+    if version == 3:
+        assert torch.equal(maps[12], ref[12])
     assert float(maps[7].max()) > 0.3
     if lean:
         assert float(maps[8:12].abs().max()) == 0.0
@@ -750,13 +758,24 @@ def test_pair_wrappers_raise_instead_of_falling_back(cuda):
     tall = torch.zeros((*charts_g.shape[:2], 43, 8, 3), device=cuda)
     with pytest.raises(ValueError, match="42 rows"):
         rv1.rasterize_v1_fwd(records_t, tall, counts, info, grid)
+    # the v3 and v1 forwards' tile orders and their cp.async record copies
+    buf = torch.empty(records_t.numel() + 4, device=cuda)
+    shifted = buf[1:1 + records_t.numel()].view(records_t.shape)
+    shifted.copy_(records_t)
+    for fwd in (rv3.rasterize_v3_fwd, rv1.rasterize_v1_fwd):
+        with pytest.raises(ValueError, match="order"):
+            fwd(*pairs, grid,
+                order=torch.zeros(1, dtype=torch.int32, device=cuda))
+        with pytest.raises(TypeError, match="order"):
+            fwd(*pairs, grid, order=rfwd.tile_order(counts, 1024).long())
+        with pytest.raises(ValueError, match="order"):
+            fwd(*pairs, grid, order=rfwd.tile_order(counts, 1024).cpu())
+        with pytest.raises(ValueError, match="aligned"):
+            fwd(shifted, charts_g, counts, info, grid)
     assert (rv3.rasterize_v3_fwd.launches, rv2.rasterize_v2_fwd.launches,
             rv1.rasterize_v1_fwd.launches) == before
     # the backwards' tile orders and their cp.async record copies
     g = cotangents(cuda)
-    buf = torch.empty(records_t.numel() + 4, device=cuda)
-    shifted = buf[1:1 + records_t.numel()].view(records_t.shape)
-    shifted.copy_(records_t)
     for version in (3, 2, 1):
         fwd, bwd, _, _ = pair_kernels(version)
         maps, ncon = fwd(*pairs, grid)
@@ -807,6 +826,14 @@ def applied_chunks(pairs, grid, ncon):
     return n[inside]
 
 
+def three_orders(counts, s_max):
+    """Block order, longest first (the wrappers' own) and reversed."""
+    first = rfwd.tile_order(counts, s_max)
+    return {"block": torch.arange(counts.numel(), dtype=torch.int32,
+                                  device=counts.device),
+            "longest_first": first, "reversed": first.flip(0).contiguous()}
+
+
 # (version, pad, s_cap, image): v3 at (16, 24), at its row limit (40, 40)
 # and on lists cut at 48 slots, three chunks of 16 whose carries every
 # walked pixel crosses; v2 at (16, 24) and its row limit (40, 42); v1 at
@@ -841,12 +868,7 @@ def test_pair_backward_tile_orders_agree(cuda, version, pad, s_cap, hw,
     g = cotangents(cuda, *hw)
     ref_rec, ref_ch = bwd_plain(*pairs, maps, ncon, g, grid, lean=lean)
     d_rec, d_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean)
-    orders = {"block": torch.arange(grid.num_tiles, dtype=torch.int32,
-                                    device=cuda),
-              "longest_first": rfwd.tile_order(counts, s_max),
-              "reversed": rfwd.tile_order(counts, s_max).flip(0)
-              .contiguous()}
-    for name, order in orders.items():
+    for name, order in three_orders(counts, s_max).items():
         before = bwd.launches
         o_rec, o_ch = bwd(*pairs, maps, ncon, g, grid, lean=lean,
                           order=order)
@@ -862,3 +884,56 @@ def test_pair_backward_tile_orders_agree(cuda, version, pad, s_cap, hw,
         assert max(errs.values()) <= 1e-5 and flip <= 1e-5, (name, errs)
         del o_rec, o_ch
     assert float(ref_rec.abs().max()) > 0 and float(ref_ch.abs().max()) > 0
+
+
+# (version, pad, s_cap, image): v3 at (16, 24), at its row limit (40, 40),
+# at (8, 8), on lists cut at 48 slots (three chunks of 16 whose carries
+# every walked pixel crosses) and at 40 (cut tiles end half way through
+# their third chunk); v1 at (16, 24), (8, 8) and at the nerfstudio path's
+# pad (40, 80) on an 800x600 image, whose last row of tiles is partial
+FWD_ORDER_CASES = [(3, (16, 24), 1024, (H, W)), (3, (40, 40), 1024, (H, W)),
+                   (3, (8, 8), 1024, (H, W)), (3, (8, 8), 48, (H, W)),
+                   (3, (8, 8), 40, (H, W)), (1, (16, 24), 1024, (H, W)),
+                   (1, (8, 8), 1024, (H, W)), (1, (40, 80), 128, (600, 800))]
+FWD_ORDER_IDS = ["v3-pad16x24", "v3-pad40x40", "v3-pad8", "v3-three_chunks",
+                 "v3-ends_inside_a_chunk", "v1-pad16x24", "v1-pad8",
+                 "v1-pad40x80_800x600"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("version,pad,s_cap,hw", FWD_ORDER_CASES,
+                         ids=FWD_ORDER_IDS)
+def test_pair_forward_tile_orders_bit_equal(cuda, version, pad, s_cap, hw,
+                                            lean):
+    """The v3 and v1 forwards under three tile orders (block, longest
+    first, reversed): a tile order changes no pixel's operations, so each
+    order's maps and ncontrib are bit-equal to the wrapper's own order's,
+    and to the plain version's as that is: v1 every plane, v3 t_final and
+    ncontrib (its other planes within 1e-4: its sums run in another
+    order). v3's pixels cross chunks of 16 (T carried by the scan) and
+    walk the slots past a tile's count to its chunk's end."""
+    _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
+    counts, s_max = pairs[2], pairs[0].shape[1]
+    fwd, _, fwd_plain, _ = pair_kernels(version)
+    ref, ref_ncon = fwd_plain(*pairs, grid, lean=lean)
+    maps, ncon = fwd(*pairs, grid, lean=lean)
+    assert torch.equal(ncon, ref_ncon)
+    if version == 1:
+        assert torch.equal(maps, ref)
+    else:
+        assert torch.equal(maps[12], ref[12])
+        torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    if s_cap == 48:
+        assert int((applied_chunks(pairs, grid, ncon) >= 3).sum()) > 0
+    if s_cap == 40:
+        # the cut tiles walk 40 slots: their third chunk ends in padding
+        assert bins.overflow > 0 and int(counts.max()) == 40
+        assert int((counts == 40).sum()) > 0
+    for name, order in three_orders(counts, s_max).items():
+        before = fwd.launches
+        o_maps, o_ncon = fwd(*pairs, grid, lean=lean, order=order)
+        torch.cuda.synchronize()
+        assert fwd.launches == before + 1
+        assert torch.equal(o_maps, maps) and torch.equal(o_ncon, ncon), name
+    assert float(maps[7].max()) > 0.3

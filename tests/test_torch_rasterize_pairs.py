@@ -13,9 +13,12 @@ truncating case (tens of seconds each on the CPU).
 
 Also here: the pair-space plain backwards, reduced to per-gaussian
 gradients, against ``rasterize.backward_walk`` on the dense lists; the
-shapes both packages refuse; the wrappers' input checks.
+shapes both packages refuse; the wrappers' input checks; and the v3
+forward kernel's streamed product scan (``csrc/tile_walk.cuh``, ``kV3``)
+against the scan of the plain version and of JAX's kernel, bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from gstex_tpu.ops import binning as jbinning
 from gstex_tpu.ops import rasterize_pallas as jrp
 from gstex_tpu.ops import rasterize_pallas3 as jrp3
 from gstex_tpu.ops.rasterize_pallas_api import rasterize_pl as jrasterize_pl
+from jax.experimental import pallas as pl
 
 EVAL_MAPS = ("img", "texture_rgb", "depth", "alpha")
 # (tile, s_max, chart pad, surfels)
@@ -296,3 +300,58 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="40 rows"):
         rv3.rasterize_v3_fwd(records_t, tall, counts, info, grid)
     rv2.rasterize_v2_fwd(records_t, tall, counts, info, grid)
+
+
+def streamed_incl(q, t_in, unroll):
+    """The v3 forward kernel's transmittance after each slot of a chunk,
+    as its walk streams the scan (``csrc/tile_walk.cuh``, ``kV3``), in
+    float32: slot k's products over 2, 4, 8 and 16 slots from windows of
+    the last q, p2, p4 and p8, kept in runs of ``unroll`` slots and 1
+    before the chunk. ``q`` (16, P), ``t_in`` (P,)."""
+    ones = np.ones(q.shape[1], np.float32)
+    q1, q2, q4, q8 = ([ones] * unroll for _ in range(4))
+    incl = np.empty_like(q)
+    for h in range(0, rv3.CHUNK, unroll):
+        for i in range(unroll):
+            p2 = q[h + i] * q1[(i - 1) % unroll]
+            p4 = p2 * q2[(i - 2) % unroll]
+            p8 = p4 * q4[(i - 4) % unroll]
+            incl[h + i] = (p8 * q8[(i - 8) % unroll]) * t_in
+            q1[i], q2[i], q4[i], q8[i] = q[h + i], p2, p4, p8
+    return incl
+
+
+def jax_cumprod_incl(q):
+    """JAX's kernel helper ``_cumprod_incl`` on a (16, P) block, run as
+    its kernel runs it (interpreted: it rolls sublanes)."""
+    def kernel(q_ref, o_ref):
+        o_ref[...] = jrp3._cumprod_incl(q_ref[...])
+    return np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(q.shape, jnp.float32),
+        interpret=True)(jnp.asarray(q)))
+
+
+@pytest.mark.parametrize("unroll", [8, 16])
+def test_v3_streamed_scan_is_the_scan_bit_for_bit(unroll):
+    """On seeded chunks (40 % of alpha zero; slots past a random count
+    padded with alpha 0, as the kernel pads a tile's last chunk), the
+    kernel's streamed scan equals ``rasterize_v3.cumprod_incl`` and JAX's
+    ``_cumprod_incl``, times T_in, bit for bit; the serial product does
+    not."""
+    rng = np.random.default_rng(11)
+    n = 2048
+    alpha = rng.uniform(1.0 / 255.0, 0.999, (rv3.CHUNK, n)).astype(np.float32)
+    alpha[rng.random((rv3.CHUNK, n)) < 0.4] = 0.0
+    count = rng.integers(1, rv3.CHUNK + 1, n)
+    alpha[np.arange(rv3.CHUNK)[:, None] >= count[None]] = 0.0
+    q = np.float32(1.0) - alpha
+    t_in = rng.uniform(1e-4, 1.0, n).astype(np.float32)
+    t_in[:64] = 1.0
+    got = streamed_incl(q, t_in, unroll)
+    port = (rv3.cumprod_incl(torch.from_numpy(q)[None])[0]
+            * torch.from_numpy(t_in)[None]).numpy()
+    jax_scan = jax_cumprod_incl(q) * t_in[None]
+    assert np.array_equal(got.view(np.uint32), port.view(np.uint32))
+    assert np.array_equal(got.view(np.uint32), jax_scan.view(np.uint32))
+    serial = np.cumprod(q, 0, dtype=np.float32) * t_in[None]
+    assert not np.array_equal(serial.view(np.uint32), got.view(np.uint32))

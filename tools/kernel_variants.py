@@ -3,7 +3,7 @@
 main path's shapes.
 
     python3 tools/kernel_variants.py [--kernels eval dense_fwd ssim ...]
-        [--reps N] [--ssim-parent CSRC] [--parent CSRC]
+        [--reps N] [--ssim-parent CSRC] [--parent CSRC] [--dtu-data DIR]
 
 Each variant is this tree's ``gstex_torch/csrc`` with a few source lines
 substituted (a chunk size, a launch bound, the ring, the tile order, a
@@ -15,18 +15,22 @@ call; an SSIM variant may also fix the strips' height
 substitution no longer matches the source is reported as absent. The scenes are ``chip_smoke.py``'s: the
 trained-scene statistics at (8, 8) on phase 3's view, and re-charted on
 phase 9's view at their auto pad (40, 80), at pixel_num 4e6 (64, 128)
-and at 1e5 (16, 24); the v3, v2 and v1 backwards on per-slot copies of
-the (16, 24) lists; SSIM on seeded 800x800x3 and 800x600x3 image pairs (the
-training loss's shapes on the Blender and the DTU path). Per scene each
-variant is timed in two turns (CUDA events, mean of ``--reps``), in the
-listed order and then reversed, and held to the first variant's output
-(the eval kernels and the dense forward: bit for bit; backwards:
+and at 1e5 (16, 24); the pair-space kernels on per-slot copies of the
+(16, 24) lists, and with ``--dtu-data DIR`` the v1 forward also on the
+nerfstudio path's view (``flat_step_ab.py``'s ``dtu_pallas1`` state:
+800x600, pad (40, 80), its capture written into DIR unless it is there);
+SSIM on seeded 800x800x3 and 800x600x3 image pairs (the training loss's
+shapes on the Blender and the DTU path). Per scene each variant is timed
+in two turns (CUDA events, mean of ``--reps``), in the listed order and
+then reversed, and held to the first variant's output (the eval kernels,
+the dense and the v1 forward: bit for bit; the v3 forward: ncontrib and
+t_final bit for bit, the other planes to chip_smoke's 1e-4; backwards:
 chip_smoke's gates; SSIM: the float64 gates of chip_smoke, and whether
 its gradient is bit-equal to the first), SSIM by CUDA-graph replay
 (``chip_smoke.graph_ms``: its wrapper's host work would hide it). With
 ``--ssim-parent CSRC`` the SSIM kernel of an older tree (its C entry as
 at 21285d5) runs beside the SSIM variants; with ``--parent CSRC`` the
-v1 and v3 backwards of an older tree (their C entries as at d391e5c,
+v3 and v1 forwards of an older tree (their C entries as at 8a8a6e3,
 which take no tile order) run beside theirs. Prints one
 JSON line per variant with its ``ptxas`` registers and spills, and one
 per (scene, variant) with its times.
@@ -59,9 +63,8 @@ def walk_ring(on):
 
 
 def min_blocks(n):
-    return (r"__launch_bounds__\(kThreads(, \d+)?\)",
-            f"__launch_bounds__(kThreads, {n})" if n
-            else "__launch_bounds__(kThreads)")
+    return (r"(__launch_bounds__\((?:kThreads|kBlock))(, \d+)?\)",
+            rf"\g<1>, {n})" if n else r"\g<1>)")
 
 
 BLOCK_ORDER = (r"order\[blockIdx\.x\]", "blockIdx.x")
@@ -129,6 +132,38 @@ PAIR_BWD = [
     ("tiles in block order", [BLOCK_ORDER]),
     ("lane-0 reduction", [const("kShflT", "false")]),
     ("256 threads", [const("kBlock", 256)]),
+]
+
+# the v3 and v1 forwards' options: each against the configuration as
+# built (the dense forward's; v3 at 512 threads, one block an SM)
+PAIR_FWD = [
+    ("as built: 64 a chunk, ring, longest first", []),
+    ("32 a chunk", [const("kChunk", 32)]),
+    ("16 a chunk", [const("kChunk", 16)]),
+    ("no ring (staged by plain loads)", [walk_ring(False)]),
+    ("tiles in block order", [BLOCK_ORDER]),
+    ("the first port's options on the new slots: 16 a chunk, no ring, "
+     "block order, no launch-bound minimum",
+     [const("kChunk", 16), walk_ring(False), BLOCK_ORDER, min_blocks(0)]),
+]
+V1_FWD = PAIR_FWD + [
+    ("1 block an SM", [min_blocks(1)]),
+    ("2 pixels a thread (512 threads, 1 block an SM)",
+     [const("kBlock", 512), min_blocks(1)]),
+]
+# v3's own: threads a tile, and its walk's unrolling
+V3_FWD = PAIR_FWD + [
+    ("4 pixels a thread (256 threads, 2 blocks an SM)",
+     [const("kBlock", 256), min_blocks(2)]),
+    ("4 pixels a thread (256 threads, 1 block an SM)",
+     [const("kBlock", 256), min_blocks(1)]),
+    ("3 pixels a thread (384 threads, 1 block an SM)",
+     [const("kBlock", 384), min_blocks(1)]),
+    ("the pixel loop unrolled (no rotation)",
+     [("tile_walk.cuh", r"#pragma unroll 1\n(\s*)for \(int j = 0; j < kPix;",
+       r"#pragma unroll\n\1for (int j = 0; j < kPix;")]),
+    ("all 16 slots of a chunk unrolled",
+     [("tile_walk.cuh", *const("kScanUnroll", 16))]),
 ]
 
 # kernel -> (source name, scenes, [(variant, [(pattern, replacement),
@@ -236,6 +271,8 @@ VARIANTS = {
     ]),
     "v1_bwd": ("rasterize_v1_bwd", "v1", PAIR_BWD),
     "v3_bwd": ("rasterize_v3_bwd", "v3", PAIR_BWD),
+    "v1_fwd": ("rasterize_v1_fwd", "v1", V1_FWD),
+    "v3_fwd": ("rasterize_v3_fwd", "v3", V3_FWD),
 }
 
 
@@ -290,10 +327,10 @@ def build_variants(kernel, cases):
     return built
 
 
-# the kernels whose C entry as at d391e5c took no tile order: the index of
+# the kernels whose C entry as at 8a8a6e3 took no tile order: the index of
 # the order among the current entry's pointers
-PARENT_ORDER_ARG = {"v1_bwd": 9, "v3_bwd": 9}
-PARENT = "the kernel as at d391e5c"
+PARENT_ORDER_ARG = {"v1_fwd": 6, "v3_fwd": 6}
+PARENT = "the kernel as at 8a8a6e3"
 
 
 class OrderlessEntry:
@@ -315,7 +352,7 @@ class OrderlessEntry:
 
 def parent_variant(kernel, csrc):
     """Build ``kernel``'s source of another tree (its C entry as at
-    d391e5c) with the port's flags; returns (lib path, ptxas lines)."""
+    8a8a6e3) with the port's flags; returns (lib path, ptxas lines)."""
     from gstex_torch.ops import _build
 
     name = VARIANTS[kernel][0]
@@ -505,8 +542,22 @@ def time_ssim(cs, built, heights, reps, smi, parent=None):
                   flush=True)
 
 
-def scenes(cs, kind):
-    """(scene, frame, tier, inputs) of each scene a kernel is timed on."""
+def dtu_frame(cs, data):
+    """The nerfstudio path's view as ``flat_step_ab.py --tier dtu_pallas1``
+    trains it (its capture written into ``data`` unless it is there): the
+    dense frame of its re-charted state and the per-slot copies."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from flat_step_ab import dtu_state
+
+    _, cfg, state, cam, _, _ = dtu_state(cs, Path(data).resolve())
+    frame, _, p_in = cs.pair_frame(cfg, state.params, state.buffers, cam)
+    return frame, p_in
+
+
+def scenes(cs, kind, dtu=None):
+    """(scene, frame, tier, inputs) of each scene a kernel is timed on;
+    the v1 kernels' also on the nerfstudio view, given its capture's
+    directory ``dtu``."""
     from gstex_torch.configs.methods import get_method
 
     pixel_num = get_method("gstex-blender-nvs").model.pixel_num
@@ -524,13 +575,17 @@ def scenes(cs, kind):
         frame = phase9_frame(cs, cs.PAIR_PIXEL_NUM, True)
         yield ("trained_scene_1e5", frame, cs.pair_tier(int(kind[1])),
                cs.pair_copies(frame))
+        if dtu is not None and kind == "v1":
+            frame = None   # its copies go before the DTU view's are made
+            frame, p_in = dtu_frame(cs, dtu)
+            yield "dtu_800x600", frame, cs.pair_tier(1), p_in
         return
     for label, make in makers:
         frame = make()
         yield label, frame, frame.tier, frame.inputs
 
 
-def time_variants(cs, kernel, built, reps, smi):
+def time_variants(cs, kernel, built, reps, smi, dtu=None):
     import torch
     from gstex_torch.models import gstex as model
     from gstex_torch.ops import _build
@@ -538,13 +593,13 @@ def time_variants(cs, kernel, built, reps, smi):
 
     name, kind, _ = VARIANTS[kernel]
     labels = list(built)
-    for scene, frame, tier, k_in in scenes(cs, kind):
+    for scene, frame, tier, k_in in scenes(cs, kind, dtu):
         grid, s_cap = frame.grid, frame.cfg.s_max
         lean = model.lean_losses(frame.cfg)
         if kernel in ("eval", "dense_eval"):
             def run():
                 return tier.eval(k_in, grid, s_cap)
-        elif kernel == "dense_fwd":
+        elif kernel in ("dense_fwd", "v3_fwd", "v1_fwd"):
             def run():
                 return tier.fwd(k_in, grid, s_cap, lean)
         else:
@@ -566,10 +621,17 @@ def time_variants(cs, kernel, built, reps, smi):
                 elif kernel in ("eval", "dense_eval"):
                     cs.require(torch.equal(out, first),
                                f"{scene}: eval variant '{label}' differs")
-                elif kernel == "dense_fwd":
+                elif kernel in ("dense_fwd", "v1_fwd"):
                     cs.require(torch.equal(out[0], first[0])
                                and torch.equal(out[1], first[1]),
                                f"{scene}: forward variant '{label}' differs")
+                elif kernel == "v3_fwd":
+                    err = float((out[0] - first[0]).abs().max())
+                    cs.require(torch.equal(out[1], first[1])
+                               and torch.equal(out[0][12], first[0][12])
+                               and err <= cs.TOL,
+                               f"{scene}: forward variant '{label}' differs: "
+                               f"{err}")
                 else:
                     errs, flip, _ = cs.bwd_errors(*out, *first)
                     cs.require(max(errs.values()) <= cs.BWD_TOL
@@ -607,8 +669,12 @@ def main():
                          "at 21285d5)")
     ap.add_argument("--parent", metavar="CSRC", default=None,
                     help="also time, and hold to the first variant, the "
-                         "v1 and v3 backwards of this csrc directory "
-                         "(their C entries as at d391e5c)")
+                         "v3 and v1 forwards of this csrc directory "
+                         "(their C entries as at 8a8a6e3)")
+    ap.add_argument("--dtu-data", metavar="DIR", default=None,
+                    help="also time the v1 forward on the nerfstudio "
+                         "path's view, its capture written into DIR unless "
+                         "it is there")
     args = ap.parse_args()
     import torch
 
@@ -637,7 +703,8 @@ def main():
                       parent_ssim(args.ssim_parent) if args.ssim_parent
                       else None)
         else:
-            time_variants(cs, kernel, built, args.reps, smi)
+            time_variants(cs, kernel, built, args.reps, smi,
+                          args.dtu_data if kernel == "v1_fwd" else None)
 
 
 if __name__ == "__main__":
