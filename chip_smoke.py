@@ -41,9 +41,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    elsewhere); v1 against v2, which it equals but for its rounding of the
    distortion depth m (ncontrib and every plane but reg and m1 bit for
    bit, those within 1e-6 of their max; gradients within 1e-5 of each
-   field group's max, no sign flips); the v3 and v1 forwards under the
-   three tile orders, each bit-equal to its own order's output and to
-   its plain version's ncontrib and t_final (v1: every plane);
+   field group's max, no sign flips); the v3, v2 and v1 forwards under
+   the three tile orders, each bit-equal to its own order's output and
+   to its plain version's ncontrib and t_final (v2 and v1: every plane);
 4. eval main path: ``gstex_torch.scripts.render spiral`` renders 8 frames
    of the trained scene; the eval kernel must launch once per frame;
 5. training main path: an 8-view 800x800 Blender dataset rendered from the
@@ -77,7 +77,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    training kernel; the closing eval pass over the interval split
    launches the dense-list eval kernel; the pair buffer's bytes, the peak
    memory and the eval PSNR;
-9. training shapes and timing: for each scene at its training chart pad
+9. serving the trained runs: on phase 5's run (the flat tier, Blender)
+   ``gstex_torch.scripts.eval --load-config`` prints the JAX package's
+   schema with a finite PSNR, the flat eval kernel launching once per
+   test view and once for the warm-up; ``render --load-config`` writes
+   its frames in the ``dataset``, ``interpolate``, ``spiral`` and
+   ``camera-path`` modes, one eval-kernel launch a frame; ``export``
+   writes the ``gstex-ply``, ``gstex-npz`` and ``gaussian-ply`` files,
+   and the gstex-npz export rendered through ``render --scene-npz`` on
+   the test cameras gives the run's own frames bit for bit; on phase 8's
+   run (the v1 tier, nerfstudio) the same eval, the ``dataset`` and
+   ``interpolate`` renders and the exports, on the dense eval kernel;
+10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
    2000-surfel subsample of it at (88, 88), the last two on the dense
@@ -103,7 +114,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against their plain versions, lean and full, under phase 3's gates
    (the last tile row is partial; the forward also under the three tile
    orders, bit for bit), and alone beside their bounds;
-10. the ``kernels`` line (the v1 kernels' numbers from phase 9's
+11. the ``kernels`` line (the v1 kernels' numbers from phase 10's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
     backward's at (64, 128) and (16, 24), the dense eval kernel's at
@@ -404,8 +415,8 @@ def pair_tier(version):
     """The v3, v2 or v1 pair-space kernels and their plain versions behind
     the same calls: ``inputs`` is (records_t, charts_g, counts, cam_info);
     the record gradients come back as ``(T·S, 32)`` rows, one per slot;
-    the kernel's backward, and the v3 and v1 forwards, take a tile
-    ``order`` (their wrapper's own where none is given)."""
+    the kernels take a tile ``order`` (their wrapper's own where none is
+    given)."""
     from gstex_torch.ops import rasterize_v1, rasterize_v2, rasterize_v3
 
     mod = {3: rasterize_v3, 2: rasterize_v2, 1: rasterize_v1}[version]
@@ -956,10 +967,10 @@ def check_orders(version, pinputs, grid, s_cap, lean, **where):
 
 
 def check_fwd_orders(version, pinputs, grid, s_cap, lean, **where):
-    """The v3 or v1 forward under the three tile orders: under each, its
+    """A pair-space forward under the three tile orders: under each, its
     maps and ncontrib bit-equal to its own order's (a tile order changes
-    no pixel's operations), and its ncontrib and t_final (v1: every plane)
-    bit-equal to its plain version's."""
+    no pixel's operations), and its ncontrib and t_final (v2 and v1: every
+    plane) bit-equal to its plain version's."""
     tier = pair_tier(version)
     ref_maps, ref_ncon = tier.fwd_plain(pinputs, grid, s_cap, lean)
     own_maps, own_ncon = tier.fwd(pinputs, grid, s_cap, lean)
@@ -976,7 +987,7 @@ def check_fwd_orders(version, pinputs, grid, s_cap, lean, **where):
     emit("pair_fwd_schedules", kernel=tier.names[1], lean=lean,
          bit_equal=equal, **where)
     gate = ("own_order", "plain_ncontrib",
-            "plain_maps" if version == 1 else "plain_t_final")
+            "plain_t_final" if version == 3 else "plain_maps")
     require(all(e[k] for e in equal.values() for k in gate),
             f"{where}: the {tier.names[1]} tile orders are not bit-equal: "
             f"{equal}")
@@ -985,8 +996,8 @@ def check_fwd_orders(version, pinputs, grid, s_cap, lean, **where):
 def check_pairs(dframe, note, **where):
     """The pair-space tiers on a dense frame's lists: each kernel against
     its plain version, lean and full; v3 and v2 against the dense kernels,
-    v1 against v2; each backward, and the v3 and v1 forwards, under three
-    tile orders. Returns each kernel's plain ms in lean mode."""
+    v1 against v2; each forward and backward under three tile orders.
+    Returns each kernel's plain ms in lean mode."""
     pinputs = pair_copies(dframe)
     emit("pair_buffer", pair_bytes=sum(x.numel() * x.element_size()
                                        for x in pinputs[:2]),
@@ -1007,9 +1018,8 @@ def check_pairs(dframe, note, **where):
                 check_pair_vs_dense(dframe, pinputs, tier, lean, **where)
             check_orders(version, pinputs, dframe.grid, dframe.cfg.s_max,
                          lean, **where)
-            if version != 2:
-                check_fwd_orders(version, pinputs, dframe.grid,
-                                 dframe.cfg.s_max, lean, **where)
+            check_fwd_orders(version, pinputs, dframe.grid,
+                             dframe.cfg.s_max, lean, **where)
     return plain_ms
 
 
@@ -1184,9 +1194,10 @@ def dtu_main_path(root, counters):
     require(all(v == 0 for k, v in launches.items()
                 if k not in own and k != "rasterize_dense_eval"),
             f"dtu: other training kernels ran: {launches}")
-    require(launches["rasterize_dense_eval"] == 1 + n_eval,
+    # the step-0 eval image; the closing pass: a warm-up, each view
+    require(launches["rasterize_dense_eval"] == 2 + n_eval,
             f"dtu: the dense eval kernel launched "
-            f"{launches['rasterize_dense_eval']} times, not {1 + n_eval}")
+            f"{launches['rasterize_dense_eval']} times, not {2 + n_eval}")
     require(len(gathered) == TRAIN_STEPS, f"dtu: {len(gathered)} gathers")
     require(all(h["overflow"] == 0 for h in hist), "dtu: a step overflowed")
     require(all(x == x and abs(x) != float("inf") for x in losses),
@@ -1196,6 +1207,102 @@ def dtu_main_path(root, counters):
             f"dtu: the eval pass read {res['eval']}")
     require(Path(res["checkpoint"]).exists(), "dtu: no checkpoint")
     return launches
+
+
+# the JSON that gstex-eval prints, and its results' keys
+EVAL_SCHEMA = {"experiment_name", "method_name", "checkpoint", "results"}
+EVAL_RESULTS = {"psnr", "ssim", "lpips", "psnr_std", "ssim_std", "fps",
+                "num_rays_per_sec", "gaussian_count", "texel_count",
+                "pixel_scale"}
+SERVE_FRAMES = 4
+
+
+def serve_main_path(root, counters, eval_kernel, views, data=None):
+    """Phase 9 on one trained run ``root``: ``gstex_torch.scripts.eval
+    --load-config`` (JAX's schema, a finite PSNR, one ``eval_kernel``
+    launch per eval view and one for the warm-up), ``render
+    --load-config`` (one launch a frame) in its ``dataset`` and
+    ``interpolate`` modes and ``export`` in its three kinds; with the
+    run's Blender ``data``, also the ``spiral`` and ``camera-path`` modes
+    and the gstex-npz export rendered through ``--scene-npz`` on the same
+    cameras bit-equal to the run's own frames. ``counters`` are zeroed before
+    each command and every other one must stay at zero."""
+    from gstex_torch.data.synthetic import orbit_c2w
+    from gstex_torch.scripts import eval as eval_cli
+    from gstex_torch.scripts import export as export_cli
+    from gstex_torch.scripts import render as render_cli
+
+    def run(name, fn, args, launches):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn(args)
+        seconds = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counters}
+        want = {k: (launches if k == eval_kernel.__name__ else 0)
+                for k in got}
+        require(got == want, f"{root.name}: {name} launched {got}, not "
+                             f"{want}")
+        return out, seconds
+    res, eval_s = run("eval", eval_cli.main, [
+        "--load-config", str(root / "config.json"), "--output-path",
+        str(root / "eval_cli.json")], views + 1)
+    results = res["results"]
+    emit("main_path", path="serve_eval", run=root.name, seconds=eval_s,
+         eval_launches=views + 1, **res)
+    require(set(res) == EVAL_SCHEMA and set(results) == EVAL_RESULTS,
+            f"{root.name}: eval printed {sorted(res)}, {sorted(results)}")
+    require(np.isfinite(results["psnr"]) and results["psnr"] > 10,
+            f"{root.name}: eval PSNR {results['psnr']}")
+    frames = {}
+    path_json = root / "camera_path.json"
+    path_json.write_text(json.dumps({
+        "render_height": H, "render_width": W,
+        "camera_path": [{"camera_to_world": np.concatenate(
+            [orbit_c2w(3.8, az), [[0, 0, 0, 1]]]).reshape(-1).tolist(),
+            "fov": 45.0} for az in (0.3, 1.3)]}))
+    modes = {"dataset": views, "interpolate": SERVE_FRAMES}
+    if data is not None:
+        # orbits about the origin see the Blender scene, which sits there;
+        # the nerfstudio parser moves a capture's world to its cameras'
+        modes.update({"spiral": SERVE_FRAMES, "camera-path": 2})
+    for mode, n in modes.items():
+        out_dir = root / f"frames_{mode}"
+        summary, sec = run(f"render {mode}", render_cli.main, [
+            mode, "--load-config", str(root), "--frames", str(n),
+            "--camera-path-filename", str(path_json), "--output-path",
+            str(out_dir)], n)
+        pngs = sorted(out_dir.glob("frame_*.png"))
+        frames[mode] = dict(frames=len(summary), pngs=len(pngs), seconds=sec)
+        require(len(pngs) == n and all(
+            f["finite"] and f["alpha_coverage"] > 0 and f["overflow"] == 0
+            for f in summary), f"{root.name}: render {mode}: {summary}")
+    exports = {}
+    for kind in export_cli.WRITERS:
+        path = root / f"export.{kind}" if kind != "gstex-npz" else (
+            root / "export.npz")
+        _, sec = run(f"export {kind}", export_cli.main, [
+            kind, "--load-config", str(root), "--output-path", str(path)], 0)
+        exports[kind] = dict(bytes=path.stat().st_size, seconds=sec)
+    if data is None:
+        emit("main_path", path="serve_render_export", run=root.name,
+             render=frames, exports=exports)
+        return results
+    cfg = json.loads((root / "config.json").read_text())["model"]
+    npz_dir = root / "frames_export"
+    run("render the export", render_cli.main, [
+        "dataset", "--scene-npz", str(root / "export.npz"), "--data",
+        str(data), "--renderer", cfg["renderer"], "--background-color",
+        cfg["background_color"], "--output-path", str(npz_dir)], views)
+    own = sorted((root / "frames_dataset").glob("frame_*.png"))
+    from_npz = sorted(npz_dir.glob("frame_*.png"))
+    same = [a.read_bytes() == b.read_bytes() for a, b in zip(own, from_npz)]
+    emit("main_path", path="serve_render_export", run=root.name,
+         render=frames, exports=exports, export_frames_bit_equal=same)
+    require(len(same) == views and all(same),
+            f"{root.name}: the export's frames differ from the run's: "
+            f"{same}")
+    return results
 
 
 def dtu_step_timing(root, counters, smi, note):
@@ -1520,9 +1627,9 @@ def main():
     losses = [h["loss"] for h in hist]
     first, last = (statistics.mean(losses[:10]),
                    statistics.mean(losses[-10:]))
-    # the step-0 eval image, the closing pass over the test split, and the
-    # spiral frames
-    eval_expected = 1 + TEST_VIEWS + FRAMES
+    # the step-0 eval image, the closing pass over the test split (a
+    # warm-up render and each view), and the spiral frames
+    eval_expected = 1 + 1 + TEST_VIEWS + FRAMES
     emit("main_path", path="train_dense", steps=len(hist),
          seconds=dense_train_s, launches=dense_launches,
          chart_pad=run_cfg["chart_pad"], pair_cap=run_cfg["pair_cap"],
@@ -1628,10 +1735,11 @@ def main():
         require(all(v == 0 for k, v in launches.items()
                     if k not in own and k != "rasterize_dense_eval"),
                 f"{renderer}: other training kernels ran: {launches}")
-        require(launches["rasterize_dense_eval"] == 1 + TEST_VIEWS,
+        # the step-0 eval image; the closing pass: a warm-up, each view
+        require(launches["rasterize_dense_eval"] == 2 + TEST_VIEWS,
                 f"{renderer}: the dense eval kernel launched "
                 f"{launches['rasterize_dense_eval']} times, not "
-                f"{1 + TEST_VIEWS}")
+                f"{2 + TEST_VIEWS}")
         require(len(gathered) == TRAIN_STEPS,
                 f"{renderer}: {len(gathered)} pair gathers")
         require(all(h["overflow"] == 0 for h in hist),
@@ -1650,7 +1758,16 @@ def main():
     dtu_launches = dtu_main_path(Path(tmp.name), all_counters)
     torch.cuda.empty_cache()
 
-    # 9. timing: an eval frame, then a training step
+    # 9. serving the runs of phases 5 (flat, Blender) and 8 (v1,
+    # nerfstudio) through the CLIs a user calls
+    serve_counters = all_counters + (reval.rasterize_eval,)
+    serve_main_path(Path(tmp.name) / "run", serve_counters,
+                    reval.rasterize_eval, TEST_VIEWS, data)
+    serve_main_path(Path(tmp.name) / "run_dtu", serve_counters,
+                    rdense.rasterize_dense_eval, (DTU_VIEWS + 7) // 8)
+    torch.cuda.empty_cache()
+
+    # 10. timing: an eval frame, then a training step
     timings = {}
     with torch.no_grad():
         for name, (frame, stats) in frames.items():

@@ -1,13 +1,12 @@
 // How the pair-space kernels (rasterize_v3_*.cu, rasterize_v2_*.cu,
 // rasterize_v1_*.cu) find a tile's slots for the shared walk of
-// tile_walk.cuh: PairSlots for the v2 forward (block b walks tile b),
-// PairFwdSlots for the v3 and v1 forwards and PairRingSlots for the three
-// backwards (tiles in a given order, the record ring, kBlock threads).
-// Slot k of tile t has
-// its own copy of its splat's record, at (t, k) of records_t (T, S, 32),
-// and of its chart, at (t, k) of charts_g (T, S, Ch, Cw, 3), and its own
-// rows of the pair-space gradients d_records_t and d_charts_g, which only
-// the tile's block writes. So the backward needs no atomics across blocks.
+// tile_walk.cuh: PairFwdSlots for the three forwards and PairRingSlots for
+// the three backwards (tiles in a given order, the record ring, kBlock
+// threads). Slot k of tile t has its own copy of its splat's record, at
+// (t, k) of records_t (T, S, 32), and of its chart, at (t, k) of charts_g
+// (T, S, Ch, Cw, 3), and its own rows of the pair-space gradients
+// d_records_t and d_charts_g, which only the tile's block writes. So the
+// backward needs no atomics across blocks.
 
 #pragma once
 
@@ -15,34 +14,9 @@
 
 namespace {
 
-// records staged per chunk by the v2 forward (the TPU kernels' CHUNK is a
-// layout choice of theirs and is not carried over)
-constexpr int kPairChunk = 16;
-
-struct PairSlots {
-  const float* tile_rec;
-  const float* tile_charts;
-  long long chw3;
-
-  __device__ PairSlots(const float* records_t, const float* charts_g,
-                       int ch, int cw, int s_max)
-      : chw3(static_cast<long long>(ch) * cw * 3) {
-    const long long slot0 = static_cast<long long>(blockIdx.x) * s_max;
-    tile_rec = records_t + slot0 * kRec;
-    tile_charts = charts_g + slot0 * chw3;
-  }
-  __device__ void stage(int base, int n, float* s_rec, int tid) const {
-    for (int i = tid; i < n * kRec; i += kThreads)
-      s_rec[i] = tile_rec[static_cast<long long>(base) * kRec + i];
-  }
-  __device__ const float* chart(int, int k) const {
-    return tile_charts + static_cast<long long>(k) * chw3;
-  }
-};
-
-// The v3 and v1 forwards' slots: tile `tile`'s, whichever block walks it,
-// for the walk's record ring (prefetch; stage without it) and a block of
-// kBlock threads.
+// The forwards' slots: tile `tile`'s, whichever block walks it, for the
+// walk's record ring (prefetch; stage without it) and a block of kBlock
+// threads.
 template <int kBlock>
 struct PairFwdSlots {
   const float* tile_rec;

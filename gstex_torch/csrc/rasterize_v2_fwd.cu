@@ -21,52 +21,73 @@
 // splat that covers many tiles are fetched once per tile (no sharing in
 // L2), and the copies themselves were written by the gather before it.
 //
-// What the design does about it: the dense kernel's, one block per tile,
-// 256 threads with 4 pixels each, a pixel's ray, T and sums in registers,
-// 16 records a chunk in shared memory (CHUNK of the TPU kernel), the
-// tile's walk ends once no in-image pixel has T > T_EPS. The walk is the
-// dense kernel's own code, forward_tile in tile_walk.cuh; pair_slots.cuh
-// says how a slot finds its record and chart (its own copies).
+// The design, for Hopper: the v3 and v1 forwards' (forward_tile in
+// tile_walk.cuh, the dense forward's walk on pair_slots.cuh's PairFwdSlots).
+// - One block per tile, 512 threads with 2 pixels each, one block an SM
+//   (16 warps, 128 registers); a pixel's ray, T and sums stay in
+//   registers; the tile leaves its walk once no in-image pixel has
+//   T > T_EPS. A pixel's walk is serial in its thread and the kernel ends
+//   with its heaviest tile, so twice the threads a tile shorten that
+//   tile's time.
+// - Records are staged 64 a chunk in a ring of two buffers filled by
+//   cp.async (a chunk's records are contiguous), chunk c + 1's in flight
+//   while chunk c is walked. A blend fetches its four texels from the
+//   slot's own chart in device memory.
+// - Tiles start longest first (`order`, one a training step from
+//   _RasterizePairs, which hands it to the v2 backward too).
+// The first port staged 16 records a chunk by plain loads behind a barrier
+// pair, in block order, with 256 threads and no minimum of blocks an SM.
+// Each choice was measured against its alternatives (PERF.md §6).
 //
 // Precision: no --use_fast_math and --fmad=false; every operation rounds
 // as the plain version's (ops/rasterize_v2.py: the serial walk of
 // ops/rasterize.py:forward_scan on the pair-space view) does, in the same
-// per-pixel order.
+// per-pixel order, so the maps and ncontrib are bit-equal to it under any
+// tile order.
 
 #include "pair_slots.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kChunk = 64;
+constexpr int kBlock = 512;  // threads a block; 1024 / kBlock pixels each
+using Slots = PairFwdSlots<kBlock>;
+
+// Block b walks tile order[b].
+__global__ void __launch_bounds__(kBlock, 1)
 rasterize_v2_fwd_kernel(const float* __restrict__ records_t,
                         const float* __restrict__ charts_g,
                         const int* __restrict__ counts,
                         const float* __restrict__ cam_info,
                         float* __restrict__ out, int* __restrict__ ncontrib,
-                        int ntx, int tile_h, int tile_w, int height,
-                        int width, int ch, int cw, int s_max, int lean) {
-  const PairSlots slots(records_t, charts_g, ch, cw, s_max);
-  forward_tile<kPairChunk>(slots, blockIdx.x, counts, cam_info, out,
-                           ncontrib, ntx, tile_h, tile_w, height, width, cw,
-                           s_max, lean);
+                        const int* __restrict__ order, int ntx, int tile_h,
+                        int tile_w, int height, int width, int ch, int cw,
+                        int s_max, int lean) {
+  const int tile = order[blockIdx.x];
+  const Slots slots(records_t, charts_g, ch, cw, s_max, tile);
+  forward_tile<kChunk, Slots, false, true, false, kBlock>(
+      slots, tile, counts, cam_info, out, ncontrib, ntx, tile_h, tile_w,
+      height, width, cw, s_max, lean);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. Pointers are device pointers; `stream` is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
+// Plain C entry for ctypes. Pointers are device pointers; records_t must be
+// 16-byte aligned (cp.async); `order` holds the num_tiles tiles in the
+// order blocks take them; `stream` is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int gstex_rasterize_v2_fwd(
     const void* records_t, const void* charts_g, const void* counts,
-    const void* cam_info, void* out, void* ncontrib, int num_tiles, int ntx,
-    int tile_h, int tile_w, int height, int width, int ch, int cw, int s_max,
-    int lean, void* stream) {
+    const void* cam_info, void* out, void* ncontrib, const void* order,
+    int num_tiles, int ntx, int tile_h, int tile_w, int height, int width,
+    int ch, int cw, int s_max, int lean, void* stream) {
   if (num_tiles == 0) return 0;
-  rasterize_v2_fwd_kernel<<<num_tiles, kThreads, 0,
+  rasterize_v2_fwd_kernel<<<num_tiles, kBlock, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(records_t),
       static_cast<const float*>(charts_g), static_cast<const int*>(counts),
       static_cast<const float*>(cam_info), static_cast<float*>(out),
-      static_cast<int*>(ncontrib), ntx, tile_h, tile_w, height, width, ch, cw,
-      s_max, lean);
+      static_cast<int*>(ncontrib), static_cast<const int*>(order), ntx,
+      tile_h, tile_w, height, width, ch, cw, s_max, lean);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,9 +63,7 @@
 //     summed record gradients (and staged chart gradients) out, reading
 //     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
 //     block's threads).
-// With kRing (the flat and the dense kernels, the v3 and v1 forwards, the
-// pair-space backwards)
-// the records of a tile's chunks go through a ring of two buffers: chunk
+// With kRing (the flat, the dense and the pair-space kernels) the records of a tile's chunks go through a ring of two buffers: chunk
 // c + 1's copy is in flight while chunk c is walked, one barrier pair a
 // chunk. Its Slots replace stage and begin by
 //   void prefetch(int base, int n, float* s_rec, int tid): start the

@@ -5,9 +5,13 @@
 ``models.gstex.init_params``: a pre-trained 2DGS ply
 (``raw_from_gaussian_ply``), a point npz (``raw_from_npz``), seed points
 from a dataset, a LOD ply or a point cloud (``raw_from_points``), random
-points (``raw_random``); and whole scenes with their charts from the
+points (``raw_random``); whole scenes with their charts from the
 port's own dumps (``params_from_export_npz``, ``params_from_scene_stats``,
-``load_scene_npz``).
+``load_scene_npz``); and the exports of a trained scene (the reference's
+``exporter.py``): a gstex-npz dump (``export_npz``), an average-colour
+point ply (``export_ply``), a 2DGS gaussian ply (``export_gaussian_ply``)
+and a trained-scene-statistics file (``export_scene_stats``), each in the
+JAX package's layout, so either package reads the other's.
 
 Random draws use an explicit ``torch.Generator`` where the JAX package
 takes a key: the values differ from ``jax.random``'s. Seed-point init
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.quat import fix_init_points, fix_init_rotation, random_quats
-from ..ops.sh import num_sh_bases, rgb_to_sh
+from ..ops.sh import num_sh_bases, rgb_to_sh, sh_to_rgb
 from ..utils import ply as ply_io
 from ..utils.device import resolve_device
 from . import gstex as model
@@ -220,6 +224,16 @@ def params_from_scene_stats(cfg: model.GStexConfig, path, seed: int = 0,
     return params, buffers
 
 
+def dump_chart_pad(path) -> tuple[int, int]:
+    """The least chart pad, in multiples of 8 and at least (8, 8), that
+    holds every chart of a dump of either format."""
+    with np.load(path, allow_pickle=False) as d:
+        hw = (d["texture_hw"] if "texture_hw" in d.files
+              else d["texture_dims"][:, :2])
+        top = hw.max(0) if len(hw) else (0, 0)
+    return tuple(max(8, -(-int(v) // 8) * 8) for v in top)
+
+
 def load_scene_npz(cfg: model.GStexConfig, path, seed: int = 0, device=None):
     """Either dump format: a scene-statistics file (it has a ``kind``
     entry) or a full gstex-npz export."""
@@ -227,3 +241,116 @@ def load_scene_npz(cfg: model.GStexConfig, path, seed: int = 0, device=None):
         is_stats = "kind" in probe.files
     loader = params_from_scene_stats if is_stats else params_from_export_npz
     return loader(cfg, path, seed=seed, device=device)
+
+
+def average_chart_colors(texture: torch.Tensor, texture_hw: torch.Tensor,
+                         sh_degree: int = 3) -> torch.Tensor:
+    """(N, 3) mean albedo of each gaussian over its active chart texels
+    (``get_average_colors``, reference ``gstex.py:714-726``)."""
+    _, ch, cw, _ = texture.shape
+    dev = texture.device
+    hw = texture_hw.to(dev)
+    active = ((torch.arange(ch, device=dev)[None, :, None] < hw[:, 0, None,
+                                                                None])
+              & (torch.arange(cw, device=dev)[None, None, :] < hw[:, 1, None,
+                                                                  None]))
+    vals = sh_to_rgb(texture) if sh_degree > 0 else torch.sigmoid(texture)
+    s = torch.sum(vals * active[..., None], dim=(1, 2))
+    cnt = torch.sum(active, dim=(1, 2))[:, None]
+    return s / torch.clamp(cnt, min=1)
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def export_npz(path, params: model.GStexParams, buffers: model.GStexBuffers,
+               sh_degree: int = 3) -> None:
+    """The gstex-npz dump (reference ``exporter.py``): raw params, the
+    active texels as a flat jagged ``texture_dc`` (gaussian after
+    gaussian, row-major over each chart's h x w) and ``texture_dims``
+    (h, w, offset), the mappings and the pixel scale."""
+    hw = _np(buffers.texture_hw).astype(np.int64)
+    sizes = hw[:, 0] * hw[:, 1]
+    offsets = np.cumsum(sizes) - sizes
+    tex = _np(params.texture)
+    owner = np.repeat(np.arange(hw.shape[0]), sizes)
+    local = np.arange(int(sizes.sum())) - np.repeat(offsets, sizes)
+    widths = np.repeat(hw[:, 1], sizes)
+    flat = tex[owner, local // np.maximum(widths, 1),
+               local % np.maximum(widths, 1)].astype(np.float32)
+    np.savez(
+        path,
+        xyz=_np(params.means),
+        scaling=_np(params.log_scales),
+        rotation=_np(params.quats),
+        opacity=_np(params.opacity_logits),
+        features_dc=_np(params.features_dc),
+        features_rest=_np(params.features_rest),
+        texture_dc=flat.reshape(-1, 3),
+        texture_dims=np.concatenate([hw, offsets[:, None]], 1).astype(
+            np.int32),
+        mappings=_np(buffers.mappings),
+        pixel_scale=_np(buffers.pixel_scale),
+    )
+
+
+def export_ply(path, params: model.GStexParams, buffers: model.GStexBuffers,
+               sh_degree: int = 3) -> None:
+    """The gstex-ply: one point a gaussian at its mean, coloured by its
+    chart's average albedo (reference ``exporter.py:42-108``)."""
+    avg = _np(average_chart_colors(params.texture, buffers.texture_hw,
+                                   sh_degree))
+    cols = np.clip(avg * 255.0, 0, 255)
+    means = _np(params.means)
+    ply_io.write_ply(path, {
+        "x": means[:, 0], "y": means[:, 1], "z": means[:, 2],
+        "red": cols[:, 0], "green": cols[:, 1], "blue": cols[:, 2],
+    })
+
+
+def export_gaussian_ply(path, params: model.GStexParams,
+                        buffers: model.GStexBuffers,
+                        sh_degree: int = 3) -> None:
+    """A 2DGS gaussian ply that ``raw_from_gaussian_ply`` reads back:
+    position, zero normals, ``f_dc_*``, ``f_rest_*`` channel-major (all of
+    one channel's coefficients, then the next's), opacity logit, two log
+    scales and the wxyz quaternion."""
+    means = _np(params.means)
+    n = means.shape[0]
+    fields = {"x": means[:, 0], "y": means[:, 1], "z": means[:, 2],
+              "nx": np.zeros(n), "ny": np.zeros(n), "nz": np.zeros(n)}
+    dc = _np(params.features_dc)
+    for i in range(3):
+        fields[f"f_dc_{i}"] = dc[:, i]
+    rest = _np(params.features_rest)
+    rest_cm = rest.transpose(0, 2, 1).reshape(n, -1)
+    for i in range(rest_cm.shape[1]):
+        fields[f"f_rest_{i}"] = rest_cm[:, i]
+    fields["opacity"] = _np(params.opacity_logits)[:, 0]
+    scales = _np(params.log_scales)
+    for i in range(2):
+        fields[f"scale_{i}"] = scales[:, i]
+    quats = _np(params.quats)
+    for i in range(4):
+        fields[f"rot_{i}"] = quats[:, i]
+    ply_io.write_ply(path, fields)
+
+
+def export_scene_stats(path, params: model.GStexParams,
+                       buffers: model.GStexBuffers) -> None:
+    """A compact trained-scene-statistics file (``params_from_scene_stats``
+    reads it): what sets the rasterizer's cost, the geometry, opacities,
+    mappings in float16 and the chart dims, and not the texels or SH
+    coefficients, which the loader fills at random."""
+    np.savez_compressed(
+        path,
+        kind=np.asarray("scene_stats"),
+        xyz=_np(params.means).astype(np.float16),
+        scaling=_np(params.log_scales).astype(np.float16),
+        rotation=_np(params.quats).astype(np.float16),
+        opacity=_np(params.opacity_logits).astype(np.float16),
+        texture_hw=_np(buffers.texture_hw).astype(np.uint16),
+        mappings=_np(buffers.mappings).astype(np.float16),
+        pixel_scale=_np(buffers.pixel_scale).astype(np.float32),
+    )

@@ -15,10 +15,9 @@ package. The pair buffer and its gradient take ``2 · T · s_max · Ch · Cw
 such buffer.
 
 Also here, what the v3, v2 and v1 wrappers share: their input checks and
-their launches. The three backward kernels and the v3 and v1 forwards take
-their tiles longest first (an ``order``) and copy their records 16 B at a
-time, so they need 16-byte-aligned records; the v2 forward takes neither
-(block b walks tile b, its records staged by plain loads).
+their launches. Every pair-space kernel takes its tiles longest first (an
+``order``) and copies its records 16 B at a time, so it needs
+16-byte-aligned records.
 """
 
 from __future__ import annotations
@@ -84,8 +83,9 @@ def pair_inputs(records: torch.Tensor, texture: torch.Tensor,
 
 def check_inputs(version: int, records_t, charts_g, counts, cam_info,
                  grid: TileGrid, order=None) -> None:
-    """Raise on inputs the v3, v2 or v1 kernels do not take; ``order``
-    (given) must be an int32 ``(num_tiles,)`` tile order."""
+    """Raise on inputs the v3, v2 or v1 kernels do not take: ``order``
+    (given) must be an int32 ``(num_tiles,)`` tile order, and the records
+    16-byte aligned (the kernels copy them by cp.async)."""
     check_pair_shapes(version, charts_g.shape[2:4], grid)
     dev = records_t.device
     if records_t.dim() != 3 or records_t.shape[0] != grid.num_tiles \
@@ -116,15 +116,6 @@ def check_inputs(version: int, records_t, charts_g, counts, cam_info,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the v{version} kernels run on cpu or cuda, not "
                          f"{dev}")
-
-
-def check_ordered_inputs(version: int, records_t, charts_g, counts,
-                         cam_info, grid: TileGrid, order) -> None:
-    """Raise on inputs a kernel that takes a tile order (the v3 and v1
-    forwards, the three backwards) does not take: those of
-    ``check_inputs`` and records that are not 16-byte aligned (the kernels
-    copy them by cp.async)."""
-    check_inputs(version, records_t, charts_g, counts, cam_info, grid, order)
     if records_t.data_ptr() % 16:
         raise ValueError("records_t must be 16-byte aligned")
 
@@ -132,9 +123,9 @@ def check_ordered_inputs(version: int, records_t, charts_g, counts,
 def check_bwd_inputs(version: int, records_t, charts_g, counts, cam_info,
                      maps, ncontrib, gmaps, grid: TileGrid, order) -> None:
     """Raise on inputs the v3, v2 or v1 backward does not take: those of
-    ``check_ordered_inputs`` and residuals of the wrong shape."""
-    check_ordered_inputs(version, records_t, charts_g, counts, cam_info,
-                         grid, order)
+    ``check_inputs`` and residuals of the wrong shape."""
+    check_inputs(version, records_t, charts_g, counts, cam_info, grid,
+                 order)
     check_residuals(maps, ncontrib, gmaps, records_t.device, grid)
 
 
@@ -145,18 +136,16 @@ def _geometry(grid: TileGrid, charts_g):
 
 
 def launch_fwd(name: str, records_t, charts_g, counts, cam_info,
-               grid: TileGrid, lean: bool, order=None):
+               grid: TileGrid, lean: bool, order):
     """Launch the forward kernel ``gstex_<name>`` on CUDA inputs; returns
-    ``(maps (14, H, W), ncontrib (H, W) int32)``. A kernel that takes its
-    tiles in an ``order`` gets it after ``ncontrib``."""
+    ``(maps (14, H, W), ncontrib (H, W) int32)``. The kernel takes its
+    tiles in ``order``, after ``ncontrib``."""
     dev = records_t.device
     out = torch.empty((NCH, grid.height, grid.width), dtype=torch.float32,
                       device=dev)
     ncon = torch.empty((grid.height, grid.width), dtype=torch.int32,
                        device=dev)
-    pointers = (records_t, charts_g, counts, cam_info, out, ncon)
-    if order is not None:
-        pointers += (order,)
+    pointers = (records_t, charts_g, counts, cam_info, out, ncon, order)
     _launch(name, len(pointers), pointers,
             (*_geometry(grid, charts_g), int(lean)), dev)
     return out, ncon

@@ -230,17 +230,15 @@ class _RasterizePairs(torch.autograd.Function):
     pair-space inputs, by the v3, v2 or v1 kernels; the backward returns their
     pair-space gradients, which autograd reduces through the gathers of
     ``pair_inputs`` (the counterpart of ``_core`` with ``_impls``). Each
-    version's backward, and the v3 and v1 forwards, take the tiles longest
-    first, in one order computed once, in the forward; the v2 forward
-    walks them in block order."""
+    version's forward and backward take the tiles longest first, in one
+    order computed once, in the forward."""
 
     @staticmethod
     def forward(ctx, records_t, charts_g, counts, info, grid, version, lean):
         order = tile_order(counts, records_t.shape[1])
         fwd, _ = _PAIR_IMPLS[version]
-        ordered = {} if version == 2 else {"order": order}
         maps, ncon = fwd(records_t, charts_g, counts, info, grid, lean=lean,
-                         **ordered)
+                         order=order)
         ctx.save_for_backward(records_t, charts_g, counts, info, maps, ncon,
                               order)
         ctx.grid, ctx.version, ctx.lean = grid, version, lean

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from . import rasterize as plain
 from .binning import TileGrid
-from .pair_inputs import (check_bwd_inputs, check_ordered_inputs, launch_bwd,
+from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
                           launch_fwd)
 from .rasterize_fwd import tile_order
 from .rasterize_v2 import pair_view
@@ -68,8 +68,7 @@ def rasterize_v1_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
     time. CPU tensors run the plain version; CUDA tensors launch the
     kernel (and raise if it cannot launch).
     """
-    check_ordered_inputs(1, records_t, charts_g, counts, cam_info, grid,
-                         order)
+    check_inputs(1, records_t, charts_g, counts, cam_info, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v1_fwd_reference(records_t, charts_g, counts,
                                           cam_info, grid, lean=lean)

@@ -25,6 +25,7 @@ from . import rasterize as plain
 from .binning import TileGrid
 from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
                           launch_fwd)
+from .rasterize_fwd import tile_order
 from .records import F_REC
 
 
@@ -59,26 +60,33 @@ def rasterize_v2_bwd_reference(records_t, charts_g, counts, cam_info, maps,
 
 
 def rasterize_v2_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
-                     lean: bool = False):
+                     lean: bool = False, order=None):
     """Training forward; returns ``(maps (14, H, W), ncontrib (H, W)
     int32)``, ncontrib being ``S`` where a pixel's walk never broke.
 
     Args:
         records_t: (T, S, 32) float32 ``pair_inputs(...).records_t``.
-        charts_g: (T, S, Ch, Cw, 3) float32 per-slot charts.
+        charts_g: (T, S, Ch, Cw, 3) float32 per-slot charts, Ch <= 42.
         counts: (T,) int32 (clamped to S here and in the kernel).
         cam_info: (18,) float32.
         lean: skip the normal and reg chains; their planes stay zero.
+        order: the tiles longest first, ``tile_order(counts, S)``,
+            computed here if not given. The tile order changes no pixel's
+            operations: the maps and ncontrib are bit-equal to the plain
+            version's under any order.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel
-    (and raise if it cannot launch).
+    ``records_t`` must be 16-byte aligned: the kernel copies it 16 B at a
+    time. CPU tensors run the plain version; CUDA tensors launch the
+    kernel (and raise if it cannot launch).
     """
-    check_inputs(2, records_t, charts_g, counts, cam_info, grid)
+    check_inputs(2, records_t, charts_g, counts, cam_info, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v2_fwd_reference(records_t, charts_g, counts,
                                           cam_info, grid, lean=lean)
+    if order is None:
+        order = tile_order(counts, records_t.shape[1])
     out = launch_fwd("rasterize_v2_fwd", records_t, charts_g, counts,
-                     cam_info, grid, lean)
+                     cam_info, grid, lean, order)
     rasterize_v2_fwd.launches += 1
     return out
 

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from .binning import TileGrid
-from .pair_inputs import (check_bwd_inputs, check_ordered_inputs, launch_bwd,
+from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
                           launch_fwd)
 from .rasterize_bwd import (direct_terms, record_terms, texel_terms,
                             tile_planes, walk_starts)
@@ -245,8 +245,7 @@ def rasterize_v3_fwd(records_t, charts_g, counts, cam_info, grid: TileGrid,
     order changes no pixel's operations. CPU tensors run the plain
     version; CUDA tensors launch the kernel (and raise if it cannot
     launch)."""
-    check_ordered_inputs(3, records_t, charts_g, counts, cam_info, grid,
-                         order)
+    check_inputs(3, records_t, charts_g, counts, cam_info, grid, order)
     if records_t.device.type == "cpu":
         return rasterize_v3_fwd_reference(records_t, charts_g, counts,
                                           cam_info, grid, lean=lean)

@@ -1,22 +1,44 @@
 """gstex-torch-render: render views of a trained scene to PNG frames.
 
-The counterpart of ``gstex-render`` for the port. The scene comes from
-``--scene-npz`` (a gstex-npz export or a trained-scene-statistics file).
+The counterpart of ``gstex-render`` for the port (the reference's
+``ns-render``). The scene comes from exactly one of
+
+- ``--load-config``: a ``gstex-torch-train`` run directory (or its
+  ``config.json``), rebuilt by ``scripts/eval_setup.py``: the latest
+  checkpoint's state, rendered at its step with the run's model config
+  (renderer, chart pad, background), the cameras of its own dataset
+  through its own parser (Blender or nerfstudio);
+- ``--scene-npz``: a gstex-npz export or a trained-scene-statistics file,
+  at the least chart pad that holds its charts, rendered at its full SH
+  degree, with the cameras of ``--data``'s Blender
+  ``transforms_<split>.json`` where given.
+
 Modes:
 
-- ``dataset``: the cameras of ``--data``'s ``transforms_<split>.json``;
-- ``spiral``: ``--frames`` views on an orbit, around the mean camera
-  distance of ``--data`` when given, else at distance 4 from the origin
-  at ``--height`` x ``--width``.
+- ``dataset``: the cameras of the ``--split`` split (a run without one
+  falls back to its train split, as ``gstex-render`` does);
+- ``interpolate``: ``--frames`` poses between those cameras, linear in
+  position and by spherical linear interpolation in rotation;
+- ``spiral``: ``--frames`` views on an orbit around the mean camera
+  distance of those cameras, or with none at distance 4 from the origin
+  at ``--height`` x ``--width``;
+- ``camera-path``: the keyframes of a nerfstudio ``camera_path.json``
+  (``--camera-path-filename``: ``camera_to_world``, ``fov`` in degrees,
+  ``render_height`` and ``render_width``).
 
 Pair capacities are sized from one demand pass over every camera
 (``settle_caps``), so no frame overflows. ``--renderer`` names the tier
-(``models.gstex.render``): the default ``pallas`` takes the flat kernels
-where the dispatch rule keeps the scene's chart pad on them (up to about
-(80, 88) at 32x32 tiles) and the dense-list kernels otherwise;
-``pallas4`` the dense-list kernels, as do ``pallas3``, ``pallas2`` and
-``pallas1`` (their pair-space kernels train; a frame takes the
-dense-list eval kernel); ``xla`` the pure-torch tier.
+(``models.gstex.render``; default: the run's, else ``pallas``): ``pallas``
+takes the flat kernels where the dispatch rule keeps the scene's chart pad
+on them (up to about (80, 88) at 32x32 tiles) and the dense-list kernels
+otherwise; ``pallas4`` the dense-list kernels, as do ``pallas3``,
+``pallas2`` and ``pallas1`` (their pair-space kernels train; a frame takes
+the dense-list eval kernel); ``xla`` the pure-torch tier. ``--video`` and
+the panoramic ``--camera-type``s are not offered yet and exit with what
+they need.
+
+    python -m gstex_torch.scripts.render interpolate \\
+        --load-config outputs/RUN --frames 30
 
     python -m gstex_torch.scripts.render spiral \\
         --scene-npz assets/trained_scene_stats.npz --frames 8
@@ -26,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +57,7 @@ import torch
 from ..data.png import write_png
 from ..data.synthetic import orbit_c2w, orbit_camera
 from ..models import gstex as model
-from ..models.init_io import load_scene_npz
+from ..models.init_io import dump_chart_pad, load_scene_npz
 from ..ops.binning import sorted_pairs, settle_caps
 from ..ops.camera import make_camera
 from ..ops.cull import make_pair_cull
@@ -79,30 +102,119 @@ def demand_caps(cfg: model.GStexConfig, params, buffers, cams,
     return settle_caps(total, hottest)
 
 
-def _cameras(args, device):
-    if args.data is not None:
-        from ..data.blender import parse_blender
+def _interp_poses(c2ws, steps: int) -> list[np.ndarray]:
+    """``steps`` (3, 4) poses along the cameras ``c2ws``: positions
+    linear, rotations by ``scipy``'s ``Slerp``, at even times from the
+    first camera to the last."""
+    from scipy.spatial.transform import Rotation, Slerp
 
-        ds = parse_blender(args.data, args.split)
-        cams = [make_camera(ds.fx[i], ds.fy[i], ds.cx[i], ds.cy[i],
-                            ds.heights[i], ds.widths[i], ds.c2ws[i],
-                            device=device) for i in range(len(ds.c2ws))]
-        if args.mode == "dataset":
-            return cams
-        # spiral around the mean camera distance
-        center = ds.c2ws[:, :, 3].mean(axis=0)
-        radius = float(np.linalg.norm(center) + 1e-3) or 4.0
-        base = cams[0]
-        return [make_camera(base.fx, base.fy, base.cx, base.cy, base.height,
-                            base.width, orbit_c2w(radius, float(az)),
-                            device=device)
+    n = len(c2ws)
+    times = np.arange(n)
+    slerp = Slerp(times, Rotation.from_matrix(np.stack(
+        [c[:3, :3] for c in c2ws])))
+    t_new = np.linspace(0, n - 1, steps)
+    r_new = slerp(t_new).as_matrix()
+    pos = np.stack([c[:3, 3] for c in c2ws])
+    p_new = np.stack([np.interp(t_new, times, pos[:, i]) for i in range(3)],
+                     1)
+    return [np.concatenate([r_new[i], p_new[i][:, None]], 1)
+            for i in range(steps)]
+
+
+def camera_path_cameras(spec: dict, device) -> list:
+    """The cameras of a nerfstudio ``camera_path.json``: each keyframe's
+    ``camera_to_world`` (4x4, row-major) at ``render_height`` x
+    ``render_width``, its vertical ``fov`` in degrees (the path's where a
+    keyframe has none; 50 by default) as ``fy = fx``, the principal point
+    at the centre."""
+    h = int(spec.get("render_height", 1080))
+    w = int(spec.get("render_width", 1920))
+    cams = []
+    for kf in spec["camera_path"]:
+        c2w = np.array(kf["camera_to_world"], np.float64).reshape(4, 4)[:3]
+        fov_deg = float(kf.get("fov", spec.get("fov", 50.0)))
+        fy = 0.5 * h / np.tan(0.5 * np.deg2rad(fov_deg))
+        cams.append(make_camera(fy, fy, w / 2, h / 2, h, w, c2w,
+                                device=device))
+    return cams
+
+
+def _dataset_cameras(args, device):
+    """The cameras of ``--data``'s Blender split, or None."""
+    if args.data is None:
+        return None
+    from ..data.blender import parse_blender
+
+    ds = parse_blender(args.data, args.split)
+    return [make_camera(ds.fx[i], ds.fy[i], ds.cx[i], ds.cy[i],
+                        ds.heights[i], ds.widths[i], ds.c2ws[i],
+                        device=device) for i in range(len(ds.c2ws))]
+
+
+def _cameras(args, base, device) -> list:
+    """The mode's cameras, from the dataset cameras ``base`` (None where
+    the scene came without any)."""
+    if args.mode == "camera-path":
+        if args.camera_path_filename is None:
+            raise SystemExit("mode 'camera-path' needs "
+                             "--camera-path-filename")
+        spec = json.loads(Path(args.camera_path_filename).read_text())
+        return camera_path_cameras(spec, device)
+    if base is None:
+        if args.mode != "spiral":
+            raise SystemExit(f"mode {args.mode!r} needs --load-config or "
+                             f"--data")
+        return [orbit_camera(args.height, args.width, dist=4.0,
+                             azimuth=float(az), device=device)
                 for az in np.linspace(0, 2 * np.pi, args.frames,
                                       endpoint=False)]
     if args.mode == "dataset":
-        raise SystemExit("mode 'dataset' needs --data")
-    return [orbit_camera(args.height, args.width, dist=4.0,
-                         azimuth=float(az), device=device)
-            for az in np.linspace(0, 2 * np.pi, args.frames, endpoint=False)]
+        return base
+    c2ws = [c.c2w.cpu().numpy() for c in base]
+    if args.mode == "interpolate":
+        poses = _interp_poses(c2ws, args.frames)
+    else:
+        # spiral around the mean camera distance
+        center = np.mean([c[:3, 3] for c in c2ws], axis=0)
+        radius = float(np.linalg.norm(center) + 1e-3) or 4.0
+        poses = [orbit_c2w(radius, float(az)) for az in np.linspace(
+            0, 2 * np.pi, args.frames, endpoint=False)]
+    cam = base[0]
+    return [make_camera(cam.fx, cam.fy, cam.cx, cam.cy, cam.height,
+                        cam.width, pose, device=device) for pose in poses]
+
+
+def _unported(args) -> None:
+    if args.video:
+        raise SystemExit("--video needs an mp4 encoder (cv2's VideoWriter "
+                         "in gstex-render), which the port does not use; "
+                         "the frames are PNGs to encode with another tool")
+    if args.camera_type != "perspective":
+        raise SystemExit(f"--camera-type {args.camera_type} needs the "
+                         f"panorama renderer ops/pano.py, not yet ported "
+                         f"(ROADMAP Queue 1 item 13)")
+
+
+def _scene(args, device):
+    """(cfg, params, buffers, step, dataset cameras or None)."""
+    if args.load_config is not None:
+        from .eval_setup import eval_setup
+
+        trainer, _, _ = eval_setup(args.load_config, device=device)
+        cache = (trainer.eval_cache if args.split == "test"
+                 else trainer.train_cache) or trainer.train_cache
+        st = trainer.state
+        cfg = trainer.mcfg
+        if args.renderer is not None:
+            cfg = dataclasses.replace(cfg, renderer=args.renderer)
+        return cfg, st.params, st.buffers, st.step, cache.cameras
+    cfg = model.GStexConfig(renderer=args.renderer or "pallas",
+                            chart_pad=dump_chart_pad(args.scene_npz))
+    params, buffers = load_scene_npz(cfg, args.scene_npz, seed=args.seed,
+                                     device=device)
+    # a scene from a file renders at its full SH degree
+    return (cfg, params, buffers, cfg.sh_degree * cfg.sh_degree_interval,
+            _dataset_cameras(args, device))
 
 
 def main(argv=None) -> list[dict]:
@@ -110,11 +222,20 @@ def main(argv=None) -> list[dict]:
     output, alpha coverage, total pairs, overflow)."""
     p = argparse.ArgumentParser(
         description="Render views of a trained GStex scene to PNG frames.")
-    p.add_argument("mode", choices=["dataset", "spiral"])
-    p.add_argument("--scene-npz", required=True,
-                   help="gstex-npz export or trained-scene-statistics file")
+    p.add_argument("mode", choices=["dataset", "interpolate", "spiral",
+                                    "camera-path"])
+    source = p.add_mutually_exclusive_group(required=True)
+    source.add_argument("--load-config", default=None,
+                        help="gstex-torch-train run directory, or its "
+                             "config.json")
+    source.add_argument("--scene-npz", default=None,
+                        help="gstex-npz export or trained-scene-statistics "
+                             "file")
     p.add_argument("--data", default=None,
-                   help="Blender dataset directory (transforms_<split>.json)")
+                   help="with --scene-npz: Blender dataset directory "
+                        "(transforms_<split>.json)")
+    p.add_argument("--camera-path-filename", default=None,
+                   help="nerfstudio camera_path.json (mode camera-path)")
     p.add_argument("--split", default="test")
     p.add_argument("--frames", type=int, default=120)
     p.add_argument("--height", type=int, default=800)
@@ -122,23 +243,33 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--output-path", default="renders")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random fills of a statistics file")
-    p.add_argument("--renderer", default="pallas",
-                   help="render tier: pallas (flat kernels up to about "
-                        "(80, 88) charts, else dense), pallas4, pallas3, "
-                        "pallas2, pallas1 (dense-list eval kernel), xla "
-                        "(pure torch), oracle")
+    p.add_argument("--renderer", default=None,
+                   help="render tier (default: the run's, else pallas): "
+                        "pallas (flat kernels up to about (80, 88) charts, "
+                        "else dense), pallas4, pallas3, pallas2, pallas1 "
+                        "(dense-list eval kernel), xla (pure torch), "
+                        "oracle")
+    p.add_argument("--background-color", default=None,
+                   choices=["random", "white", "black"],
+                   help="eval background (default: the run's, else "
+                        "random: the viewer's grey)")
+    p.add_argument("--video", action="store_true",
+                   help="also encode an mp4 (not offered yet)")
+    p.add_argument("--camera-type", default="perspective",
+                   choices=["perspective", "equirectangular", "ods"],
+                   help="panoramas are not offered yet")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
+    _unported(args)
 
     device = resolve_device(args.device)
-    cfg = model.GStexConfig(renderer=args.renderer)
-    params, buffers = load_scene_npz(cfg, args.scene_npz, seed=args.seed,
-                                     device=device)
-    # a trained scene renders at its full SH degree
-    step = cfg.sh_degree * cfg.sh_degree_interval
-    cams = _cameras(args, device)
-    pair_cap, s_cap = demand_caps(cfg, params, buffers, cams, step)
+    cfg, params, buffers, step, base = _scene(args, device)
+    if args.background_color is not None:
+        cfg = dataclasses.replace(cfg, background_color=args.background_color)
+    cams = _cameras(args, base, device)
+    with torch.no_grad():
+        pair_cap, s_cap = demand_caps(cfg, params, buffers, cams, step)
     cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
     bg = eval_background(cfg, device)
 

@@ -21,9 +21,11 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..data.manager import FullImageCache
+from ..data.png import write_png
 from ..models import gstex as model
 from ..ops.binning import settle_caps
 from ..scripts.render import demand_caps, eval_background
@@ -213,11 +215,47 @@ class Trainer:
                                            for k, v in m.items()}}))
         return m
 
-    def eval_all(self) -> dict:
-        """Mean PSNR and SSIM over the eval set; LPIPS ``None``."""
-        rows = [self._eval_metrics(i) for i in range(len(self.eval_cache))]
-        return {k: None if rows[0][k] is None
-                else sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    def eval_all(self, save_images: bool = False) -> dict:
+        """The JAX package's ``eval_all`` schema over the eval set: each
+        metric's mean, and its (population) ``_std`` where it is not
+        ``None`` (LPIPS is); ``fps`` and ``num_rays_per_sec`` of the
+        renders on the host clock, after one warm-up render outside it,
+        each frame ending in a synchronize on CUDA, as JAX's host copy
+        does; ``gaussian_count``, ``texel_count`` and ``pixel_scale``.
+        ``save_images`` writes each eval render as
+        ``<output_dir>/eval_images/eval_all_rgb_<i>.png``."""
+        n = len(self.eval_cache)
+        cam, img, _ = self.eval_cache.get(0)
+        bg = eval_background(self.mcfg, img.device)
+        sync = (torch.cuda.synchronize if img.device.type == "cuda"
+                else lambda: None)
+        step_mod.eval_step(self.mcfg, self.state, cam, bg)
+        sync()
+        rows, t_render = [], 0.0
+        img_dir = self.out_dir / "eval_images"
+        for i in range(n):
+            cam, img, _ = self.eval_cache.get(i)
+            t0 = time.perf_counter()
+            out = step_mod.eval_step(self.mcfg, self.state, cam, bg)
+            sync()
+            t_render += time.perf_counter() - t0
+            rows.append(image_metrics(out["rgb"],
+                                      model.composite_gt(img, bg)))
+            if save_images:
+                img_dir.mkdir(parents=True, exist_ok=True)
+                rgb = (out["rgb"].clamp(0, 1) * 255).to(torch.uint8)
+                write_png(img_dir / f"eval_all_rgb_{i:05d}.png",
+                          rgb.cpu().numpy())
+        agg = {k: None if rows[0][k] is None
+               else float(np.mean([r[k] for r in rows])) for k in rows[0]}
+        agg.update({f"{k}_std": float(np.std([r[k] for r in rows]))
+                    for k in rows[0] if rows[0][k] is not None})
+        agg["fps"] = n / t_render
+        agg["num_rays_per_sec"] = n * cam.height * cam.width / t_render
+        agg["gaussian_count"] = float(self.state.params.means.shape[0])
+        agg["texel_count"] = float(model.texel_count(self.state.buffers))
+        agg["pixel_scale"] = float(self.state.buffers.pixel_scale)
+        return agg
 
     def save(self) -> Path:
         path = ckpt_io.save_checkpoint(

@@ -1,17 +1,18 @@
 """The tile orders and record alignment that the flat eval kernel, the
-three dense-list kernels, the three pair-space backwards and the v3 and v1
-forwards take, checked by their wrappers on the CPU.
+three dense-list kernels and the six pair-space kernels take, checked by
+their wrappers on the CPU.
 
 These kernels copy records 16 B at a time (cp.async) and take their tiles
 longest first, in an order computed once a frame (``rasterize_pl5_eval``,
 ``rasterize_pl_eval``) or once a training step (``_Rasterize4``, in its
 forward, for the dense forward and backward both; ``_RasterizePairs``, in
-its forward, for the v3, v2 or v1 backward and the v3 or v1 forward; the
-v2 forward takes neither an order nor aligned records). The wrappers
+its forward, for the v3, v2 or v1 forward and backward). The wrappers
 refuse misaligned records and orders of the wrong type or length before
 they dispatch, so the CPU path checks what the card path would launch. The
 kernels themselves run only on the card (``test_torch_kernels_cuda.py``).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -35,6 +36,16 @@ from gstex_torch.ops.sh import sh_to_rgb
 
 H, W = 48, 64
 S_MAX = 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """These tests run many small tensor ops; one intra-op thread keeps
+    them from contending with the other test workers for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def scene():
@@ -358,8 +369,9 @@ PAIR = {3: (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd),
         1: (rv1.rasterize_v1_fwd, rv1.rasterize_v1_bwd)}
 VERSIONS = pytest.mark.parametrize("version", [2, 3, 1],
                                    ids=["v2", "v3", "v1"])
-# the versions whose forward takes a tile order and aligned records
-ORDERED_FWD = pytest.mark.parametrize("version", [3, 1], ids=["v3", "v1"])
+# every pair-space forward takes a tile order and aligned records (v2's
+# against its plain version under three orders: test_v2_forward_under_...)
+ORDERED_FWD = VERSIONS
 
 
 def pair_residuals(pairs, grid, version, lean=False):
@@ -380,15 +392,14 @@ def test_pair_backward_refuses_misaligned_records(version):
     with pytest.raises(ValueError, match="aligned"):
         bwd(shifted, *pairs[1:], maps, ncon, g, grid)
     assert bwd.launches == before
-    if version == 2:
-        # the v2 forward stages its records with plain loads
-        out, _ = fwd(shifted, *pairs[1:], grid)
-        assert torch.equal(out, maps)
+    # the forward copies the same records through its cp.async ring
+    with pytest.raises(ValueError, match="aligned"):
+        fwd(shifted, *pairs[1:], grid)
 
 
 @ORDERED_FWD
 def test_pair_forward_refuses_misaligned_records(version):
-    """The v3 and v1 forwards copy their records through the cp.async
+    """The pair-space forwards copy their records through the cp.async
     ring."""
     fwd = PAIR[version][0]
     pairs, grid = pair_case()
@@ -412,7 +423,7 @@ def test_pair_forward_refuses_a_bad_tile_order(bad, version):
         PAIR[version][0](*pairs, grid, order=wrong)
 
 
-@ORDERED_FWD
+@pytest.mark.parametrize("version", [3, 1], ids=["v3", "v1"])
 @pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
 def test_pair_forward_takes_an_order_and_computes_the_same_maps(lean,
                                                                 version):
@@ -425,6 +436,30 @@ def test_pair_forward_takes_an_order_and_computes_the_same_maps(lean,
     order = rfwd.tile_order(pairs[2], pairs[0].shape[1]).flip(0).contiguous()
     maps2, ncon2 = fwd(*pairs, grid, lean=lean, order=order)
     assert torch.equal(maps2, maps) and torch.equal(ncon2, ncon)
+    assert float(maps[7].max()) > 0.3
+
+
+@functools.lru_cache(maxsize=1)
+def v2_plain():
+    """The pair case and the v2 forward's plain version on it (lean),
+    computed once for the tests that hold the wrapper to it."""
+    pairs, grid = pair_case()
+    return pairs, grid, rv2.rasterize_v2_fwd_reference(*pairs, grid,
+                                                       lean=True)
+
+
+@pytest.mark.parametrize("schedule", ["block", "longest_first",
+                                      "reversed"])
+def test_v2_forward_under_an_order_is_its_plain_version(schedule):
+    """On the CPU the v2 forward under a given order is its plain version,
+    which takes no order, bit for bit."""
+    pairs, grid, (ref, ref_ncon) = v2_plain()
+    first = rfwd.tile_order(pairs[2], pairs[0].shape[1])
+    order = {"block": torch.arange(grid.num_tiles, dtype=torch.int32),
+             "longest_first": first,
+             "reversed": first.flip(0).contiguous()}[schedule]
+    maps, ncon = rv2.rasterize_v2_fwd(*pairs, grid, lean=True, order=order)
+    assert torch.equal(maps, ref) and torch.equal(ncon, ref_ncon)
     assert float(maps[7].max()) > 0.3
 
 
@@ -494,8 +529,8 @@ def test_rasterize_pairs_computes_an_order_for_each_version(monkeypatch,
 def test_rasterize_pairs_hands_one_order_to_both_kernels(monkeypatch,
                                                          version):
     """A training step through ``_RasterizePairs`` calls ``tile_order``
-    once, before the forward, and hands that one tensor to the v3 or v1
-    forward and to the version's backward; the v2 forward gets none."""
+    once, before the forward, and hands that one tensor to the version's
+    forward and backward."""
     pairs, grid = pair_case()
     calls, fwd_orders, bwd_orders = [], [], []
     real_order = rasterize_api.tile_order
@@ -521,9 +556,5 @@ def test_rasterize_pairs_hands_one_order_to_both_kernels(monkeypatch,
     maps[:8].sum().backward()
     assert len(calls) == 1
     assert len(fwd_orders) == 1 and len(bwd_orders) == 1
-    assert bwd_orders[0] is calls[0]
-    if version == 2:
-        assert fwd_orders[0] is None
-    else:
-        assert fwd_orders[0] is calls[0]
+    assert bwd_orders[0] is calls[0] and fwd_orders[0] is calls[0]
     assert torch.equal(calls[0], real_order(pairs[2], S_MAX))

@@ -42,12 +42,12 @@ The pair-space v3, v2 and v1 kernels run on per-(tile, slot) copies of
 the dense lists' records and charts, at 32x32 tiles and pads up to their
 limits (40 rows for v3, 42 for v2 and v1), one of them past what the v1
 backward stages in shared memory. Each is held to its plain version by
-the gates above (v1's forward bit for bit; v3's forward sums its chunks'
+the gates above (the v2 and v1 forwards bit for bit; v3's forward sums its chunks'
 slots in another order than its plain version, so its maps to 1e-4, and
 t_final and ncontrib exactly), v3 and v2, summed per gaussian, to the
 dense kernels on the same pairs, and v1 to v2, which it equals but for its
-rounding of the distortion depth. The three pair-space backwards and the
-v3 and v1 forwards take their tiles in an order, and each is held to its
+rounding of the distortion depth. The six pair-space kernels take their
+tiles in an order, and each is held to its
 plain version under three (the forwards also bit for bit to their own
 output under each): v3 also where its pixels apply slots in three or more
 of its chunks of 16 and where tiles end inside a chunk, and v1 at the
@@ -624,7 +624,7 @@ def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
                                            lean):
     """The kernel and its plain version run the same float32 operations
     (the v3 scan in the same association), so T and ncontrib agree bit
-    for bit, and v1's maps too; v3's sums over a chunk's slots are
+    for bit, and v2's and v1's maps too; v3's sums over a chunk's slots are
     reordered (1e-4), its t_final is bit-equal."""
     _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
     if s_cap == 16:
@@ -637,7 +637,7 @@ def test_pair_forward_kernel_matches_plain(cuda, version, pad, s_cap, hw,
     ref, ref_ncon = fwd_plain(*pairs, grid, lean=lean)
     torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
     assert torch.equal(ncon, ref_ncon)
-    if version == 1:
+    if version != 3:
         assert torch.equal(maps, ref)
     if version == 3:
         assert torch.equal(maps[12], ref[12])
@@ -758,11 +758,12 @@ def test_pair_wrappers_raise_instead_of_falling_back(cuda):
     tall = torch.zeros((*charts_g.shape[:2], 43, 8, 3), device=cuda)
     with pytest.raises(ValueError, match="42 rows"):
         rv1.rasterize_v1_fwd(records_t, tall, counts, info, grid)
-    # the v3 and v1 forwards' tile orders and their cp.async record copies
+    # the forwards' tile orders and their cp.async record copies
     buf = torch.empty(records_t.numel() + 4, device=cuda)
     shifted = buf[1:1 + records_t.numel()].view(records_t.shape)
     shifted.copy_(records_t)
-    for fwd in (rv3.rasterize_v3_fwd, rv1.rasterize_v1_fwd):
+    for fwd in (rv3.rasterize_v3_fwd, rv2.rasterize_v2_fwd,
+                rv1.rasterize_v1_fwd):
         with pytest.raises(ValueError, match="order"):
             fwd(*pairs, grid,
                 order=torch.zeros(1, dtype=torch.int32, device=cuda))
@@ -889,14 +890,18 @@ def test_pair_backward_tile_orders_agree(cuda, version, pad, s_cap, hw,
 # (version, pad, s_cap, image): v3 at (16, 24), at its row limit (40, 40),
 # at (8, 8), on lists cut at 48 slots (three chunks of 16 whose carries
 # every walked pixel crosses) and at 40 (cut tiles end half way through
-# their third chunk); v1 at (16, 24), (8, 8) and at the nerfstudio path's
-# pad (40, 80) on an 800x600 image, whose last row of tiles is partial
+# their third chunk); v2 at (16, 24), (8, 8) and its row limit (40, 42);
+# v1 at (16, 24), (8, 8) and at the nerfstudio path's pad (40, 80) on an
+# 800x600 image, whose last row of tiles is partial
 FWD_ORDER_CASES = [(3, (16, 24), 1024, (H, W)), (3, (40, 40), 1024, (H, W)),
                    (3, (8, 8), 1024, (H, W)), (3, (8, 8), 48, (H, W)),
-                   (3, (8, 8), 40, (H, W)), (1, (16, 24), 1024, (H, W)),
-                   (1, (8, 8), 1024, (H, W)), (1, (40, 80), 128, (600, 800))]
+                   (3, (8, 8), 40, (H, W)), (2, (16, 24), 1024, (H, W)),
+                   (2, (8, 8), 1024, (H, W)), (2, (40, 42), 1024, (H, W)),
+                   (1, (16, 24), 1024, (H, W)), (1, (8, 8), 1024, (H, W)),
+                   (1, (40, 80), 128, (600, 800))]
 FWD_ORDER_IDS = ["v3-pad16x24", "v3-pad40x40", "v3-pad8", "v3-three_chunks",
-                 "v3-ends_inside_a_chunk", "v1-pad16x24", "v1-pad8",
+                 "v3-ends_inside_a_chunk", "v2-pad16x24", "v2-pad8",
+                 "v2-pad40x42", "v1-pad16x24", "v1-pad8",
                  "v1-pad40x80_800x600"]
 
 
@@ -906,11 +911,11 @@ FWD_ORDER_IDS = ["v3-pad16x24", "v3-pad40x40", "v3-pad8", "v3-three_chunks",
                          ids=FWD_ORDER_IDS)
 def test_pair_forward_tile_orders_bit_equal(cuda, version, pad, s_cap, hw,
                                             lean):
-    """The v3 and v1 forwards under three tile orders (block, longest
+    """The pair-space forwards under three tile orders (block, longest
     first, reversed): a tile order changes no pixel's operations, so each
     order's maps and ncontrib are bit-equal to the wrapper's own order's,
-    and to the plain version's as that is: v1 every plane, v3 t_final and
-    ncontrib (its other planes within 1e-4: its sums run in another
+    and to the plain version's as that is: v2 and v1 every plane, v3
+    t_final and ncontrib (its other planes within 1e-4: its sums run in another
     order). v3's pixels cross chunks of 16 (T carried by the scan) and
     walk the slots past a tile's count to its chunk's end."""
     _, pairs, grid, bins = pair_case(cuda, pad, s_cap, hw)
@@ -919,7 +924,7 @@ def test_pair_forward_tile_orders_bit_equal(cuda, version, pad, s_cap, hw,
     ref, ref_ncon = fwd_plain(*pairs, grid, lean=lean)
     maps, ncon = fwd(*pairs, grid, lean=lean)
     assert torch.equal(ncon, ref_ncon)
-    if version == 1:
+    if version != 3:
         assert torch.equal(maps, ref)
     else:
         assert torch.equal(maps[12], ref[12])

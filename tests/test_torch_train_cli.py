@@ -209,7 +209,8 @@ def test_train_cli_on_the_dense_tier(tmp_path, one_thread, monkeypatch,
     if pad is not None:
         assert tuple(run_cfg["chart_pad"]) == pad
     # 3 views written, 2 training renders, the step-0 eval image, eval_all
-    assert len(taken) == 3 + 2 + 1 + 1
+    # (its warm-up render and the one eval view)
+    assert len(taken) == 3 + 2 + 1 + 2
 
     frames = tmp_path / "frames"
     summary = trender.main([
@@ -218,7 +219,7 @@ def test_train_cli_on_the_dense_tier(tmp_path, one_thread, monkeypatch,
         "--output-path", str(frames)])
     assert len(list(frames.glob("frame_*.png"))) == 2
     assert all(s["finite"] and s["overflow"] == 0 for s in summary)
-    assert len(taken) == 3 + 2 + 1 + 1 + 2
+    assert len(taken) == 3 + 2 + 1 + 2 + 2
 
 
 @pytest.mark.parametrize("renderer", ["pallas3", "pallas2"])
@@ -226,8 +227,8 @@ def test_train_cli_on_the_pair_tiers(tmp_path, one_thread, monkeypatch,
                                      renderer):
     """Two steps on the CPU through the pair-space tiers: every training
     render goes to ``rasterize_pl`` with the tier's version, once a step,
-    and every eval render (the step-0 image, the closing pass) to the
-    dense-list eval path."""
+    and every eval render (the step-0 image, the closing pass's warm-up
+    render and its view) to the dense-list eval path."""
     calls = []
     for name in ("rasterize_pl", "rasterize_pl_eval"):
         real = getattr(tmodel, name)
@@ -255,7 +256,7 @@ def test_train_cli_on_the_pair_tiers(tmp_path, one_thread, monkeypatch,
     assert res["eval"]["psnr"] > 5
     version = int(renderer[-1])
     assert sorted(calls) == sorted([("rasterize_pl", version)] * 2
-                                   + [("rasterize_pl_eval", None)] * 2)
+                                   + [("rasterize_pl_eval", None)] * 3)
 
 
 def test_sample_background_defaults_to_the_card(monkeypatch):
@@ -400,8 +401,9 @@ def test_train_cli_dtu_on_the_v1_tier(tmp_path, one_thread, monkeypatch):
     """Three steps of ``gstex-dtu-nvs --renderer pallas1 --init-ply`` on
     the CPU, on a nerfstudio dataset with masks: every training render
     goes to ``rasterize_pl`` version 1 with its view's mask in the loss,
-    every eval render (the step-0 image, the closing pass over the interval
-    split's 2 views) to the dense-list eval path; the loss is finite and
+    every eval render (the step-0 and step-2 images, the closing pass's
+    warm-up render and the interval split's 2 views) to the dense-list
+    eval path; the loss is finite and
     falls, and ``--set`` reaches the config."""
     import json
 
@@ -432,7 +434,7 @@ def test_train_cli_dtu_on_the_v1_tier(tmp_path, one_thread, monkeypatch):
     assert res["eval"]["psnr"] > 20
     assert (out / "checkpoints").is_dir()
     assert sorted(calls) == sorted([("rasterize_pl", 1)] * 3
-                                   + [("rasterize_pl_eval", None)] * 4)
+                                   + [("rasterize_pl_eval", None)] * 5)
     assert all(m is not None and m.shape[-1] == 1 for m in masks)
     assert 0 < float(masks[0].mean()) < 1
     run = json.loads((out / "config.json").read_text())

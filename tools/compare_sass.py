@@ -3,10 +3,10 @@
 
     python3 tools/compare_sass.py --old DIR [--new DIR] [NAME ...]
 
-Compiles each ``NAME.cu`` (by default the eleven kernels besides the v3
-and v1 forwards: the flat three, SSIM, the dense three, the v3 backward,
-the v2 forward and backward and the v1 backward; all but SSIM share
-``csrc/tile_walk.cuh`` with those two, and the pair-space ones
+Compiles each ``NAME.cu`` (by default the twelve kernels besides the v2
+forward: the flat three, SSIM, the dense three, the v3 forward and
+backward, the v2 backward and the v1 forward and backward; all but SSIM
+share ``csrc/tile_walk.cuh`` with it, and the pair-space ones
 ``csrc/pair_slots.cuh``) from the ``--old`` and ``--new`` csrc
 directories (``--new`` defaults to this tree's ``gstex_torch/csrc``)
 to ``sm_90a`` cubins with the port's
@@ -30,8 +30,8 @@ sys.path.insert(0, str(ROOT))
 
 KERNELS = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd", "ssim_fused",
            "rasterize_dense_eval", "rasterize_dense_fwd",
-           "rasterize_dense_bwd", "rasterize_v3_bwd", "rasterize_v2_fwd",
-           "rasterize_v2_bwd", "rasterize_v1_bwd"]
+           "rasterize_dense_bwd", "rasterize_v3_fwd", "rasterize_v3_bwd",
+           "rasterize_v2_bwd", "rasterize_v1_fwd", "rasterize_v1_bwd"]
 
 
 def sass(nvcc, cuobjdump, src: Path, out: Path) -> list[str]:

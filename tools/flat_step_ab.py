@@ -10,15 +10,15 @@ Imports ``chip_smoke.py`` and ``gstex_torch`` from ``--root`` (this
 repository, or a checkout of another commit), builds that tree's kernels
 of the tier, and times one ``gstex-blender-nvs`` training step (``--mode
 step``) or one eval frame of the same state (``--mode eval``, the
-forward-only ``models.gstex.render``) as ``chip_smoke.py``'s phase 9
+forward-only ``models.gstex.render``) as ``chip_smoke.py``'s phase 10
 does: the trained-scene statistics at their auto chart pad, re-charted,
-on the 800x800 view of its phase 9, against a seeded ground-truth image.
+on the 800x800 view of its phase 10, against a seeded ground-truth image.
 ``--tier flat`` takes pixel_num 1e6, pad (40, 80); ``--tier dense``
 pixel_num 4e6, pad (64, 128), which the dispatch sends to the dense
 kernels; ``--tier pallas3`` and ``pallas2`` pixel_num 1e5, pad (16, 24),
 on that renderer (the v3 or v2 training kernels; the eval frame takes the
 dense eval kernel). ``--tier dtu_pallas1`` (step only) is ``chip_smoke.py``'s
-phase 9 at the nerfstudio path's shapes: a ``gstex-dtu-nvs`` state on
+phase 10 at the nerfstudio path's shapes: a ``gstex-dtu-nvs`` state on
 ``renderer="pallas1"`` from the seed ply of a DTU-like capture at its
 auto pad (40, 80), re-charted, stepping on its first masked 800x600 train
 view; the capture is written into ``--data`` (as phase 8 writes it) unless

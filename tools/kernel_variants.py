@@ -14,7 +14,7 @@ call; an SSIM variant may also fix the strips' height
 (``ssim_fused.launch_geometry``'s ``tile_h``). A variant whose
 substitution no longer matches the source is reported as absent. The scenes are ``chip_smoke.py``'s: the
 trained-scene statistics at (8, 8) on phase 3's view, and re-charted on
-phase 9's view at their auto pad (40, 80), at pixel_num 4e6 (64, 128)
+phase 10's view at their auto pad (40, 80), at pixel_num 4e6 (64, 128)
 and at 1e5 (16, 24); the pair-space kernels on per-slot copies of the
 (16, 24) lists, and with ``--dtu-data DIR`` the v1 forward also on the
 nerfstudio path's view (``flat_step_ab.py``'s ``dtu_pallas1`` state:
@@ -23,15 +23,15 @@ SSIM on seeded 800x800x3 and 800x600x3 image pairs (the training loss's
 shapes on the Blender and the DTU path). Per scene each variant is timed
 in two turns (CUDA events, mean of ``--reps``), in the listed order and
 then reversed, and held to the first variant's output (the eval kernels,
-the dense and the v1 forward: bit for bit; the v3 forward: ncontrib and
+the dense, the v2 and the v1 forward: bit for bit; the v3 forward: ncontrib and
 t_final bit for bit, the other planes to chip_smoke's 1e-4; backwards:
 chip_smoke's gates; SSIM: the float64 gates of chip_smoke, and whether
 its gradient is bit-equal to the first), SSIM by CUDA-graph replay
 (``chip_smoke.graph_ms``: its wrapper's host work would hide it). With
 ``--ssim-parent CSRC`` the SSIM kernel of an older tree (its C entry as
 at 21285d5) runs beside the SSIM variants; with ``--parent CSRC`` the
-v3 and v1 forwards of an older tree (their C entries as at 8a8a6e3,
-which take no tile order) run beside theirs. Prints one
+pair-space forwards of an older tree whose C entries take no tile order
+(v3 and v1 as at 8a8a6e3, v2 as at d7a8d9f) run beside theirs. Prints one
 JSON line per variant with its ``ptxas`` registers and spills, and one
 per (scene, variant) with its times.
 """
@@ -150,6 +150,12 @@ V1_FWD = PAIR_FWD + [
     ("1 block an SM", [min_blocks(1)]),
     ("2 pixels a thread (512 threads, 1 block an SM)",
      [const("kBlock", 512), min_blocks(1)]),
+]
+# the v2 forward's: against the form as built (512 threads, 2 pixels each,
+# one block an SM), the v1 forward's form and the first port's options
+V2_FWD = PAIR_FWD + [
+    ("4 pixels a thread (256 threads, 2 blocks an SM)",
+     [const("kBlock", 256), min_blocks(2)]),
 ]
 # v3's own: threads a tile, and its walk's unrolling
 V3_FWD = PAIR_FWD + [
@@ -272,6 +278,7 @@ VARIANTS = {
     "v1_bwd": ("rasterize_v1_bwd", "v1", PAIR_BWD),
     "v3_bwd": ("rasterize_v3_bwd", "v3", PAIR_BWD),
     "v1_fwd": ("rasterize_v1_fwd", "v1", V1_FWD),
+    "v2_fwd": ("rasterize_v2_fwd", "v2", V2_FWD),
     "v3_fwd": ("rasterize_v3_fwd", "v3", V3_FWD),
 }
 
@@ -327,10 +334,11 @@ def build_variants(kernel, cases):
     return built
 
 
-# the kernels whose C entry as at 8a8a6e3 took no tile order: the index of
-# the order among the current entry's pointers
-PARENT_ORDER_ARG = {"v1_fwd": 6, "v3_fwd": 6}
-PARENT = "the kernel as at 8a8a6e3"
+# the forwards whose parent's C entry took no tile order (v3 and v1 as at
+# 8a8a6e3, v2 as at d7a8d9f): the index of the order among the current
+# entry's pointers
+PARENT_ORDER_ARG = {"v1_fwd": 6, "v3_fwd": 6, "v2_fwd": 6}
+PARENT = "the kernel as in the --parent tree"
 
 
 class OrderlessEntry:
@@ -351,8 +359,8 @@ class OrderlessEntry:
 
 
 def parent_variant(kernel, csrc):
-    """Build ``kernel``'s source of another tree (its C entry as at
-    8a8a6e3) with the port's flags; returns (lib path, ptxas lines)."""
+    """Build ``kernel``'s source of another tree (its C entry without a
+    tile order) with the port's flags; returns (lib path, ptxas lines)."""
     from gstex_torch.ops import _build
 
     name = VARIANTS[kernel][0]
@@ -408,8 +416,8 @@ def phase3_frame(cs, dense):
     return frame_of(cs, cfg, params, buffers, cam, dense)
 
 
-def phase9_frame(cs, pixel_num, dense):
-    """Phase 9's state of the trained-scene statistics at ``pixel_num``,
+def timing_frame(cs, pixel_num, dense):
+    """Phase 10's state of the trained-scene statistics at ``pixel_num``,
     at its auto pad, re-charted, and its view's frame."""
     from gstex_torch.configs.methods import get_method
     from gstex_torch.data.synthetic import orbit_c2w
@@ -564,15 +572,15 @@ def scenes(cs, kind, dtu=None):
     if kind == "flat":
         makers = (("trained_scene_stats_8x8", lambda: phase3_frame(cs, False)),
                   ("trained_scene_stats_40x80",
-                   lambda: phase9_frame(cs, pixel_num, False)))
+                   lambda: timing_frame(cs, pixel_num, False)))
     elif kind == "dense":
         makers = (("trained_scene_4e6",
-                   lambda: phase9_frame(cs, cs.DENSE_PIXEL_NUM, True)),
+                   lambda: timing_frame(cs, cs.DENSE_PIXEL_NUM, True)),
                   ("trained_scene_1e5",
-                   lambda: phase9_frame(cs, cs.PAIR_PIXEL_NUM, True)),
+                   lambda: timing_frame(cs, cs.PAIR_PIXEL_NUM, True)),
                   ("trained_scene_stats_8x8", lambda: phase3_frame(cs, True)))
     else:
-        frame = phase9_frame(cs, cs.PAIR_PIXEL_NUM, True)
+        frame = timing_frame(cs, cs.PAIR_PIXEL_NUM, True)
         yield ("trained_scene_1e5", frame, cs.pair_tier(int(kind[1])),
                cs.pair_copies(frame))
         if dtu is not None and kind == "v1":
@@ -599,7 +607,7 @@ def time_variants(cs, kernel, built, reps, smi, dtu=None):
         if kernel in ("eval", "dense_eval"):
             def run():
                 return tier.eval(k_in, grid, s_cap)
-        elif kernel in ("dense_fwd", "v3_fwd", "v1_fwd"):
+        elif kernel in ("dense_fwd", "v3_fwd", "v2_fwd", "v1_fwd"):
             def run():
                 return tier.fwd(k_in, grid, s_cap, lean)
         else:
@@ -621,7 +629,7 @@ def time_variants(cs, kernel, built, reps, smi, dtu=None):
                 elif kernel in ("eval", "dense_eval"):
                     cs.require(torch.equal(out, first),
                                f"{scene}: eval variant '{label}' differs")
-                elif kernel in ("dense_fwd", "v1_fwd"):
+                elif kernel in ("dense_fwd", "v2_fwd", "v1_fwd"):
                     cs.require(torch.equal(out[0], first[0])
                                and torch.equal(out[1], first[1]),
                                f"{scene}: forward variant '{label}' differs")
@@ -669,8 +677,9 @@ def main():
                          "at 21285d5)")
     ap.add_argument("--parent", metavar="CSRC", default=None,
                     help="also time, and hold to the first variant, the "
-                         "v3 and v1 forwards of this csrc directory "
-                         "(their C entries as at 8a8a6e3)")
+                         "pair-space forwards of this csrc directory "
+                         "(C entries without a tile order: v3 and v1 as at "
+                         "8a8a6e3, v2 as at d7a8d9f)")
     ap.add_argument("--dtu-data", metavar="DIR", default=None,
                     help="also time the v1 forward on the nerfstudio "
                          "path's view, its capture written into DIR unless "
