@@ -51,7 +51,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``gstex_torch.scripts.train gstex-blender-nvs`` for 120 steps from the
    same geometry with other fills (seed 1), across the re-chart at step
    100: one launch of each training kernel per step, no overflow, finite
-   and falling loss, a checkpoint;
+   and falling loss, a checkpoint; then a test split of two views;
+5b. the run resumed: ``--load-checkpoint`` of its step-120 checkpoint to
+   step 140 with ``--steps-per-save 10 --steps-per-eval-image 10 --vis
+   tensorboard,wandb`` (every checkpoint kept): it starts at step 120,
+   saves at steps 120 and 130 (files named by the steps taken, 121 and
+   131) and at 140, writes the JAX package's ``events.jsonl`` rows and
+   ``images/eval_rgb_*.png``, each sink writes its files or prints its
+   notice, and each flat training kernel launches once a step; then on to step 160
+   with ``--set model.use_normal_loss=true --set model.lambda_normal=0.05``:
+   a finite, non-zero normal term, the flat forward and backward
+   launched once a step, in full mode only;
 6. the large-chart main path: ``gstex_torch.scripts.train
    gstex-blender-nvs --pixel-num 4e6`` on phase 5's dataset plus a test
    split, 120 steps across the re-chart: the auto chart pad is (64, 128),
@@ -88,6 +98,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the test cameras gives the run's own frames bit for bit; on phase 8's
    run (the v1 tier, nerfstudio) the same eval, the ``dataset`` and
    ``interpolate`` renders and the exports, on the dense eval kernel;
+9b. the synthetic held-out parity protocol, ``gstex_torch.scripts.parity
+   --synthetic`` at 800², 20000 surfels, 25 views (20 train, 5 held out)
+   and 500 steps on the flat tier: GT certification, renderer consistency
+   and the trained-state gradcheck pass their gates, the held-out PSNR is
+   finite, and the flat training kernels launch once a step (and once for
+   the gradcheck), the SSIM kernel once more (the gradcheck's reference
+   loss), the flat eval kernel for the eval pass and the consistency
+   check;
 10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
@@ -107,7 +125,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``pallas1`` and ``pallas4`` timed the same way (the trace's
    ``pair_gather`` range and ``index_backward``, autograd's scatter-add
    through the gathers, beside the kernels), and the six pair-space
-   kernels alone beside their plain versions and bounds; then phase 8's
+   kernels alone beside their plain versions and bounds (each backward
+   kernel timed alone, its gradients' zeroing outside the window and
+   reported as ``zero_ms``, the wrapper's whole call as ``call_ms``);
+   then phase 8's
    shapes (a ``gstex-dtu-nvs`` state from its seed ply at (40, 80),
    re-charted, on a masked 800x600 train view): a ``pallas1`` step timed
    the same way, and on that view's per-slot copies the v1 kernels
@@ -1085,10 +1106,36 @@ def pair_frame(cfg, params, buffers, cam):
         return frame, stats, pair_copies(frame)
 
 
+def pair_bwd_alone(version, p_in, maps, ncon, g, grid, lean, reps=20):
+    """A pair-space backward kernel alone: CUDA events around its launches
+    only (mean of ``reps``), its record and ``(T, S, Ch, Cw, 3)`` chart
+    gradients allocated and zeroed outside the window (the kernel adds
+    into them, which does not change its time); and the zeroing's own
+    ms. Launched through ``pair_inputs``' launcher, not the wrapper, so
+    no count moves."""
+    from gstex_torch.ops import pair_inputs as pin
+    from gstex_torch.ops.rasterize_fwd import tile_order
+
+    records_t, charts_g, counts, info = p_in
+    order = tile_order(counts, records_t.shape[1])
+    d_rec, d_ch = torch.zeros_like(records_t), torch.zeros_like(charts_g)
+    ptrs = (records_t, charts_g, counts, info, maps, ncon, g, d_rec, d_ch,
+            order)
+    name = f"rasterize_v{version}_bwd"
+    ms = cuda_ms(lambda: pin._launch(
+        name, len(ptrs), ptrs, (*pin._geometry(grid, charts_g), int(lean)),
+        records_t.device), reps)
+    zero_ms = cuda_ms(lambda: (d_rec.zero_(), d_ch.zero_()), reps)
+    return ms, zero_ms
+
+
 def time_pair_kernels(versions, p_in, frame, stats, lean, plain_ms):
     """Each pair-space kernel of ``versions`` alone on a view's per-slot
     copies (CUDA events, mean of 20) beside its plain version's ms and its
-    bound; and the copies' full-pad bytes."""
+    bound: the forward's call, the backward's kernel alone
+    (``pair_bwd_alone``), with its gradients' zeroing as ``zero_ms`` and
+    the wrapper's whole call as ``call_ms``; and the copies' full-pad
+    bytes."""
     grid, s_cap = frame.grid, frame.cfg.s_max
     g = cotangents(grid.height, grid.width)
     out = {}
@@ -1102,10 +1149,12 @@ def time_pair_kernels(versions, p_in, frame, stats, lean, plain_ms):
         out[fwd_name] = dict(
             ms=cuda_ms(lambda: tier.fwd(p_in, grid, s_cap, lean), 20),
             plain_ms=plain_ms[fwd_name], **fwd_b)
-        out[bwd_name] = dict(
-            ms=cuda_ms(lambda: tier.bwd(p_in, maps, ncon, g, grid, s_cap,
-                                        lean), 20),
-            plain_ms=plain_ms[bwd_name], **bwd_b)
+        call_ms = cuda_ms(lambda: tier.bwd(p_in, maps, ncon, g, grid, s_cap,
+                                           lean), 20)
+        torch.cuda.empty_cache()
+        ms, zero_ms = pair_bwd_alone(version, p_in, maps, ncon, g, grid, lean)
+        out[bwd_name] = dict(ms=ms, zero_ms=zero_ms, call_ms=call_ms,
+                             plain_ms=plain_ms[bwd_name], **bwd_b)
     return out, copies
 
 
@@ -1368,6 +1417,189 @@ def dtu_step_timing(root, counters, smi, note):
     return kt
 
 
+# the scalars of a training log row, as the JAX package's trainer writes
+# them (its step's metrics, then rays_per_sec and texel_count), and of an
+# eval image's row; each row leads with step and t
+LOG_KEYS = {"main_loss", "l1", "ssim_loss", "normal_loss", "reg_loss", "loss",
+            "overflow", "total_pairs", "max_tile_count", "psnr",
+            "rays_per_sec", "texel_count"}
+EVAL_KEYS = {"eval_psnr", "eval_ssim"}
+RESUME_STEPS = 20
+
+
+class Tee:
+    """Standard output kept as it is printed, for the checks after."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def captured(fn, *args):
+    """``fn(*args)`` and what it printed."""
+    import contextlib
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args)
+    return out, "".join(tee.text)
+
+
+def resumed_main_path(train_cli, rasterize_api, data, ckpt, root, counters):
+    """Phase 5's run resumed through ``--load-checkpoint`` from its step-120
+    checkpoint to step 140, saving and rendering an eval image every 10
+    steps, with the tensorboard and wandb sinks: the run starts at step
+    120, saves at steps 120 and 130 (named by the steps taken, 121 and
+    131) and at its end (140), writes JAX's ``events.jsonl`` rows and the
+    ``eval_rgb`` images, each sink writes or prints its notice, each step
+    launches the three flat training kernels once. Then on to step 160
+    with the normal loss: a finite, non-zero normal term, the flat
+    forward and backward kernels launched in full mode only."""
+    fwd, bwd, ssim, ev = counters
+    out = root / "run_resumed"
+    for fn in counters:
+        fn.launches = 0
+    res, text = captured(train_cli.main, [
+        "gstex-blender-nvs", "--data", str(data), "--scene-npz", str(STATS),
+        "--seed", "1", "--load-checkpoint", str(ckpt),
+        "--max-num-iterations", str(TRAIN_STEPS + RESUME_STEPS),
+        "--steps-per-save", "10", "--steps-per-eval-image", "10",
+        "--vis", "tensorboard,wandb",
+        "--set", "trainer.save_only_latest_checkpoint=false",
+        "--output-dir", str(out)])
+    launches = {fn.__name__: fn.launches for fn in counters}
+    hist = res["history"]
+    rows = [json.loads(ln) for ln in
+            (out / "events.jsonl").read_text().splitlines()]
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    images = sorted(p.name for p in (out / "images").iterdir())
+    notices = [ln for ln in text.splitlines() if ln.startswith("[writer]")]
+    # each sink either writes (tensorboard its event files under tb/,
+    # wandb its run under wandb/) or prints its notice
+    noticed = {ln.split()[1] for ln in notices}
+    wrote = {k: (out / d).is_dir() and any((out / d).iterdir())
+             for k, d in (("tensorboard", "tb"), ("wandb", "wandb"))}
+    emit("main_path", path="train_resumed", steps=len(hist),
+         first_step=hist[0]["step"] if hist else None, launches=launches,
+         checkpoints=ckpts, images=images, notices=notices, sinks=wrote,
+         events_rows=len(rows), losses=[round(h["loss"], 6) for h in hist],
+         eval=res["eval"])
+    require([h["step"] for h in hist] == list(
+        range(TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS)),
+        f"the resumed run took steps {[h['step'] for h in hist]}")
+    require(ckpts == [f"step-{n:09d}.ckpt.pt" for n in (
+        TRAIN_STEPS + 1, TRAIN_STEPS + 11, TRAIN_STEPS + RESUME_STEPS)],
+        f"the resumed run saved {ckpts}")
+    require(images == [f"eval_rgb_{n:09d}.png" for n in (
+        TRAIN_STEPS, TRAIN_STEPS + 10)], f"eval images {images}")
+    logs = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "eval_psnr" in r]
+    require([r["step"] for r in logs] == list(
+        range(TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS, 10))
+        and all(list(r)[:2] == ["step", "t"] and set(r) - {"step", "t"}
+                == LOG_KEYS for r in logs),
+        f"events.jsonl log rows {logs}")
+    require(len(evals) == 2 and all(set(r) - {"step", "t"} == EVAL_KEYS
+                                    for r in evals),
+            f"events.jsonl eval rows {evals}")
+    require(noticed <= set(wrote) and len(noticed) == len(notices)
+            and all((k in noticed) != wrote[k] for k in wrote),
+            f"sinks that wrote {wrote}, notices {notices}")
+    require(all(np.isfinite(h["loss"]) for h in hist), "a loss is not finite")
+    require(all(launches[fn.__name__] == RESUME_STEPS
+                for fn in (fwd, bwd, ssim)),
+            f"the resumed run's training kernels launched {launches}")
+    require(launches[ev.__name__] == 2 + 1 + TEST_VIEWS,
+            f"the eval kernel launched {launches[ev.__name__]} times")
+
+    # on with the normal loss, the flat kernels' modes recorded
+    modes = []
+    real = {k: getattr(rasterize_api, k)
+            for k in ("rasterize_fwd", "rasterize_bwd")}
+
+    def recording(name):
+        def call(*args, lean, **kw):
+            modes.append((name, lean))
+            return real[name](*args, lean=lean, **kw)
+        return call
+    for fn in counters:
+        fn.launches = 0
+    for k in real:
+        setattr(rasterize_api, k, recording(k))
+    try:
+        res = train_cli.main([
+            "gstex-blender-nvs", "--data", str(data), "--scene-npz",
+            str(STATS), "--seed", "1", "--load-checkpoint",
+            str(out / "checkpoints" / ckpts[-1]), "--max-num-iterations",
+            str(TRAIN_STEPS + 2 * RESUME_STEPS), "--steps-per-eval-image",
+            "0", "--set", "model.use_normal_loss=true", "--set",
+            "model.lambda_normal=0.05", "--output-dir",
+            str(root / "run_normal")])
+    finally:
+        for k, fn in real.items():
+            setattr(rasterize_api, k, fn)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    terms = [h["normal_loss"] for h in res["history"]]
+    emit("main_path", path="train_normal_loss", steps=len(terms),
+         launches=launches, normal_loss=[round(t, 8) for t in terms[::5]],
+         kernel_modes=sorted({f"{k}:{'lean' if m else 'full'}"
+                              for k, m in modes}),
+         losses=[round(h["loss"], 6) for h in res["history"][::5]])
+    require(len(terms) == RESUME_STEPS, f"{len(terms)} normal-loss steps")
+    require(all(np.isfinite(t) and t != 0.0 for t in terms),
+            f"the normal loss terms {terms}")
+    require(all(np.isfinite(h["loss"]) for h in res["history"]),
+            "a normal-loss step's loss is not finite")
+    require(launches[fwd.__name__] == launches[bwd.__name__] == RESUME_STEPS
+            and modes and not any(m for _, m in modes),
+            f"the full kernels: launches {launches}, modes {set(modes)}")
+
+
+def parity_main_path(out, counters):
+    """``gstex_torch.scripts.parity --synthetic`` at full width (800², 20k
+    surfels), 25 views (20 train, 5 held out) and 500 steps: the ground
+    truth certified against the per-pixel oracle, the renderer
+    consistency and the trained-state gradcheck under their gates, a
+    finite held-out PSNR; the flat training kernels launched once a step
+    and once more by the gradcheck, the SSIM kernel also by its reference
+    loss, the eval kernel by the eval pass (a warm-up and each held-out
+    view) and the consistency check (4 views)."""
+    from gstex_torch.scripts import parity
+
+    fwd, bwd, ssim, ev = counters
+    iters, views = 500, 25
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rep = parity.main(["--synthetic", "--res", str(H), "--n-gauss", "20000",
+                       "--views", str(views), "--quick", str(iters),
+                       "--output-dir", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    h = rep["heldout"]
+    held = views // 5
+    emit("main_path", path="parity", seconds=seconds, launches=launches,
+         psnr=h["psnr"], psnr_std=h["psnr_std"], ssim=h["ssim"],
+         ssim_std=h["ssim_std"], train_seconds=h["train_seconds"],
+         gt_certification=h["gt_certification"],
+         **{k: v for k, v in h.items()
+            if k.startswith(("renderer_consistency", "trained_gradcheck"))})
+    require(h["gt_certification"]["pass"], "GT certification failed")
+    require(h["renderer_consistency_pass"], "renderer consistency failed")
+    require(h["trained_gradcheck_pass"], "trained-state gradcheck failed")
+    require(np.isfinite(h["psnr"]) and h["psnr"] > 10,
+            f"held-out PSNR {h['psnr']}")
+    want = {fwd.__name__: iters + 1, bwd.__name__: iters + 1,
+            ssim.__name__: iters + 2, ev.__name__: 1 + held + 4}
+    require(launches == want, f"parity launches {launches}, not {want}")
+
+
 def subsample_stats(path, n, seed=0):
     """A trained-scene-statistics file holding ``n`` of the asset's
     surfels, drawn with numpy from ``seed``."""
@@ -1596,13 +1828,19 @@ def main():
     require(last < first, f"the loss did not fall: {first} -> {last}")
     require(Path(res["checkpoint"]).exists(), "no checkpoint")
 
-    # 6. the large-chart main path: the same command with a texel budget
-    # whose charts the dispatch sends to the dense tier, on the same
-    # dataset plus a test split (two views between the training views), so
-    # that the run closes with an eval pass
+    # a test split (two views between the training views), so that the
+    # later runs close with an eval pass
     write_blender_dataset(data, cfg0, p0, b0, TEST_VIEWS, H, W, split="test",
                           azimuth0=0.4)
     del p0, b0
+    # 5b. the run resumed from its checkpoint with a user's cadences and
+    # sinks, then on with the normal loss
+    resumed_main_path(train_cli, rasterize_api, data, Path(res["checkpoint"]),
+                      Path(tmp.name), train_counters + (reval.rasterize_eval,))
+
+    # 6. the large-chart main path: the same command with a texel budget
+    # whose charts the dispatch sends to the dense tier, on the same
+    # dataset and its test split
     for fn in train_counters + dense_counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1765,6 +2003,12 @@ def main():
                     reval.rasterize_eval, TEST_VIEWS, data)
     serve_main_path(Path(tmp.name) / "run_dtu", serve_counters,
                     rdense.rasterize_dense_eval, (DTU_VIEWS + 7) // 8)
+    torch.cuda.empty_cache()
+
+    # 9b. the synthetic held-out parity protocol, cut to 25 views and 500
+    # steps
+    parity_main_path(Path(tmp.name) / "parity",
+                     train_counters + (reval.rasterize_eval,))
     torch.cuda.empty_cache()
 
     # 10. timing: an eval frame, then a training step

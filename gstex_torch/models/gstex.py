@@ -8,9 +8,11 @@ the flat pair-list kernels, the dense-list kernels (large chart pads,
 (``"pallas3"``, ``"pallas2"``, ``"pallas1"``), the pure-torch tier
 (``renderer="xla"``, the uv channels) and the per-pixel oracle,
 forward-only for serving (``eval_only=True``) and differentiable for
-training. The bf16 texel stream and the
-depth-estimated normal loss arrive with later slices of the port and
-raise ``NotImplementedError`` here, naming their ROADMAP item.
+training. With ``use_normal_loss`` the normal loss holds the rendered
+normals against normals estimated from the rendered depth
+(``ops/normals.py``). The bf16 texel stream arrives with a later slice of
+the port and raises ``NotImplementedError`` here, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops import ssim_fused
 from ..ops.binning import TileGrid, build_tile_bins, build_tile_bins_flat
 from ..ops.camera import Camera
 from ..ops.cull import make_pair_cull
+from ..ops.normals import depth_to_normal
 from ..ops.prepare import activate_scales, prepare_splats
 from ..ops.rasterize import rasterize
 from ..ops.rasterize_api import (dense_pallas_fits, rasterize_pl,
@@ -358,7 +361,8 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     Returns ``rgb`` (composited over ``background`` (3,)), the raw maps
     (plus ``normal`` and ``reg`` unless a kernel tier renders
     ``eval_only``), and the binning's ``overflow``, ``total_pairs`` and
-    ``max_tile_count``.
+    ``max_tile_count``; with ``cfg.use_normal_loss`` also
+    ``estimated_normals`` (H, W, 3), from the detached depth map.
     """
     renderer = cfg.renderer
     if not (renderer in ("oracle", "xla") or renderer.startswith("pallas")):
@@ -366,10 +370,6 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     if cfg.texel_dtype == "bf16":
         raise NotImplementedError(
             "texel_dtype='bf16' (bf16 chart stream): ROADMAP Queue 1 item 6")
-    if cfg.use_normal_loss and not eval_only:
-        raise NotImplementedError(
-            "use_normal_loss (normals estimated from depth, ops/normals.py): "
-            "ROADMAP Queue 1 item 13")
     # the "gstex.*" ranges name the stages in a torch.profiler trace
     with record_function("gstex.prepare"):
         prep = prepare_splats(
@@ -443,6 +443,10 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
         out["rgb"] = torch.clamp(rgb, 0.0, 1.0)
     out["background"] = background
     out.update(stats)
+    if cfg.use_normal_loss:
+        with record_function("gstex.normals"):
+            out["estimated_normals"] = depth_to_normal(
+                out["depth"].detach(), cam)
     return out
 
 
@@ -475,10 +479,11 @@ def loss_fn(cfg: GStexConfig, outputs: dict, gt_rgb: torch.Tensor,
     else:
         lam_n = schedule_value(cfg.lambda_normal, step)
         lam_r = schedule_value(cfg.lambda_reg, step)
-        # normal loss: mean(α − n·n̂) with n̂ = n (use_normal_loss, the
-        # depth-estimated n̂, raises in render)
+        # normal loss: mean(α − n·n̂); with use_normal_loss n̂ is
+        # estimated from the (detached) depth map, else n̂ = n
+        estimated = outputs.get("estimated_normals", outputs["normal"])
         normal_loss = lam_n * (outputs["alpha"] - (
-            outputs["normal"] * outputs["normal"]).sum(-1)).mean()
+            outputs["normal"] * estimated).sum(-1)).mean()
         reg_loss = lam_r * outputs["reg"].mean()
     main = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * simloss
     total = main + normal_loss + reg_loss

@@ -16,7 +16,10 @@ with its charts: a gstex-npz export or a trained-scene-statistics file
 (``models/init_io.py:load_scene_npz``). ``--seed`` seeds every random
 draw. Pair capacities are sized from the first view's measured demand
 unless ``--set`` pins them. The run writes ``config.json``,
-``metrics.jsonl`` and a checkpoint under ``--output-dir``, and, where the
+``events.jsonl`` (the logged scalars), ``images/`` (the eval renders) and
+checkpoints under ``--output-dir`` (default
+``outputs/{experiment}/{method}/{timestamp}``, the experiment being
+``--experiment-name`` or the dataset directory's name), and, where the
 dataset has an eval split, prints the mean eval PSNR and SSIM.
 
     python -m gstex_torch.scripts.train gstex-dtu-nvs \\
@@ -38,8 +41,20 @@ trainer config (the value parsed as JSON, else taken as a string):
         --data DTU_SCAN_DIR --init-ply DTU_SCAN_DIR/init.ply \\
         --renderer pallas1 --set model.lambda_reg=0.1
 
-The multi-device, viewer and metric-sink flags of ``gstex-train`` are not
-offered yet.
+``--steps-per-save``, ``--steps-per-eval-image`` and ``--vis`` (metric
+sinks, comma separated: tensorboard, wandb, comet; a sink whose package
+is missing is skipped with a notice) set the trainer's cadences and
+sinks, after any ``--set``. ``--load-checkpoint`` resumes a run from a
+checkpoint of the port (``.ckpt.pt``) or of ``gstex-train``
+(``.ckpt.npz``), built from the same scene flags; it continues at the
+checkpoint's step:
+
+    python -m gstex_torch.scripts.train gstex-blender-nvs \
+        --data DATA_DIR --scene-npz assets/trained_scene_stats.npz \
+        --load-checkpoint RUN_DIR/checkpoints/step-000002000.ckpt.pt \
+        --max-num-iterations 4000
+
+The multi-device and viewer flags of ``gstex-train`` are not offered yet.
 """
 
 from __future__ import annotations
@@ -175,6 +190,17 @@ def main(argv=None) -> dict:
                         "model.lambda_reg=0.1 (sections: model, optim, "
                         "trainer; values parsed as JSON, else strings)")
     p.add_argument("--output-dir", default=None)
+    p.add_argument("--load-checkpoint", default=None,
+                   help="resume from a .ckpt.pt (this CLI's) or .ckpt.npz "
+                        "(gstex-train's) checkpoint")
+    p.add_argument("--experiment-name", default=None,
+                   help="the default output path's first part (default: "
+                        "the dataset's directory name)")
+    p.add_argument("--steps-per-save", type=int, default=None)
+    p.add_argument("--steps-per-eval-image", type=int, default=None)
+    p.add_argument("--vis", default=None,
+                   help="metric sinks, comma separated: tensorboard, "
+                        "wandb, comet")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -199,9 +225,15 @@ def main(argv=None) -> dict:
             method.trainer, max_num_iterations=args.max_num_iterations)
         method.optim = dataclasses.replace(method.optim,
                                            max_steps=args.max_num_iterations)
-    out = args.output_dir or (f"outputs/{Path(args.data).name}/{method.name}/"
+    for flag in ("steps_per_save", "steps_per_eval_image", "vis"):
+        if getattr(args, flag) is not None:
+            method.trainer = dataclasses.replace(
+                method.trainer, **{flag: getattr(args, flag)})
+    exp = args.experiment_name or Path(args.data).name
+    out = args.output_dir or (f"outputs/{exp}/{method.name}/"
                               f"{time.strftime('%Y-%m-%d_%H%M%S')}")
-    method.trainer = dataclasses.replace(method.trainer, output_dir=out)
+    method.trainer = dataclasses.replace(
+        method.trainer, output_dir=out, load_checkpoint=args.load_checkpoint)
 
     train_parsed = build_dataset(method, args.data, "train")
     train_cache = FullImageCache.build(train_parsed,

@@ -3,13 +3,20 @@
 
 Per step: the next camera of the epoch's random order, one train step,
 the NaN gate, overflow-driven capacity growth, the re-chart every
-``build_chart_every`` steps, a log line every ``log_every`` steps, an
-eval image every ``steps_per_eval_image`` steps, checkpoints every
-``steps_per_save`` steps and at the end. The tile mesh, data parallelism,
-camera optimization, the metric sinks beyond the JSONL log, the
-whole-eval-set cadence, the scanned multi-step dispatch and the
-progressive-resolution schedule raise ``NotImplementedError`` and name
-their ROADMAP item; the viewer is not attached yet.
+``build_chart_every`` steps, the step's scalars every ``log_every`` steps,
+an eval image and its scalars every ``steps_per_eval_image`` steps, the
+whole eval set's ``eval_all_*`` scalars every
+``steps_per_eval_all_images`` steps, checkpoints every ``steps_per_save``
+steps and at the end. Scalars and images go through a ``Writer``
+(``events.jsonl``, the console, ``images/`` and the ``vis`` sinks); the
+``train_iteration`` and ``retexture_after`` sections of the wall-time
+profiler are printed at the end. A run resumed from ``load_checkpoint``
+(the port's ``.ckpt.pt`` or the JAX package's ``.ckpt.npz``) starts at
+the checkpoint's step and keeps every cadence on that absolute step. The
+tile mesh, data parallelism, camera optimization, the scanned multi-step
+dispatch and the progressive-resolution schedule raise
+``NotImplementedError`` and name their ROADMAP item; the viewer is not
+attached yet.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ from ..models import gstex as model
 from ..ops.binning import settle_caps
 from ..scripts.render import demand_caps, eval_background
 from ..utils import checkpoint as ckpt_io
+from ..utils import profiler
 from ..utils.metrics import image_metrics
+from ..utils.writer import Writer
 from . import optim
 from . import step as step_mod
 
@@ -53,8 +62,10 @@ class TrainerConfig:
     check_finite: bool = True
     # the port dispatches one step at a time
     steps_per_sync: int = 1
-    # metric sinks beyond the JSONL log (tensorboard / wandb / comet)
-    vis: str = ""
+    # comma-separated metric sinks: tensorboard / wandb / comet (JSONL
+    # and the console are always on); a missing sink is skipped with a
+    # notice
+    vis: str = "tensorboard"
     demand_size_caps: bool = False
     camera_opt: str = "off"
 
@@ -68,11 +79,6 @@ def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
          "camera pose optimization: ROADMAP Queue 1 item 13"),
         (tcfg.steps_per_sync > 1,
          "the scanned multi-step dispatch: ROADMAP Queue 1 item 9"),
-        (bool(tcfg.vis), "metric sinks (tensorboard, wandb, comet): ROADMAP "
-                         "Queue 1 item 12"),
-        (tcfg.steps_per_eval_all_images > 0,
-         "the periodic whole-eval-set pass (eval fps, LPIPS): ROADMAP "
-         "Queue 1 item 12"),
         (mcfg.num_downscales > 0,
          "the progressive-resolution schedule (image resize): ROADMAP "
          "Queue 1 item 10"),
@@ -94,11 +100,12 @@ class Trainer:
         self.eval_cache = eval_cache
         self.run_config = run_config or {}
         self.out_dir = Path(tcfg.output_dir)
-        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = Writer(self.out_dir, vis=tcfg.vis)
         self.state = step_mod.init_state(mcfg, ocfg, params, buffers,
                                          seed=tcfg.seed)
         if tcfg.load_checkpoint:
-            ckpt_io.load_checkpoint(tcfg.load_checkpoint, self.state)
+            ckpt_io.load_checkpoint(tcfg.load_checkpoint, self.state,
+                                    seed=tcfg.seed)
             print(f"resumed from {tcfg.load_checkpoint} at step "
                   f"{self.state.step}")
         if tcfg.demand_size_caps and len(train_cache) > 0:
@@ -120,18 +127,18 @@ class Trainer:
         return dataclasses.replace(mcfg, pair_cap=p, s_max=s)
 
     def train(self) -> list[dict]:
-        """Run to ``max_num_iterations``; returns the per-step metrics."""
+        """Run from the state's step to ``max_num_iterations``; returns
+        the per-step metrics."""
         tcfg, st = self.tcfg, self.state
-        log_path = self.out_dir / "metrics.jsonl"
         t_last, since_log = time.time(), 0
         while st.step < tcfg.max_num_iterations:
             step = st.step
-            idx, (cam, img, mask) = self.train_cache.next_train_idx()
-            metrics = step_mod.train_step(self.mcfg, self.ocfg, st, cam, img,
-                                          mask)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            metrics["step"], metrics["camera"] = step, idx
-            self.history.append(metrics)
+            with profiler.time_section("train_iteration"):
+                idx, (cam, img, mask) = self.train_cache.next_train_idx()
+                metrics = step_mod.train_step(self.mcfg, self.ocfg, st, cam,
+                                              img, mask)
+                metrics = {k: float(v) for k, v in metrics.items()}
+            self.history.append(dict(metrics, step=step, camera=idx))
             since_log += 1
             if tcfg.check_finite and not math.isfinite(metrics["loss"]):
                 self._nan_abort(step, metrics)
@@ -139,23 +146,31 @@ class Trainer:
                 self._grow_capacities(step, metrics)
             if (self.mcfg.build_chart_every > 0 and step > 0
                     and step % self.mcfg.build_chart_every == 0):
-                step_mod.rechart_step(self.mcfg, st)
+                with profiler.time_section("retexture_after"):
+                    step_mod.rechart_step(self.mcfg, st)
             if tcfg.log_every > 0 and step % tcfg.log_every == 0:
                 now = time.time()
-                line = dict(metrics, rays_per_sec=cam.height * cam.width
-                            * since_log / max(now - t_last, 1e-6),
-                            texel_count=model.texel_count(st.buffers))
+                metrics["rays_per_sec"] = (cam.height * cam.width * since_log
+                                           / max(now - t_last, 1e-6))
+                metrics["texel_count"] = float(model.texel_count(st.buffers))
                 t_last, since_log = now, 0
-                print(json.dumps(line), flush=True)
-                with open(log_path, "a") as f:
-                    f.write(json.dumps(line) + "\n")
+                self.writer.scalars(step, metrics)
             if (tcfg.steps_per_eval_image > 0 and self.eval_cache
                     and step % tcfg.steps_per_eval_image == 0):
                 self.eval_one(step)
+            if (tcfg.steps_per_eval_all_images > 0 and self.eval_cache
+                    and step > 0
+                    and step % tcfg.steps_per_eval_all_images == 0):
+                agg = self.eval_all()
+                self.writer.scalars(step, {f"eval_all_{k}": v
+                                           for k, v in agg.items()
+                                           if v is not None})
             if (tcfg.steps_per_save > 0 and step > 0
                     and step % tcfg.steps_per_save == 0):
                 self.save()
         self.save()
+        print(profiler.summary())
+        self.writer.close()
         return self.history
 
     def _grow_capacities(self, step: int, metrics: dict) -> None:
@@ -198,21 +213,25 @@ class Trainer:
         raise FloatingPointError(
             f"non-finite loss at step {step}; diagnostic at {path}")
 
-    def _eval_metrics(self, i: int) -> dict:
+    def _eval_metrics(self, i: int, step: Optional[int] = None) -> dict:
+        """The metrics of eval view ``i``; given a ``step``, its render
+        is also written as that step's ``eval_rgb`` image."""
         cam, img, _ = self.eval_cache.get(i)
         bg = eval_background(self.mcfg, img.device)
         out = step_mod.eval_step(self.mcfg, self.state, cam, bg)
-        gt = model.composite_gt(img, bg)
-        return image_metrics(out["rgb"], gt)
+        if step is not None:
+            self.writer.image(step, "eval_rgb", out["rgb"])
+        return image_metrics(out["rgb"], model.composite_gt(img, bg))
 
     def eval_one(self, step: int) -> dict:
         """PSNR, SSIM and LPIPS (``None``) of one eval view, cycling
-        through the eval set."""
+        through the eval set; written as ``eval_*`` scalars and the
+        ``eval_rgb`` image."""
         i = self._eval_counter % len(self.eval_cache)
         self._eval_counter += 1
-        m = self._eval_metrics(i)
-        print(json.dumps({"step": step, **{f"eval_{k}": v
-                                           for k, v in m.items()}}))
+        m = self._eval_metrics(i, step)
+        self.writer.scalars(step, {f"eval_{k}": v for k, v in m.items()
+                                   if v is not None})
         return m
 
     def eval_all(self, save_images: bool = False) -> dict:

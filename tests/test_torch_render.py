@@ -184,12 +184,13 @@ def test_config_fields_match():
     (dict(renderer="pallas3"), None),
     (dict(renderer="pallas3_interpret", eval_only=False), None),
     (dict(texel_dtype="bf16"), "Queue 1 item 6"),
-    (dict(eval_only=False, use_normal_loss=True), "Queue 1 item 13")])
+    (dict(eval_only=False, use_normal_loss=True), None)])
 def test_unported_requests_raise(change, item):
     """A request of what is still to be ported raises, naming its ROADMAP
-    item; the pair-space tiers (``item`` None), ported since, render:
-    the v1 tier's too, its training render through the v1 kernels' plain
-    versions here."""
+    item; the pair-space tiers and the normal loss (``item`` None), ported
+    since, render: the v1 tier's too, its training render through the v1
+    kernels' plain versions here, and the normal loss's training render
+    with its depth-estimated normals."""
     change = dict(change)
     s = scene_np(n=20)
     tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")
@@ -204,6 +205,7 @@ def test_unported_requests_raise(change, item):
         assert bool(torch.isfinite(out["rgb"]).all())
         assert float(out["alpha"].max()) > 0.1
         assert ("reg" in out) == (not call["eval_only"])
+        assert ("estimated_normals" in out) == cfg.use_normal_loss
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmodel.render(cfg, tp, tb, tc, STEP, t(BG), **call)

@@ -158,7 +158,7 @@ def test_train_cli_on_cpu(tmp_path, one_thread):
     assert all(np.isfinite(h["loss"]) and h["overflow"] == 0 for h in hist)
     assert sorted(h["camera"] for h in hist) == [0, 1, 2]
     assert res["eval"]["psnr"] > 5
-    assert (out / "config.json").exists() and (out / "metrics.jsonl").exists()
+    assert (out / "config.json").exists() and (out / "events.jsonl").exists()
 
     mcfg = tmodel.GStexConfig(renderer="pallas", chart_pad=None,
                               pixel_num=2e4)
@@ -307,10 +307,16 @@ def test_unported_methods_and_trainer_options_raise(tmp_path):
         get_method("nope")
     cfg = tmodel.GStexConfig()
     for change in (dict(num_devices=4), dict(camera_opt="SO3xR3"),
-                   dict(steps_per_sync=8), dict(vis="tensorboard")):
+                   dict(steps_per_sync=8)):
         tcfg = TrainerConfig(output_dir=str(tmp_path), **change)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
+    # the metric sinks are ported: the progressive-resolution schedule is
+    # the model-side option that still raises
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        Trainer(TrainerConfig(output_dir=str(tmp_path), vis="tensorboard"),
+                tmodel.GStexConfig(num_downscales=2), toptim.OptimConfig(),
+                None, None, [])
 
 
 def test_trainer_nan_gate_and_cap_growth(tmp_path, one_thread):
