@@ -7,7 +7,7 @@ each of its kernels against its plain PyTorch version.
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
-2. build: nvcc builds the thirteen kernels from ``gstex_torch/csrc``, one
+2. build: nvcc builds the fourteen kernels from ``gstex_torch/csrc``, one
    process each, all at once (ptxas registers, spills, shared memory; the
    flat kernels', the dense backward's and the three pair-space backwards'
    shared memory per launch, which no chart pad enters);
@@ -106,6 +106,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the gradcheck), the SSIM kernel once more (the gradcheck's reference
    loss), the flat eval kernel for the eval pass and the consistency
    check;
+9c. texture painting: on phase 5's run (flat, pad (40, 80)) and phase
+   6's (dense, (64, 128)), an ``EditSession`` with a polyline from each of
+   two test cameras; each edit's texture-edit kernel against its plain
+   version (each accumulator channel within 1e-5 of its max, the texels
+   reached the same set), timed alone and beside its bound; the stack
+   replayed through ``edit_texture`` (one texture-edit and one dense-eval
+   launch an edit), a texel changed, one ``draw_from_view`` timed; the
+   ``render_eval_images`` set with the edited charts, its ``edit`` image
+   from the run's eval kernel within 1e-6 of the pure-torch tier's; then
+   ``gstex-torch-viewer`` on phase 5's run on a free port: a ``/frame``
+   (a PNG of the resolution cap's size, one eval launch a band), a
+   polyline painted over HTTP, ``/state`` showing the edit;
 10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
@@ -135,7 +147,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against their plain versions, lean and full, under phase 3's gates
    (the last tile row is partial; the forward also under the three tile
    orders, bit for bit), and alone beside their bounds;
-11. the ``kernels`` line (the v1 kernels' numbers from phase 10's
+11. the ``kernels`` line (texture_edit's from phase 9c; the v1
+    kernels' numbers from phase 10's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
     backward's at (64, 128) and (16, 24), the dense eval kernel's at
@@ -1600,6 +1613,274 @@ def parity_main_path(out, counters):
     require(launches == want, f"parity launches {launches}, not {want}")
 
 
+# texture painting (phase 9c). fp32 operations a pair beyond its response,
+# counted from csrc/texture_edit.cu as the other kernels' are: an applied
+# pair's T update, weight and window test; a pair inside its window, its
+# tent (uv, clamps, floors, four weights) and its 20 products and tests
+EDIT_APPLY_FLOPS = 6
+EDIT_HIT_FLOPS = 110
+EDIT_TOL = 1e-5       # of each accumulator channel's max: REDs reorder sums
+OVERLAY_TOL = 1e-6
+STROKE_WIDTH = 8
+STROKE_RGB = ((255, 0, 0), (0, 255, 0))
+
+
+def stroke_points(cam, k):
+    """The k-th test stroke: a polyline across the middle of the view."""
+    h, w = cam.height, cam.width
+    return [(int(w * (0.3 + 0.05 * k)), int(h * 0.35)),
+            (int(w * 0.5), int(h * (0.5 + 0.05 * k))),
+            (int(w * 0.7), int(h * 0.4))]
+
+
+def check_texture_edit(cfg, params, buffers, cam, tex, canvas, **where):
+    """The texture-edit kernel against its plain version on one edit's
+    inputs (``editing.edit_view``'s lists, the window at ±DEPTH_WINDOW of
+    its depth): each accumulator channel within EDIT_TOL of its max, the
+    texels with a weight the same set. Times the kernel alone (CUDA
+    events around its launches into one accumulator zeroed outside), its
+    whole call (the zeroing in it) and the plain version once; the bound:
+    the listed gaussians' records, the ids, counts and six input planes
+    read once, the touched texels' five channels written once;
+    RESPONSE_FLOPS a response, EDIT_APPLY_FLOPS an applied pair and
+    EDIT_HIT_FLOPS a pair in its window, as this edit's data needs."""
+    from gstex_torch.models import editing
+    from gstex_torch.ops import texture_edit as te
+    from gstex_torch.ops.rasterize_fwd import tile_order
+    from gstex_torch.ops.records import assemble_records, cam_info
+
+    prep, bins, grid, depth = editing.edit_view(cfg, params, buffers, cam,
+                                                tex)
+    change = torch.as_tensor(canvas, dtype=torch.float32,
+                             device=DEVICE) / 255.0
+    planes = te.edit_planes(change[..., :3], change[..., 3:],
+                            depth - editing.DEPTH_WINDOW,
+                            depth + editing.DEPTH_WINDOW)
+    records = assemble_records(prep.geom, cam.c2w[:3, 3], buffers.texture_hw)
+    info = cam_info(cam)
+    ch, cw = params.texture.shape[1:3]
+    args = (records, bins.ids, bins.counts, planes, info, grid, ch, cw)
+    order = tile_order(bins.counts, bins.ids.shape[1])
+    launches = te.scatter_canvas.launches
+    got = te.scatter_canvas(*args, order=order)
+    stats = {}
+    plain_ms, want = once_ms(
+        lambda: te.scatter_canvas_reference(*args, stats=stats))
+    abs_err = float((got - want).abs().max())
+    rel = [float((got[..., c] - want[..., c]).abs().max()
+                 / want[..., c].abs().max().clamp(min=1e-30))
+           for c in range(te.ACCUM)]
+    same_set = bool(torch.equal(got[..., 4] > 0, want[..., 4] > 0))
+    accum = torch.zeros_like(got)
+    ms = cuda_ms(lambda: te.launch(records, bins.ids, bins.counts, planes,
+                                   info, accum, order, grid), 20)
+    call_ms = cuda_ms(lambda: te.scatter_canvas(*args, order=order), 20)
+    # the comparison's launches are not the main path's
+    te.scatter_canvas.launches = launches
+    touched = int((want[..., 4] > 0).sum())
+    listed = bins.ids[bins.mask]
+    bytes_once = (int(torch.unique(listed).numel()) * 32 * 4
+                  + int(listed.numel()) * 4 + bins.counts.numel() * 4
+                  + planes.numel() * 4 + info.numel() * 4
+                  + touched * te.ACCUM * 4)
+    ops = (stats["responses"] * RESPONSE_FLOPS
+           + stats["applied"] * EDIT_APPLY_FLOPS
+           + stats["hits"] * EDIT_HIT_FLOPS)
+    bound = bound_of(bytes_once, ops, texels_touched=touched, **stats)
+    painted = int((change[..., 3] > 0).sum())
+    emit("texture_edit", ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+         max_abs_err=abs_err, rel_err_by_channel=rel, same_texels=same_set,
+         painted_pixels=painted, **bound, **where)
+    require(same_set, f"texture_edit {where}: the kernel reached other "
+                      f"texels than its plain version")
+    require(max(rel) <= EDIT_TOL, f"texture_edit {where}: {rel}")
+    require(stats["hits"] > 0 and painted > 0,
+            f"texture_edit {where}: the stroke reached nothing")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                max_abs_err=abs_err, **bound)
+
+
+def edit_main_path(root, counters, eval_kernel, smi):
+    """Phase 9c on one trained run ``root``: an ``EditSession`` with a
+    polyline from each of two test cameras; each edit's texture-edit
+    kernel against its plain version (``check_texture_edit``); the stack
+    replayed (``edit_texture``: one texture-edit and one dense-eval launch
+    an edit, nothing else) and timed, at least one texel changed; one
+    ``draw_from_view`` timed whole; ``render_eval_images`` with the edited
+    charts, every key finite, its ``edit`` image from the run's eval
+    kernel (one launch) within OVERLAY_TOL of img + tex(edited) + (1 −
+    α)·bg of the pure-torch tier."""
+    from gstex_torch.models import editing
+    from gstex_torch.models import gstex as model
+    from gstex_torch.ops.sh import sh_to_rgb
+    from gstex_torch.scripts.eval_setup import eval_setup
+    from gstex_torch.scripts.render import eval_background
+
+    trainer, _, _ = eval_setup(root, device=DEVICE)
+    cfg, st = trainer.mcfg, trainer.state
+    params, buffers = st.params, st.buffers
+    cams = trainer.eval_cache.cameras[:2]
+    sess = editing.EditSession(cfg)
+    for k, cam in enumerate(cams):
+        sess.add_polyline(cam, stroke_points(cam, k), rgb=STROKE_RGB[k],
+                          width=STROKE_WIDTH)
+    where = dict(run=root.name, chart_pad=list(cfg.chart_pad), card=smi)
+    canvases = [torch.as_tensor(e["canvas"], dtype=torch.float32,
+                                device=DEVICE) / 255.0 for e in sess.edits]
+    with torch.no_grad():
+        tex0 = sh_to_rgb(params.texture)
+        tex, checks = tex0, []
+        for k, cam in enumerate(cams):
+            checks.append(check_texture_edit(
+                cfg, params, buffers, cam, tex, sess.edits[k]["canvas"],
+                edit=k, **where))
+            tex = editing.draw_from_view(cfg, params, buffers, cam, tex,
+                                         canvases[k])
+            torch.cuda.empty_cache()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        edited = sess.edit_texture(params, buffers)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in counters}
+        changed = int(((edited - tex0).abs().amax(-1) > 1e-3).sum())
+        draw_ms, draw_lo, draw_hi = host_ms(
+            lambda: editing.draw_from_view(cfg, params, buffers, cams[0],
+                                           tex0, canvases[0]), reps=5)
+        torch.cuda.empty_cache()
+        bg = eval_background(cfg, DEVICE)
+        for c in counters:
+            c.launches = 0
+        images = model.render_eval_images(cfg, params, buffers, cams[0],
+                                          st.step, bg, edit_texture=edited)
+        overlay_launches = {c.__name__: c.launches for c in counters}
+        plain = model.render(dataclasses.replace(cfg, renderer="xla"),
+                             params, buffers, cams[0], st.step, bg,
+                             eval_only=True, albedo=edited)
+        want = torch.clamp(plain["img"] + plain["texture_rgb"] + (
+            1.0 - plain["alpha"][..., None]) * bg, 0.0, 1.0)
+        overlay_err = float((images["edit"] - want).abs().max())
+        edit_moved = float((images["edit"] - images["rgb"]).abs().max())
+        finite = {k: bool(torch.isfinite(v).all())
+                  for k, v in images.items()}
+    emit("main_path", path="texture_edit", edits=len(sess.edits),
+         launches=launches, replay_ms=replay_ms, draw_from_view_ms=draw_ms,
+         draw_from_view_ms_min=draw_lo, draw_from_view_ms_max=draw_hi,
+         texels_changed=changed, overlay_launches=overlay_launches,
+         overlay_max_abs_err=overlay_err, edit_vs_rgb_max=edit_moved,
+         image_keys=sorted(images), **where)
+    want_launches = {k: (2 if k in ("scatter_canvas", "rasterize_dense_eval")
+                         else 0) for k in launches}
+    require(launches == want_launches,
+            f"{root.name}: the replay launched {launches}")
+    require(changed > 0, f"{root.name}: the edits changed no texel")
+    require(all(finite.values()), f"{root.name}: not finite: {finite}")
+    require(overlay_err <= OVERLAY_TOL,
+            f"{root.name}: the edit overlay is {overlay_err} off the plain "
+            f"tier's")
+    require(edit_moved > 0, f"{root.name}: the edit overlay shows no edit")
+    require(overlay_launches == {k: int(k == eval_kernel.__name__)
+                                 for k in overlay_launches},
+            f"{root.name}: the overlay launched {overlay_launches}")
+    del trainer, params, buffers, edited, images
+    torch.cuda.empty_cache()
+    return dict(checks=checks, launches=launches["scatter_canvas"],
+                draw_ms=draw_ms)
+
+
+def viewer_main_path(root, counters, eval_kernel):
+    """Phase 9c's viewer: ``gstex-torch-viewer --load-config root --port
+    0`` serves a test camera over HTTP: a ``/frame`` (a PNG of the
+    resolution cap's size, banded), a polyline painted through
+    ``/control``, ``/state`` showing one edit, and the ``edit`` output's
+    frame; the eval kernel launched once a band of every frame, the
+    texture-edit kernel and the dense eval kernel (its depth pass) once."""
+    import math
+    import urllib.request
+
+    from gstex_torch.data.png import read_png
+    from gstex_torch.models.editing import camera_to_json
+    from gstex_torch.scripts import viewer as viewer_cli
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    viewer = viewer_cli.start(["--load-config", str(root), "--port", "0",
+                               "--device", DEVICE])
+    base = f"http://127.0.0.1:{viewer.port}"
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+
+    cam = viewer.trainer.eval_cache.cameras[0]
+    cd = camera_to_json(cam)
+    res = viewer.rsm.pick_res(moving=False)
+    scale = res / max(cam.height, cam.width)
+    shape = (round(cam.height * scale), round(cam.width * scale), 3)
+
+    def frame(output, client):
+        post("/render", {"camera": cd, "output": output, "client": client})
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            status, ctype, body = get(f"/frame?client={client}")
+            if status == 200:
+                return ctype, body
+            time.sleep(0.05)
+        require(False, f"{root.name}: no {output} frame from the viewer")
+
+    try:
+        ctype, png = frame("rgb", "rgb")
+        path = root / "viewer_frame.png"
+        path.write_bytes(png)
+        img = read_png(path)
+        post("/control", {"action": "set_line", "rgb": [255, 0, 0],
+                          "width": STROKE_WIDTH})
+        post("/control", {"action": "start_polyline", "camera": cd})
+        for x, y in ((0.35, 0.4), (0.5, 0.55), (0.65, 0.45)):
+            post("/control", {"action": "click", "x": x, "y": y})
+        post("/control", {"action": "end_polyline"})
+        state = json.loads(get("/state")[2])
+        _, edit_png = frame("edit", "edit")
+    finally:
+        viewer.close()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    edit_path = root / "viewer_edit.png"
+    edit_path.write_bytes(edit_png)
+    edit_shape = read_png(edit_path).shape
+    # the cap's frame is banded; the edit frame may come at a lower rung
+    # of the ladder while the camera counts as moving
+    bands = math.ceil(shape[0] / viewer.BAND_ROWS)
+    emit("main_path", path="viewer", run=root.name, seconds=seconds,
+         frame_shape=list(img.shape), content_type=ctype,
+         frame_std=float(img.std()), state=state, bands=bands,
+         edit_frame_shape=list(edit_shape), launches=launches)
+    require(ctype == "image/png" and img.shape == shape,
+            f"{root.name}: the viewer sent {ctype} {img.shape}, not a PNG "
+            f"of {shape}")
+    require(img.std() > 1.0, f"{root.name}: the viewer's frame is blank")
+    require(state["edits"] == 1, f"{root.name}: /state read {state}")
+    # the run's frames on its (flat) eval kernel, the edit's depth pass on
+    # the dense one
+    want = {k: 0 for k in launches}
+    want.update(scatter_canvas=1, rasterize_dense_eval=1)
+    want[eval_kernel.__name__] = launches[eval_kernel.__name__]
+    require(launches == want and want[eval_kernel.__name__] >= bands + 2
+            and edit_shape[2] == 3,
+            f"{root.name}: the viewer launched {launches} for a frame of "
+            f"{bands} bands and an edit frame {edit_shape}")
+    return dict(launches=launches, bands=bands, seconds=seconds)
+
+
 def subsample_stats(path, n, seed=0):
     """A trained-scene-statistics file holding ``n`` of the asset's
     surfels, drawn with numpy from ``seed``."""
@@ -1635,6 +1916,7 @@ def main():
     from gstex_torch.ops import rasterize_v2 as rv2
     from gstex_torch.ops import rasterize_v3 as rv3
     from gstex_torch.ops import ssim_fused
+    from gstex_torch.ops import texture_edit as tedit
     from gstex_torch.ops.camera import make_camera
     from gstex_torch.ops.pair_inputs import bwd_launch_smem
     from gstex_torch.ops.rasterize_api import use_flat_path
@@ -1646,7 +1928,7 @@ def main():
     pair_src = ["rasterize_v3_fwd", "rasterize_v3_bwd", "rasterize_v2_fwd",
                 "rasterize_v2_bwd", "rasterize_v1_fwd", "rasterize_v1_bwd"]
     kernels_src = ["rasterize_eval", "rasterize_fwd", "rasterize_bwd",
-                   "ssim_fused"] + dense_src + pair_src
+                   "ssim_fused"] + dense_src + pair_src + ["texture_edit"]
     assert not torch.backends.cudnn.allow_tf32
 
     # 1. device
@@ -2011,6 +2293,18 @@ def main():
                      train_counters + (reval.rasterize_eval,))
     torch.cuda.empty_cache()
 
+    # 9c. texture painting on the runs of phases 5 (flat, (40, 80)) and 6
+    # (dense, (64, 128)), then the viewer serving phase 5's run
+    edit_counters = serve_counters + (tedit.scatter_canvas,)
+    edit_t = {
+        "40x80": edit_main_path(Path(tmp.name) / "run", edit_counters,
+                                reval.rasterize_eval, smi),
+        "64x128": edit_main_path(Path(tmp.name) / "run_dense", edit_counters,
+                                 rdense.rasterize_dense_eval, smi)}
+    viewer_main_path(Path(tmp.name) / "run", edit_counters,
+                     reval.rasterize_eval)
+    torch.cuda.empty_cache()
+
     # 10. timing: an eval frame, then a training step
     timings = {}
     with torch.no_grad():
@@ -2320,6 +2614,25 @@ def main():
             # plain version is five conv2d calls plus autograd)
             "library_ms": None,
         })
+    # beyond the TPU's kernels: texture painting's, at (40, 80) on its main
+    # path (phase 5's run replaying its two edits), and at (64, 128)
+    edit_main = edit_t["40x80"]["checks"][0]
+    kernels.append({
+        "name": "texture_edit", "route": "cuda",
+        "source": "gstex_torch/csrc/texture_edit.cu",
+        # plain JAX there: no pallas_call
+        "replaces": "gstex_tpu/ops/texture_edit.py:42",
+        "launches": edit_t["40x80"]["launches"],
+        "max_abs_err": max(c["max_abs_err"] for t in edit_t.values()
+                           for c in t["checks"]),
+        "ms": edit_main["ms"], "plain_ms": edit_main["plain_ms"],
+        "bound_ms": edit_main["bound_ms"], "bound_by": edit_main["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes this
+        "call_ms": edit_main["call_ms"],
+        "ms_by_pad": {pad: t["checks"][0]["ms"] for pad, t in edit_t.items()},
+        "bound_ms_by_pad": {pad: t["checks"][0]["bound_ms"]
+                            for pad, t in edit_t.items()},
+    })
     by_name = {k["name"]: k for k in kernels}
     for k in ("rasterize_dense_fwd", "rasterize_dense_bwd"):
         by_name[k]["ms_by_pad"] = {"64x128": main_t[k]["ms"],

@@ -50,6 +50,16 @@
 // products to the bit; a pixel keeps the window of the last q, two p2,
 // four p4 and eight p8.
 //
+// In forward_tile, kEdit selects the texture-edit output policy
+// (csrc/texture_edit.cu; gstex_tpu/ops/texture_edit.py): the eval walk
+// (kEval: the same break at T_EPS, the same weights w = alpha * T), but
+// where the eval kernel sums w into eight planes, each applied pair whose
+// depth t lies in its pixel's window [lo, hi] adds w * (canvas rgb,
+// canvas alpha, 1) to the texels of its bilinear tent, as REDs into the
+// splat's (Ch, Cw, 5) accumulator at slots.dchart (edit_texels below).
+// The pixel's six inputs (canvas rgb, alpha, lo, hi) come from
+// `edit_planes`, six (H, W) planes; nothing is written to `out`.
+//
 // forward_tile's Slots:
 //   void stage(int base, int n, float* s_rec, int tid): the records of
 //     slots base..base+n-1 into s_rec (n * kRec floats); the caller
@@ -249,6 +259,52 @@ struct IdSlots {
   }
 };
 
+// kEdit's output for one applied pair inside its pixel's window: w *
+// (rgb, alpha, 1) of pixel j's canvas (ev[0..3][j]) into the texels of
+// the tent at the forward's clamped sample x, as REDs into `acc`, the
+// splat's (Ch, Cw, 5) accumulator. The weights are texture_edit.py's,
+// max(0, 1 - |x - a|) at a = x0 and x0 + 1 (the forward's 1 - fx, and fx
+// to the rounding of x - (x0 + 1)), each term w_b * (w_a * (w * value))
+// in its order. A weight of zero adds nothing; the texel of every
+// non-zero weight lies in the splat's active h x w chart.
+template <int kPix>
+__device__ __forceinline__ void edit_texels(float* acc, const float* r,
+                                            float d0, float d1, float d2,
+                                            float t, float w,
+                                            const float (&ev)[6][kPix],
+                                            int j, int cw) {
+  const float b1ud = r[12] * d0 + r[13] * d1 + r[14] * d2;
+  const float b2ud = r[16] * d0 + r[17] * d1 + r[18] * d2;
+  const float uvu = fminf(fmaxf(0.5f + r[15] + t * b1ud, 0.0f), 1.0f);
+  const float uvv = fminf(fmaxf(0.5f + r[19] + t * b2ud, 0.0f), 1.0f);
+  const float hf = r[26];
+  const float wf = r[27];
+  const float xf = fminf(fmaxf(uvu * hf, 0.0f), hf - 1.0f);
+  const float yf = fminf(fmaxf(uvv * wf, 0.0f), wf - 1.0f);
+  const float x0 = floorf(xf);
+  const float y0 = floorf(yf);
+  const float wx[2] = {1.0f - (xf - x0), 1.0f - fabsf(xf - (x0 + 1.0f))};
+  const float wy[2] = {1.0f - (yf - y0), 1.0f - fabsf(yf - (y0 + 1.0f))};
+  const float wv[5] = {w * ev[0][j], w * ev[1][j], w * ev[2][j],
+                       w * ev[3][j], w};
+  const int x0i = static_cast<int>(x0);
+  const int y0i = static_cast<int>(y0);
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (!(wx[a] > 0.0f)) continue;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (!(wy[b] > 0.0f)) continue;
+      float* texel = acc + ((x0i + a) * cw + y0i + b) * 5;
+#pragma unroll
+      for (int c = 0; c < 5; ++c) {
+        const float v = wy[b] * (wx[a] * wv[c]);
+        if (v != 0.0f) atomicAdd(texel + c, v);
+      }
+    }
+  }
+}
+
 // v3's chunk of slots, and the slots of it unrolled in the walk: the
 // scan's windows are indexed by the slot's place in an unrolled run
 constexpr int kScan = 16;
@@ -274,16 +330,21 @@ __device__ __forceinline__ void rotate_left(X (&a)[kN]) {
 // 16 slots in turn, its ray recomputed at the chunk's start, and one copy
 // of that walk serves every pixel (their state is rotated through index
 // 0), so that the scan's window fits in registers beside the pixels'
-// state.
+// state. With kEdit (the texture-edit policy, above) the walk is kEval's
+// and its output the texel REDs.
 template <int kChunk, class Slots, bool kV1 = false, bool kRing = false,
-          bool kEval = false, int kBlock = kThreads, bool kV3 = false>
+          bool kEval = false, int kBlock = kThreads, bool kV3 = false,
+          bool kEdit = false>
 __device__ __forceinline__ void forward_tile(
     const Slots& slots, int tile, const int* __restrict__ counts,
     const float* __restrict__ cam_info, float* __restrict__ out,
     int* __restrict__ ncontrib, int ntx, int tile_h, int tile_w, int height,
-    int width, int cw, int s_max, int lean) {
+    int width, int cw, int s_max, int lean,
+    const float* __restrict__ edit_planes = nullptr) {
   static_assert(!kV3 || (!kV1 && !kEval && kChunk % kScan == 0),
                 "v3 walks whole chunks of 16 slots, in v2's arithmetic");
+  static_assert(!kEdit || (kEval && !kV1 && !kV3),
+                "the texture edit walks as the eval kernel does");
   // kBlock threads share the tile's 1024 pixel slots
   constexpr int kPix = (kThreads * kPixPerThread + kBlock - 1) / kBlock;
   // kRing: two buffers, 16-byte aligned for cp.async
@@ -310,6 +371,8 @@ __device__ __forceinline__ void forward_tile(
   float acc[kEval ? 8 : 13][kPix];
   int ncon[kPix];
   bool inside[kPix];
+  // kEdit: the pixel's canvas rgb, canvas alpha and depth window
+  float ev[kEdit ? 6 : 1][kPix];
   bool alive = false;
 #pragma unroll
   for (int j = 0; j < kPix; ++j) {
@@ -317,6 +380,13 @@ __device__ __forceinline__ void forward_tile(
     const int ix = tx * tile_w + p % tile_w;
     const int iy = ty * tile_h + p / tile_w;
     inside[j] = p < pix && ix < width && iy < height;
+    if constexpr (kEdit) {
+      const long long o = static_cast<long long>(iy) * width + ix;
+      const long long plane = static_cast<long long>(height) * width;
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        ev[c][j] = inside[j] ? edit_planes[c * plane + o] : 0.0f;
+    }
     gx[j] = static_cast<float>(ix) + cam[4];
     gy[j] = static_cast<float>(iy) + cam[5];
     const float dx = (gx[j] + 0.5f - cam[2]) / cam[0];
@@ -480,7 +550,7 @@ __device__ __forceinline__ void forward_tile(
     } else {
       for (int s = 0; s < n; ++s) {
         const float* r = s_rec + s * kRec;
-        const float* chart = slots.chart(s, base + s);
+        const float* chart = kEdit ? nullptr : slots.chart(s, base + s);
 #pragma unroll
         for (int j = 0; j < kPix; ++j) {
           if (!inside[j] || !(T[j] > kTEps)) continue;
@@ -504,6 +574,13 @@ __device__ __forceinline__ void forward_tile(
           if (!(alpha > 0.0f)) continue;  // T * (1 - 0) == T, weight 0
 
           const float t_new = T[j] * (1.0f - alpha);
+          if constexpr (kEdit) {
+            if (t_new > kTEps && t >= ev[4][j] && t <= ev[5][j])
+              edit_texels(slots.dchart(s, base + s), r, d0[j], d1[j], d2[j],
+                          t, alpha * T[j], ev, j, cw);
+            T[j] = t_new;
+            continue;
+          }
           if (t_new > kTEps) {
             const float w = alpha * T[j];
             const float b1ud = r[12] * d0[j] + r[13] * d1[j] + r[14] * d2[j];
@@ -574,7 +651,9 @@ __device__ __forceinline__ void forward_tile(
     const int p = tid + j * kBlock;
     const long long o = static_cast<long long>(ty * tile_h + p / tile_w) * width
                         + tx * tile_w + p % tile_w;
-    if constexpr (kEval) {
+    if constexpr (kEdit) {
+      // the output is the texel REDs
+    } else if constexpr (kEval) {
 #pragma unroll
       for (int c = 0; c < 8; ++c) out[c * plane + o] = acc[c][j];
     } else {

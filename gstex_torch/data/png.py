@@ -112,6 +112,12 @@ def read_mask(path) -> np.ndarray:
 def write_png(path, img: np.ndarray) -> None:
     """Write an (H, W, C) uint8 image, C of 1 to 4, as an 8-bit grey,
     grey-alpha, RGB or RGBA PNG (no row filters)."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The bytes of ``write_png``'s file for ``img``."""
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
@@ -124,9 +130,6 @@ def write_png(path, img: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + body
                 + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
-                                           0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+    return (SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))

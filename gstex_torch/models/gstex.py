@@ -339,9 +339,12 @@ def init_params(cfg: GStexConfig, means, log_scales2, quats, opacity_logits,
 
 def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
            cam: Camera, step: int, background: torch.Tensor,
-           extra: bool = False, eval_only: bool = False) -> dict:
+           extra: bool = False, eval_only: bool = False,
+           albedo: Optional[torch.Tensor] = None) -> dict:
     """Render one view, differentiable in the params unless the caller
-    holds ``torch.no_grad``. ``cfg.renderer`` names the tier:
+    holds ``torch.no_grad``. ``albedo`` (N, Ch, Cw, 3), given, takes the
+    place of the texture's albedo (the edited charts of texture painting).
+    ``cfg.renderer`` names the tier:
 
     - ``"pallas"`` / ``"pallas5"``: the flat pair-list kernels where they
       take the chart pad (``use_flat_path``), else the dense-list kernels;
@@ -380,9 +383,11 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             sh_degree=cfg.sh_degree, fix_init=cfg.fix_init,
             extent_sigma=cfg.sigma_factor)
 
-    def albedo():
+    def texture_albedo():
         # texture albedo: SH2RGB(texture_dc) when sh_degree > 0, else
         # sigmoid
+        if albedo is not None:
+            return albedo
         with record_function("gstex.records"):
             if cfg.sh_degree > 0:
                 return sh_ops.sh_to_rgb(params.texture)
@@ -390,8 +395,8 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
 
     if renderer == "oracle":
         # no binning, no capacities: it cannot overflow
-        out = render_oracle(prep.geom, albedo(), buffers.texture_hw, cam,
-                            extra_channels=extra)
+        out = render_oracle(prep.geom, texture_albedo(), buffers.texture_hw,
+                            cam, extra_channels=extra)
         stats = dict(overflow=0, total_pairs=0, max_tile_count=0)
     else:
         grid = cfg.grid(cam.height, cam.width)
@@ -415,7 +420,7 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             bins = binning(prep.centers.detach(), prep.extents.detach(),
                            prep.depths.detach(), prep.valid, grid,
                            cfg.pair_cap, cfg.s_max, cull_fn=cull_fn)
-        texture = albedo()
+        texture = texture_albedo()
         hw = buffers.texture_hw
         if use_flat and eval_only:
             out = rasterize_pl5_eval(prep.geom, texture, hw, bins, cam, grid,
@@ -448,6 +453,73 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             out["estimated_normals"] = depth_to_normal(
                 out["depth"].detach(), cam)
     return out
+
+
+@torch.no_grad()
+def render_eval_images(cfg: GStexConfig, params: GStexParams,
+                       buffers: GStexBuffers, cam: Camera, step: int,
+                       background: torch.Tensor,
+                       edit_texture: Optional[torch.Tensor] = None) -> dict:
+    """The full eval image set: ``rgb``, ``depth`` and ``accumulation``
+    (H, W, 1), ``test`` (the random test colours at opacities thresholded
+    at 0.5), ``uv``, ``only_rgb``, ``only_texture``, ``clean_normal_img``,
+    ``normal_im``, ``reg`` (H, W, 1), ``background`` and ``edit``, as the
+    JAX package's ``render_eval_images``. The maps come from the
+    ``extra=True`` render (the pure-torch tier, which has the uv
+    channels). ``edit`` is the view with the edited RGB charts
+    ``edit_texture`` (else ``rgb``): clip(img + tex(edited) + (1 − α)·bg),
+    which is the ``rgb`` the tier's eval render composes with that albedo,
+    so on the kernel tiers it comes from the eval kernel."""
+    outputs = render(cfg, params, buffers, cam, step, background,
+                     extra=True)
+    bg = background[None, None, :]
+    alpha1 = outputs["alpha"][..., None]
+    # the test render: random per-gaussian colours, opacities 1 above 0.5
+    # and 0 below (the reference zeroes <= 0.5, then promotes > 0.2 of
+    # what is left)
+    test_logits = torch.where(torch.sigmoid(params.opacity_logits) > 0.5,
+                              40.0, -40.0)
+    tmaps = _test_color_img(cfg, params._replace(opacity_logits=test_logits),
+                            buffers, cam)
+    images = {
+        "rgb": outputs["rgb"],
+        "depth": outputs["depth"][..., None],
+        "accumulation": alpha1,
+        "test": torch.clamp(tmaps["img"] + (1.0 - tmaps["alpha"][..., None])
+                            * bg, 0.0, 1.0),
+        "uv": torch.clamp(outputs["uv"] + (1.0 - alpha1) * bg, 0.0, 1.0),
+        "only_rgb": torch.clamp(outputs["img"] + 0.5, 0.0, 1.0),
+        "only_texture": torch.clamp(outputs["texture_rgb"], 0.0, 1.0),
+        "clean_normal_img": torch.clamp(
+            0.5 * (outputs["normal"] + 1.0) + (1.0 - alpha1) * bg, 0.0, 1.0),
+        "normal_im": outputs["normal"],
+        "reg": outputs["reg"][..., None],
+        "background": background,
+    }
+    if edit_texture is not None:
+        images["edit"] = render(cfg, params, buffers, cam, step, background,
+                                eval_only=True, albedo=edit_texture)["rgb"]
+    else:
+        images["edit"] = outputs["rgb"]
+    return images
+
+
+def _test_color_img(cfg: GStexConfig, test_params: GStexParams,
+                    buffers: GStexBuffers, cam: Camera) -> dict:
+    """Σ w·test_colour over the charts-free blend, at the given (test)
+    opacities: the pure-torch tier's maps."""
+    prep = prepare_splats(
+        test_params.means, test_params.log_scales, test_params.quats,
+        test_params.opacity_logits, test_params.features_dc,
+        test_params.features_rest, buffers.mappings, cam,
+        active_sh_degree=0, sh_degree=0, fix_init=cfg.fix_init,
+        extent_sigma=cfg.sigma_factor)
+    geom = prep.geom._replace(rgb=buffers.test_colors)
+    grid = cfg.grid(cam.height, cam.width)
+    bins = build_tile_bins(prep.centers, prep.extents, prep.depths,
+                           prep.valid, grid, cfg.pair_cap, cfg.s_max)
+    return rasterize(geom, torch.zeros_like(test_params.texture),
+                     buffers.texture_hw, bins, cam, grid)
 
 
 def composite_gt(image: torch.Tensor,

@@ -54,7 +54,10 @@ checkpoint's step:
         --load-checkpoint RUN_DIR/checkpoints/step-000002000.ckpt.pt \
         --max-num-iterations 4000
 
-The multi-device and viewer flags of ``gstex-train`` are not offered yet.
+``--viewer`` serves the interactive viewer on the training state while
+the run trains (``--viewer-port``, default 7007): live frames, pause and
+resume, texture painting (``gstex_torch/viewer/server.py``). The
+multi-device flags of ``gstex-train`` are not offered yet.
 """
 
 from __future__ import annotations
@@ -201,6 +204,9 @@ def main(argv=None) -> dict:
     p.add_argument("--vis", default=None,
                    help="metric sinks, comma separated: tensorboard, "
                         "wandb, comet")
+    p.add_argument("--viewer", action="store_true",
+                   help="serve the interactive viewer while training")
+    p.add_argument("--viewer-port", type=int, default=7007)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -270,7 +276,13 @@ def main(argv=None) -> dict:
 
     trainer = Trainer(method.trainer, method.model, method.optim, params,
                       buffers, train_cache, eval_cache, run_config)
-    history = trainer.train()
+    if args.viewer:
+        trainer.attach_viewer(port=args.viewer_port)
+    try:
+        history = trainer.train()
+    finally:
+        if args.viewer:
+            trainer.viewer.close()
     results = None
     if eval_cache is not None:
         results = trainer.eval_all()

@@ -12,15 +12,19 @@ steps and at the end. Scalars and images go through a ``Writer``
 ``train_iteration`` and ``retexture_after`` sections of the wall-time
 profiler are printed at the end. A run resumed from ``load_checkpoint``
 (the port's ``.ckpt.pt`` or the JAX package's ``.ckpt.npz``) starts at
-the checkpoint's step and keeps every cadence on that absolute step. The
-tile mesh, data parallelism, camera optimization, the scanned multi-step
-dispatch and the progressive-resolution schedule raise
-``NotImplementedError`` and name their ROADMAP item; the viewer is not
-attached yet.
+the checkpoint's step and keeps every cadence on that absolute step.
+``attach_viewer`` serves the interactive viewer (``viewer/server.py``) on
+the trainer's state: each step then runs under the viewer's
+``train_lock``, the loop waits while the viewer is paused, and the
+viewer's config follows the trainer's when the growth of capacities
+replaces it. The tile mesh, data parallelism, camera optimization, the
+scanned multi-step dispatch and the progressive-resolution schedule raise
+``NotImplementedError`` and name their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -112,6 +116,17 @@ class Trainer:
             self.mcfg = self._demand_size_caps()
         self.history: list[dict] = []
         self._eval_counter = 0
+        self.viewer = None
+
+    def attach_viewer(self, port: int = 7007):
+        """Start the interactive viewer on this trainer's state; returns
+        it (its ``port`` is the one bound, for ``port=0`` a free one)."""
+        from ..viewer.server import Viewer
+
+        self.viewer = Viewer(self.mcfg, lambda: self.state, trainer=self,
+                             port=port).start()
+        print(f"viewer on http://localhost:{self.viewer.port}")
+        return self.viewer
 
     def _demand_size_caps(self) -> model.GStexConfig:
         """pair_cap / s_max sized to the first train view's measured
@@ -132,11 +147,16 @@ class Trainer:
         tcfg, st = self.tcfg, self.state
         t_last, since_log = time.time(), 0
         while st.step < tcfg.max_num_iterations:
+            while self.viewer is not None and self.viewer.paused:
+                time.sleep(0.1)
             step = st.step
+            lock = (self.viewer.train_lock if self.viewer is not None
+                    else contextlib.nullcontext())
             with profiler.time_section("train_iteration"):
                 idx, (cam, img, mask) = self.train_cache.next_train_idx()
-                metrics = step_mod.train_step(self.mcfg, self.ocfg, st, cam,
-                                              img, mask)
+                with lock:
+                    metrics = step_mod.train_step(self.mcfg, self.ocfg, st,
+                                                  cam, img, mask)
                 metrics = {k: float(v) for k, v in metrics.items()}
             self.history.append(dict(metrics, step=step, camera=idx))
             since_log += 1
@@ -146,7 +166,7 @@ class Trainer:
                 self._grow_capacities(step, metrics)
             if (self.mcfg.build_chart_every > 0 and step > 0
                     and step % self.mcfg.build_chart_every == 0):
-                with profiler.time_section("retexture_after"):
+                with profiler.time_section("retexture_after"), lock:
                     step_mod.rechart_step(self.mcfg, st)
             if tcfg.log_every > 0 and step % tcfg.log_every == 0:
                 now = time.time()
@@ -195,6 +215,8 @@ class Trainer:
               f"s_max {mcfg.s_max}->{new_s}, pair_cap {mcfg.pair_cap}->"
               f"{new_p}")
         self.mcfg = dataclasses.replace(mcfg, s_max=new_s, pair_cap=new_p)
+        if self.viewer is not None:
+            self.viewer.cfg = self.mcfg
 
     def _nan_abort(self, step: int, metrics: dict):
         """Dump the step, its metrics and per-leaf param stats, and abort."""

@@ -53,11 +53,27 @@ def test_every_kernel_source_has_a_wrapper():
                        "rasterize_dense_fwd", "rasterize_dense_bwd",
                        "rasterize_v3_fwd", "rasterize_v3_bwd",
                        "rasterize_v2_fwd", "rasterize_v2_bwd",
-                       "rasterize_v1_fwd", "rasterize_v1_bwd"}
+                       "rasterize_v1_fwd", "rasterize_v1_bwd",
+                       "texture_edit"}
     ops = "".join(p.read_text()
                   for p in (ROOT / "gstex_torch" / "ops").glob("*.py"))
     for name in sources:
         assert f'"{name}"' in ops, name
+
+
+# the card's machine has neither cv2 nor PIL
+NO_IMAGE_LIBRARY = ("ops/texture_edit.py", "models/editing.py",
+                    "utils/draw.py", "viewer/server.py", "viewer/page.py",
+                    "viewer/render_panel.py", "scripts/viewer.py",
+                    "data/png.py")
+
+
+@pytest.mark.parametrize("name", NO_IMAGE_LIBRARY)
+def test_painting_and_viewer_import_no_image_library(name):
+    path = ROOT / "gstex_torch" / name
+    bad = [m for m in imported_modules(path)
+           if m.split(".")[0] in ("cv2", "PIL")]
+    assert not bad, f"{name} imports {bad}"
 
 
 def test_package_turns_tf32_off():

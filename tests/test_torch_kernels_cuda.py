@@ -942,3 +942,46 @@ def test_pair_forward_tile_orders_bit_equal(cuda, version, pad, s_cap, hw,
         assert fwd.launches == before + 1
         assert torch.equal(o_maps, maps) and torch.equal(o_ncon, ncon), name
     assert float(maps[7].max()) > 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad,tile,s_cap", DENSE_CASES, ids=DENSE_IDS)
+def test_texture_edit_kernel_matches_plain(cuda, pad, tile, s_cap):
+    """The texture-edit kernel against its plain version on the dense
+    lists: a seeded RGBA canvas (a third of it unpainted) and a depth
+    window around the view's α-normalised depth. Its REDs add in no fixed
+    order, so each accumulator channel is held to 1e-5 of its max, and the
+    texels it reaches (weight > 0) to the plain version's exactly; under
+    three tile orders alike."""
+    from gstex_torch.ops import texture_edit as te
+
+    inputs, grid, bins = dense_inputs(cuda, pad, tile, s_cap)
+    records, ids, counts, charts, info = inputs
+    maps = rdense.rasterize_dense_eval(*inputs, grid)
+    depth = maps[6] / torch.clamp(maps[7], min=1e-6)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    canvas = torch.rand((grid.height, grid.width, 4), generator=gen,
+                        device=cuda)
+    canvas[..., 3] *= torch.rand((grid.height, grid.width), generator=gen,
+                                 device=cuda) > 0.3
+    planes = te.edit_planes(canvas[..., :3], canvas[..., 3:], depth - 0.02,
+                            depth + 0.02)
+    args = (records, ids, counts, planes, info, grid, *pad)
+    ref = te.scatter_canvas_reference(*args)
+    assert float(ref[..., 3].max()) > 0
+    n_tiles = grid.num_tiles
+    orders = {"longest_first": None,
+              "block": torch.arange(n_tiles, dtype=torch.int32,
+                                    device=cuda),
+              "reversed": torch.arange(n_tiles - 1, -1, -1,
+                                       dtype=torch.int32, device=cuda)}
+    for name, order in orders.items():
+        before = te.scatter_canvas.launches
+        out = te.scatter_canvas(*args, order=order)
+        torch.cuda.synchronize()
+        assert te.scatter_canvas.launches == before + 1
+        assert torch.equal(out[..., 4] > 0, ref[..., 4] > 0), name
+        for c in range(te.ACCUM):
+            scale = float(ref[..., c].abs().max())
+            err = float((out[..., c] - ref[..., c]).abs().max())
+            assert err <= 1e-5 * scale, (name, c, err, scale)

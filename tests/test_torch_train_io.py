@@ -173,6 +173,9 @@ def test_trainer_cadences_and_resume(dataset, tmp_path, capsys):
         return Trainer(tcfg, cfg, toptim.OptimConfig(), params, buffers,
                        *caches)
 
+    # the profiler's sections are per process: drop what earlier tests on
+    # this worker timed (a re-chart among them)
+    tprof.reset()
     trainer(tmp_path / "a").train()
     out = capsys.readouterr().out
     assert NOTICE.findall(out) == [("comet", "ModuleNotFoundError")]
