@@ -116,8 +116,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``render_eval_images`` set with the edited charts, its ``edit`` image
    from the run's eval kernel within 1e-6 of the pure-torch tier's; then
    ``gstex-torch-viewer`` on phase 5's run on a free port: a ``/frame``
-   (a PNG of the resolution cap's size, one eval launch a band), a
-   polyline painted over HTTP, ``/state`` showing the edit;
+   (a JPEG of the resolution cap's size, decoded by the port's decoder,
+   one eval launch a band), a polyline painted over HTTP, ``/state``
+   showing the edit;
+9d. captured data and panoramas: a nerfstudio capture of 16 JPEG frames
+   (quality 95, ``data/jpeg.py``) rendered from the trained scene at
+   800x800 through an OPENCV lens (k1 -0.05, k2 0.01, p1 1e-3, p2
+   -1e-3); the host JPEG decoder's time a frame (the C++ build at first
+   use, its plain version once, equal bytes) and the capture's load time
+   (decode and undistortion in the thread pool, to the card); then
+   ``gstex-dtu-nvs --renderer pallas --set model.num_downscales=2 --set
+   model.resolution_schedule=30`` for 120 steps: 30 steps at 200x200, 30
+   at 400x400, 60 at 800x800, each launching the flat forward, backward
+   and SSIM kernels once, the loss falling (overall and at full size),
+   the held-out PSNR against the undistorted frames above 20 dB;
+   OPENCV_FISHEYE and FISHEYE624 copies of 4 frames loaded (new
+   intrinsics, the fisheye624 mask's coverage) and trained 20 steps with
+   a finite loss; then on phase 5's run (flat) and phase 6's (dense)
+   ``render dataset --camera-type equirectangular|ods --pano-width 2048``
+   (6 and 12 launches of the run's eval kernel a panorama, PNGs of
+   2048x1024 and 2048x2048), each panorama timed, the equirect's centre
+   crop within 0.06 of the 90-degree pinhole render at its pose;
 10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
@@ -258,8 +277,13 @@ FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
                 "rgb": [21, 22, 23], "xy": [24, 25]}
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0,
+                                                  1), **fields}), flush=True)
 
 
 def require(ok, what):
@@ -1792,15 +1816,15 @@ def edit_main_path(root, counters, eval_kernel, smi):
 
 def viewer_main_path(root, counters, eval_kernel):
     """Phase 9c's viewer: ``gstex-torch-viewer --load-config root --port
-    0`` serves a test camera over HTTP: a ``/frame`` (a PNG of the
-    resolution cap's size, banded), a polyline painted through
-    ``/control``, ``/state`` showing one edit, and the ``edit`` output's
+    0`` serves a test camera over HTTP: a ``/frame`` (a JPEG of the
+    resolution cap's size, banded, decoded by the port's decoder), a
+    polyline painted through ``/control``, ``/state`` showing one edit, and the ``edit`` output's
     frame; the eval kernel launched once a band of every frame, the
     texture-edit kernel and the dense eval kernel (its depth pass) once."""
     import math
     import urllib.request
 
-    from gstex_torch.data.png import read_png
+    from gstex_torch.data.png import read_image
     from gstex_torch.models.editing import camera_to_json
     from gstex_torch.scripts import viewer as viewer_cli
 
@@ -1838,10 +1862,10 @@ def viewer_main_path(root, counters, eval_kernel):
         require(False, f"{root.name}: no {output} frame from the viewer")
 
     try:
-        ctype, png = frame("rgb", "rgb")
-        path = root / "viewer_frame.png"
-        path.write_bytes(png)
-        img = read_png(path)
+        ctype, body = frame("rgb", "rgb")
+        path = root / "viewer_frame.jpg"
+        path.write_bytes(body)
+        img = read_image(path)
         post("/control", {"action": "set_line", "rgb": [255, 0, 0],
                           "width": STROKE_WIDTH})
         post("/control", {"action": "start_polyline", "camera": cd})
@@ -1849,23 +1873,25 @@ def viewer_main_path(root, counters, eval_kernel):
             post("/control", {"action": "click", "x": x, "y": y})
         post("/control", {"action": "end_polyline"})
         state = json.loads(get("/state")[2])
-        _, edit_png = frame("edit", "edit")
+        edit_ctype, edit_body = frame("edit", "edit")
     finally:
         viewer.close()
     seconds = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
-    edit_path = root / "viewer_edit.png"
-    edit_path.write_bytes(edit_png)
-    edit_shape = read_png(edit_path).shape
+    edit_path = root / "viewer_edit.jpg"
+    edit_path.write_bytes(edit_body)
+    edit_shape = read_image(edit_path).shape
     # the cap's frame is banded; the edit frame may come at a lower rung
     # of the ladder while the camera counts as moving
     bands = math.ceil(shape[0] / viewer.BAND_ROWS)
     emit("main_path", path="viewer", run=root.name, seconds=seconds,
          frame_shape=list(img.shape), content_type=ctype,
+         frame_bytes=len(body), edit_content_type=edit_ctype,
          frame_std=float(img.std()), state=state, bands=bands,
          edit_frame_shape=list(edit_shape), launches=launches)
-    require(ctype == "image/png" and img.shape == shape,
-            f"{root.name}: the viewer sent {ctype} {img.shape}, not a PNG "
+    require(ctype == edit_ctype == "image/jpeg" and img.shape == shape
+            and body[:3] == b"\xff\xd8\xff",
+            f"{root.name}: the viewer sent {ctype} {img.shape}, not a JPEG "
             f"of {shape}")
     require(img.std() > 1.0, f"{root.name}: the viewer's frame is blank")
     require(state["edits"] == 1, f"{root.name}: /state read {state}")
@@ -1879,6 +1905,353 @@ def viewer_main_path(root, counters, eval_kernel):
             f"{root.name}: the viewer launched {launches} for a frame of "
             f"{bands} bands and an edit frame {edit_shape}")
     return dict(launches=launches, bands=bands, seconds=seconds)
+
+
+# phase 9d: a captured JPEG dataset through an OPENCV lens, trained under
+# the progressive-resolution schedule (200², 400², then 800²), fisheye
+# copies of a few of its frames, panoramas and the data layer's timings
+CAPTURE_VIEWS = 16
+CAPTURE_DISTORTION = {"k1": -0.05, "k2": 0.01, "p1": 1e-3, "p2": -1e-3}
+CAPTURE_DOWNSCALES = 2
+CAPTURE_SCHEDULE = 30
+# the held-out PSNR of the captured run against its undistorted frames,
+# stated before the first run (phase 8's runs read 32-33 dB)
+CAPTURE_PSNR_GATE = 20.0
+FISHEYE_MODELS = {
+    "OPENCV_FISHEYE": {"k1": 0.05, "k2": -0.01, "k3": 0.002, "k4": -0.001},
+    "FISHEYE624": {"k1": 0.02, "k2": -0.003, "p1": 1e-4, "s1": 1e-4},
+}
+FISHEYE_VIEWS = 4
+FISHEYE_STEPS = 20
+PANO_WIDTH = 2048
+# the equirect's centre crop against the pinhole render at its pose, per
+# channel (tests/test_pano.py's bound at the centre pixel)
+PANO_CENTRE_TOL = 0.06
+PANO_CROP = 32
+
+
+def capture_expected_sizes(steps):
+    """The schedule's image side at each step: 800 / 2^max(downscales −
+    step // schedule, 0), floored as the trainer floors it."""
+    return [H // 2 ** max(CAPTURE_DOWNSCALES - s // CAPTURE_SCHEDULE, 0)
+            for s in range(steps)]
+
+
+def captured_main_path(root, counters, train_counters, eval_kernel):
+    """Phase 9d (a), (b), (e): a nerfstudio capture of JPEG frames
+    (``data/jpeg.py`` at quality 95) through an OPENCV lens, written from
+    the trained scene at 800x800; the host decoder's time a frame and
+    the dataset's load (decode and undistortion) time; ``gstex-dtu-nvs
+    --renderer pallas`` under ``num_downscales=2`` trained on it, each
+    step's image size and flat-kernel launches recorded; then
+    OPENCV_FISHEYE and FISHEYE624 copies of a few of its frames loaded
+    and trained 20 steps. Returns what it measured."""
+    import shutil
+
+    from gstex_torch.data import jpeg
+    from gstex_torch.data.manager import FullImageCache
+    from gstex_torch.data.nerfstudio_parser import parse_nerfstudio
+    from gstex_torch.data.synthetic import write_nerfstudio_dataset
+    from gstex_torch.models import gstex as model
+    from gstex_torch.models import init_io
+    from gstex_torch.scripts import train as train_cli
+    from gstex_torch.train import step as step_mod
+
+    cfg = model.GStexConfig(renderer="pallas", chart_pad=PAD,
+                            pair_cap=1 << 21, s_max=2048,
+                            background_color="black")
+    params, buffers = init_io.params_from_scene_stats(cfg, STATS, seed=0,
+                                                      device=DEVICE)
+    params = params._replace(texture=GT_TEXEL_SCALE * params.texture)
+    cap = root / "capture"
+    t0 = time.perf_counter()
+    paths = write_nerfstudio_dataset(
+        cap, cfg, params, buffers, CAPTURE_VIEWS, H, W, masks=False,
+        image_format="jpeg", distortion=CAPTURE_DISTORTION)
+    write_s = time.perf_counter() - t0
+    del params, buffers
+    torch.cuda.empty_cache()
+
+    # (e) the host decoder a frame, its plain version once, the load
+    frames = sorted((cap / "images_2").glob("*.jpg"))
+    data = frames[0].read_bytes()
+    t0 = time.perf_counter()
+    first = jpeg.decode(data)             # builds the host library
+    build_s = time.perf_counter() - t0
+    decode_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        jpeg.decode(data)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    plain = jpeg.decode_plain(data)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    require(np.array_equal(plain, first) and first.shape == (H, W, 3),
+            "capture: the C++ decoder and its plain version disagree")
+    parsed = parse_nerfstudio(cap, downscale_factor=2, eval_mode="all")
+    load_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = FullImageCache.build(parsed, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+    cam = cache.cameras[0]
+    new_k = [float(v) for v in cam.intrins]
+    timing = dict(decode_ms=statistics.median(decode_ms),
+                  decode_ms_min=min(decode_ms), plain_decode_ms=plain_ms,
+                  host_build_s=build_s, frame_bytes=len(data),
+                  load_s=min(load_s), load_s_first=load_s[0],
+                  frames=len(frames), frame_hw=[H, W])
+    emit("main_path", path="capture_timing", **timing,
+         intrinsics_raw=[float(parsed.fx[0]), float(parsed.fy[0]),
+                         float(parsed.cx[0]), float(parsed.cy[0])],
+         intrinsics_undistorted=new_k, dataset_seconds=write_s)
+    require(all(c.height == H and c.width == W for c in cache.cameras),
+            "capture: an undistorted frame changed size")
+    del cache
+    torch.cuda.empty_cache()
+
+    # (a) the schedule's run, each step's image size and launches
+    real_step = step_mod.train_step
+    steps = []
+
+    def recording(*args, **kwargs):
+        before = [c.launches for c in train_counters]
+        out = real_step(*args, **kwargs)
+        img = args[4]
+        steps.append((int(img.shape[0]), int(img.shape[1]),
+                      [c.launches - b for c, b in zip(train_counters,
+                                                     before)]))
+        return out
+    for c in counters:
+        c.launches = 0
+    step_mod.train_step = recording
+    t0 = time.perf_counter()
+    try:
+        res = train_cli.main([
+            "gstex-dtu-nvs", "--data", str(cap), "--init-ply",
+            str(paths["init_ply"]), "--renderer", "pallas",
+            "--max-num-iterations", str(TRAIN_STEPS),
+            "--set", f"model.num_downscales={CAPTURE_DOWNSCALES}",
+            "--set", f"model.resolution_schedule={CAPTURE_SCHEDULE}",
+            "--output-dir", str(root / "run_capture")])
+    finally:
+        step_mod.train_step = real_step
+    run_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    want = capture_expected_sizes(TRAIN_STEPS)
+    full = want.index(H)
+    first, last = (statistics.mean(losses[:10]),
+                   statistics.mean(losses[-10:]))
+    first_full = statistics.mean(losses[full:full + 10])
+    sides = sorted({(h, w) for h, w, _ in steps})
+    emit("main_path", path="capture_train", steps=len(hist), seconds=run_s,
+         sizes=[list(x) for x in sides],
+         steps_per_size={f"{h}x{w}": sum(1 for a, b, _ in steps
+                                         if (a, b) == (h, w))
+                         for h, w in sides},
+         launches=launches, first10_loss=first, last10_loss=last,
+         first10_full_loss=first_full, eval=res["eval"],
+         losses=[round(x, 6) for x in losses[::10]],
+         max_overflow=max(h["overflow"] for h in hist),
+         psnr_gate=CAPTURE_PSNR_GATE)
+    require([h for h, _, _ in steps] == want
+            and [w for _, w, _ in steps] == want,
+            f"capture: the steps trained at {[x[:2] for x in steps]}")
+    require(all(d == [1] * len(train_counters) for _, _, d in steps),
+            f"capture: a step launched {[d for *_, d in steps]}")
+    require(all(x == x and abs(x) != float("inf") for x in losses),
+            "capture: a loss is not finite")
+    require(last < first and last < first_full,
+            f"capture: the loss did not fall: {first} (full size "
+            f"{first_full}) -> {last}")
+    require(res["eval"] is not None
+            and res["eval"]["psnr"] > CAPTURE_PSNR_GATE,
+            f"capture: the held-out eval read {res['eval']}")
+
+    # (b) fisheye copies of the first frames
+    meta = json.loads((cap / "transforms.json").read_text())
+    fisheye = {}
+    for name, coeffs in FISHEYE_MODELS.items():
+        d = root / f"capture_{name.lower()}"
+        (d / "images_2").mkdir(parents=True)
+        copy = dict(meta, camera_model=name,
+                    frames=meta["frames"][:FISHEYE_VIEWS])
+        for k in ("k1", "k2", "k3", "k4", "p1", "p2"):
+            copy[k] = 0.0
+        copy.update(coeffs)
+        for fr in copy["frames"]:
+            src = cap / "images_2" / Path(fr["file_path"]).name
+            shutil.copy(src, d / "images_2" / src.name)
+        for f in ("points3D.ply", "init.ply"):
+            shutil.copy(cap / f, d / f)
+        (d / "transforms.json").write_text(json.dumps(copy))
+        parsed = parse_nerfstudio(d, downscale_factor=2, eval_mode="all")
+        t0 = time.perf_counter()
+        fcache = FullImageCache.build(parsed, device=DEVICE)
+        torch.cuda.synchronize()
+        fload = time.perf_counter() - t0
+        fcam = fcache.cameras[0]
+        coverage = (None if fcache.masks is None
+                    else float(fcache.masks[0].mean()))
+        del fcache
+        for c in counters:
+            c.launches = 0
+        fres = train_cli.main([
+            "gstex-dtu-nvs", "--data", str(d), "--init-ply",
+            str(d / "init.ply"), "--renderer", "pallas",
+            "--max-num-iterations", str(FISHEYE_STEPS),
+            "--output-dir", str(root / f"run_{name.lower()}")])
+        flosses = [h["loss"] for h in fres["history"]]
+        fisheye[name] = dict(
+            camera_type=parsed.camera_type, load_s=fload,
+            image_hw=[fcam.height, fcam.width],
+            intrinsics=[float(v) for v in fcam.intrins],
+            mask_coverage=coverage, steps=len(flosses),
+            loss_first=flosses[0], loss_last=flosses[-1],
+            launches={c.__name__: c.launches for c in counters})
+        require(len(flosses) == FISHEYE_STEPS and all(
+            x == x and abs(x) != float("inf") for x in flosses),
+            f"{name}: {len(flosses)} steps, losses {flosses}")
+        require(name != "FISHEYE624" or 0.5 < coverage < 1.0,
+                f"{name}: mask coverage {coverage}")
+        torch.cuda.empty_cache()
+    emit("main_path", path="capture_fisheye", **fisheye)
+    return dict(timing=timing, train_s=run_s, eval=res["eval"],
+                fisheye=fisheye)
+
+
+def panorama_main_path(root, counters, eval_kernel):
+    """Phase 9d (c) on one trained run ``root``: ``gstex_torch.scripts.
+    render dataset --split test --camera-type equirectangular|ods
+    --pano-width 2048`` (6 eval-kernel launches a panorama, 12 an ODS
+    pair; PNGs of 2048x1024 and 2048x2048); one panorama of each kind
+    timed on the host clock after a warm-up, the resample alone beside
+    it; the equirect's centre crop against the 90° pinhole render at its
+    pose, read along the crop's own rays."""
+    from gstex_torch.models import gstex as model
+    from gstex_torch.ops import pano
+    from gstex_torch.ops.camera import (camera_rotation_gsplat, make_camera,
+                                        ray_dirs_typed)
+    from gstex_torch.scripts import render as render_cli
+    from gstex_torch.scripts.eval_setup import eval_setup
+    from gstex_torch.data.png import read_png
+
+    out = {}
+    for kind, faces in (("equirectangular", 6), ("ods", 12)):
+        for c in counters:
+            c.launches = 0
+        out_dir = root / f"pano_{kind}"
+        t0 = time.perf_counter()
+        summary = render_cli.main([
+            "dataset", "--split", "test", "--load-config", str(root),
+            "--camera-type", kind, "--pano-width", str(PANO_WIDTH),
+            "--output-path", str(out_dir)])
+        cli_s = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counters}
+        want = {k: 0 for k in got}
+        want[eval_kernel.__name__] = faces * len(summary)
+        shape = read_png(sorted(out_dir.glob("frame_*.png"))[0]).shape
+        hw = (PANO_WIDTH // 2 if kind == "equirectangular" else PANO_WIDTH,
+              PANO_WIDTH)
+        require(got == want, f"{root.name}: {kind} launched {got}, not "
+                             f"{want}")
+        require(shape == hw + (3,) and all(s["finite"] for s in summary),
+                f"{root.name}: {kind} wrote {shape}: {summary}")
+        out[kind] = dict(cli_seconds=cli_s, frames=len(summary),
+                         launches=got[eval_kernel.__name__], shape=shape)
+
+    # timing and the centre crop, on the run's first test camera
+    trainer, _, _ = eval_setup(root, device=DEVICE)
+    st, cfg = trainer.state, trainer.mcfg
+    c2w = trainer.eval_cache.cameras[0].c2w
+    face_res = pano.default_face_res(PANO_WIDTH)
+    cams = [f for ipd in (0.0, -0.064, 0.064)
+            for f in pano.face_cameras(c2w, face_res, ipd, DEVICE)]
+    with torch.no_grad():
+        pair_cap, s_cap = render_cli.demand_caps(cfg, st.params, st.buffers,
+                                                 cams, st.step)
+    cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
+    bg = render_cli.eval_background(cfg, DEVICE)
+
+    def render_one(cam):
+        return model.render(cfg, st.params, st.buffers, cam, st.step, bg,
+                            eval_only=True)["rgb"]
+
+    h, w = PANO_WIDTH // 2, PANO_WIDTH
+    runs = {
+        "equirectangular": lambda: pano.render_equirect(
+            render_one, c2w, h, w, face_res, device=DEVICE),
+        "ods": lambda: pano.render_ods(render_one, c2w, h, w,
+                                       face_res=face_res, device=DEVICE)}
+    with torch.no_grad():
+        for kind, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                img = fn()
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            out[kind]["ms"] = statistics.median(ms)
+            out[kind]["ms_min"] = min(ms)
+        faces = [render_one(c) for c in cams[:6]]
+        compose_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = pano.compose_equirect(faces, h, w)
+            torch.cuda.synchronize()
+            compose_ms.append(1e3 * (time.perf_counter() - t0))
+        out["compose_ms"] = statistics.median(compose_ms)
+        face_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_one(cams[0])
+            torch.cuda.synchronize()
+            face_ms.append(1e3 * (time.perf_counter() - t0))
+        out["face_ms"] = statistics.median(face_ms)
+        # the centre crop, read from a 90-degree pinhole along its rays
+        f = face_res / 2.0
+        pin = make_camera(f, f, f, f, face_res, face_res, c2w,
+                          device=DEVICE)
+        ref = render_one(pin)
+        equi = make_camera(w / 2, w / 2, w / 2, h / 2, h, w, c2w,
+                           device=DEVICE)
+        r0, c0 = h // 2 - PANO_CROP // 2, w // 2 - PANO_CROP // 2
+        ys, xs = torch.meshgrid(
+            torch.arange(r0, r0 + PANO_CROP, dtype=torch.float32,
+                         device=DEVICE),
+            torch.arange(c0, c0 + PANO_CROP, dtype=torch.float32,
+                         device=DEVICE), indexing="ij")
+        d = ray_dirs_typed(xs, ys, equi, "equirectangular")
+        dc = d @ camera_rotation_gsplat(c2w)       # world -> camera
+        u = f * dc[..., 0] / dc[..., 2] + f - 0.5
+        v = f * dc[..., 1] / dc[..., 2] + f - 0.5
+        x0, y0 = torch.floor(u).long(), torch.floor(v).long()
+        wx, wy = (u - x0)[..., None], (v - y0)[..., None]
+        want = ((1 - wy) * ((1 - wx) * ref[y0, x0] + wx * ref[y0, x0 + 1])
+                + wy * ((1 - wx) * ref[y0 + 1, x0]
+                        + wx * ref[y0 + 1, x0 + 1]))
+        crop = img[r0:r0 + PANO_CROP, c0:c0 + PANO_CROP]
+        diff = (crop - want).abs()
+        out["centre_crop"] = dict(max_abs=float(diff.max()),
+                                  mean_abs=float(diff.mean()),
+                                  crop=PANO_CROP, tol=PANO_CENTRE_TOL,
+                                  ref_std=float(want.std()))
+    emit("main_path", path="panorama", run=root.name, face_res=face_res,
+         width=PANO_WIDTH, **out)
+    require(out["centre_crop"]["max_abs"] <= PANO_CENTRE_TOL,
+            f"{root.name}: the equirect's centre differs from the pinhole "
+            f"by {out['centre_crop']}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
 
 
 def subsample_stats(path, n, seed=0):
@@ -2303,6 +2676,27 @@ def main():
                                  rdense.rasterize_dense_eval, smi)}
     viewer_main_path(Path(tmp.name) / "run", edit_counters,
                      reval.rasterize_eval)
+    torch.cuda.empty_cache()
+
+    # 9d. captured data and panoramas: a JPEG capture through a lens under
+    # the resolution schedule, fisheye copies, then panoramas of the runs
+    # of phases 5 (flat) and 6 (dense)
+    t9d = time.perf_counter()
+    capture = captured_main_path(Path(tmp.name), serve_counters,
+                                 train_counters, reval.rasterize_eval)
+    panoramas = {
+        "flat": panorama_main_path(Path(tmp.name) / "run", serve_counters,
+                                   reval.rasterize_eval),
+        "dense": panorama_main_path(Path(tmp.name) / "run_dense",
+                                    serve_counters,
+                                    rdense.rasterize_dense_eval)}
+    emit("phase_9d", seconds=time.perf_counter() - t9d, nvidia_smi=smi,
+         decode_ms=capture["timing"]["decode_ms"],
+         load_s=capture["timing"]["load_s"],
+         capture_eval_psnr=capture["eval"]["psnr"],
+         equirect_ms={k: v["equirectangular"]["ms"]
+                      for k, v in panoramas.items()},
+         ods_ms={k: v["ods"]["ms"] for k, v in panoramas.items()})
     torch.cuda.empty_cache()
 
     # 10. timing: an eval frame, then a training step

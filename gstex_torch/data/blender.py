@@ -3,8 +3,10 @@
 ``camera_angle_x``, principal point at the image center, poses as given
 (OpenGL c2w), ``scale_factor`` applied to camera origins.
 
-The image size comes from the first frame's PNG header and images are
-decoded by ``data/png.py``, so no image library is needed.
+The image size comes from the first frame's PNG or JPEG header (a
+frame's name ends in ``.png`` as the format has it, whatever its bytes)
+and images are decoded by ``data/png.py:read_image`` (PNG, or baseline
+JPEG through ``data/jpeg.py``), so no image library is needed.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from pathlib import Path
 
 import numpy as np
 
-from .png import SIGNATURE, read_png
+from .jpeg import SIGNATURE as JPEG_SIGNATURE
+from .jpeg import jpeg_size
+from .png import SIGNATURE, read_image
 
 
 @dataclass
@@ -40,6 +44,19 @@ class ParsedDataset:
     dataparser_scale: float = 1.0
     distortion: np.ndarray | None = None   # (M,6) k1 k2 k3 k4 p1 p2, or 12
     camera_type: str = "perspective"       # | fisheye | fisheye624 | ...
+    fisheye_crop_radius: float = 0.0       # fisheye624 (0: min(h, w) / 2)
+
+    def save_dataparser_transform(self, path) -> None:
+        """Write the pose normalization the parser applied, as the JAX
+        package's ``ParsedDataset.save_dataparser_transform`` writes it:
+        ``{"transform": (3, 4) rows, "scale": s}``, indented by 4."""
+        tf = (self.dataparser_transform if self.dataparser_transform
+              is not None else np.eye(4)[:3])
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(
+            {"transform": np.asarray(tf).tolist(),
+             "scale": float(self.dataparser_scale)}, indent=4))
 
 
 def png_size(path) -> tuple[int, int]:
@@ -52,14 +69,27 @@ def png_size(path) -> tuple[int, int]:
     return height, width
 
 
-def load_image(path) -> np.ndarray:
-    """A PNG frame as float32 (H, W, C) in [0, 1]: RGBA stays RGBA (the
+def image_size(path) -> tuple[int, int]:
+    """(height, width) of a PNG or JPEG file, by its signature."""
+    with open(path, "rb") as f:
+        head = f.read(3)
+    return jpeg_size(path) if head == JPEG_SIGNATURE else png_size(path)
+
+
+def load_image_u8(path) -> np.ndarray:
+    """A PNG or JPEG frame as uint8 (H, W, C), as the JAX package's
+    ``convert("RGBA" if RGBA else "RGB")`` gives it: RGBA stays RGBA (the
     trainer composites it over the background); grey and grey-alpha
-    become RGB, as PIL's ``convert("RGB")`` makes them."""
-    img = read_png(path)
+    become RGB."""
+    img = read_image(path)
     if img.shape[-1] <= 2:
         img = np.repeat(img[..., :1], 3, axis=-1)
-    return img.astype(np.float32) / 255.0
+    return img
+
+
+def load_image(path) -> np.ndarray:
+    """``load_image_u8`` as float32 in [0, 1] (k / 255)."""
+    return load_image_u8(path).astype(np.float32) / 255.0
 
 
 def parse_blender(data_dir, split: str = "train",
@@ -74,7 +104,7 @@ def parse_blender(data_dir, split: str = "train",
     poses = np.stack(poses)[:, :3, :4]
     poses[:, :, 3] *= scale_factor
 
-    h, w = png_size(filenames[0])
+    h, w = image_size(filenames[0])
     focal = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
     m = len(filenames)
     return ParsedDataset(

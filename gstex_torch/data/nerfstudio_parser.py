@@ -157,6 +157,7 @@ def parse_nerfstudio(
     model = str(meta.get("camera_model", "OPENCV")).upper()
     if "FISHEYE624" in model:
         out.camera_type = "fisheye624"
+        out.fisheye_crop_radius = float(meta.get("fisheye_crop_radius", 0.0))
     elif "FISHEYE" in model:
         out.camera_type = "fisheye"
     elif "EQUIRECTANGULAR" in model:

@@ -1,8 +1,9 @@
 """8-bit PNG reading and writing with ``zlib`` and numpy (no image
 library): non-interlaced grey, grey-alpha, RGB and RGBA, all five row
-filters; and masks read as PIL's ``convert("L")`` reads them. Other image
-formats raise: the card's machine has no image library, and JPEG decoding
-is still to be ported (ROADMAP Queue 1 item 10)."""
+filters. ``read_image`` reads a PNG or a baseline JPEG (``data/jpeg.py``)
+by the file's signature, not its suffix, and masks of either are read as
+PIL's ``convert("L")`` reads them. The card's machine has no image
+library."""
 
 from __future__ import annotations
 
@@ -11,10 +12,12 @@ import zlib
 
 import numpy as np
 
+from .jpeg import SIGNATURE as JPEG_SIGNATURE
+from .jpeg import read_jpeg
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> samples per pixel: grey, RGB, grey-alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-JPEG_SIGNATURE = b"\xff\xd8\xff"
 
 
 def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray,
@@ -53,8 +56,8 @@ def read_png(path) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if data[:3] == JPEG_SIGNATURE:
-        raise ValueError(f"{path} is a JPEG image: the port reads PNG only "
-                         f"(JPEG decoding is ROADMAP Queue 1 item 10)")
+        raise ValueError(f"{path} is a JPEG image, not a PNG: read it with "
+                         f"read_image")
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
     pos, header, idat = 8, None, []
@@ -103,10 +106,21 @@ def to_grey(img: np.ndarray) -> np.ndarray:
              + 0x8000) >> 16).astype(np.uint8)
 
 
+def read_image(path) -> np.ndarray:
+    """(H, W, C) uint8 samples of a PNG (``read_png``) or a baseline JPEG
+    (``jpeg.read_jpeg``: C 1 or 3), told apart by the file's signature."""
+    with open(path, "rb") as f:
+        head = f.read(3)
+    if head == JPEG_SIGNATURE:
+        return read_jpeg(path)
+    return read_png(path)
+
+
 def read_mask(path) -> np.ndarray:
-    """A binary (H, W) uint8 mask from a PNG: 1 where its grey level (as
-    ``to_grey``) is above 127."""
-    return (to_grey(read_png(path)) > 127).astype(np.uint8)
+    """A binary (H, W) uint8 mask from a PNG or JPEG: 1 where its grey
+    level (as ``to_grey``: a grey file's samples, a colour one's luma) is
+    above 127."""
+    return (to_grey(read_image(path)) > 127).astype(np.uint8)
 
 
 def write_png(path, img: np.ndarray) -> None:

@@ -179,28 +179,62 @@ def colmap_rotation(quats: torch.Tensor) -> torch.Tensor:
                                        rm[..., 1, :]], dim=-2))
 
 
+def distortion_maps(K: np.ndarray, d, height: int, width: int):
+    """The maps of what a lens with OPENCV distortion ``d`` (k1 k2 p1 p2
+    [k3]) and camera ``K`` records of a scene whose ideal pinhole image
+    under ``K`` is given: each distorted pixel reads the ideal image where
+    its undistorted ray lands (``undistort_points``, 20 steps). Float32
+    (height, width) maps for ``remap_linear``."""
+    from .undistort import undistort_points
+
+    ys, xs = np.mgrid[:height, :width].astype(np.float64)
+    xy = undistort_points(np.stack([xs.ravel(), ys.ravel()], -1), K, d,
+                          iters=20)
+    mx = (K[0, 0] * xy[:, 0] + K[0, 2]).reshape(height, width)
+    my = (K[1, 1] * xy[:, 1] + K[1, 2]).reshape(height, width)
+    return mx.astype(np.float32), my.astype(np.float32)
+
+
 def write_nerfstudio_dataset(out_dir, cfg, params, buffers, views: int,
                              height: int, width: int, downscale: int = 2,
                              dist: float = 4.0, step: int = 3000,
-                             masks: bool = True) -> dict:
+                             masks: bool = True, image_format: str = "png",
+                             distortion: dict | None = None) -> dict:
     """Render ``views`` orbit views of a scene with the eval path over a
     black background and write them as a nerfstudio dataset, as COLMAP
-    processing leaves a DTU scan: ``transforms.json`` (OPENCV, zero
-    distortion, the intrinsics of a capture ``downscale`` times the
-    rendered size), the renders as RGB PNGs in ``images_<downscale>/``,
-    with ``masks`` the object masks (alpha > 0.5) as grey PNGs named by
-    each frame's ``mask_path``, and the scene's surfels in COLMAP axes:
+    processing leaves a DTU scan: ``transforms.json`` (OPENCV, the
+    intrinsics of a capture ``downscale`` times the rendered size), the
+    renders as RGB PNGs (or, with ``image_format="jpeg"``, JPEGs at
+    quality 95 from ``data/jpeg.py``) in ``images_<downscale>/``, with
+    ``masks`` the object masks (alpha > 0.5) as grey PNGs named by each
+    frame's ``mask_path``, and the scene's surfels in COLMAP axes:
     ``points3D.ply`` (xyz and colour, the dataset's ``ply_file_path``) and
-    ``init.ply`` (a 2DGS gaussian ply for ``--init-ply``). The nerfstudio
-    methods' ``fix_init`` maps both back onto the scene. Returns the
-    paths written."""
+    ``init.ply`` (a 2DGS gaussian ply for ``--init-ply``). ``distortion``
+    (``{"k1", "k2", "p1", "p2"}``, zero where absent) warps each frame and
+    mask into that lens (``distortion_maps``) and writes the coefficients.
+    The nerfstudio methods' ``fix_init`` maps both back onto the scene.
+    Returns the paths written."""
     import json
     from pathlib import Path
 
     from ..models import gstex as model
     from ..ops.sh import sh_to_rgb
     from ..utils.ply import write_ply
+    from .jpeg import write_jpeg
     from .png import write_png
+    from .undistort import remap_linear
+
+    coeffs = {k: 0.0 for k in ("k1", "k2", "k3", "k4", "p1", "p2")}
+    coeffs.update(distortion or {})
+    K = np.array([[1.2 * max(height, width), 0, width / 2],
+                  [0, 1.2 * max(height, width), height / 2], [0, 0, 1.0]])
+    d = [coeffs["k1"], coeffs["k2"], coeffs["p1"], coeffs["p2"],
+         coeffs["k3"]]
+
+    maps = (distortion_maps(K, d, height, width) if distortion else None)
+
+    def lens(img):
+        return img if maps is None else remap_linear(img, *maps)
 
     out_dir = Path(out_dir)
     img_dir = out_dir / f"images_{downscale}"
@@ -219,22 +253,26 @@ def write_nerfstudio_dataset(out_dir, cfg, params, buffers, views: int,
                               width, c2w, device=dev)
             out = model.render(cfg, params, buffers, cam, step, black,
                                eval_only=True)
-            name = f"frame_{i:05d}.png"
-            write_png(img_dir / name,
-                      (out["rgb"] * 255 + 0.5).to(torch.uint8).cpu().numpy())
+            rgb = lens((out["rgb"] * 255 + 0.5).to(torch.uint8).cpu().numpy())
+            if image_format == "jpeg":
+                name = f"frame_{i:05d}.jpg"
+                write_jpeg(img_dir / name, rgb, 95)
+            else:
+                name = f"frame_{i:05d}.png"
+                write_png(img_dir / name, rgb)
             frame = {"file_path": f"images/{name}",
                      "transform_matrix": np.concatenate(
                          [c2w, [[0, 0, 0, 1]]]).tolist()}
             if masks:
-                write_png(out_dir / "masks" / name, (
-                    (out["alpha"] > 0.5).to(torch.uint8) * 255).cpu().numpy())
-                frame["mask_path"] = f"masks/{name}"
+                mask_name = f"frame_{i:05d}.png"
+                write_png(out_dir / "masks" / mask_name, lens((
+                    (out["alpha"] > 0.5).to(torch.uint8) * 255).cpu().numpy()))
+                frame["mask_path"] = f"masks/{mask_name}"
             frames.append(frame)
     s = downscale
     meta = {"camera_model": "OPENCV", "fl_x": s * focal, "fl_y": s * focal,
             "cx": s * width / 2, "cy": s * height / 2, "w": s * width,
-            "h": s * height, "k1": 0.0, "k2": 0.0, "k3": 0.0, "k4": 0.0,
-            "p1": 0.0, "p2": 0.0, "ply_file_path": "points3D.ply",
+            "h": s * height, **coeffs, "ply_file_path": "points3D.ply",
             "frames": frames}
     (out_dir / "transforms.json").write_text(json.dumps(meta))
 

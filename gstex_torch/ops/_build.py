@@ -1,10 +1,13 @@
-"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+"""Builds the port's CUDA kernels and its host C++ at first use and loads
+them with ctypes.
 
 Each ``gstex_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into a shared
 library with a plain C interface, ``build/kernels/lib<name>-<hash>.so`` at
 the repository root (the hash is of the source, the shared ``csrc/*.cuh``
-headers and the flags, so an edited source or header is rebuilt). Sources
-in the repository are the only input.
+headers and the flags, so an edited source or header is rebuilt). Each
+``csrc/<name>.cpp`` (host code: the JPEG decoder) is compiled the same way
+by the host compiler ``c++``, which nvcc needs anyway. Sources in the
+repository are the only input; a failed build raises.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -24,6 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
+
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory report) per kernel source
@@ -82,4 +88,37 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
+    return lib
+
+
+def _host_target(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source ``csrc/<name>.cpp``, built
+    by ``c++`` if it has no up-to-date library."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    out = _host_target(name)
+    if not out.exists():
+        cxx = shutil.which(os.environ.get("CXX", "c++"))
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler (c++) to build "
+                               f"csrc/{name}.cpp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(
+            [cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+            capture_output=True, text=True)
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"c++ failed for {name}:\n{build_logs[name]}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _loaded[key] = lib
     return lib

@@ -100,6 +100,36 @@ def pixel_ray_dirs(px_x: torch.Tensor, px_y: torch.Tensor,
     return d_cam @ camera_rotation_gsplat(cam.c2w).T
 
 
+def ray_dirs_typed(px_x: torch.Tensor, px_y: torch.Tensor, cam: Camera,
+                   camera_type: str = "perspective") -> torch.Tensor:
+    """World-space ray directions of continuous pixel coords for the
+    perspective, fisheye (equidistant) and equirectangular camera types
+    (``gstex_tpu/ops/camera.py:ray_dirs_typed``, the reference's
+    ``Cameras.generate_rays`` direction math in this module's OpenCV camera
+    frame). Perspective rays keep unit view z; fisheye and equirectangular
+    rays are unit length."""
+    if camera_type == "perspective":
+        return pixel_ray_dirs(px_x, px_y, cam)
+    x = (px_x + 0.5 - cam.cx) / cam.fx
+    y = (px_y + 0.5 - cam.cy) / cam.fy
+    if camera_type == "fisheye":
+        # equidistant: the angle from the axis is the normalized radius
+        theta = torch.clamp(torch.sqrt(x * x + y * y), max=torch.pi)
+        sinc = torch.where(theta < 1e-9, torch.ones_like(theta),
+                           torch.sin(theta) / torch.clamp(theta, min=1e-9))
+        d_cam = torch.stack([x * sinc, y * sinc, torch.cos(theta)], dim=-1)
+    elif camera_type == "equirectangular":
+        # fx = fy = height = width / 2: x in [-1, 1], y in [-1/2, 1/2]
+        theta = -torch.pi * x
+        phi = torch.pi * (0.5 + y)
+        d_cam = torch.stack([-torch.sin(theta) * torch.sin(phi),
+                             -torch.cos(phi),
+                             torch.cos(theta) * torch.sin(phi)], dim=-1)
+    else:
+        raise ValueError(f"unsupported camera_type {camera_type}")
+    return d_cam @ camera_rotation_gsplat(cam.c2w).T
+
+
 def surfel_aabb_2d(means, l0, l1, rotmats, viewmat, intrins,
                    extent_sigma: float = 3.0, aa_margin: float = 3.0,
                    near: float = 0.01):

@@ -33,9 +33,14 @@ takes the flat kernels where the dispatch rule keeps the scene's chart pad
 on them (up to about (80, 88) at 32x32 tiles) and the dense-list kernels
 otherwise; ``pallas4`` the dense-list kernels, as do ``pallas3``,
 ``pallas2`` and ``pallas1`` (their pair-space kernels train; a frame takes
-the dense-list eval kernel); ``xla`` the pure-torch tier. ``--video`` and
-the panoramic ``--camera-type``s are not offered yet and exit with what
-they need.
+the dense-list eval kernel); ``xla`` the pure-torch tier.
+
+``--camera-type equirectangular`` renders, at each of the mode's poses, a
+lat-long panorama of ``--pano-width`` x ``--pano-width``/2 from six cube
+faces through the tier's eval path (``ops/pano.py``); ``ods`` the
+omni-directional stereo pair at ``--ipd``, the left eye above the right.
+``--video`` is not offered (the JAX package writes mp4 through cv2's
+``VideoWriter``) and exits with what it needs.
 
     python -m gstex_torch.scripts.render interpolate \\
         --load-config outputs/RUN --frames 30
@@ -60,6 +65,7 @@ from ..models import gstex as model
 from ..models.init_io import dump_chart_pad, load_scene_npz
 from ..ops.binning import sorted_pairs, settle_caps
 from ..ops.camera import make_camera
+from ..ops import pano
 from ..ops.cull import make_pair_cull
 from ..ops.prepare import prepare_splats
 from ..utils.device import resolve_device
@@ -189,10 +195,13 @@ def _unported(args) -> None:
         raise SystemExit("--video needs an mp4 encoder (cv2's VideoWriter "
                          "in gstex-render), which the port does not use; "
                          "the frames are PNGs to encode with another tool")
-    if args.camera_type != "perspective":
-        raise SystemExit(f"--camera-type {args.camera_type} needs the "
-                         f"panorama renderer ops/pano.py, not yet ported "
-                         f"(ROADMAP Queue 1 item 13)")
+
+
+def _eyes(args) -> list[float]:
+    """The ipd offsets of each frame's panoramas: one for equirectangular,
+    the left and the right eye for ODS."""
+    return [0.0] if args.camera_type == "equirectangular" else [-args.ipd,
+                                                                 args.ipd]
 
 
 def _scene(args, device):
@@ -257,7 +266,12 @@ def main(argv=None) -> list[dict]:
                    help="also encode an mp4 (not offered yet)")
     p.add_argument("--camera-type", default="perspective",
                    choices=["perspective", "equirectangular", "ods"],
-                   help="panoramas are not offered yet")
+                   help="equirectangular / ods: a panorama at each pose "
+                        "from six cube faces (ops/pano.py)")
+    p.add_argument("--pano-width", type=int, default=2048,
+                   help="panorama width (height = width / 2)")
+    p.add_argument("--ipd", type=float, default=0.064,
+                   help="ODS inter-pupillary distance (world units)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -268,16 +282,43 @@ def main(argv=None) -> list[dict]:
     if args.background_color is not None:
         cfg = dataclasses.replace(cfg, background_color=args.background_color)
     cams = _cameras(args, base, device)
+    panoramic = args.camera_type != "perspective"
+    face_res = pano.default_face_res(args.pano_width)
+    # the caps cover what is rendered: the poses' cube faces for panoramas
+    rendered = ([f for cam in cams for ipd in _eyes(args)
+                 for f in pano.face_cameras(cam.c2w, face_res, ipd, device)]
+                if panoramic else cams)
     with torch.no_grad():
-        pair_cap, s_cap = demand_caps(cfg, params, buffers, cams, step)
+        pair_cap, s_cap = demand_caps(cfg, params, buffers, rendered, step)
     cfg = dataclasses.replace(cfg, pair_cap=pair_cap, s_max=s_cap)
     bg = eval_background(cfg, device)
 
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
     summary = []
+
+    def render_one(cam):
+        return model.render(cfg, params, buffers, cam, step, bg,
+                            eval_only=True)["rgb"]
+
     with torch.no_grad():
         for i, cam in enumerate(cams):
+            if panoramic:
+                w = args.pano_width
+                if args.camera_type == "equirectangular":
+                    img = pano.render_equirect(render_one, cam.c2w, w // 2,
+                                               w, face_res, device=device)
+                else:
+                    img = pano.render_ods(render_one, cam.c2w, w // 2, w,
+                                          ipd=args.ipd, face_res=face_res,
+                                          device=device)
+                rgb = (img.clamp(0, 1) * 255).to(torch.uint8)
+                write_png(out_dir / f"frame_{i:05d}.png", rgb.cpu().numpy())
+                summary.append({"frame": i,
+                                "finite": bool(torch.isfinite(img).all()),
+                                "height": img.shape[0], "width": img.shape[1],
+                                "faces": 6 * len(_eyes(args))})
+                continue
             out = model.render(cfg, params, buffers, cam, step, bg,
                                eval_only=True)
             maps = [out[k] for k in ("rgb", "img", "texture_rgb", "depth",

@@ -17,8 +17,13 @@ the checkpoint's step and keeps every cadence on that absolute step.
 the trainer's state: each step then runs under the viewer's
 ``train_lock``, the loop waits while the viewer is paused, and the
 viewer's config follows the trainer's when the growth of capacities
-replaces it. The tile mesh, data parallelism, camera optimization, the
-scanned multi-step dispatch and the progressive-resolution schedule raise
+replaces it. Under the progressive-resolution schedule
+(``num_downscales`` > 0) a step's frame is resized by
+``data/resize.py:resize_area`` (``cv2.resize(INTER_AREA)`` on the frame's
+uint8 samples, recovered exactly from the cached k / 255), its camera
+rescaled and its mask strided, as the JAX trainer's ``_run_one`` does;
+the small frames are not cached. The tile mesh, data parallelism, camera
+optimization and the scanned multi-step dispatch raise
 ``NotImplementedError`` and name their ROADMAP item.
 """
 
@@ -37,8 +42,10 @@ import torch
 
 from ..data.manager import FullImageCache
 from ..data.png import write_png
+from ..data.resize import resize_area
 from ..models import gstex as model
 from ..ops.binning import settle_caps
+from ..ops.camera import make_camera
 from ..scripts.render import demand_caps, eval_background
 from ..utils import checkpoint as ckpt_io
 from ..utils import profiler
@@ -83,13 +90,30 @@ def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
          "camera pose optimization: ROADMAP Queue 1 item 13"),
         (tcfg.steps_per_sync > 1,
          "the scanned multi-step dispatch: ROADMAP Queue 1 item 9"),
-        (mcfg.num_downscales > 0,
-         "the progressive-resolution schedule (image resize): ROADMAP "
-         "Queue 1 item 10"),
     ]
     for cond, what in todo:
         if cond:
             raise NotImplementedError(what)
+
+
+# k / 255 for every uint8 k, as numpy's float32 division makes it (a
+# division by a scalar on the card multiplies by its reciprocal instead)
+_U8_TO_FLOAT = np.arange(256, dtype=np.float32) / np.float32(255.0)
+
+
+def downscale(cam, img: torch.Tensor, mask, d: int):
+    """The progressive-resolution schedule's frame at 1/d: the float
+    k / 255 image's uint8 samples resized by ``resize_area``, the camera's
+    intrinsics divided by d and its size floored, the mask strided
+    (``gstex_tpu/train/trainer.py:_downscale`` and ``_run_one``)."""
+    u8 = torch.round(img * 255.0).to(torch.uint8)
+    small = resize_area(u8, d)
+    lut = torch.as_tensor(_U8_TO_FLOAT, device=img.device)
+    small = lut[small.long()]
+    h, w = small.shape[:2]
+    cam2 = make_camera(cam.fx / d, cam.fy / d, cam.cx / d, cam.cy / d, h, w,
+                       cam.c2w, device=img.device)
+    return cam2, small, (None if mask is None else mask[::d, ::d])
 
 
 class Trainer:
@@ -154,6 +178,9 @@ class Trainer:
                     else contextlib.nullcontext())
             with profiler.time_section("train_iteration"):
                 idx, (cam, img, mask) = self.train_cache.next_train_idx()
+                d = model.downscale_factor(self.mcfg, step)
+                if d > 1:
+                    cam, img, mask = downscale(cam, img, mask, d)
                 with lock:
                     metrics = step_mod.train_step(self.mcfg, self.ocfg, st,
                                                   cam, img, mask)

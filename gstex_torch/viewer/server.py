@@ -3,7 +3,8 @@
 
 A threaded HTTP server (standard library only) serves the embedded page
 (``page.py``) and its routes: ``/render`` submits a camera, ``/frame``
-returns the client's latest frame as a PNG, ``/state`` the trainer's and
+returns the client's latest frame as a JPEG at quality 88 (``data/jpeg.py``,
+as the JAX viewer's ``_to_jpeg`` sends it), ``/state`` the trainer's and
 the viewer's state, ``/control`` pauses and resumes training, paints
 polylines (``models/editing.py``), and sets the colormap, the resolution
 cap, the split view and the crop box, ``/panel`` authors keyframed camera
@@ -34,7 +35,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from ..data.png import encode_png
+from ..data import jpeg
 from ..models import editing, gstex as model
 from ..ops.camera import make_camera
 from .page import PAGE_HTML
@@ -51,7 +52,7 @@ class _ClientSlot:
 
     def __init__(self):
         self.pending = None          # (camera_dict, output_name)
-        self.result = None           # (png_bytes, meta)
+        self.result = None           # (jpeg_bytes, meta)
         self.gen = 0
         self.static_since = 0.0
         self.resettle = None         # (due_time, job) high-res re-render
@@ -261,7 +262,7 @@ class Viewer:
 
     def render(self, cam_dict, output_name, res, gen=None,
                client: str = "default"):
-        """``(png_bytes, {"res", "step"})`` of the camera at ``res``, or
+        """``(jpeg_bytes, {"res", "step"})`` of the camera at ``res``, or
         ``(None, {"superseded": True})`` where a newer camera of the
         client arrived during a banded render."""
         state = self.get_state()
@@ -294,8 +295,7 @@ class Viewer:
                 if stale():
                     return None, {"superseded": True}
                 img = np.concatenate(rows_out, axis=0)
-        png = encode_png((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
-        return png, {"res": res, "step": int(state.step)}
+        return to_jpeg(img), {"res": res, "step": int(state.step)}
 
     # -- painting ------------------------------------------------------
     def start_polyline(self, cam_dict):
@@ -437,7 +437,7 @@ class Viewer:
                     if r is None or r[0] is None:
                         self._send(204, b"")
                     else:
-                        self._send(200, r[0], "image/png")
+                        self._send(200, r[0], "image/jpeg")
                 elif self.path.startswith("/state"):
                     self._send(200, json.dumps(viewer.state_json()).encode())
                 else:
@@ -474,6 +474,13 @@ class Viewer:
             self.httpd.server_close()
         if self.rsm.is_alive():
             self.rsm.join(timeout=5.0)
+
+
+def to_jpeg(img: np.ndarray) -> bytes:
+    """A [0, 1] float frame as the JAX viewer's ``_to_jpeg`` sends it:
+    clipped, scaled to uint8 by truncation, JPEG at quality 88."""
+    return jpeg.encode((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8),
+                       quality=88)
 
 
 def _colormap(depth, name: str = "depth") -> np.ndarray:

@@ -4,8 +4,8 @@ files: ``parse_nerfstudio`` (poses, intrinsics, the four eval modes,
 method, pose scaling, seed points from ``ply_file_path`` and from COLMAP
 ``points3D.bin`` / ``.txt``, masks), the COLMAP readers, ``pose_utils``,
 the PLY and PCD readers and writers; the PNG codec's grey and grey-alpha
-images and masks against PIL; and what the port refuses to load (JPEG,
-lens distortion, non-pinhole cameras).
+images and masks against PIL; JPEG frames, lens distortion and the other
+camera models loading, and a progressive JPEG refused.
 
 The parsers are numpy in both packages, so everything but the float32
 casts is held exactly (atol 0).
@@ -381,26 +381,36 @@ def test_manager_loads_masks_and_refuses_what_it_cannot_load(tmp_path):
         assert m.shape == (6, 8, 1) and m.dtype == torch.float32
         np.testing.assert_array_equal(m[..., 0].numpy(), want)
 
-    # JPEG frames: the port reads PNG only
+    # JPEG frames load as PIL decodes them; read_png still names a JPEG
     jpg = tmp_path / "f.jpg"
-    Image.fromarray(np.zeros((6, 8, 3), np.uint8)).save(jpg)
+    Image.fromarray(np.arange(144, dtype=np.uint8).reshape(6, 8, 3)).save(
+        jpg, quality=90)
     with pytest.raises(ValueError, match="JPEG"):
         read_png(jpg)
     jparsed = parse_nerfstudio(root, eval_mode="all")
     jparsed.image_filenames[0] = jpg
-    with pytest.raises(ValueError, match="JPEG"):
-        FullImageCache.build(jparsed, device="cpu")
+    got = FullImageCache.build(jparsed, device="cpu").images[0]
+    np.testing.assert_array_equal(
+        np.round(got.numpy() * 255).astype(np.uint8),
+        np.asarray(Image.open(jpg).convert("RGB")))
 
-    # lens distortion and non-pinhole cameras raise, naming the ROADMAP item
+    # lens distortion and the other camera models load (their images and
+    # intrinsics against the JAX package: test_torch_undistort.py); what
+    # the port cannot decode still raises, naming the ROADMAP item
     dist = write_dataset(tmp_path / "dist", meta_extra={"k1": 0.1}.items())
-    with pytest.raises(NotImplementedError, match="distortion.*ROADMAP"):
-        FullImageCache.build(parse_nerfstudio(dist, eval_mode="all"),
-                             device="cpu")
+    cache = FullImageCache.build(parse_nerfstudio(dist, eval_mode="all"),
+                                 device="cpu")
+    assert float(cache.cameras[0].fx) != pytest.approx(
+        float(parse_nerfstudio(dist, eval_mode="all").fx[0]))
     for model in ("OPENCV_FISHEYE", "FISHEYE624", "EQUIRECTANGULAR"):
         cam = write_dataset(tmp_path / model,
                             meta_extra={"camera_model": model}.items())
         parsed = parse_nerfstudio(cam, eval_mode="all")
         assert parsed.camera_type == jparse_nerfstudio(
             cam, eval_mode="all").camera_type
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FullImageCache.build(parsed, device="cpu")
+        assert len(FullImageCache.build(parsed, device="cpu")) == len(
+            parsed.image_filenames)
+    Image.fromarray(np.zeros((6, 8, 3), np.uint8)).save(
+        jpg, quality=90, progressive=True)
+    with pytest.raises(ValueError, match="progressive.*ROADMAP"):
+        FullImageCache.build(jparsed, device="cpu")

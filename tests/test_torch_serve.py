@@ -2,7 +2,8 @@
 ``scripts/eval_setup.py`` restores a run saved after a re-chart bit for
 bit; ``Trainer.eval_all`` has JAX's schema and its PSNR and SSIM (1e-4)
 on the same views and params; ``scripts/eval.py``, ``scripts/render.py
---load-config`` (dataset, interpolate, spiral, camera-path) and
+--load-config`` (dataset, interpolate, spiral, camera-path, and the
+equirectangular and ODS panoramas of ``--camera-type``) and
 ``scripts/export.py`` (all three kinds) run; a frame rendered from the
 gstex-npz export equals the run's own frame bit for bit; the render's
 interpolated poses (1e-12) and camera-path intrinsics (exact) are JAX's;
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from gstex_torch.data.png import read_png
 from gstex_torch.data.synthetic import orbit_c2w, write_blender_dataset
 from gstex_torch.models import gstex as tmodel
 from gstex_torch.models import init_io as tinit_io
@@ -170,15 +172,32 @@ def test_render_cli_load_config_modes(run, tmp_path, mode):
     assert all(s["alpha_coverage"] > 0 for s in summary)
 
 
-@pytest.mark.parametrize("flags,what", [
-    (["--video"], "mp4"), (["--camera-type", "ods"], "ops/pano.py")],
-    ids=["video", "panorama"])
+@pytest.mark.parametrize("flags,what", [(["--video"], "mp4")],
+                         ids=["video"])
 def test_render_cli_refuses_what_is_not_ported(run, tmp_path, flags, what):
     out, _, _ = run
     with pytest.raises(SystemExit, match=what):
         trender.main(["spiral", "--load-config", str(out), "--device", "cpu",
                       "--output-path", str(tmp_path), *flags])
     assert not list(tmp_path.glob("frame_*.png"))
+
+
+@pytest.mark.parametrize("camera_type", ["equirectangular", "ods"])
+def test_render_cli_panoramas(run, tmp_path, camera_type):
+    """``--camera-type`` writes a panorama a pose: (w/2, w) lat-long, or
+    (w, w) for the ODS pair, from 6 or 12 cube faces."""
+    out, _, _ = run
+    summary = trender.main(["spiral", "--load-config", str(out), "--frames",
+                            "2", "--camera-type", camera_type,
+                            "--pano-width", "32", "--device", "cpu",
+                            "--output-path", str(tmp_path)])
+    frames = sorted(tmp_path.glob("frame_*.png"))
+    assert len(frames) == len(summary) == 2
+    want = (16, 32) if camera_type == "equirectangular" else (32, 32)
+    for f, s in zip(frames, summary):
+        assert read_png(f).shape == want + (3,)
+        assert s["finite"] and (s["height"], s["width"]) == want
+        assert s["faces"] == (6 if camera_type == "equirectangular" else 12)
 
 
 def test_export_cli_and_the_export_renders_the_run_bit_for_bit(run,

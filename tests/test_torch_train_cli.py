@@ -311,12 +311,6 @@ def test_unported_methods_and_trainer_options_raise(tmp_path):
         tcfg = TrainerConfig(output_dir=str(tmp_path), **change)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
-    # the metric sinks are ported: the progressive-resolution schedule is
-    # the model-side option that still raises
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        Trainer(TrainerConfig(output_dir=str(tmp_path), vis="tensorboard"),
-                tmodel.GStexConfig(num_downscales=2), toptim.OptimConfig(),
-                None, None, [])
 
 
 def test_trainer_nan_gate_and_cap_growth(tmp_path, one_thread):
@@ -450,6 +444,43 @@ def test_train_cli_dtu_on_the_v1_tier(tmp_path, one_thread, monkeypatch):
     assert run["dataparser"] == "nerfstudio"
     # the seed ply's surfels, mapped back from COLMAP axes onto the scene
     assert run["num_gaussians"] == 300
+
+
+def test_train_cli_schedule_on_a_distorted_jpeg_capture(tmp_path, one_thread,
+                                                        monkeypatch):
+    """``gstex-dtu-nvs`` on a capture of JPEG frames through an OPENCV
+    lens, under ``num_downscales=1, resolution_schedule=2``: the frames
+    are undistorted at load, steps 0 and 1 train on frames at half size,
+    step 2 at full size, and the loss stays finite."""
+    from gstex_torch.data.synthetic import write_nerfstudio_dataset
+    from gstex_torch.train import trainer as ttrainer
+
+    stats = small_scene_npz(tmp_path / "scene.npz", n=300)
+    cfg = tmodel.GStexConfig(renderer="pallas", chart_pad=(8, 8),
+                             background_color="black")
+    params, buffers = load_scene_npz(cfg, stats, seed=0, device="cpu")
+    paths = write_nerfstudio_dataset(
+        tmp_path / "data", cfg, params, buffers, 6, 48, 64, masks=False,
+        image_format="jpeg", distortion={"k1": -0.05, "k2": 0.01,
+                                         "p1": 1e-3, "p2": -1e-3})
+    assert all(p.suffix == ".jpg" for p in
+               (tmp_path / "data" / "images_2").iterdir())
+    sizes = []
+    real = ttrainer.downscale
+    monkeypatch.setattr(ttrainer, "downscale", lambda cam, img, m, d: (
+        sizes.append((img.shape[:2], d)), real(cam, img, m, d))[1])
+    res = ttrain.main(["gstex-dtu-nvs", "--data", str(paths["transforms"]
+                                                      .parent),
+                       "--init-ply", str(paths["init_ply"]),
+                       "--renderer", "pallas", "--max-num-iterations", "3",
+                       "--set", "model.pixel_num=2e4",
+                       "--set", "model.num_downscales=1",
+                       "--set", "model.resolution_schedule=2",
+                       "--output-dir", str(tmp_path / "run"),
+                       "--device", "cpu"])
+    assert sizes == [((48, 64), 2)] * 2
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    assert len(res["history"]) == 3
 
 
 def test_set_overrides_parse_and_refuse():

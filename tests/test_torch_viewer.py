@@ -1,12 +1,13 @@
 """The port's interactive viewer (``gstex_torch/viewer/``) on the CPU: the
 ten routes of the JAX package's ``tests/test_viewer.py`` against one
-viewer served on a free port, a ``/frame`` decoded by ``read_png`` equal
-to the port's render of that camera, the render panel's export rendered by
-``scripts/render.py camera-path``, a trainer with the viewer attached
-taking steps while frames are fetched (and waiting while it is paused),
-and the ``--viewer`` flag and ``gstex-torch-viewer`` on a run. Every HTTP
-call has a timeout; the resolution cap is 96 so that the CPU renders stay
-small."""
+viewer served on a free port, a ``/frame`` that is the JPEG (quality 88,
+``data/jpeg.py``) of the port's render of that camera, byte for byte, and
+decodes back to the render within JPEG error (PSNR >= 35 dB), the render
+panel's export rendered by ``scripts/render.py camera-path``, a trainer
+with the viewer attached taking steps while frames are fetched (and
+waiting while it is paused), and the ``--viewer`` flag and
+``gstex-torch-viewer`` on a run. Every HTTP call has a timeout; the
+resolution cap is 96 so that the CPU renders stay small."""
 
 import json
 import threading
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from gstex_torch.data.png import read_png
+from gstex_torch.data import jpeg
+from gstex_torch.data.png import read_image, read_png
 from gstex_torch.data.synthetic import orbit_camera, write_blender_dataset
 from gstex_torch.models import gstex as tmodel
 from gstex_torch.models import init_io as tinit_io
@@ -55,10 +57,11 @@ def _get(path, port=None):
         return r.status, r.headers.get("Content-Type"), r.read()
 
 
-def _png(body, tmp_path, name="frame.png"):
+def _img(body, tmp_path, name="frame.jpg"):
+    """A frame's bytes decoded by the port (JPEG, by its signature)."""
     path = tmp_path / name
     path.write_bytes(body)
-    return read_png(path)
+    return read_image(path)
 
 
 def _frame(client="default", port=None, tries=300):
@@ -103,13 +106,14 @@ def test_page_and_state(viewer):
 
 
 def test_render_roundtrip(viewer, tmp_path):
-    """A frame over HTTP, decoded by ``read_png``, is the port's eval
-    render of the camera at the resolution cap, byte for byte."""
+    """A frame over HTTP is the JPEG at quality 88 of the port's eval
+    render of the camera at the resolution cap, byte for byte, and the
+    port's decoder reads it back to the render within JPEG error."""
     cd = _camera_dict()
     _post("/render", {"camera": cd, "output": "rgb", "client": "roundtrip"})
     ctype, body = _frame("roundtrip")
-    assert ctype == "image/png"
-    img = _png(body, tmp_path)
+    assert ctype == "image/jpeg"
+    img = _img(body, tmp_path)
     assert img.shape == (MAX_RES, MAX_RES, 3) and img.std() > 1.0
     st = viewer.get_state()
     with torch.no_grad():
@@ -117,7 +121,9 @@ def test_render_roundtrip(viewer, tmp_path):
                             viewer._cam_from_dict(cd, MAX_RES), st.step,
                             torch.tensor(server.BACKGROUND), eval_only=True)
     want = (np.clip(out["rgb"].numpy(), 0, 1) * 255).astype(np.uint8)
-    np.testing.assert_array_equal(img, want)
+    assert body == jpeg.encode(want, quality=88)
+    mse = np.mean((img.astype(np.float64) - want) ** 2)
+    assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 35.0
 
 
 def test_pause_resume(viewer):
@@ -184,11 +190,11 @@ def test_control_panel_crop_and_colormap(viewer, tmp_path):
                        "min": [50, 50, 50], "max": [51, 51, 51]})
     st = json.loads(_get("/state")[2])
     assert st["crop"]["min"] == [50.0, 50.0, 50.0]
-    cropped = _png(viewer.render(d, "accumulation", MAX_RES)[0], tmp_path)
+    cropped = _img(viewer.render(d, "accumulation", MAX_RES)[0], tmp_path)
     assert cropped.mean() < 4.0, "the crop box did not hide the scene"
     _post("/control", {"action": "set_crop", "enabled": False,
                        "min": [0, 0, 0], "max": [0, 0, 0]})
-    full = _png(viewer.render(d, "accumulation", MAX_RES)[0], tmp_path)
+    full = _img(viewer.render(d, "accumulation", MAX_RES)[0], tmp_path)
     assert full.mean() > cropped.mean() + 2.0
     _post("/control", {"action": "set_colormap", "name": "turbo"})
     _post("/control", {"action": "set_max_res", "max_res": 192})
@@ -217,11 +223,14 @@ def test_split_view(viewer, tmp_path):
     viewer.split_frac = 0.5
     try:
         cd = _camera_dict()
-        rgb = _png(viewer.render(cd, "rgb", MAX_RES)[0], tmp_path)
+        rgb = _img(viewer.render(cd, "rgb", MAX_RES)[0], tmp_path)
         viewer.split_output = None
-        plain = _png(viewer.render(cd, "rgb", MAX_RES)[0], tmp_path)
+        plain = _img(viewer.render(cd, "rgb", MAX_RES)[0], tmp_path)
         half = MAX_RES // 2
-        np.testing.assert_array_equal(rgb[:, :half - 1], plain[:, :half - 1])
+        # left of the divider's JPEG blocks (16-pixel MCUs; the chroma
+        # upsampling reads one chroma sample across), the frames agree
+        np.testing.assert_array_equal(rgb[:, :half - 17],
+                                      plain[:, :half - 17])
         assert not np.array_equal(rgb[:, half + 1:], plain[:, half + 1:])
         _post("/control", {"action": "set_split", "output": "accumulation",
                            "frac": 0.25})
@@ -264,8 +273,8 @@ def test_two_clients_interleave(viewer, tmp_path):
     _post("/render", {"camera": cd, "output": "rgb", "client": "A"})
     _post("/render", {"camera": cd, "output": "accumulation",
                       "client": "B"})
-    a = _png(_frame("A")[1], tmp_path, "a.png")
-    b = _png(_frame("B")[1], tmp_path, "b.png")
+    a = _img(_frame("A")[1], tmp_path, "a.png")
+    b = _img(_frame("B")[1], tmp_path, "b.png")
     assert a.shape[2] == 3 and b.shape[2] == 3
     assert not np.array_equal(a, b)
     gen_b = viewer.rsm.slot("B").gen
@@ -353,6 +362,6 @@ def test_trainer_with_viewer_trains_while_serving(data, monkeypatch):
         assert st["step"] == STEPS and st["num_gaussians"] == 300
         _post("/render", {"camera": _camera_dict(size=32), "output": "test"},
               viewer.port)
-        assert _frame(port=viewer.port)[0] == "image/png"
+        assert _frame(port=viewer.port)[0] == "image/jpeg"
     finally:
         viewer.close()
