@@ -29,8 +29,8 @@ def main(argv=None) -> dict:
                    help="run directory, or its config.json")
     p.add_argument("--output-path", default=None)
     p.add_argument("--save-images", action="store_true",
-                   help="write each eval render as a PNG under the run's "
-                        "eval_images/")
+                   help="write each eval render through the run's writer: "
+                        "images/eval_all_rgb_<i>.png and the metric sinks")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)

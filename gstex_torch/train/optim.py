@@ -10,9 +10,14 @@
 | rotation      | quats           | 1e-3                   | — |
 | texture_dc    | texture         | 1e-3                   | — |
 
-``torch.optim.Adam`` with betas 0.9/0.999 and eps 1e-15, one param group
-per row. The xyz learning rate is set before each update from the
+Adam (``Adam`` below) with betas 0.9/0.999 and eps 1e-15, one param
+group per row. The xyz learning rate is set before each update from the
 group's count of updates already made, as optax evaluates a schedule.
+``OptimConfig.gradient_accumulation`` makes a group accumulate k steps an
+update, as ``optax.MultiSteps`` does. The ``camera_opt`` group's own
+optimizer (``make_pose_optimizer``: Adam 1e-3 → 5e-5 over 30000
+updates, 100 steps an update) steps the pose deltas, which are per
+dataset, not model params.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..models.gstex import GStexParams
@@ -86,36 +92,127 @@ def group_lrs(cfg: OptimConfig) -> dict:
     }
 
 
-def make_optimizer(cfg: OptimConfig, params: GStexParams) -> torch.optim.Adam:
+def _lr_at(lr, count: int) -> float:
+    return lr(count) if callable(lr) else lr
+
+
+def _bias_correction(beta: float, count: int) -> float:
+    """1 − β^t in float32, as optax forms it (``scale_by_adam``)."""
+    return float(np.float32(1.0) - np.float32(beta) ** np.float32(count))
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam (betas 0.9/0.999) over named param groups, as
+    ``optax.multi_transform`` of ``optax.adam`` runs them.
+
+    A group's lr is a constant or a schedule of the group's count of
+    updates already made, read before each update. The bias corrections
+    1 − β^t are float32, as optax's are; the rest is ``torch.optim.Adam``'s
+    foreach arithmetic, one call for every param that updates.
+
+    A group named in ``every`` with k > 1 accumulates as ``optax.MultiSteps``
+    does: its gradient joins a running mean ``acc + (g − acc) / (m + 1)``
+    (``m`` the state's ``mini_step``); only when ``m == k − 1`` does the
+    mean update the param (and the count, and so the schedule), and the
+    mean is zeroed; on the other steps the param is left as it is. Such
+    params hold their whole state from the start: ``step``, ``exp_avg``,
+    ``exp_avg_sq``, ``acc`` and the host ints ``mini_step`` and
+    ``gradient_step``, so that a step needs no host sync."""
+
+    def __init__(self, groups, lrs: dict, every: dict | None = None,
+                 eps: float = 1e-15):
+        self.lrs = dict(lrs)
+        self.every = {k: int(v) for k, v in dict(every or {}).items()
+                      if int(v) > 1}
+        super().__init__(
+            [{"params": list(ps), "name": name, "lr": _lr_at(lrs[name], 0)}
+             for name, ps in groups], dict(betas=(0.9, 0.999), eps=eps))
+        for group in self.param_groups:
+            if group["name"] in self.every:
+                for p in group["params"]:
+                    self.state[p] = dict(self._fresh(p),
+                                         acc=torch.zeros_like(p),
+                                         mini_step=0, gradient_step=0)
+
+    @staticmethod
+    def _fresh(p) -> dict:
+        return {"step": torch.tensor(0.0),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+
+    def _accumulate(self, st: dict, grad, k: int):
+        """The MultiSteps mean; the gradient to update with, or ``None``."""
+        m, acc = st["mini_step"], st["acc"]
+        acc.add_((grad - acc) / (m + 1))
+        st["mini_step"] = (m + 1) % k
+        if m != k - 1:
+            return None
+        st["gradient_step"] += 1
+        grad = acc.clone()
+        acc.zero_()
+        return grad
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        b1, b2 = self.defaults["betas"]
+        params, grads, mus, nus, denom_div, step_size = [], [], [], [], [], []
+        for group in self.param_groups:
+            k = self.every.get(group["name"], 1)
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st.update(self._fresh(p))
+                grad = p.grad
+                if k > 1:
+                    grad = self._accumulate(st, grad, k)
+                    if grad is None:
+                        continue
+                count = int(st["step"])
+                group["lr"] = _lr_at(self.lrs[group["name"]], count)
+                st["step"] += 1
+                params.append(p)
+                grads.append(grad)
+                mus.append(st["exp_avg"])
+                nus.append(st["exp_avg_sq"])
+                denom_div.append(math.sqrt(_bias_correction(b2, count + 1)))
+                step_size.append(-group["lr"]
+                                 / _bias_correction(b1, count + 1))
+        if not params:
+            return None
+        torch._foreach_lerp_(mus, grads, 1 - b1)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+        denom = torch._foreach_sqrt(nus)
+        torch._foreach_div_(denom, denom_div)
+        torch._foreach_add_(denom, self.defaults["eps"])
+        torch._foreach_addcdiv_(params, mus, denom, step_size)
+        return None
+
+
+def make_optimizer(cfg: OptimConfig, params: GStexParams) -> Adam:
     """Adam over the seven leaves, one param group each (named by its
-    ``GROUP_OF_LEAF`` group)."""
-    if cfg.gradient_accumulation:
-        raise NotImplementedError(
-            "per-group gradient accumulation (optax.MultiSteps): ROADMAP "
-            "Queue 1 item 9")
-    lrs = group_lrs(cfg)
-    groups = []
-    for leaf, name in zip(params, GROUP_OF_LEAF):
-        lr = lrs[name]
-        groups.append({"params": [leaf], "name": name,
-                       "lr": lr(0) if callable(lr) else lr})
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=cfg.adam_eps)
+    ``GROUP_OF_LEAF`` group); the groups of ``cfg.gradient_accumulation``
+    accumulate as ``optax.MultiSteps`` does."""
+    groups = [(name, [leaf]) for leaf, name in zip(params, GROUP_OF_LEAF)]
+    return Adam(groups, group_lrs(cfg), every=cfg.gradient_accumulation,
+                eps=cfg.adam_eps)
 
 
-def set_step_lrs(opt: torch.optim.Adam, cfg: OptimConfig) -> None:
-    """Set the scheduled groups' lr for their next update from the count
-    of updates the group has made (optax's schedule count)."""
-    lrs = group_lrs(cfg)
-    for group in opt.param_groups:
-        lr = lrs[group["name"]]
-        if callable(lr):
-            state = opt.state.get(group["params"][0])
-            group["lr"] = lr(int(state["step"]) if state else 0)
+def make_pose_optimizer(delta: torch.Tensor) -> Adam:
+    """The ``camera_opt`` group: Adam(eps 1e-15) at an lr decaying
+    exponentially from 1e-3 to 5e-5 over 30000 updates, accumulating 100
+    steps an update."""
+    return Adam([("camera_opt", [delta])],
+                {"camera_opt": exp_decay_schedule(1e-3, 5e-5, 30000)},
+                every={"camera_opt": 100})
 
 
-def reset_texture_moments(opt: torch.optim.Adam) -> None:
-    """Zero the texture group's Adam moments after a re-chart (its step
-    count stays), as the reference's ``reshape_in_optim`` does."""
+def reset_texture_moments(opt: Adam) -> None:
+    """Zero the texture group's Adam moments after a re-chart (its count,
+    and an accumulating group's mean and ``mini_step``, stay), as the
+    reference's ``reshape_in_optim`` does."""
     for group in opt.param_groups:
         if group["name"] != "texture_dc":
             continue

@@ -3,7 +3,8 @@
 
 One full-image camera per step: background, ground-truth composite,
 render, loss = 0.8·L1 + 0.2·(1−SSIM) (+ the optional regularizers),
-backward, per-group Adam. The JAX package's steps are pure functions of a
+backward, per-group Adam; ``train_step_camopt`` also optimizes the
+training camera's pose. The JAX package's steps are pure functions of a
 state; here the state is updated in place (the params are the optimizer's
 leaves), which keeps one copy of each leaf and its Adam moments.
 """
@@ -17,7 +18,9 @@ import torch
 from torch.profiler import record_function
 
 from ..models import gstex as model
+from ..ops import pose_opt
 from ..ops.camera import Camera
+from ..utils.device import resolve_device
 from . import optim
 
 
@@ -25,7 +28,7 @@ from . import optim
 class TrainState:
     params: model.GStexParams      # leaves that require grad
     buffers: model.GStexBuffers
-    optimizer: torch.optim.Adam
+    optimizer: optim.Adam
     step: int
     generator: torch.Generator     # draws the random backgrounds
 
@@ -47,30 +50,80 @@ def train_step(cfg: model.GStexConfig, ocfg: optim.OptimConfig,
                mask: Optional[torch.Tensor] = None) -> dict:
     """One step; updates ``state`` and returns the step's metrics as 0-d
     tensors (``overflow``, ``total_pairs``, ``max_tile_count`` as ints).
+    ``ocfg`` is the config ``state.optimizer`` was made from; the
+    optimizer holds its schedules.
 
     Its stages are ``torch.profiler`` ranges named ``gstex.*`` (the
     render's own inside ``models.gstex.render``; ``gstex.backward`` holds
     the host's wait for the backward, whose kernels run on the autograd
     engine's device thread)."""
+    return _step(cfg, state, cam, image, mask)
+
+
+@dataclasses.dataclass
+class PoseState:
+    """The camera optimizer's state: (num_cameras, 6) tangent deltas and
+    their optimizer (``optim.make_pose_optimizer``)."""
+
+    delta: torch.Tensor            # requires grad
+    optimizer: optim.Adam
+
+
+def init_pose_state(num_cameras: int, device=None) -> PoseState:
+    """Zero deltas for ``num_cameras`` training cameras."""
+    delta = torch.zeros((num_cameras, 6), dtype=torch.float32,
+                        device=resolve_device(device), requires_grad=True)
+    return PoseState(delta, optim.make_pose_optimizer(delta))
+
+
+def train_step_camopt(cfg: model.GStexConfig, ocfg: optim.OptimConfig,
+                      state: TrainState, pose: PoseState, mode: str,
+                      cam: Camera, cam_idx: int, image: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> dict:
+    """``train_step`` with the pose of training camera ``cam_idx``
+    optimized with the model: the exp map of its delta (``mode`` SO3xR3
+    or SE3) right-multiplies ``cam.c2w`` inside the differentiated render,
+    the regularizer joins the loss, and one backward feeds the model's
+    and the pose's optimizer. Adds the metrics
+    ``camera_opt_regularizer``, ``camera_opt_translation`` and
+    ``camera_opt_rotation`` (the norms after the update)."""
+    return _step(cfg, state, cam, image, mask, (pose, mode, cam_idx))
+
+
+def _step(cfg, state, cam, image, mask, camopt=None) -> dict:
     dev = state.params.means.device
     with record_function("gstex.background_gt"):
         background = model.sample_background(cfg, state.generator,
                                              device=dev)
         gt = model.composite_gt(image, background)
         state.optimizer.zero_grad(set_to_none=True)
+    if camopt is not None:
+        pose, mode, cam_idx = camopt
+        with record_function("gstex.pose"):
+            pose.optimizer.zero_grad(set_to_none=True)
+            adj = pose_opt.exp_map(mode, pose.delta[cam_idx])
+            cam = dataclasses.replace(
+                cam, c2w=pose_opt.apply_correction(cam.c2w, adj))
     outputs = model.render(cfg, state.params, state.buffers, cam, state.step,
                            background)
     with record_function("gstex.loss"):
         loss, parts = model.loss_fn(cfg, outputs, gt, state.step, mask=mask)
+        if camopt is not None:
+            reg = pose_opt.regularizer(pose.delta)
+            loss = loss + reg
     with record_function("gstex.backward"):
         loss.backward()
     with record_function("gstex.adam"):
-        optim.set_step_lrs(state.optimizer, ocfg)
         state.optimizer.step()
+        if camopt is not None:
+            pose.optimizer.step()
     state.step += 1
     with record_function("gstex.metrics"):
         metrics = {k: v.detach() for k, v in parts.items()}
         metrics["loss"] = loss.detach()
+        if camopt is not None:
+            metrics["camera_opt_regularizer"] = reg.detach()
+            metrics.update(pose_opt.metrics(pose.delta))
         with torch.no_grad():
             mse = ((outputs["rgb"] - gt) ** 2).mean()
             metrics["psnr"] = 10.0 * -torch.log10(torch.clamp(mse,

@@ -21,10 +21,14 @@ replaces it. Under the progressive-resolution schedule
 (``num_downscales`` > 0) a step's frame is resized by
 ``data/resize.py:resize_area`` (``cv2.resize(INTER_AREA)`` on the frame's
 uint8 samples, recovered exactly from the cached k / 255), its camera
-rescaled and its mask strided, as the JAX trainer's ``_run_one`` does;
-the small frames are not cached. The tile mesh, data parallelism, camera
-optimization and the scanned multi-step dispatch raise
-``NotImplementedError`` and name their ROADMAP item.
+rescaled and its mask strided, as the JAX trainer's ``_run_one`` does,
+and cropped to the frame where d does not divide its size; the small
+frames are not cached. With ``camera_opt`` SO3xR3 or SE3 each step also
+optimizes its training camera's pose (``step.train_step_camopt``), whose
+deltas and optimizer state ride a ``pose-<step>.npz`` sidecar beside each
+checkpoint in the JAX package's layout. The tile mesh, data parallelism
+and the scanned multi-step dispatch raise ``NotImplementedError`` and
+name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,9 +45,9 @@ import numpy as np
 import torch
 
 from ..data.manager import FullImageCache
-from ..data.png import write_png
 from ..data.resize import resize_area
 from ..models import gstex as model
+from ..ops import pose_opt
 from ..ops.binning import settle_caps
 from ..ops.camera import make_camera
 from ..scripts.render import demand_caps, eval_background
@@ -78,6 +82,7 @@ class TrainerConfig:
     # notice
     vis: str = "tensorboard"
     demand_size_caps: bool = False
+    # camera pose optimization: off | SO3xR3 | SE3
     camera_opt: str = "off"
 
 
@@ -86,8 +91,6 @@ def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
         (tcfg.num_devices > 1 or tcfg.data_parallel > 1,
          "multi-device training (tile mesh, data parallelism): ROADMAP "
          "Queue 1 item 14"),
-        (tcfg.camera_opt != "off",
-         "camera pose optimization: ROADMAP Queue 1 item 13"),
         (tcfg.steps_per_sync > 1,
          "the scanned multi-step dispatch: ROADMAP Queue 1 item 9"),
     ]
@@ -105,7 +108,8 @@ def downscale(cam, img: torch.Tensor, mask, d: int):
     """The progressive-resolution schedule's frame at 1/d: the float
     k / 255 image's uint8 samples resized by ``resize_area``, the camera's
     intrinsics divided by d and its size floored, the mask strided
-    (``gstex_tpu/train/trainer.py:_downscale`` and ``_run_one``)."""
+    (``gstex_tpu/train/trainer.py:_downscale`` and ``_run_one``) and
+    cropped to the frame's size."""
     u8 = torch.round(img * 255.0).to(torch.uint8)
     small = resize_area(u8, d)
     lut = torch.as_tensor(_U8_TO_FLOAT, device=img.device)
@@ -113,7 +117,8 @@ def downscale(cam, img: torch.Tensor, mask, d: int):
     h, w = small.shape[:2]
     cam2 = make_camera(cam.fx / d, cam.fy / d, cam.cx / d, cam.cy / d, h, w,
                        cam.c2w, device=img.device)
-    return cam2, small, (None if mask is None else mask[::d, ::d])
+    # the strided mask cropped to the frame, whose size is floored
+    return cam2, small, (None if mask is None else mask[::d, ::d][:h, :w])
 
 
 class Trainer:
@@ -123,6 +128,9 @@ class Trainer:
                  eval_cache: Optional[FullImageCache] = None,
                  run_config: Optional[dict] = None):
         _not_yet(tcfg, mcfg)
+        if tcfg.camera_opt not in pose_opt.MODES:
+            raise ValueError(f"camera_opt={tcfg.camera_opt!r} (expected "
+                             f"one of {pose_opt.MODES})")
         self.tcfg, self.mcfg, self.ocfg = tcfg, mcfg, ocfg
         self.train_cache = train_cache
         self.eval_cache = eval_cache
@@ -136,6 +144,15 @@ class Trainer:
                                     seed=tcfg.seed)
             print(f"resumed from {tcfg.load_checkpoint} at step "
                   f"{self.state.step}")
+        self.pose = None
+        if tcfg.camera_opt != "off":
+            self.pose = step_mod.init_pose_state(
+                len(train_cache), device=self.state.params.means.device)
+            if tcfg.load_checkpoint:
+                aux = ckpt_io.aux_for_checkpoint(tcfg.load_checkpoint,
+                                                 "pose")
+                if aux is not None:
+                    ckpt_io.load_pose(aux, self.pose)
         if tcfg.demand_size_caps and len(train_cache) > 0:
             self.mcfg = self._demand_size_caps()
         self.history: list[dict] = []
@@ -182,8 +199,13 @@ class Trainer:
                 if d > 1:
                     cam, img, mask = downscale(cam, img, mask, d)
                 with lock:
-                    metrics = step_mod.train_step(self.mcfg, self.ocfg, st,
-                                                  cam, img, mask)
+                    if self.pose is None:
+                        metrics = step_mod.train_step(self.mcfg, self.ocfg,
+                                                      st, cam, img, mask)
+                    else:
+                        metrics = step_mod.train_step_camopt(
+                            self.mcfg, self.ocfg, st, self.pose,
+                            tcfg.camera_opt, cam, idx, img, mask)
                 metrics = {k: float(v) for k, v in metrics.items()}
             self.history.append(dict(metrics, step=step, camera=idx))
             since_log += 1
@@ -290,8 +312,9 @@ class Trainer:
         renders on the host clock, after one warm-up render outside it,
         each frame ending in a synchronize on CUDA, as JAX's host copy
         does; ``gaussian_count``, ``texel_count`` and ``pixel_scale``.
-        ``save_images`` writes each eval render as
-        ``<output_dir>/eval_images/eval_all_rgb_<i>.png``."""
+        ``save_images`` sends each eval render through the writer as
+        image ``i`` of ``eval_all_rgb`` (``images/eval_all_rgb_<i>.png``
+        and the sinks), as JAX's ``eval_all`` does."""
         n = len(self.eval_cache)
         cam, img, _ = self.eval_cache.get(0)
         bg = eval_background(self.mcfg, img.device)
@@ -300,7 +323,6 @@ class Trainer:
         step_mod.eval_step(self.mcfg, self.state, cam, bg)
         sync()
         rows, t_render = [], 0.0
-        img_dir = self.out_dir / "eval_images"
         for i in range(n):
             cam, img, _ = self.eval_cache.get(i)
             t0 = time.perf_counter()
@@ -310,10 +332,7 @@ class Trainer:
             rows.append(image_metrics(out["rgb"],
                                       model.composite_gt(img, bg)))
             if save_images:
-                img_dir.mkdir(parents=True, exist_ok=True)
-                rgb = (out["rgb"].clamp(0, 1) * 255).to(torch.uint8)
-                write_png(img_dir / f"eval_all_rgb_{i:05d}.png",
-                          rgb.cpu().numpy())
+                self.writer.image(i, "eval_all_rgb", out["rgb"])
         agg = {k: None if rows[0][k] is None
                else float(np.mean([r[k] for r in rows])) for k in rows[0]}
         agg.update({f"{k}_std": float(np.std([r[k] for r in rows]))
@@ -329,5 +348,12 @@ class Trainer:
         path = ckpt_io.save_checkpoint(
             self.out_dir / "checkpoints", self.state, self.run_config,
             keep_only_latest=self.tcfg.save_only_latest_checkpoint)
+        if self.pose is not None:
+            # the pose deltas ride a sidecar in the JAX package's layout,
+            # so the main checkpoint's format stays as it is
+            ckpt_io.save_aux(
+                self.out_dir / "checkpoints", "pose",
+                ckpt_io.pose_leaves(self.pose), self.state.step,
+                keep_only_latest=self.tcfg.save_only_latest_checkpoint)
         print(f"saved {path}")
         return path

@@ -6,7 +6,8 @@ the port's trainer against the JAX trainer for 8 steps under
 ``num_downscales=1, resolution_schedule=2`` (two steps at half size,
 then full size), at ``test_torch_resume.py``'s size and tolerance: each
 step's loss to 1e-5 relative, the final params as
-``assert_params_agree`` holds them."""
+``assert_params_agree`` holds them; and a masked capture whose size d
+does not divide, whose strided mask is cropped to the floored frame."""
 
 import json
 
@@ -16,9 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from gstex_torch.data.manager import FullImageCache as TCache
 from gstex_torch.data.resize import resize_area
+from gstex_torch.data.synthetic import orbit_camera as torbit
 from gstex_torch.models import gstex as tmodel
 from gstex_torch.ops.camera import make_camera
+from gstex_torch.train import optim as toptim
+from gstex_torch.train.trainer import Trainer as TTrainer
+from gstex_torch.train.trainer import TrainerConfig as TTrainerConfig
 from gstex_torch.train.trainer import downscale
 from gstex_tpu.data.manager import FullImageCache as JCache
 from gstex_tpu.data.synthetic import orbit_camera as jorbit
@@ -92,3 +98,40 @@ def test_schedule_matches_jax_trainer(scene, tmp_path):
     for i, h in enumerate(hist):
         assert h["loss"] == pytest.approx(jlosses[i], rel=1e-5), i
     assert_params_agree(tr.state, jtr.state.params, STEPS)
+
+
+def test_masked_capture_at_a_size_d_does_not_divide(scene, tmp_path):
+    """A masked capture under ``num_downscales=1`` at sizes 2 does not
+    divide: at 13x17 the half-size frame is 6x8 (the size floored) and its
+    strided mask is cropped to it (strided alone it is 7x9, which the
+    masked loss cannot take); a 25x35 capture (12x17 at half size, as
+    many rows as SSIM's 11-pixel window needs) trains through its
+    half-size steps into full size."""
+    _, p0, b = scene
+    rng = np.random.default_rng(4)
+
+    def capture(h, w):
+        cams = [torbit(h, w, azimuth=np.pi * i, device="cpu")
+                for i in range(2)]
+        imgs = [torch.as_tensor(rng.integers(0, 256, (h, w, 3)).astype(
+            np.float32) / np.float32(255.0)) for _ in cams]
+        masks = [torch.as_tensor(rng.integers(0, 2, (h, w, 1)),
+                                 dtype=torch.float32) for _ in cams]
+        return cams, imgs, masks
+
+    cams, imgs, masks = capture(13, 17)
+    _, small, m2 = downscale(cams[0], imgs[0], masks[0], 2)
+    assert tuple(small.shape) == (6, 8, 3) and tuple(m2.shape) == (6, 8, 1)
+    torch.testing.assert_close(m2, masks[0][:12:2, :16:2], rtol=0, atol=0)
+    cams, imgs, masks = capture(25, 35)
+    tr = TTrainer(
+        TTrainerConfig(max_num_iterations=4, steps_per_save=0,
+                       steps_per_eval_image=0, log_every=1,
+                       output_dir=str(tmp_path)),
+        tmodel.GStexConfig(**CFG, **SCHEDULE), toptim.OptimConfig(max_steps=4),
+        tmodel.GStexParams(*(torch.as_tensor(x) for x in p0)),
+        tmodel.GStexBuffers(*(torch.as_tensor(x) for x in b)),
+        TCache(cameras=cams, images=imgs, masks=masks))
+    hist = tr.train()
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+    assert all(np.isfinite(h["loss"]) for h in hist)

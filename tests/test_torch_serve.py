@@ -34,6 +34,7 @@ from gstex_torch.scripts import export as texport
 from gstex_torch.scripts import render as trender
 from gstex_torch.scripts import train as ttrain
 from gstex_torch.scripts.eval_setup import eval_setup
+from gstex_torch.train import step as tstep
 from gstex_torch.utils import ply as tply
 from gstex_tpu.models import gstex as jmodel
 from gstex_tpu.models import init_io as jinit_io
@@ -145,7 +146,55 @@ def test_eval_cli_prints_jax_schema_and_metrics(run, tmp_path):
         assert res[k] == ref[k], k
     assert res["fps"] > 0 and res["num_rays_per_sec"] == pytest.approx(
         res["fps"] * HW * HW)
-    assert len(list((out / "eval_images").glob("eval_all_rgb_*.png"))) == 2
+    assert sorted(p.name for p in (out / "images").glob("eval_all_rgb_*")) \
+        == [f"eval_all_rgb_{i:09d}.png" for i in range(2)]
+
+
+def test_eval_all_saves_images_as_jax_does(run, tmp_path, monkeypatch):
+    """``eval_all(save_images=True)`` sends each render through the
+    writer as JAX's ``eval_all`` does: the same file names under
+    ``images/``, the same pixels (JAX's ``eval_all`` given the port's
+    renders, so that only the saving is compared)."""
+    from gstex_tpu.data.blender import parse_blender
+    from gstex_tpu.data.manager import FullImageCache
+    from gstex_tpu.train.trainer import Trainer as JTrainer
+    from gstex_tpu.utils.writer import Writer as JWriter
+    from PIL import Image
+
+    out, data, _ = run
+    trainer, _, _ = eval_setup(out, device="cpu")
+    trainer.writer.out_dir = tmp_path / "port"
+    trainer.writer.out_dir.mkdir()
+    renders = []
+    real_eval = tstep.eval_step
+
+    def recording(*args):
+        o = real_eval(*args)
+        renders.append(o["rgb"].numpy())
+        return o
+    monkeypatch.setattr(tstep, "eval_step", recording)
+    trainer.eval_all(save_images=True)
+    jcfg = jmodel.GStexConfig(**{
+        **{k: getattr(trainer.mcfg, k) for k in
+           jmodel.GStexConfig.__dataclass_fields__}, "renderer": "xla"})
+    fake = SimpleNamespace(
+        eval_cache=FullImageCache.build(parse_blender(data, "test"), seed=1),
+        _eval=lambda *a: {"rgb": jnp.asarray(renders.pop(0))}, mcfg=jcfg,
+        writer=JWriter(tmp_path / "jax", use_tensorboard=False),
+        state=SimpleNamespace(
+            params=trainer.state.params, buffers=jmodel.GStexBuffers(
+                *(jnp.asarray(b.numpy()) for b in trainer.state.buffers))))
+    fake._eval_background = lambda: JTrainer._eval_background(fake)
+    JTrainer.eval_all(fake, save_images=True)
+    assert not renders
+    names = sorted(p.name for p in (tmp_path / "jax" / "images").iterdir())
+    assert names == [f"eval_all_rgb_{i:09d}.png" for i in range(2)]
+    assert sorted(p.name for p in (tmp_path / "port" / "images").iterdir()) \
+        == names
+    for name in names:
+        got = read_png(tmp_path / "port" / "images" / name)
+        want = np.asarray(Image.open(tmp_path / "jax" / "images" / name))
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["dataset", "interpolate", "spiral",

@@ -164,7 +164,6 @@ def test_adam_matches_optax():
         before = [p.detach().clone() for p in tparams]
         for p, gi in zip(tparams, g):
             p.grad = torch.tensor(np.asarray(gi))
-        toptim.set_step_lrs(opt, ocfg)
         opt.step()
         for leaf, group in zip(LEAVES, toptim.GROUP_OF_LEAF):
             lr = lrs[group](i) if callable(lrs[group]) else lrs[group]
@@ -173,10 +172,14 @@ def test_adam_matches_optax():
             want = np.asarray(upd[k]) / lr
             np.testing.assert_allclose(got, want, atol=1e-4,
                                        err_msg=f"{leaf} update {i}")
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        toptim.make_optimizer(
-            toptim.OptimConfig(gradient_accumulation=(("texture_dc", 4),)),
-            tparams)
+    # an accumulating group holds its whole state from the start
+    acc = toptim.make_optimizer(
+        toptim.OptimConfig(gradient_accumulation=(("texture_dc", 4),)),
+        tparams)
+    st = acc.state[tparams.texture]
+    assert (st["mini_step"], st["gradient_step"], int(st["step"])) == (0, 0,
+                                                                       0)
+    assert not st["acc"].any() and acc.every == {"texture_dc": 4}
 
 
 def test_train_step_matches_jax():
