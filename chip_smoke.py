@@ -13,7 +13,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shared memory per launch, which no chart pad enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
-   50k-surfel ``surface_scene``: the eval kernel (bit for bit),
+   50k-surfel ``surface_scene``: the eval kernel (bit for bit); on the
+   trained scene (phase 10 holds the surface scene's at this pad)
    the forward kernel lean and full (max abs <= 1e-4 on all 14 planes,
    ncontrib equal), the backward kernel lean and full under seeded
    cotangents (per record-field group and for the charts, max abs <= 1e-4
@@ -79,6 +80,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pose gradient and accumulator within 1e-3 of the plain one's max abs),
    and a camopt step and a plain step of that state timed by CUDA events
    (median of 20);
+5d. the tile-row mesh (``gstex_torch/parallel/``), run after phase 7,
+   whose runs it reuses: the view of training camera 3 of the runs of
+   phases 5 (flat, (40, 80)), 6 (dense, (64, 128)) and 7 (the pallas3
+   run's (16, 24) state, on ``pallas3`` and ``pallas1``) rendered whole
+   and as the bands of 2 and 4 ranks (each band its own grid at pixel
+   offset (0, r·band_h)): through the tier's eval kernel and its
+   training kernels, the stitched maps bit-equal to the whole frame's
+   and the bands' pair counts summing to the frame's, the bands'
+   backwards under seeded cotangents summed within 1e-4 of each
+   parameter's max abs of the frame's, each kernel launched once a band;
+   then two ranks sharing the card over gloo (asked for explicitly;
+   gloo stages its collectives through the host): from phase 5's
+   step-120 state, a sharded step, a sharded camopt step and a 2-row
+   data-parallel step against the single rank's (the loss to 1e-5, each
+   gradient within 1e-4 of its max abs), then ``Trainer(num_devices=2)``
+   for 10 steps at 800x800 from phase 5's init on phase 5's dataset: the
+   flat forward and backward once a step on each rank, no overflow, the
+   replicas' parameters and buffers equal bit for bit; then NCCL on a
+   group of one rank a card (``torch.cuda.device_count()``): the sharded
+   step's gradients all-reduced (with two cards or more, the gloo group's
+   checks and trainer run too). Each rank's step time and the gradient
+   all-reduce's bytes and time are information only;
 6. the large-chart main path: ``gstex_torch.scripts.train
    gstex-blender-nvs --pixel-num 4e6`` on phase 5's dataset plus a test
    split, 120 steps across the re-chart: the auto chart pad is (64, 128),
@@ -199,6 +222,7 @@ HBM and 67 TFLOP/s fp32 outside the tensor cores.
 """
 
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -2612,6 +2636,376 @@ def subsample_stats(path, n, seed=0):
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: the tile-row mesh (parallel/shard.py)
+# ---------------------------------------------------------------------------
+
+MESH_NDEVS = (2, 4)
+# the band renders, stated before the first run: each band's maps,
+# stitched, bit-equal to the whole frame's through the same kernel (a
+# band's tiles hold the frame's lists: the bands' pair counts sum to the
+# frame's); the bands' backwards summed within BWD_TOL of each leaf's
+# max abs of the frame's (the kernels add gradients in another order)
+MESH_LOSS_TOL = 1e-5     # a sharded step's loss against the single rank's
+MESH_GRAD_TOL = 1e-4     # its gradients, of the single rank's max abs
+MESH_TRAIN_STEPS = 10
+MESH_VIEWS = (3, 4)      # the training views of the checks
+BAND_MAPS = ("img", "texture_rgb", "depth", "alpha", "rgb")
+BAND_TRAIN_MAPS = BAND_MAPS + ("normal", "reg")
+
+
+def grad_errors(got, want):
+    """Per leaf, the max abs difference over the max abs of ``want``
+    (leaves without a gradient must have none in both)."""
+    errs = {}
+    for name, a, b in zip(GRAD_LEAVES, got, want):
+        require((a is None) == (b is None), f"{name}: a gradient is missing")
+        if b is not None:
+            errs[name] = float((a - b).abs().max()) / (
+                float(b.abs().max()) + 1e-30)
+    return errs
+
+
+GRAD_LEAVES = ("means", "log_scales", "quats", "opacity_logits",
+               "features_dc", "features_rest", "texture")
+
+
+def band_render_check(cfg, state, cam, counters, **where):
+    """One state's view rendered whole and as the bands of MESH_NDEVS
+    ranks (``shard.render_band``: its grid at pixel offset (0, r·band_h))
+    through the tier's eval kernel and its training kernels, with seeded
+    cotangents on the training maps; ``counters`` the tier's (eval,
+    forward, backward) wrappers, each launched once a band."""
+    from gstex_torch.models import gstex as model
+    from gstex_torch.parallel import shard
+
+    params, buffers, step = state.params, state.buffers, state.step
+    leaves = list(params)
+    h, w = cam.height, cam.width
+    bg = torch.full((3,), 0.25, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    with torch.no_grad():
+        whole_eval = model.render(cfg, params, buffers, cam, step, bg,
+                                  eval_only=True)
+    whole = model.render(cfg, params, buffers, cam, step, bg)
+    cot = {k: torch.randn(whole[k].shape, generator=gen, device=DEVICE)
+           for k in BAND_TRAIN_MAPS}
+    g_whole = torch.autograd.grad(
+        sum((whole[k] * cot[k]).sum() for k in BAND_TRAIN_MAPS), leaves,
+        allow_unused=True)
+    out = {}
+    for ndev in MESH_NDEVS:
+        bgrid, band_h = shard.band_grid(cfg, h, w, ndev)
+        for fn in counters:
+            fn.launches = 0
+        evals, trains, g_sum, pairs = [], [], None, 0
+        for r in range(ndev):
+            with torch.no_grad():
+                evals.append(shard.render_band(cfg, params, buffers, cam,
+                                               step, bg, bgrid, r,
+                                               eval_only=True))
+            t = shard.render_band(cfg, params, buffers, cam, step, bg, bgrid,
+                                  r)
+            pairs += int(t["total_pairs"])
+            rows = slice(r * band_h, (r + 1) * band_h)
+            pad = band_h - cot["rgb"][rows].shape[0]
+            loss = sum((t[k] * torch.nn.functional.pad(
+                cot[k][rows], (0, 0) * (cot[k].dim() - 1) + (0, pad))).sum()
+                for k in BAND_TRAIN_MAPS)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g_sum = g if g_sum is None else [
+                None if a is None else a + b for a, b in zip(g_sum, g)]
+            trains.append({k: t[k].detach() for k in BAND_TRAIN_MAPS})
+            del t, loss, g
+        stitch = lambda bands, k: torch.cat([b[k] for b in bands])[:h]
+        eval_equal = {k: bool(torch.equal(stitch(evals, k), whole_eval[k]))
+                      for k in BAND_MAPS}
+        train_equal = {k: bool(torch.equal(stitch(trains, k),
+                                           whole[k].detach()))
+                       for k in BAND_TRAIN_MAPS}
+        errs = grad_errors(g_sum, g_whole)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        emit("mesh_band", ndev=ndev, band_h=band_h, eval_equal=eval_equal,
+             train_equal=train_equal, band_pairs=pairs,
+             frame_pairs=int(whole["total_pairs"]), grad_rel_err=errs,
+             tol=BWD_TOL, launches=launches, renderer=cfg.renderer,
+             chart_pad=list(cfg.chart_pad), **where)
+        require(all(eval_equal.values()) and all(train_equal.values()),
+                f"{where} ndev {ndev}: a band's maps differ from the "
+                f"frame's: eval {eval_equal}, train {train_equal}")
+        require(pairs == int(whole["total_pairs"]),
+                f"{where} ndev {ndev}: {pairs} band pairs, "
+                f"{int(whole['total_pairs'])} in the frame")
+        require(max(errs.values()) <= BWD_TOL,
+                f"{where} ndev {ndev}: band gradients {errs}")
+        require(all(v == ndev for v in launches.values()),
+                f"{where} ndev {ndev}: launches {launches}")
+        out[ndev] = dict(grad_rel_err=max(errs.values()), launches=launches)
+        del evals, trains, g_sum
+    return out
+
+
+def mesh_rank_main(rank, world, backend, rdv, run_dir, data, trainer_steps,
+                   out):
+    """One rank of phase 5d's process group (``backend`` gloo: every rank
+    on ``cuda:0``, the card shared; nccl: rank r on ``cuda:r``). Rank 0
+    writes what it gathered to ``out``."""
+    from gstex_torch.parallel.distributed import init_distributed
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    init_distributed(f"file://{rdv}/rendezvous", world, rank,
+                     backend=backend)
+    try:
+        res = mesh_rank_checks(world, backend, Path(run_dir), Path(data),
+                               trainer_steps, Path(out).parent)
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_rank_checks(world, backend, run_dir, data, trainer_steps, root):
+    """Phase 5d on a group of ``world`` ranks: from phase 5's step-120
+    state, one sharded step, one sharded camopt step and (two ranks or
+    more) one data-parallel step, each against the single-rank step on
+    rank 0; then (``trainer_steps``) ``Trainer(num_devices=world)`` from
+    phase 5's init on phase 5's dataset. Returns rank 0's findings and
+    every rank's times and launches."""
+    import torch.distributed as dist
+
+    from gstex_torch.configs.methods import get_method
+    from gstex_torch.data.blender import parse_blender
+    from gstex_torch.data.manager import FullImageCache
+    from gstex_torch.models import gstex as model
+    from gstex_torch.models import init_io
+    from gstex_torch.ops import rasterize_bwd as rbwd
+    from gstex_torch.ops import rasterize_fwd as rfwd
+    from gstex_torch.parallel import shard
+    from gstex_torch.parallel.distributed import make_mesh
+    from gstex_torch.scripts.eval_setup import eval_setup
+    from gstex_torch.train import step as train_step
+    from gstex_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    counters = (rfwd.rasterize_fwd, rbwd.rasterize_bwd)
+    tr, _, _ = eval_setup(run_dir, device=DEVICE)
+    cfg, ocfg = tr.mcfg, tr.ocfg
+    cams = [tr.train_cache.get(i) for i in MESH_VIEWS]
+    cam, img, _ = cams[0]
+    h, w = cam.height, cam.width
+
+    def fresh():
+        st = train_step.init_state(cfg, ocfg, tr.state.params,
+                                   tr.state.buffers, seed=7)
+        st.step = tr.state.step
+        return st
+
+    def pose():
+        p = train_step.init_pose_state(len(tr.train_cache), device=DEVICE)
+        with torch.no_grad():
+            p.delta[MESH_VIEWS[0]] = torch.tensor(
+                [0.004, -0.003, 0.002, 0.001, -0.002, 0.0015], device=DEVICE)
+        return p
+
+    def grads(st):
+        return [None if p.grad is None else p.grad.detach().clone()
+                for p in st.params]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    found, mine = {}, {}
+    mesh = make_mesh(world)
+    # the single rank's step and the sharded step from equal states
+    want = None
+    if rank == 0:
+        st = fresh()
+        m = train_step.train_step(cfg, ocfg, st, cam, img)
+        want = (float(m["loss"]), grads(st))
+        del st
+    st = fresh()
+    for fn in counters:
+        fn.launches = 0
+    m, mine["step_ms"] = timed(lambda: shard.make_sharded_train_step(
+        cfg, mesh, h, w)(st, cam, img))
+    mine["step_launches"] = {fn.__name__: fn.launches for fn in counters}
+    if rank == 0:
+        found["step"] = dict(loss=float(m["loss"]), loss_single=want[0],
+                             grad_rel_err=grad_errors(grads(st), want[1]))
+    # the all-reduce alone, on this step's gradients
+    nbytes = sum(p.grad.numel() * p.grad.element_size() for p in st.params
+                 if p.grad is not None)
+    _, mine["allreduce_ms"] = timed(
+        lambda: shard.reduce_gradients(mesh, list(st.params)))
+    mine["allreduce_bytes"] = nbytes
+    del st
+
+    # the camopt step
+    if rank == 0:
+        st, p = fresh(), pose()
+        m = train_step.train_step_camopt(cfg, ocfg, st, p, "SO3xR3", cam,
+                                         MESH_VIEWS[0], img)
+        want = (float(m["loss"]), grads(st), p.delta.grad.detach().clone())
+        del st, p
+    st, p = fresh(), pose()
+    m = shard.make_sharded_train_step_camopt(cfg, "SO3xR3", mesh, h, w)(
+        st, p, cam, MESH_VIEWS[0], img)
+    if rank == 0:
+        pg = p.delta.grad
+        found["camopt"] = dict(
+            loss=float(m["loss"]), loss_single=want[0],
+            grad_rel_err=grad_errors(grads(st), want[1]),
+            pose_grad_rel_err=float((pg - want[2]).abs().max())
+            / float(want[2].abs().max()))
+    del st, p
+
+    # one data-parallel step: a row a rank, each its own view
+    if world >= 2 and world % 2 == 0:
+        dmesh = make_mesh(world, data_parallel=2)
+        views = [(c, i) for c, i, _ in cams]
+        if rank == 0:
+            st = fresh()
+            bgs = shard.backgrounds(cfg, st.generator, 2, DEVICE)
+            gsum = None
+            for (c, i), bg in zip(views, bgs):
+                out = model.render(cfg, st.params, st.buffers, c, st.step, bg)
+                loss, _ = model.loss_fn(cfg, out, model.composite_gt(i, bg),
+                                        st.step)
+                g = torch.autograd.grad(loss, list(st.params),
+                                        allow_unused=True)
+                gsum = g if gsum is None else [
+                    None if a is None else a + b for a, b in zip(gsum, g)]
+            want = [None if g is None else g / 2 for g in gsum]
+            del st
+        st = fresh()
+        shard.make_batch_sharded_train_step(cfg, dmesh, h, w)(
+            st, [c for c, _ in views], [i for _, i in views])
+        if rank == 0:
+            found["data_parallel"] = dict(
+                grad_rel_err=grad_errors(grads(st), want))
+        del st
+    del tr
+    torch.cuda.empty_cache()
+
+    # the Trainer on the mesh: phase 5's command's run, on `world` ranks
+    if trainer_steps:
+        method = get_method("gstex-blender-nvs")
+        params, buffers = init_io.load_scene_npz(method.model, STATS, seed=1,
+                                                 device=DEVICE)
+        mcfg = dataclasses.replace(method.model, chart_pad=tuple(
+            params.texture.shape[1:3]))
+        cache = FullImageCache.build(parse_blender(data, "train"),
+                                     seed=method.trainer.seed, device=DEVICE)
+        tcfg = dataclasses.replace(
+            method.trainer, max_num_iterations=trainer_steps,
+            steps_per_save=0, steps_per_eval_image=0, log_every=1,
+            vis="wandb", demand_size_caps=True, num_devices=world,
+            output_dir=str(root / "mesh_run"))
+        optim = dataclasses.replace(method.optim, max_steps=trainer_steps)
+        trainer = Trainer(tcfg, mcfg, optim, params, buffers, cache)
+        del params, buffers
+        for fn in counters:
+            fn.launches = 0
+        hist, t_ms = timed(trainer.train)
+        mine["trainer_launches"] = {fn.__name__: fn.launches
+                                    for fn in counters}
+        mine["trainer_step_ms"] = t_ms / trainer_steps
+        digest = hashlib.sha256()
+        for leaf in list(trainer.state.params) + list(trainer.state.buffers):
+            digest.update(leaf.detach().cpu().numpy().tobytes())
+        mine["state_sha256"] = digest.hexdigest()
+        if rank == 0:
+            found["trainer"] = dict(
+                steps=len(hist), losses=[h["loss"] for h in hist],
+                chart_pad=list(mcfg.chart_pad),
+                max_overflow=max(h["overflow"] for h in hist))
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    found["ranks"] = every
+    return found
+
+
+def mesh_main_path(root, data, counters, smi):
+    """Phase 5d. The band renders of phases 5, 6 and 7's states through
+    the flat, dense and pair-space kernels (``band_render_check``); then
+    two ranks sharing the card over gloo (``mesh_rank_checks``: a sharded,
+    a camopt and a data-parallel step against the single rank's, 10 steps
+    of ``Trainer(num_devices=2)``); then NCCL on a group of one rank a
+    card."""
+    from gstex_torch.scripts.eval_setup import eval_setup
+
+    flat, dense, v3, v1 = (counters[k] for k in ("flat", "dense", "pallas3",
+                                                 "pallas1"))
+    t0 = time.perf_counter()
+    band = {}
+    for run, tiers in (("run", (("flat", flat, None),)),
+                       ("run_dense", (("dense", dense, None),)),
+                       ("run_pallas3", (("pallas3", v3, "pallas3"),
+                                        ("pallas1", v1, "pallas1")))):
+        tr, _, _ = eval_setup(root / run, device=DEVICE)
+        cam = tr.train_cache.get(MESH_VIEWS[0])[0]
+        for name, fns, renderer in tiers:
+            cfg = (tr.mcfg if renderer is None
+                   else dataclasses.replace(tr.mcfg, renderer=renderer))
+            band[name] = band_render_check(cfg, tr.state, cam, fns,
+                                           tier=name, run=run)
+        del tr
+        torch.cuda.empty_cache()
+    band_s = time.perf_counter() - t0
+
+    def group(world, backend, steps):
+        rdv = tempfile.mkdtemp(dir=root)
+        out = Path(rdv) / "rank0.json"
+        t = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            mesh_rank_main, args=(world, backend, rdv, str(root / "run"),
+                                  str(data), steps, str(out)),
+            nprocs=world, start_method="spawn")
+        res = json.loads(out.read_text())
+        res["seconds"] = time.perf_counter() - t
+        return res
+
+    shared = group(2, "gloo", MESH_TRAIN_STEPS)
+    n_cards = torch.cuda.device_count()
+    nccl = group(n_cards, "nccl", MESH_TRAIN_STEPS if n_cards >= 2 else 0)
+    for name, res in (("gloo_shared_card", shared), ("nccl", nccl)):
+        emit("main_path", path=f"mesh_{name}", card=smi, **res)
+        for check in ("step", "camopt", "data_parallel"):
+            if check not in res:
+                continue
+            c = res[check]
+            if "loss" in c:
+                require(abs(c["loss"] - c["loss_single"]) <= MESH_LOSS_TOL,
+                        f"{name} {check}: loss {c['loss']} against the "
+                        f"single rank's {c['loss_single']}")
+            worst = max(list(c["grad_rel_err"].values())
+                        + [c.get("pose_grad_rel_err", 0.0)])
+            require(worst <= MESH_GRAD_TOL,
+                    f"{name} {check}: gradients {c}")
+        if "trainer" in res:
+            tr = res["trainer"]
+            require(tr["steps"] == MESH_TRAIN_STEPS and tr["max_overflow"] == 0
+                    and all(x == x for x in tr["losses"]),
+                    f"{name}: the mesh trainer's run {tr}")
+            require(len({r["state_sha256"] for r in res["ranks"]}) == 1,
+                    f"{name}: the replicas differ after the run")
+            require(all(v == MESH_TRAIN_STEPS for r in res["ranks"]
+                        for v in r["trainer_launches"].values()),
+                    f"{name}: trainer launches "
+                    f"{[r['trainer_launches'] for r in res['ranks']]}")
+        require(all(v == 1 for r in res["ranks"]
+                    for v in r["step_launches"].values()),
+                f"{name}: step launches "
+                f"{[r['step_launches'] for r in res['ranks']]}")
+    require("data_parallel" in shared and "trainer" in shared,
+            "the shared-card group skipped a check")
+    return dict(band=band, band_seconds=band_s, gloo=shared, nccl=nccl)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this check runs on "
@@ -2699,11 +3093,13 @@ def main():
             worst["rasterize_eval"] = max(worst["rasterize_eval"], err)
             frames[name] = (frame, stats)
 
+            if name != "trained_scene_stats":
+                # phase 10 holds this scene's flat training kernels to
+                # their plain versions at this pad
+                continue
             for lean in (True, False):
                 check_fwd_bwd(frame.tier, frame.inputs, frame.grid, s_cap,
                               lean, scene=name, chart_pad=list(PAD))
-            if name != "trained_scene_stats":
-                continue
             # the dense-list kernels on the same view's pairs: against
             # their plain versions, and against the flat kernels
             where = dict(scene=name, chart_pad=list(PAD))
@@ -3001,6 +3397,34 @@ def main():
         require(Path(res["checkpoint"]).exists(), f"{renderer}: no checkpoint")
         del res
         torch.cuda.empty_cache()
+
+    # 5d. the tile-row mesh: band renders of the runs of phases 5, 6 and 7
+    # through every tier's kernels, two ranks sharing the card over gloo,
+    # then NCCL (after phase 7, whose runs it reuses)
+    t5d = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = mesh_main_path(Path(tmp.name), data, {
+        "flat": (reval.rasterize_eval, rfwd.rasterize_fwd,
+                 rbwd.rasterize_bwd),
+        "dense": dense_counters,
+        "pallas3": (rdense.rasterize_dense_eval, rv3.rasterize_v3_fwd,
+                    rv3.rasterize_v3_bwd),
+        "pallas1": (rdense.rasterize_dense_eval, rv1.rasterize_v1_fwd,
+                    rv1.rasterize_v1_bwd)}, smi)
+    emit("phase_5d", seconds=time.perf_counter() - t5d, nvidia_smi=smi,
+         band_seconds=mesh["band_seconds"],
+         band_grad_rel_err={k: {n: v["grad_rel_err"] for n, v in b.items()}
+                            for k, b in mesh["band"].items()},
+         gloo_seconds=mesh["gloo"]["seconds"],
+         nccl_seconds=mesh["nccl"]["seconds"],
+         rank_step_ms=[r["step_ms"] for r in mesh["gloo"]["ranks"]],
+         rank_trainer_step_ms=[r["trainer_step_ms"]
+                               for r in mesh["gloo"]["ranks"]],
+         allreduce_bytes=mesh["gloo"]["ranks"][0]["allreduce_bytes"],
+         allreduce_ms_gloo_host_staged=[r["allreduce_ms"]
+                                        for r in mesh["gloo"]["ranks"]],
+         allreduce_ms_nccl=[r["allreduce_ms"] for r in mesh["nccl"]["ranks"]])
+    torch.cuda.empty_cache()
 
     # 8. the nerfstudio main path: gstex-dtu-nvs on the v1 tier
     dtu_launches = dtu_main_path(Path(tmp.name), all_counters)

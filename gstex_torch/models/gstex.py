@@ -340,10 +340,15 @@ def init_params(cfg: GStexConfig, means, log_scales2, quats, opacity_logits,
 def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
            cam: Camera, step: int, background: torch.Tensor,
            extra: bool = False, eval_only: bool = False,
-           albedo: Optional[torch.Tensor] = None) -> dict:
+           albedo: Optional[torch.Tensor] = None,
+           grid: Optional[TileGrid] = None, px_offset=(0.0, 0.0)) -> dict:
     """Render one view, differentiable in the params unless the caller
     holds ``torch.no_grad``. ``albedo`` (N, Ch, Cw, 3), given, takes the
     place of the texture's albedo (the edited charts of texture painting).
+    ``grid`` and ``px_offset``, given, render one band of the view: the
+    grid's rows and columns of pixels from ``px_offset`` (x, y) on, as a
+    device of the tile-row mesh does (``parallel/shard.py``); the tier is
+    chosen as for the whole view, since the rule keys on tile pixels.
     ``cfg.renderer`` names the tier:
 
     - ``"pallas"`` / ``"pallas5"``: the flat pair-list kernels where they
@@ -393,13 +398,19 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
                 return sh_ops.sh_to_rgb(params.texture)
             return torch.sigmoid(params.texture)
 
+    banded = grid is not None
+    if banded and (renderer == "oracle" or cfg.use_normal_loss):
+        raise ValueError("a band is rendered through tiles (the oracle has "
+                         "none), and without the whole frame's depth that "
+                         "use_normal_loss's estimated normals need")
     if renderer == "oracle":
         # no binning, no capacities: it cannot overflow
         out = render_oracle(prep.geom, texture_albedo(), buffers.texture_hw,
                             cam, extra_channels=extra)
         stats = dict(overflow=0, total_pairs=0, max_tile_count=0)
     else:
-        grid = cfg.grid(cam.height, cam.width)
+        if not banded:
+            grid = cfg.grid(cam.height, cam.width)
         pad = tuple(params.texture.shape[1:3])
         # flat or dense is one decision per (renderer, pad, tile size), the
         # same for training and eval. Where neither kernel tier takes the
@@ -414,32 +425,39 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             # binning and the cull see detached geometry: no gradient flows
             # through the pair lists
             geom_d = SplatGeom(*(x.detach() for x in prep.geom))
-            cull_fn = (make_pair_cull(geom_d, cam, grid) if cfg.pair_cull
-                       else None)
+            cull_fn = (make_pair_cull(geom_d, cam, grid, px_offset)
+                       if cfg.pair_cull else None)
+            centers = prep.centers.detach()
+            if banded:
+                centers = centers - torch.tensor(
+                    px_offset, dtype=centers.dtype, device=centers.device)
             binning = build_tile_bins_flat if use_flat else build_tile_bins
-            bins = binning(prep.centers.detach(), prep.extents.detach(),
+            bins = binning(centers, prep.extents.detach(),
                            prep.depths.detach(), prep.valid, grid,
                            cfg.pair_cap, cfg.s_max, cull_fn=cull_fn)
         texture = texture_albedo()
         hw = buffers.texture_hw
         if use_flat and eval_only:
             out = rasterize_pl5_eval(prep.geom, texture, hw, bins, cam, grid,
-                                     s_cap=cfg.s_max, background=background)
+                                     s_cap=cfg.s_max, px_offset=px_offset,
+                                     background=background)
         elif use_flat:
             out = rasterize_pl5(prep.geom, texture, hw, bins, cam, grid,
-                                s_cap=cfg.s_max, lean=lean_losses(cfg),
-                                background=background)
+                                s_cap=cfg.s_max, px_offset=px_offset,
+                                lean=lean_losses(cfg), background=background)
         elif kernels and eval_only:
             out = rasterize_pl_eval(prep.geom, texture, hw, bins, cam, grid,
+                                    px_offset=px_offset,
                                     background=background)
         elif kernels:
             out = rasterize_pl(prep.geom, texture, hw, bins, cam, grid,
+                               px_offset=px_offset,
                                version=kernel_version(renderer),
                                lean=lean_losses(cfg), background=background)
         else:
             with record_function("gstex.torch_tier"):
                 out = rasterize(prep.geom, texture, hw, bins, cam, grid,
-                                extra_channels=extra)
+                                extra_channels=extra, px_offset=px_offset)
         stats = dict(overflow=bins.overflow, total_pairs=bins.total_pairs,
                      max_tile_count=int(bins.counts.max()))
     if "rgb" not in out:

@@ -56,8 +56,21 @@ checkpoint's step:
 
 ``--viewer`` serves the interactive viewer on the training state while
 the run trains (``--viewer-port``, default 7007): live frames, pause and
-resume, texture painting (``gstex_torch/viewer/server.py``). The
-multi-device flags of ``gstex-train`` are not offered yet.
+resume, texture painting (``gstex_torch/viewer/server.py``).
+
+``--num-devices N`` trains on N ranks, one process and one card each,
+over a tile-row mesh (``parallel/shard.py``; NCCL): every rank renders
+one band of each view, and the gradients are summed over the ranks.
+``--data-parallel B`` splits the N ranks into B rows, each training its
+own camera a step. Started by ``torchrun``, the CLI joins the group the
+environment describes, rank r on ``cuda:LOCAL_RANK``; otherwise it starts
+the N ranks itself, rank r on ``cuda:r``, and refuses N beyond the
+visible cards. ``--device cpu --num-devices N`` runs N gloo ranks on the
+CPU. Rank 0 writes the run:
+
+    python -m gstex_torch.scripts.train gstex-blender-nvs \
+        --data DATA_DIR --scene-npz assets/trained_scene_stats.npz \
+        --num-devices 4 --data-parallel 2
 """
 
 from __future__ import annotations
@@ -65,10 +78,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
+import tempfile
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..configs.methods import get_method
 from ..data.blender import parse_blender
@@ -76,6 +93,7 @@ from ..data.manager import FullImageCache
 from ..data.nerfstudio_parser import parse_nerfstudio
 from ..models import gstex as model
 from ..models import init_io
+from ..parallel.distributed import init_distributed
 from ..train.trainer import Trainer
 from ..utils import ply as ply_io
 from ..utils.checkpoint import latest_checkpoint
@@ -160,7 +178,64 @@ def apply_override(method, spec: str):
 
 def main(argv=None) -> dict:
     """Train; returns ``{"history": per-step metrics, "checkpoint": path,
-    "eval": mean eval metrics or None}``."""
+    "eval": mean eval metrics or None}`` (rank 0's, over a mesh)."""
+    args = parse_args(argv)
+    if args.num_devices > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ:
+            # torchrun: one process a rank, on its local card
+            local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+            device = rank_device(args.device, local)
+            init_distributed(device=device)
+            return train(args, device)
+        return launch(args, argv)
+    return train(args, resolve_device(args.device))
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """Rank ``rank``'s device: its own card (``cuda:rank``), or the CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    torch.cuda.set_device(rank)
+    return torch.device("cuda", rank)
+
+
+def launch(args, argv) -> dict:
+    """Start ``--num-devices`` ranks of this command, one process each
+    (rank r on ``cuda:r`` or, with ``--device cpu``, a gloo rank on the
+    CPU), and return rank 0's result."""
+    n = args.num_devices
+    if resolve_device(args.device).type == "cuda" and \
+            n > torch.cuda.device_count():
+        raise ValueError(f"--num-devices {n}: one card a rank, and "
+                         f"{torch.cuda.device_count()} CUDA devices are "
+                         f"visible")
+    rdv = tempfile.mkdtemp(prefix="gstex-torch-train-")
+    try:
+        # this process's host threads shared among the ranks
+        threads = max(1, torch.get_num_threads() // n)
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(n, argv, rdv, threads), nprocs=n,
+            start_method="spawn")
+        return json.loads((Path(rdv) / "result.json").read_text())
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, argv, rdv: str, threads: int) -> None:
+    torch.set_num_threads(threads)
+    args = parse_args(argv)
+    device = rank_device(args.device, rank)
+    init_distributed(f"file://{rdv}/rendezvous", world, rank, device=device)
+    try:
+        res = train(args, device)
+        if rank == 0:
+            (Path(rdv) / "result.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Train a GStex method on a Blender or nerfstudio "
                     "dataset.")
@@ -207,11 +282,23 @@ def main(argv=None) -> dict:
     p.add_argument("--viewer", action="store_true",
                    help="serve the interactive viewer while training")
     p.add_argument("--viewer-port", type=int, default=7007)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="camera-batch data parallelism: split "
+                        "--num-devices into (data, tile) mesh rows; each "
+                        "data row trains its own camera per step "
+                        "(reference DDP world_size semantics)")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help=">1: shard tile rows across a device mesh")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
-    device = resolve_device(args.device)
+
+def train(args, device) -> dict:
+    """The run on ``device``: this process alone, or one rank of the
+    ``--num-devices`` group (rank 0 writes the run directory and runs the
+    closing eval)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
     method = get_method(args.method)
     if args.pixel_num is not None:
         method.model = dataclasses.replace(method.model,
@@ -239,7 +326,8 @@ def main(argv=None) -> dict:
     out = args.output_dir or (f"outputs/{exp}/{method.name}/"
                               f"{time.strftime('%Y-%m-%d_%H%M%S')}")
     method.trainer = dataclasses.replace(
-        method.trainer, output_dir=out, load_checkpoint=args.load_checkpoint)
+        method.trainer, output_dir=out, load_checkpoint=args.load_checkpoint,
+        num_devices=args.num_devices, data_parallel=args.data_parallel)
 
     train_parsed = build_dataset(method, args.data, "train")
     train_cache = FullImageCache.build(train_parsed,
@@ -250,7 +338,8 @@ def main(argv=None) -> dict:
         eval_parsed = build_dataset(method, args.data, "test")
     except FileNotFoundError:
         eval_parsed = None
-    if eval_parsed is not None and len(eval_parsed.image_filenames) > 0:
+    if (rank == 0 and eval_parsed is not None
+            and len(eval_parsed.image_filenames) > 0):
         eval_cache = FullImageCache.build(eval_parsed, seed=1, device=device)
     params, buffers = build_model(args, method, train_parsed, device)
     if method.model.chart_pad is None:
@@ -270,18 +359,20 @@ def main(argv=None) -> dict:
         "trainer": dataclasses.asdict(method.trainer),
         "num_gaussians": int(params.means.shape[0]),
     }
-    Path(out).mkdir(parents=True, exist_ok=True)
-    (Path(out) / "config.json").write_text(
-        json.dumps(run_config, indent=2, default=str))
+    if rank == 0:
+        Path(out).mkdir(parents=True, exist_ok=True)
+        (Path(out) / "config.json").write_text(
+            json.dumps(run_config, indent=2, default=str))
 
     trainer = Trainer(method.trainer, method.model, method.optim, params,
                       buffers, train_cache, eval_cache, run_config)
-    if args.viewer:
+    viewer = args.viewer and rank == 0
+    if viewer:
         trainer.attach_viewer(port=args.viewer_port)
     try:
         history = trainer.train()
     finally:
-        if args.viewer:
+        if viewer:
             trainer.viewer.close()
     results = None
     if eval_cache is not None:

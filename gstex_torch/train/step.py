@@ -1,12 +1,15 @@
-"""Training and eval steps, single device (counterpart of
-``gstex_tpu/train/step.py``).
+"""Training and eval steps (counterpart of ``gstex_tpu/train/step.py``).
 
 One full-image camera per step: background, ground-truth composite,
 render, loss = 0.8·L1 + 0.2·(1−SSIM) (+ the optional regularizers),
 backward, per-group Adam; ``train_step_camopt`` also optimizes the
-training camera's pose. The JAX package's steps are pure functions of a
-state; here the state is updated in place (the params are the optimizer's
-leaves), which keeps one copy of each leaf and its Adam moments.
+training camera's pose. ``sharded_step`` is the same step over a mesh of
+ranks (``parallel/shard.py``): each renders one band of the view and
+differentiates its own terms of the loss, and the gradients are summed
+over the mesh before the update. The JAX package's steps are pure
+functions of a state; here the state is updated in place (the params are
+the optimizer's leaves), which keeps one copy of each leaf and its Adam
+moments.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from torch.profiler import record_function
 from ..models import gstex as model
 from ..ops import pose_opt
 from ..ops.camera import Camera
+from ..parallel import shard
+from ..parallel.distributed import Mesh
 from ..utils.device import resolve_device
 from . import optim
 
@@ -98,12 +103,8 @@ def _step(cfg, state, cam, image, mask, camopt=None) -> dict:
         gt = model.composite_gt(image, background)
         state.optimizer.zero_grad(set_to_none=True)
     if camopt is not None:
-        pose, mode, cam_idx = camopt
-        with record_function("gstex.pose"):
-            pose.optimizer.zero_grad(set_to_none=True)
-            adj = pose_opt.exp_map(mode, pose.delta[cam_idx])
-            cam = dataclasses.replace(
-                cam, c2w=pose_opt.apply_correction(cam.c2w, adj))
+        pose = camopt[0]
+        cam = _corrected(camopt, cam)
     outputs = model.render(cfg, state.params, state.buffers, cam, state.step,
                            background)
     with record_function("gstex.loss"):
@@ -130,6 +131,70 @@ def _step(cfg, state, cam, image, mask, camopt=None) -> dict:
                                                               min=1e-12))
     for k in ("overflow", "total_pairs", "max_tile_count"):
         metrics[k] = outputs[k]
+    return metrics
+
+
+def _corrected(camopt, cam: Camera) -> Camera:
+    """``cam`` with its pose's correction (``camopt``: pose, mode,
+    camera index), the pose's gradients zeroed."""
+    pose, mode, cam_idx = camopt
+    with record_function("gstex.pose"):
+        pose.optimizer.zero_grad(set_to_none=True)
+        adj = pose_opt.exp_map(mode, pose.delta[cam_idx])
+        return dataclasses.replace(
+            cam, c2w=pose_opt.apply_correction(cam.c2w, adj))
+
+
+def sharded_step(cfg: model.GStexConfig, state: TrainState, mesh: Mesh,
+                 height: int, width: int, cams, images, masks,
+                 camopt=None) -> dict:
+    """``_step`` over ``mesh``: one (camera, image, mask) a data row of
+    the mesh, each row's ranks a band of its view. Every rank holds the
+    whole state and ends the step with the same one. Returns the
+    single-device step's metrics, the loss's as the mean over the rows
+    (``shard.band_metrics``)."""
+    dev = state.params.means.device
+    row = mesh.data_rank
+    with record_function("gstex.background_gt"):
+        background = shard.backgrounds(cfg, state.generator, mesh.data,
+                                       dev)[row]
+        gt = model.composite_gt(images[row], background)
+        state.optimizer.zero_grad(set_to_none=True)
+    cam = cams[row]
+    if camopt is not None:
+        cam = _corrected(camopt, cam)
+    bgrid, _ = shard.band_grid(cfg, height, width, mesh.tile)
+    outputs = shard.render_band(cfg, state.params, state.buffers, cam,
+                                state.step, background, bgrid,
+                                mesh.tile_rank)
+    reg = None
+    with record_function("gstex.loss"):
+        loss = shard.band_loss(cfg, mesh, outputs, gt, masks[row],
+                               state.step, height, width)
+        if camopt is not None:
+            reg = pose_opt.regularizer(camopt[0].delta)
+    with record_function("gstex.backward"):
+        # the replicated regularizer is the first band's term
+        shard.band_backward(mesh, loss,
+                            reg if mesh.tile_rank == 0 else None)
+    leaves = list(state.params)
+    if camopt is not None:
+        leaves.append(camopt[0].delta)
+    with record_function("gstex.allreduce"):
+        shard.reduce_gradients(mesh, leaves)
+    with record_function("gstex.adam"):
+        state.optimizer.step()
+        if camopt is not None:
+            camopt[0].optimizer.step()
+    step = state.step
+    state.step += 1
+    with record_function("gstex.metrics"):
+        metrics = shard.band_metrics(cfg, mesh, loss, outputs, step, height,
+                                     width)
+        if camopt is not None:
+            metrics["loss"] = metrics["loss"] + reg.detach()
+            metrics["camera_opt_regularizer"] = reg.detach()
+            metrics.update(pose_opt.metrics(camopt[0].delta))
     return metrics
 
 

@@ -26,9 +26,17 @@ and cropped to the frame where d does not divide its size; the small
 frames are not cached. With ``camera_opt`` SO3xR3 or SE3 each step also
 optimizes its training camera's pose (``step.train_step_camopt``), whose
 deltas and optimizer state ride a ``pose-<step>.npz`` sidecar beside each
-checkpoint in the JAX package's layout. The tile mesh, data parallelism
-and the scanned multi-step dispatch raise ``NotImplementedError`` and
-name their ROADMAP item.
+checkpoint in the JAX package's layout. With ``num_devices`` > 1 the
+trainer is one rank of a process group of that many (``scripts/train.py``
+starts them): each step renders this rank's band of the view and sums the
+gradients over the mesh (``train/step.py:sharded_step``); with
+``data_parallel`` B each step takes B cameras, one a row of the mesh, and
+averages their gradients. Every rank holds the same state, draws the
+same views and backgrounds, re-charts and grows its capacities on the
+same (all-reduced) numbers; only rank 0 writes (the writer, checkpoints,
+pose sidecars, eval images and scalars) and serves the viewer. Every rank
+resumes from the same checkpoint. The scanned multi-step dispatch raises
+``NotImplementedError`` and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.manager import FullImageCache
 from ..data.resize import resize_area
@@ -50,11 +59,12 @@ from ..models import gstex as model
 from ..ops import pose_opt
 from ..ops.binning import settle_caps
 from ..ops.camera import make_camera
+from ..parallel.distributed import make_mesh
 from ..scripts.render import demand_caps, eval_background
 from ..utils import checkpoint as ckpt_io
 from ..utils import profiler
 from ..utils.metrics import image_metrics
-from ..utils.writer import Writer
+from ..utils.writer import NullWriter, Writer
 from . import optim
 from . import step as step_mod
 
@@ -87,16 +97,38 @@ class TrainerConfig:
 
 
 def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
-    todo = [
-        (tcfg.num_devices > 1 or tcfg.data_parallel > 1,
-         "multi-device training (tile mesh, data parallelism): ROADMAP "
-         "Queue 1 item 14"),
-        (tcfg.steps_per_sync > 1,
-         "the scanned multi-step dispatch: ROADMAP Queue 1 item 9"),
-    ]
-    for cond, what in todo:
-        if cond:
-            raise NotImplementedError(what)
+    if tcfg.steps_per_sync > 1:
+        raise NotImplementedError(
+            "the scanned multi-step dispatch: ROADMAP Queue 1 item 9")
+
+
+def _check_mesh(tcfg: TrainerConfig, mcfg: model.GStexConfig):
+    """The JAX trainer's refusals of a mesh configuration, and the
+    port's one more: the band loss has no estimated normals."""
+    if tcfg.num_devices <= 1:
+        return
+    if tcfg.data_parallel > 1:
+        if tcfg.num_devices % tcfg.data_parallel:
+            raise ValueError(f"num_devices={tcfg.num_devices} not divisible "
+                             f"by data_parallel={tcfg.data_parallel}")
+        if mcfg.num_downscales > 0:
+            raise ValueError("data_parallel requires num_downscales=0 "
+                             "(uniform batch resolution per step)")
+        if tcfg.camera_opt != "off":
+            raise ValueError("camera_opt composes with tile-row sharding, "
+                             "not camera-batch DP (data_parallel must be 1)")
+    if mcfg.use_normal_loss:
+        raise ValueError("use_normal_loss under num_devices > 1: the "
+                         "estimated normals need the whole frame's depth, "
+                         "and a rank renders one band (ROADMAP Known, not "
+                         "faults)")
+    if not dist.is_initialized() or dist.get_world_size() != \
+            tcfg.num_devices:
+        raise RuntimeError(
+            f"num_devices={tcfg.num_devices} trains one process a rank: "
+            f"start them with gstex-torch-train --num-devices "
+            f"{tcfg.num_devices} (or torchrun), or join a group of that "
+            f"size with parallel.distributed.init_distributed first")
 
 
 # k / 255 for every uint8 k, as numpy's float32 division makes it (a
@@ -131,19 +163,26 @@ class Trainer:
         if tcfg.camera_opt not in pose_opt.MODES:
             raise ValueError(f"camera_opt={tcfg.camera_opt!r} (expected "
                              f"one of {pose_opt.MODES})")
+        _check_mesh(tcfg, mcfg)
+        self.mesh = None
+        if tcfg.num_devices > 1:
+            self.mesh = make_mesh(tcfg.num_devices, tcfg.data_parallel)
+        # rank 0 (or the one process) writes
+        self.writes = self.mesh is None or self.mesh.rank == 0
         self.tcfg, self.mcfg, self.ocfg = tcfg, mcfg, ocfg
         self.train_cache = train_cache
         self.eval_cache = eval_cache
         self.run_config = run_config or {}
         self.out_dir = Path(tcfg.output_dir)
-        self.writer = Writer(self.out_dir, vis=tcfg.vis)
+        self.writer = (Writer(self.out_dir, vis=tcfg.vis) if self.writes
+                       else NullWriter())
         self.state = step_mod.init_state(mcfg, ocfg, params, buffers,
                                          seed=tcfg.seed)
         if tcfg.load_checkpoint:
             ckpt_io.load_checkpoint(tcfg.load_checkpoint, self.state,
                                     seed=tcfg.seed)
-            print(f"resumed from {tcfg.load_checkpoint} at step "
-                  f"{self.state.step}")
+            self._say(f"resumed from {tcfg.load_checkpoint} at step "
+                      f"{self.state.step}")
         self.pose = None
         if tcfg.camera_opt != "off":
             self.pose = step_mod.init_pose_state(
@@ -158,6 +197,10 @@ class Trainer:
         self.history: list[dict] = []
         self._eval_counter = 0
         self.viewer = None
+
+    def _say(self, msg: str) -> None:
+        if self.writes:
+            print(msg, flush=True)
 
     def attach_viewer(self, port: int = 7007):
         """Start the interactive viewer on this trainer's state; returns
@@ -178,8 +221,8 @@ class Trainer:
             p, s = demand_caps(mcfg, st.params, st.buffers, [cam],
                                mcfg.sh_degree * mcfg.sh_degree_interval)
         if (p, s) != (mcfg.pair_cap, mcfg.s_max):
-            print(f"demand-sized capacities: pair_cap {mcfg.pair_cap}->{p}, "
-                  f"s_max {mcfg.s_max}->{s}")
+            self._say(f"demand-sized capacities: pair_cap {mcfg.pair_cap}->"
+                      f"{p}, s_max {mcfg.s_max}->{s}")
         return dataclasses.replace(mcfg, pair_cap=p, s_max=s)
 
     def train(self) -> list[dict]:
@@ -194,18 +237,11 @@ class Trainer:
             lock = (self.viewer.train_lock if self.viewer is not None
                     else contextlib.nullcontext())
             with profiler.time_section("train_iteration"):
-                idx, (cam, img, mask) = self.train_cache.next_train_idx()
-                d = model.downscale_factor(self.mcfg, step)
-                if d > 1:
-                    cam, img, mask = downscale(cam, img, mask, d)
                 with lock:
-                    if self.pose is None:
-                        metrics = step_mod.train_step(self.mcfg, self.ocfg,
-                                                      st, cam, img, mask)
+                    if self.mesh is not None and self.mesh.data > 1:
+                        idx, cam, metrics = self._run_dp()
                     else:
-                        metrics = step_mod.train_step_camopt(
-                            self.mcfg, self.ocfg, st, self.pose,
-                            tcfg.camera_opt, cam, idx, img, mask)
+                        idx, cam, metrics = self._run_one(step)
                 metrics = {k: float(v) for k, v in metrics.items()}
             self.history.append(dict(metrics, step=step, camera=idx))
             since_log += 1
@@ -224,11 +260,12 @@ class Trainer:
                 metrics["texel_count"] = float(model.texel_count(st.buffers))
                 t_last, since_log = now, 0
                 self.writer.scalars(step, metrics)
-            if (tcfg.steps_per_eval_image > 0 and self.eval_cache
+            if (self.writes and tcfg.steps_per_eval_image > 0
+                    and self.eval_cache
                     and step % tcfg.steps_per_eval_image == 0):
                 self.eval_one(step)
-            if (tcfg.steps_per_eval_all_images > 0 and self.eval_cache
-                    and step > 0
+            if (self.writes and tcfg.steps_per_eval_all_images > 0
+                    and self.eval_cache and step > 0
                     and step % tcfg.steps_per_eval_all_images == 0):
                 agg = self.eval_all()
                 self.writer.scalars(step, {f"eval_all_{k}": v
@@ -238,9 +275,50 @@ class Trainer:
                     and step % tcfg.steps_per_save == 0):
                 self.save()
         self.save()
-        print(profiler.summary())
+        self._say(profiler.summary())
         self.writer.close()
         return self.history
+
+    def _run_one(self, step: int):
+        """The next view's step, on this process or over the mesh:
+        (camera index, camera, metrics)."""
+        tcfg, st = self.tcfg, self.state
+        idx, (cam, img, mask) = self.train_cache.next_train_idx()
+        d = model.downscale_factor(self.mcfg, step)
+        if d > 1:
+            cam, img, mask = downscale(cam, img, mask, d)
+        camopt = (None if self.pose is None
+                  else (self.pose, tcfg.camera_opt, idx))
+        if self.mesh is not None:
+            return idx, cam, step_mod.sharded_step(
+                self.mcfg, st, self.mesh, cam.height, cam.width, [cam],
+                [img], [mask], camopt)
+        if camopt is None:
+            return idx, cam, step_mod.train_step(self.mcfg, self.ocfg, st,
+                                                 cam, img, mask)
+        return idx, cam, step_mod.train_step_camopt(
+            self.mcfg, self.ocfg, st, self.pose, tcfg.camera_opt, cam, idx,
+            img, mask)
+
+    def _run_dp(self):
+        """One data-parallel step: the next ``data_parallel`` views, one a
+        row of the mesh, one update from the mean of their gradients (the
+        reference DDP's per-iteration semantics)."""
+        batch = [self.train_cache.next_train_idx()
+                 for _ in range(self.mesh.data)]
+        res = {(c.height, c.width) for _, (c, _, _) in batch}
+        if len(res) != 1:
+            raise ValueError(f"data_parallel needs a uniform-resolution "
+                             f"dataset; got {res}")
+        if any(m is not None for _, (_, _, m) in batch):
+            # JAX's batched step has no mask input and refuses masks
+            raise ValueError("data_parallel does not support per-image "
+                             "masks; run without --data-parallel")
+        cams = [c for _, (c, _, _) in batch]
+        metrics = step_mod.sharded_step(
+            self.mcfg, self.state, self.mesh, cams[0].height, cams[0].width,
+            cams, [img for _, (_, img, _) in batch], [None] * len(batch))
+        return batch[0][0], cams[0], metrics
 
     def _grow_capacities(self, step: int, metrics: dict) -> None:
         """Overflow-driven capacity growth, sized to the step's measured
@@ -257,12 +335,13 @@ class Trainer:
         new_p = min(max(new_p, mcfg.pair_cap), 1 << 23)
         new_s = min(max(new_s, mcfg.s_max), 4096)
         if (new_p, new_s) == (mcfg.pair_cap, mcfg.s_max):
-            print(f"WARNING step {step}: overflow {int(metrics['overflow'])}"
-                  f" at max capacities (s_max={mcfg.s_max})")
+            self._say(f"WARNING step {step}: overflow "
+                      f"{int(metrics['overflow'])} at max capacities "
+                      f"(s_max={mcfg.s_max})")
             return
-        print(f"step {step}: overflow {int(metrics['overflow'])} — growing "
-              f"s_max {mcfg.s_max}->{new_s}, pair_cap {mcfg.pair_cap}->"
-              f"{new_p}")
+        self._say(f"step {step}: overflow {int(metrics['overflow'])} — "
+                  f"growing s_max {mcfg.s_max}->{new_s}, pair_cap "
+                  f"{mcfg.pair_cap}->{new_p}")
         self.mcfg = dataclasses.replace(mcfg, s_max=new_s, pair_cap=new_p)
         if self.viewer is not None:
             self.viewer.cfg = self.mcfg
@@ -279,8 +358,9 @@ class Trainer:
                 else float("nan"),
             }
         path = self.out_dir / f"nan_dump_step{step}.json"
-        path.write_text(json.dumps({"step": step, "metrics": metrics,
-                                    "params": leaves}, indent=1))
+        if self.writes:
+            path.write_text(json.dumps({"step": step, "metrics": metrics,
+                                        "params": leaves}, indent=1))
         raise FloatingPointError(
             f"non-finite loss at step {step}; diagnostic at {path}")
 
@@ -344,7 +424,11 @@ class Trainer:
         agg["pixel_scale"] = float(self.state.buffers.pixel_scale)
         return agg
 
-    def save(self) -> Path:
+    def save(self) -> Optional[Path]:
+        """The checkpoint (and pose sidecar) of the state as it is; rank 0
+        alone writes, and the other ranks return ``None``."""
+        if not self.writes:
+            return None
         path = ckpt_io.save_checkpoint(
             self.out_dir / "checkpoints", self.state, self.run_config,
             keep_only_latest=self.tcfg.save_only_latest_checkpoint)

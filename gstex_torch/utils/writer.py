@@ -132,3 +132,16 @@ class Writer:
                 sink.close()
             except Exception:
                 pass
+
+
+class NullWriter:
+    """A ``Writer`` that writes nothing: a rank other than 0 of a mesh."""
+
+    def scalars(self, step: int, values: dict):
+        pass
+
+    def image(self, step: int, name: str, img):
+        pass
+
+    def close(self):
+        pass

@@ -44,7 +44,8 @@ def test_sources_found():
             "ops/rasterize_v1.py", "data/nerfstudio_parser.py",
             "data/colmap.py", "data/pose_utils.py", "utils/ply.py",
             "data/jpeg.py", "data/undistort.py", "data/fisheye624.py",
-            "data/resize.py", "ops/pano.py"} <= names
+            "data/resize.py", "ops/pano.py", "parallel/distributed.py",
+            "parallel/shard.py", "parallel/scaling.py"} <= names
 
 
 def test_every_kernel_source_has_a_wrapper():

@@ -306,10 +306,13 @@ def test_unported_methods_and_trainer_options_raise(tmp_path):
     with pytest.raises(KeyError):
         get_method("nope")
     cfg = tmodel.GStexConfig()
-    for change in (dict(num_devices=4), dict(steps_per_sync=8)):
-        tcfg = TrainerConfig(output_dir=str(tmp_path), **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
+    tcfg = TrainerConfig(output_dir=str(tmp_path), steps_per_sync=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
+    # multi-device training is ported: it needs its process group
+    tcfg = TrainerConfig(output_dir=str(tmp_path), num_devices=4)
+    with pytest.raises(RuntimeError, match="one process a rank"):
+        Trainer(tcfg, cfg, toptim.OptimConfig(), None, None, [])
     # camera pose optimization is ported; a mode it lacks is refused
     tcfg = TrainerConfig(output_dir=str(tmp_path), camera_opt="SO3")
     with pytest.raises(ValueError, match="camera_opt"):
