@@ -30,9 +30,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    longest first, reversed: the eval's planes and the forward's maps and
    ncontrib bit-equal to their plain versions, the backward within 1e-5
    of each field group's max); then the pair-space v3, v2 and v1 kernels
-   on per-slot copies of those dense lists, and of the trained scene at
-   pixel_num 1e5, re-charted, at (16, 24) (there also the dense eval
-   kernel, bit for bit under the three orders): each against its plain
+   on per-slot copies of the dense lists of the trained scene at
+   pixel_num 1e5, re-charted, at their main path's (16, 24) (there also
+   the dense eval kernel, bit for bit under the three orders): each
+   against its plain
    version, lean and full; the v3, v2 and v1 backwards also under the
    three tile orders (within 1e-5 of each field group's max of their own
    order); v3 and v2, summed per gaussian, against the dense kernels on
@@ -52,7 +53,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``gstex_torch.scripts.train gstex-blender-nvs`` for 120 steps from the
    same geometry with other fills (seed 1), across the re-chart at step
    100: one launch of each training kernel per step, no overflow, finite
-   and falling loss, a checkpoint; then a test split of two views;
+   and falling loss, a checkpoint; the run takes the trainer's default
+   ``steps_per_sync`` of 8: one captured CUDA graph, replayed for every
+   chunked step but the capture's warm-up (chunks end on each log step);
+   then a test split of two views;
 5b. the run resumed: ``--load-checkpoint`` of its step-120 checkpoint to
    step 140 with ``--steps-per-save 10 --steps-per-eval-image 10 --vis
    tensorboard,wandb`` (every checkpoint kept): it starts at step 120,
@@ -94,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gloo stages its collectives through the host): from phase 5's
    step-120 state, a sharded step, a sharded camopt step and a 2-row
    data-parallel step against the single rank's (the loss to 1e-5, each
-   gradient within 1e-4 of its max abs), then ``Trainer(num_devices=2)``
+   gradient within 1e-4 of its max abs), ``make_sharded_train_scan`` on
+   two views against two sharded steps (phase 5e's gates), then ``Trainer(num_devices=2)``
    for 10 steps at 800x800 from phase 5's init on phase 5's dataset: the
    flat forward and backward once a step on each rank, no overflow, the
    replicas' parameters and buffers equal bit for bit; then NCCL on a
@@ -102,6 +107,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    step's gradients all-reduced (with two cards or more, the gloo group's
    checks and trainer run too). Each rank's step time and the gradient
    all-reduce's bytes and time are information only;
+5e. the scanned dispatch (``train/step.py:make_train_scan``), run after
+   phase 6, whose state it reuses: on phase 5's step-120 state (flat, (40,
+   80)) and phase 6's (dense, (64, 128)), a chunk of 8 steps through the
+   captured graph against 8 eager steps from an equal copy, twice (the
+   first chunk captures, the second only replays), beside a second eager
+   copy: the losses within 1e-4, each leaf's params within 0.1 of the
+   eager change and its moments within 0.25 of the eager moments, both
+   as L2 norms (two eager runs depart by up to 0.011 and 0.112;
+   ``scan_check``); the
+   warm-up step under ``set_sync_debug_mode("error")``; the graph's
+   kernel nodes of each of the port's kernels against one step's
+   launches; eager and chunked step ms on the host clock, the replays
+   alone by CUDA events, each one's busy ms and the card's idle share
+   from a ``torch.profiler`` trace; what keeping the graph beside its
+   executable costs in replay ms and memory (``kept_graph_cost``).
+   Phases 5 and 7 check every graph their trainers capture the same way
+   (``CaptureRecorder``);
 6. the large-chart main path: ``gstex_torch.scripts.train
    gstex-blender-nvs --pixel-num 4e6`` on phase 5's dataset plus a test
    split, 120 steps across the re-chart: the auto chart pad is (64, 128),
@@ -224,6 +246,7 @@ HBM and 67 TFLOP/s fp32 outside the tensor cores.
 import dataclasses
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -322,10 +345,19 @@ FIELD_GROUPS = {"normal": [0, 1, 2], "plane": [3], "axis1": [4, 5, 6, 7],
 T0 = time.perf_counter()
 
 
+def plain(o):
+    """A tensor as JSON takes it (the binning's counts are 0-d device
+    tensors): its number, or its list."""
+    if isinstance(o, torch.Tensor):
+        return o.item() if o.numel() == 1 else o.tolist()
+    raise TypeError(f"{type(o).__name__} is not JSON serializable")
+
+
 def emit(phase, **fields):
     """One JSON line; ``t`` is the seconds since the script started."""
     print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0,
-                                                  1), **fields}), flush=True)
+                                                  1), **fields},
+                     default=plain), flush=True)
 
 
 def require(ok, what):
@@ -401,7 +433,7 @@ def device_ms(fn, reps):
     waits for them; ``autograd_params`` is that less the backward
     kernel, and ``index_backward`` the part of it in autograd's indexing
     nodes (on the pair-space tiers, the scatter-add through the gathers
-    of the per-slot copies and the masked store that places them)."""
+    of the per-slot copies and the copy that places them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -441,7 +473,8 @@ def device_ms(fn, reps):
         stages["index_backward"] = {"device_ms": sum(
             e.device_time_total for e in cpu if e.key in (
                 "autograd::engine::evaluate_function: IndexBackward0",
-                "autograd::engine::evaluate_function: IndexPutBackward0"))
+                "autograd::engine::evaluate_function: IndexPutBackward0",
+                "autograd::engine::evaluate_function: IndexCopyBackward0"))
             / 1e3 / reps}
     return busy_us / 1e3 / reps, top, stages
 
@@ -1266,8 +1299,8 @@ def dtu_main_path(root, counters):
     real_gather = rasterize_api.pair_inputs
     gathered = []
 
-    def gather(records, texture, bins):
-        out = real_gather(records, texture, bins)
+    def gather(records, texture, bins, *cap):
+        out = real_gather(records, texture, bins, *cap)
         gathered.append(sum(x.numel() * x.element_size() for x in out[:2]))
         return out
     rasterize_api.pair_inputs = gather
@@ -1967,6 +2000,279 @@ def camopt_step_check(run_dir, counters, smi):
     return timing
 
 
+# phase 5e: a chunk of the trainer's default size through the captured
+# graph against as many eager steps from the same state
+SCAN_STEPS = 8
+SCAN_LOSS_TOL = 1e-4      # a step's loss, relative to the eager step's
+# the departures of a chunk from eager steps. The backward kernels add
+# with atomics, and two eager runs depart by about as much: after 8 or 16
+# steps their params by up to 0.011 of the change, their moments by up
+# to 0.112 of the means' (chaotic: surfels near the camera), both as L2
+# norms; the tolerances leave room over those
+SCAN_MOMENT_TOL = 0.25    # Adam's moments, L2 of the eager moments' L2
+SCAN_PARAM_L2_TOL = 0.1   # the params, L2 of the eager change's L2
+SCAN_PARAM_TOL = 1e-3     # (information) of the eager run's largest change
+SCAN_KERNELS = {"fused_ssim_value_and_grad": "ssim_fused_kernel"}
+
+
+def scan_departures(want, got, init):
+    """How far state ``got`` departs from ``want`` after the same steps
+    from params ``init``, per leaf: the L2 norm of the params' difference
+    over that of ``want``'s change, the share of elements further apart
+    than ``SCAN_PARAM_TOL`` of ``want``'s largest change, and the L2 norm
+    of the Adam moments' difference over that of ``want``'s moments. (L2
+    norms: with Adam's eps of 1e-15 an element whose gradient is rounding
+    noise moves by about ±lr either way, so a max over millions of
+    elements is one element's noise.)"""
+    out = {"param_l2_of_change": {}, "param_share_past_tol": {},
+           "moment_rel_err": {}}
+    rel = lambda d, ref: float(d.norm()) / max(float(ref.norm()), 1e-30)
+    for name, a, b, p0 in zip(want.params._fields, want.params, got.params,
+                              init):
+        out["param_l2_of_change"][name] = rel(a - b, a - p0)
+        out["param_share_past_tol"][name] = float(
+            ((a - b).abs() > SCAN_PARAM_TOL * float((a - p0).abs().max()))
+            .float().mean())
+        sa, sb = want.optimizer.state[a], got.optimizer.state[b]
+        if sa:
+            out["moment_rel_err"][name] = max(
+                rel(sa[k] - sb[k], sa[k]) for k in ("exp_avg", "exp_avg_sq"))
+    return out
+
+
+def scan_gates(dep, found, where):
+    """Fail unless each leaf's params (``scan_departures``: ``dep`` of the
+    chunk) lie within ``SCAN_PARAM_L2_TOL`` of the eager change and its
+    moments within ``SCAN_MOMENT_TOL`` of the eager moments."""
+    require(all(v <= SCAN_PARAM_L2_TOL
+                for v in dep["param_l2_of_change"].values()),
+            f"{where}: params after the chunk: {found}")
+    require(all(v <= SCAN_MOMENT_TOL for v in dep["moment_rel_err"].values()),
+            f"{where}: Adam moments after the chunk: {found}")
+
+
+def graph_nodes(scan, where):
+    """One captured step's launches of each kernel (``{wrapper name:
+    launches}``, as the scan counts a replay) and the captured graph's
+    kernel nodes (``TrainScan.graph_kernels``); fails unless each kernel
+    that launched has as many nodes in the graph as it launched."""
+    per_step = {fn.__name__: k for fn, k in scan.launches_per_step.items()}
+    kernels = {name: SCAN_KERNELS.get(name, f"{name}_kernel")
+               for name in per_step}
+    nodes = scan.graph_kernels(sorted(kernels.values()))
+    require(per_step and all(nodes[kernels[n]] == k
+                             for n, k in per_step.items()),
+            f"{where}: graph kernel nodes {nodes} against one step's "
+            f"launches {per_step}")
+    return per_step, nodes
+
+
+class CaptureRecorder:
+    """While open, ``graph_nodes`` of every graph a ``TrainScan``
+    captures, right after its capture (a trainer drops its scans at the
+    end of ``train``), in ``self.graphs``."""
+
+    def __init__(self, where):
+        from gstex_torch.train import step as train_step
+
+        self.cls, self.where, self.graphs = train_step.TrainScan, where, []
+
+    def __enter__(self):
+        real = self.real = self.cls._capture
+
+        def capture(scan):
+            real(scan)
+            per_step, nodes = graph_nodes(scan, self.where)
+            self.graphs.append(dict(launches_per_replay=per_step,
+                                    graph_kernel_nodes=nodes))
+        self.cls._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._capture = self.real
+
+
+def rss_bytes():
+    """This process's resident set, in bytes."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def kept_graph_cost(scan, reps=2):
+    """What keeping a graph beside its executable (``keep_graph=True``, as
+    every ``TrainScan`` captures) costs against torch's default: the
+    scan's step captured twice more, kept and not, each into its own
+    pool; for each, the device memory the capture reserved, the host's
+    resident set across the capture and its instantiation, and the replay
+    ms of a chunk of ``SCAN_STEPS`` (CUDA events, ``reps`` chunks after a
+    warm-up, in turns kept, default, kept, default, over
+    ``SCAN_STEPS``). The launches the captures count are taken back."""
+    from gstex_torch.ops import launch_counts
+
+    graphs, out = {}, {}
+    for keep in (True, False):
+        before = launch_counts.snapshot()
+        scan.state.optimizer.zero_grad(set_to_none=True)
+        # as the capture's own start does, so that the delta is its pool
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem, rss = torch.cuda.memory_reserved(), rss_bytes()
+        graph = torch.cuda.CUDAGraph(keep_graph=keep)
+        with torch.cuda.graph(graph):
+            scan._step()
+        if keep:
+            graph.instantiate()
+        torch.cuda.synchronize()
+        launch_counts.take_back(before)
+        graphs[keep] = graph
+        out["kept" if keep else "default"] = dict(
+            reserved_bytes=torch.cuda.memory_reserved() - mem,
+            host_rss_bytes=rss_bytes() - rss, replay_ms=[])
+
+    def chunk(graph):
+        scan.tables.pos.zero_()
+        for _ in range(SCAN_STEPS):
+            graph.replay()
+
+    for keep in (True, False, True, False):
+        out["kept" if keep else "default"]["replay_ms"].append(
+            cuda_ms(lambda: chunk(graphs[keep]), reps) / SCAN_STEPS)
+    del graphs
+    torch.cuda.empty_cache()
+    return out
+
+
+def scan_check(cfg, ocfg, st0, views, counters, **where):
+    """Phase 5e on one state: from equal copies of ``st0`` (the same
+    background generator), ``SCAN_STEPS`` eager ``train_step`` calls on
+    ``views`` against one chunk of ``make_train_scan`` (its warm-up step
+    under ``set_sync_debug_mode("error")``, one captured step, then
+    replays), twice: the first chunk captures, the second only replays.
+    A second eager copy gives the departure of two eager runs, for scale
+    (the backward kernels add with atomics, so no bit equality is
+    asked). Gates, on ``scan_departures`` of the chunk from the eager
+    run: each step's loss within ``SCAN_LOSS_TOL`` of the eager step's
+    (relative); for each leaf, the params within ``SCAN_PARAM_L2_TOL`` of
+    the eager change and the Adam moments within ``SCAN_MOMENT_TOL`` of
+    the eager moments (L2 norms); the kernels
+    launched as many times (``counters``) by both; the captured graph's
+    kernel nodes of each of the port's kernels equal to one eager step's
+    launches of it. Then the step time on the host clock, eager (one
+    step, then its metrics read) and chunked (a chunk, then its metrics
+    read once, over ``SCAN_STEPS``), median of 20 and of 5, min-max; a
+    chunk's graph replays alone by CUDA events, over ``SCAN_STEPS``; one
+    ``torch.profiler`` trace of each for the busy ms and the card's idle
+    share; ``kept_graph_cost``. The scan's graph is freed at the end."""
+    from gstex_torch.train import step as train_step
+
+    cams = [c for c, _ in views]
+    imgs = [i for _, i in views]
+    h, w = cams[0].height, cams[0].width
+
+    def fresh():
+        st = train_step.init_state(cfg, ocfg, st0.params, st0.buffers,
+                                   seed=7)
+        st.step = st0.step
+        return st
+
+    eager, again, chunk = fresh(), fresh(), fresh()
+    init = [p.detach().clone() for p in eager.params]
+    scan = train_step.make_train_scan(cfg, ocfg, chunk, h, w,
+                                      capacity=SCAN_STEPS)
+    chunks = []
+    for part in ("capture", "replay"):
+        for fn in counters:
+            fn.launches = 0
+        want = [float(train_step.train_step(cfg, ocfg, eager, c, i)["loss"])
+                for c, i in views]
+        eager_launches = {fn.__name__: fn.launches for fn in counters}
+        for c, i in views:
+            train_step.train_step(cfg, ocfg, again, c, i)
+        for fn in counters:
+            fn.launches = 0
+        got = scan(cams, imgs)["loss"].tolist()
+        torch.cuda.synchronize()
+        scan_launches = {fn.__name__: fn.launches for fn in counters}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        dep = scan_departures(eager, chunk, init)
+        chunks.append(dict(part=part, loss_eager=want, loss_chunk=got,
+                           loss_rel_err=loss_err, **dep,
+                           eager_repeat=scan_departures(eager, again, init),
+                           launches_eager=eager_launches,
+                           launches_chunk=scan_launches))
+        require(loss_err <= SCAN_LOSS_TOL,
+                f"{where}: a chunk's losses {got} against eager {want}")
+        scan_gates(dep, chunks[-1], where)
+        require(scan_launches == eager_launches and all(
+            v == SCAN_STEPS for v in eager_launches.values()
+            if v), f"{where}: launches {scan_launches} against eager "
+                   f"{eager_launches}")
+    del again
+    per_step, nodes = graph_nodes(scan, where)
+    del init
+
+    # the times: eager steps, chunks, one replay, and their traces
+    turn = iter(range(10 ** 9))
+
+    def eager_step():
+        i = next(turn) % len(views)
+        m = train_step.train_step(cfg, ocfg, eager, cams[i], imgs[i])
+        return float(m["loss"])
+
+    def chunk_step():
+        ms = scan(cams, imgs)
+        return torch.stack([v.to(torch.float64) for v in ms.values()]).cpu()
+
+    eager_ms, eager_lo, eager_hi = host_ms(eager_step)
+    chunk_ms, chunk_lo, chunk_hi = host_ms(chunk_step, reps=5)
+    def replays():
+        scan.tables.pos.zero_()
+        for _ in range(SCAN_STEPS):
+            scan.graph.replay()
+
+    replay_ms = cuda_ms(replays, 2) / SCAN_STEPS
+    eager_busy, eager_top, eager_stages = device_ms(eager_step, 5)
+    chunk_busy, chunk_top, _ = device_ms(chunk_step, 1)
+    kept = kept_graph_cost(scan)
+    n = SCAN_STEPS
+    res = dict(where, steps=n, chunks=chunks, graph_kernel_nodes=nodes,
+               launches_per_replay=per_step,
+               eager_step_ms=eager_ms, eager_step_ms_min=eager_lo,
+               eager_step_ms_max=eager_hi, chunk_step_ms=chunk_ms / n,
+               chunk_step_ms_min=chunk_lo / n, chunk_step_ms_max=chunk_hi / n,
+               graph_replay_ms=replay_ms,
+               eager_busy_ms=eager_busy,
+               eager_idle_share=1.0 - eager_busy / eager_ms,
+               chunk_busy_ms=chunk_busy / n,
+               chunk_idle_share=(1.0 - chunk_busy / chunk_ms
+                                 if chunk_busy > 0 else None),
+               eager_stage_ms=eager_stages, eager_top_ms=eager_top,
+               chunk_top_ms=chunk_top, kept_graph=kept)
+    del scan, eager, chunk
+    torch.cuda.empty_cache()
+    return res
+
+
+def scan_main_path(root, counters, smi):
+    """Phase 5e: ``scan_check`` on phase 5's step-120 state (flat, (40,
+    80)) and phase 6's (dense, (64, 128)), each on its first
+    ``SCAN_STEPS`` training views."""
+    from gstex_torch.scripts.eval_setup import eval_setup
+
+    out = {}
+    for run, tier in (("run", "flat"), ("run_dense", "dense")):
+        tr, _, _ = eval_setup(root / run, device=DEVICE)
+        views = [tr.train_cache.get(i)[:2] for i in range(SCAN_STEPS)]
+        res = scan_check(tr.mcfg, tr.ocfg, tr.state, views, counters,
+                         tier=tier, chart_pad=list(tr.mcfg.chart_pad),
+                         pair_cap=tr.mcfg.pair_cap, step=tr.state.step)
+        emit("main_path", path="scan", card=smi, **res)
+        out[tier] = res
+        del tr, views
+        torch.cuda.empty_cache()
+    return out
+
+
 def parity_main_path(out, counters):
     """``gstex_torch.scripts.parity --synthetic`` at full width (800², 20k
     surfels), 25 views (20 train, 5 held out) and 500 steps, its ground
@@ -2381,8 +2687,9 @@ def captured_main_path(root, counters, train_counters, eval_kernel):
     del cache
     torch.cuda.empty_cache()
 
-    # (a) the schedule's run, each step's image size and launches
-    real_step = step_mod.train_step
+    # (a) the schedule's run, each step's image size and launches: the
+    # single steps' (the downscaled ones), then a chunk's, a step each
+    real_step, real_scan = step_mod.train_step, step_mod.TrainScan.__call__
     steps = []
 
     def recording(*args, **kwargs):
@@ -2393,9 +2700,19 @@ def captured_main_path(root, counters, train_counters, eval_kernel):
                       [c.launches - b for c, b in zip(train_counters,
                                                      before)]))
         return out
+
+    def recording_scan(scan, cams, images):
+        before = [c.launches for c in train_counters]
+        out = real_scan(scan, cams, images)
+        n = len(cams)
+        steps.extend([(int(images[0].shape[0]), int(images[0].shape[1]),
+                       [(c.launches - b) / n for c, b in zip(
+                           train_counters, before)])] * n)
+        return out
     for c in counters:
         c.launches = 0
     step_mod.train_step = recording
+    step_mod.TrainScan.__call__ = recording_scan
     t0 = time.perf_counter()
     try:
         res = train_cli.main([
@@ -2407,6 +2724,7 @@ def captured_main_path(root, counters, train_counters, eval_kernel):
             "--output-dir", str(root / "run_capture")])
     finally:
         step_mod.train_step = real_step
+        step_mod.TrainScan.__call__ = real_scan
     run_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     hist = res["history"]
@@ -2759,7 +3077,7 @@ def mesh_rank_main(rank, world, backend, rdv, run_dir, data, trainer_steps,
         res = mesh_rank_checks(world, backend, Path(run_dir), Path(data),
                                trainer_steps, Path(out).parent)
         if rank == 0:
-            Path(out).write_text(json.dumps(res))
+            Path(out).write_text(json.dumps(res, default=plain))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2862,6 +3180,29 @@ def mesh_rank_checks(world, backend, run_dir, data, trainer_steps, root):
             pose_grad_rel_err=float((pg - want[2]).abs().max())
             / float(want[2].abs().max()))
     del st, p
+
+    # the sharded scan: a chunk against as many sharded steps, and a second
+    # run of those for scale
+    views = [tr.train_cache.get(i)[:2] for i in MESH_VIEWS]
+    steps, again, chunk = fresh(), fresh(), fresh()
+    init = [q.detach().clone() for q in steps.params]
+    step_fn = shard.make_sharded_train_step(cfg, mesh, h, w)
+    want = [float(step_fn(steps, c, i)["loss"]) for c, i in views]
+    for c, i in views:
+        step_fn(again, c, i)
+    for fn in counters:
+        fn.launches = 0
+    got = shard.make_sharded_train_scan(cfg, mesh, h, w)(
+        chunk, [c for c, _ in views], [i for _, i in views])
+    mine["scan_launches"] = {fn.__name__: fn.launches for fn in counters}
+    if rank == 0:
+        found["scan"] = dict(
+            loss=got["loss"].tolist(), loss_steps=want,
+            loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                             zip(got["loss"].tolist(), want)),
+            **scan_departures(steps, chunk, init),
+            eager_repeat=scan_departures(steps, again, init))
+    del steps, again, chunk, init
 
     # one data-parallel step: a row a rank, each its own view
     if world >= 2 and world % 2 == 0:
@@ -3001,6 +3342,15 @@ def mesh_main_path(root, data, counters, smi):
                     for v in r["step_launches"].values()),
                 f"{name}: step launches "
                 f"{[r['step_launches'] for r in res['ranks']]}")
+        sc = res["scan"]
+        require(sc["loss_rel_err"] <= SCAN_LOSS_TOL,
+                f"{name}: the sharded scan's losses {sc['loss']} against "
+                f"its steps' {sc['loss_steps']}")
+        scan_gates(sc, sc, f"{name} sharded scan")
+        require(all(v == len(MESH_VIEWS) for r in res["ranks"]
+                    for v in r["scan_launches"].values()),
+                f"{name}: scan launches "
+                f"{[r['scan_launches'] for r in res['ranks']]}")
     require("data_parallel" in shared and "trainer" in shared,
             "the shared-card group skipped a check")
     return dict(band=band, band_seconds=band_s, gloo=shared, nccl=nccl)
@@ -3113,8 +3463,8 @@ def main():
                 check_dense_schedules(dframe, lean, **where)
             for f in (frame, dframe):
                 time_kernels(f, True, card=smi, **where)
-            # the pair-space kernels on per-slot copies of the same lists
-            check_pairs(dframe, note, **where)
+            # the pair-space kernels are held at their main path's pad
+            # below, not at this one
             del dframe
 
         # the pair-space kernels at their main path's pad: the trained
@@ -3191,12 +3541,17 @@ def main():
                       rdense.rasterize_dense_eval)
     for fn in train_counters:
         fn.launches = 0
+    train_step.TrainScan.captures = train_step.TrainScan.replays = 0
     t0 = time.perf_counter()
-    res = train_cli.main([
-        "gstex-blender-nvs", "--data", str(data), "--scene-npz", str(STATS),
-        "--seed", "1", "--max-num-iterations", str(TRAIN_STEPS),
-        "--output-dir", str(Path(tmp.name) / "run")])
+    with CaptureRecorder("phase 5") as recorder:
+        res = train_cli.main([
+            "gstex-blender-nvs", "--data", str(data), "--scene-npz",
+            str(STATS), "--seed", "1", "--max-num-iterations",
+            str(TRAIN_STEPS), "--output-dir", str(Path(tmp.name) / "run")])
     train_s = time.perf_counter() - t0
+    scan_runs = dict(captures=train_step.TrainScan.captures,
+                     replays=train_step.TrainScan.replays,
+                     graphs=recorder.graphs)
     flat_launches = {fn.__name__: fn.launches for fn in train_counters}
     hist = res["history"]
     losses = [h["loss"] for h in hist]
@@ -3212,8 +3567,16 @@ def main():
          psnr_first=hist[0]["psnr"], psnr_last=hist[-1]["psnr"],
          max_overflow=max(h["overflow"] for h in hist),
          max_total_pairs=max(h["total_pairs"] for h in hist),
-         checkpoint=Path(res["checkpoint"]).name)
+         checkpoint=Path(res["checkpoint"]).name,
+         steps_per_sync=run_cfg["trainer"]["steps_per_sync"], **scan_runs)
     require(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
+    # the default steps_per_sync: chunks of up to 8 between the cadences
+    # (a log every 10 steps), all at one size: one capture, and every
+    # chunked step but the capture's warm-up a replay
+    require(run_cfg["trainer"]["steps_per_sync"] == SCAN_STEPS
+            and scan_runs["captures"] == 1 == len(recorder.graphs)
+            and scan_runs["replays"] >= TRAIN_STEPS // 2,
+            f"the run did not go through the captured scan: {scan_runs}")
     require(all(v == TRAIN_STEPS for v in flat_launches.values()),
             f"training kernels launched {flat_launches} for {TRAIN_STEPS} "
             f"steps")
@@ -3313,6 +3676,18 @@ def main():
         for f in summary), "a pallas4 spiral frame is missing, not finite, "
                            "empty or overflowed")
 
+    # 5e. the scanned dispatch: a chunk through the captured graph against
+    # eager steps, on the states of phases 5 (flat) and 6 (dense)
+    t5e = time.perf_counter()
+    scan = scan_main_path(Path(tmp.name), train_counters + dense_counters[:2],
+                          smi)
+    emit("phase_5e", seconds=time.perf_counter() - t5e, nvidia_smi=smi,
+         step_ms={tier: {k: r[k] for k in (
+             "eager_step_ms", "chunk_step_ms", "graph_replay_ms",
+             "eager_idle_share", "chunk_idle_share")}
+             for tier, r in scan.items()})
+    torch.cuda.empty_cache()
+
     # 7. the pair-space main path: the same command at a texel budget whose
     # charts the v3 and v2 kernels take, once through each
     pair_counters = (rv3.rasterize_v3_fwd, rv3.rasterize_v3_bwd,
@@ -3325,9 +3700,9 @@ def main():
         version = renderer[-1]
         gathered = []
 
-        def gather(records, texture, bins):
+        def gather(records, texture, bins, *cap):
             # the per-slot copies each step makes, as they are made
-            out = real_gather(records, texture, bins)
+            out = real_gather(records, texture, bins, *cap)
             gathered.append(sum(x.numel() * x.element_size()
                                 for x in out[:2]))
             return out
@@ -3335,14 +3710,16 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         for fn in all_counters:
             fn.launches = 0
+        train_step.TrainScan.captures = train_step.TrainScan.replays = 0
         t0 = time.perf_counter()
         try:
-            res = train_cli.main([
-                "gstex-blender-nvs", "--data", str(data), "--scene-npz",
-                str(STATS), "--seed", "1", "--pixel-num", str(PAIR_PIXEL_NUM),
-                "--renderer", renderer, "--max-num-iterations",
-                str(TRAIN_STEPS), "--output-dir",
-                str(Path(tmp.name) / f"run_{renderer}")])
+            with CaptureRecorder(f"phase 7 {renderer}") as recorder:
+                res = train_cli.main([
+                    "gstex-blender-nvs", "--data", str(data), "--scene-npz",
+                    str(STATS), "--seed", "1", "--pixel-num",
+                    str(PAIR_PIXEL_NUM), "--renderer", renderer,
+                    "--max-num-iterations", str(TRAIN_STEPS), "--output-dir",
+                    str(Path(tmp.name) / f"run_{renderer}")])
         finally:
             rasterize_api.pair_inputs = real_gather
         run_s = time.perf_counter() - t0
@@ -3365,6 +3742,9 @@ def main():
              pair_buffer_bytes=max(gathered),
              pair_buffer_with_grad_bytes=2 * max(gathered),
              gathers=len(gathered), eval=res["eval"],
+             scan_captures=train_step.TrainScan.captures,
+             scan_replays=train_step.TrainScan.replays,
+             scan_graphs=recorder.graphs,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
              checkpoint=Path(res["checkpoint"]).name)
         require(tuple(run_cfg["chart_pad"]) == PAIR_PAD,
@@ -3384,8 +3764,17 @@ def main():
                 f"{renderer}: the dense eval kernel launched "
                 f"{launches['rasterize_dense_eval']} times, not "
                 f"{2 + TEST_VIEWS}")
-        require(len(gathered) == TRAIN_STEPS,
-                f"{renderer}: {len(gathered)} pair gathers")
+        # a gather on the host a step, but a graph's replays make theirs
+        # on the card and its capture made one that never ran
+        scan_runs = (train_step.TrainScan.captures,
+                     train_step.TrainScan.replays)
+        require(len(gathered) - scan_runs[0] + scan_runs[1] == TRAIN_STEPS,
+                f"{renderer}: {len(gathered)} pair gathers on the host, "
+                f"(captures, replays) {scan_runs}")
+        # each capture's graph holds the launches its replays count
+        require(len(recorder.graphs) == scan_runs[0] >= 1,
+                f"{renderer}: {len(recorder.graphs)} graphs checked, "
+                f"{scan_runs[0]} captured")
         require(all(h["overflow"] == 0 for h in hist),
                 f"{renderer}: a step overflowed")
         require(all(x == x and abs(x) != float("inf") for x in losses),
@@ -3824,7 +4213,7 @@ def main():
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel of the main paths never launched: "
             f"{[(k['name'], k['launches']) for k in kernels]}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels}, default=plain), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
 

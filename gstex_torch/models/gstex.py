@@ -122,16 +122,26 @@ def lean_losses(cfg: GStexConfig) -> bool:
             and not cfg.use_normal_loss)
 
 
-def schedule_value(v, step: int) -> float:
-    """lambda_normal / lambda_reg: a float or [v0, v1, switch_step]."""
+def schedule_value(v, step):
+    """lambda_normal / lambda_reg: a float or [v0, v1, switch_step].
+    ``step`` is an int, or a 0-d device tensor (a CUDA graph's per-step
+    value, ``train/step.py:make_train_scan``), which gives a 0-d float32
+    tensor of the same value."""
     if isinstance(v, (int, float)):
         return float(v)
     v0, v1, sw = v
+    if isinstance(step, torch.Tensor):
+        return torch.where(step >= sw, float(v1), float(v0)).to(
+            torch.float32)
     return float(v1) if int(step) >= sw else float(v0)
 
 
-def active_sh_degree(cfg: GStexConfig, step: int) -> int:
-    """SH degree schedule: min(step // sh_degree_interval, sh_degree)."""
+def active_sh_degree(cfg: GStexConfig, step):
+    """SH degree schedule: min(step // sh_degree_interval, sh_degree); a
+    0-d tensor for a tensor ``step``, as ``schedule_value``."""
+    if isinstance(step, torch.Tensor):
+        return torch.clamp(step // cfg.sh_degree_interval,
+                           max=cfg.sh_degree)
     return min(int(step) // cfg.sh_degree_interval, cfg.sh_degree)
 
 
@@ -427,14 +437,11 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             geom_d = SplatGeom(*(x.detach() for x in prep.geom))
             cull_fn = (make_pair_cull(geom_d, cam, grid, px_offset)
                        if cfg.pair_cull else None)
-            centers = prep.centers.detach()
-            if banded:
-                centers = centers - torch.tensor(
-                    px_offset, dtype=centers.dtype, device=centers.device)
             binning = build_tile_bins_flat if use_flat else build_tile_bins
-            bins = binning(centers, prep.extents.detach(),
+            bins = binning(prep.centers.detach(), prep.extents.detach(),
                            prep.depths.detach(), prep.valid, grid,
-                           cfg.pair_cap, cfg.s_max, cull_fn=cull_fn)
+                           cfg.pair_cap, cfg.s_max, cull_fn=cull_fn,
+                           origin=_tile_origin(px_offset, grid))
         texture = texture_albedo()
         hw = buffers.texture_hw
         if use_flat and eval_only:
@@ -453,13 +460,14 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             out = rasterize_pl(prep.geom, texture, hw, bins, cam, grid,
                                px_offset=px_offset,
                                version=kernel_version(renderer),
-                               lean=lean_losses(cfg), background=background)
+                               lean=lean_losses(cfg), background=background,
+                               pair_cap=cfg.pair_cap)
         else:
             with record_function("gstex.torch_tier"):
                 out = rasterize(prep.geom, texture, hw, bins, cam, grid,
                                 extra_channels=extra, px_offset=px_offset)
         stats = dict(overflow=bins.overflow, total_pairs=bins.total_pairs,
-                     max_tile_count=int(bins.counts.max()))
+                     max_tile_count=bins.counts.max())
     if "rgb" not in out:
         rgb = out["img"] + out["texture_rgb"] + (
             1.0 - out["alpha"][..., None]) * background[None, None, :]
@@ -471,6 +479,16 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
             out["estimated_normals"] = depth_to_normal(
                 out["depth"].detach(), cam)
     return out
+
+
+def _tile_origin(px_offset, grid: TileGrid) -> tuple[int, int]:
+    """A band's pixel offset in whole tiles of ``grid``: its tile ranges
+    are the frame's less this origin (``binning.tile_ranges``)."""
+    ox, oy = (float(v) for v in px_offset)
+    if ox % grid.tile_w or oy % grid.tile_h:
+        raise ValueError(f"a band's pixel offset {px_offset} must be whole "
+                         f"tiles of {grid.tile_w}x{grid.tile_h}")
+    return int(ox) // grid.tile_w, int(oy) // grid.tile_h
 
 
 @torch.no_grad()

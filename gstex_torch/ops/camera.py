@@ -49,6 +49,18 @@ def make_camera(fx, fy, cx, cy, height, width, c2w, device=None) -> Camera:
                   int(width), c2w)
 
 
+def stack_cameras(cams) -> Camera:
+    """Same-size cameras as one ``Camera`` whose intrinsics are (n,)
+    tensors and ``c2w`` (n, 3, 4): a scan's input
+    (``train/step.py:make_train_scan``)."""
+    h, w = cams[0].height, cams[0].width
+    if any(c.height != h or c.width != w for c in cams):
+        raise ValueError("stack_cameras requires equal resolutions")
+    stack = lambda f: torch.stack([getattr(c, f) for c in cams])
+    return Camera(stack("fx"), stack("fy"), stack("cx"), stack("cy"), h, w,
+                  stack("c2w"))
+
+
 def _flip_yz(R: torch.Tensor) -> torch.Tensor:
     """R · diag(1, −1, −1), exactly."""
     return torch.cat([R[..., :, :1], -R[..., :, 1:3]], dim=-1)

@@ -61,24 +61,72 @@ def check_pair_shapes(version: int, chart_pad, grid: TileGrid) -> None:
                          f"'pallas4' takes every pad")
 
 
+class _PairCopies(torch.autograd.Function):
+    """(records, texture) -> their (T·S, ...) per-slot copies: slot i is
+    row ``rows[i]``, or zero where that is N. The backward gathers the
+    copies' gradients from the real slots (``slot``, with their rows
+    ``gid``; ``n``, past the lists, marks an unused entry) and adds them
+    into the rows, as autograd's scatter-add through a gather does."""
+
+    @staticmethod
+    def forward(ctx, records, texture, rows, gid, slot, n):
+        ctx.save_for_backward(gid, slot)
+        ctx.n, ctx.shapes = n, (records.shape, texture.shape)
+
+        def place(src):
+            zero = src.new_zeros((1, *src.shape[1:]))
+            return torch.cat([src, zero]).index_select(0, rows)
+        return place(records), place(texture)
+
+    @staticmethod
+    def backward(ctx, g_records, g_texture):
+        gid, slot = ctx.saved_tensors
+        dropped = slot >= ctx.n
+
+        def gather(g, shape):
+            rows = g.reshape(ctx.n, *shape[1:]).index_select(
+                0, torch.clamp(slot, max=ctx.n - 1))
+            rows.masked_fill_(dropped.view(-1, *[1] * (rows.dim() - 1)), 0.0)
+            return rows.new_zeros(shape).index_put_((gid,), rows,
+                                                    accumulate=True)
+        return (gather(g_records, ctx.shapes[0]),
+                gather(g_texture, ctx.shapes[1]), None, None, None, None)
+
+
 def pair_inputs(records: torch.Tensor, texture: torch.Tensor,
-                bins: TileBins) -> PairInputs:
+                bins: TileBins, pair_cap=None) -> PairInputs:
     """``records`` (N, 32) and ``texture`` (N, Ch, Cw, 3) gathered to the
     (tile, slot) pairs of ``bins``; slots past a tile's count are zero.
 
-    Only the real slots are gathered. The lists pad every tile's row with
-    id 0, and a gather of the padding would send all of its gradient rows
-    to gaussian 0, where autograd's scatter-add serializes on them."""
-    ids = bins.ids.long()
+    No host sync (a CUDA graph can hold the call): one gather fills every
+    slot, the padding from a zero row. The backward reduces the real
+    slots only: tile by tile they are the first ones of ``pair_cap``
+    (default: every slot of the lists; the binning's ``pair_cap`` bounds
+    them), each found by a binary search of the tiles' cumulative counts.
+    The lists pad every tile's row with id 0, and a reduction over the
+    padding would send all of its (zero) gradient rows to gaussian 0,
+    where the scatter-add serializes on them, so the unused searches add
+    their zeros to row k mod N instead."""
+    ids = bins.ids
     nt, s_max = ids.shape
+    n, n_rows = nt * s_max, records.shape[0]
+    p = n if pair_cap is None else min(int(pair_cap), n)
     counts = torch.clamp(bins.counts, max=s_max)
-    real = torch.arange(s_max, device=ids.device)[None] < counts[:, None]
-    gid = ids[real]
-    records_t = records.new_zeros((nt, s_max, *records.shape[1:]))
-    records_t[real] = records[gid]
-    charts_g = texture.new_zeros((nt, s_max, *texture.shape[1:]))
-    charts_g[real] = texture[gid]
-    return PairInputs(records_t, charts_g, counts.to(torch.int32))
+    rows = torch.where(
+        torch.arange(s_max, device=ids.device)[None] < counts[:, None],
+        ids, n_rows).reshape(-1)
+    ends = torch.cumsum(counts.long(), 0)
+    k = torch.arange(p, device=ids.device)
+    tile = torch.clamp(torch.searchsorted(ends, k, right=True), max=nt - 1)
+    real = k < ends[-1]
+    slot = torch.where(real, tile * s_max + k - (ends - counts)[tile], n)
+    gid = torch.where(real, ids.reshape(-1)[torch.clamp(slot, max=n - 1)],
+                      k % max(n_rows, 1))
+    records_t, charts_g = _PairCopies.apply(records, texture, rows, gid,
+                                            slot, n)
+    return PairInputs(records_t.reshape(nt, s_max, *records.shape[1:]),
+                      charts_g.reshape(nt, s_max, *texture.shape[1:]),
+                      counts.to(torch.int32))
 
 
 def check_inputs(version: int, records_t, charts_g, counts, cam_info,

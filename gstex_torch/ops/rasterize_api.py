@@ -259,13 +259,15 @@ class _RasterizePairs(torch.autograd.Function):
 def rasterize_pl(geom: SplatGeom, texture: torch.Tensor,
                  texture_hw: torch.Tensor, bins: TileBins, cam: Camera,
                  grid: TileGrid, px_offset=None, version: int = 4,
-                 lean: bool = False, background=None) -> dict:
+                 lean: bool = False, background=None,
+                 pair_cap=None) -> dict:
     """Dense-path training render, differentiable in ``geom`` and
     ``texture``; same outputs as ``rasterize.rasterize`` (and ``rgb``,
     given a ``background``). ``lean`` as in ``rasterize_pl5``.
     ``version`` 4 runs the dense-list kernels; 3, 2 and 1 the pair-space
     kernels on per-slot copies of the records and charts (32x32 tiles;
-    charts of at most 40, 42 and 42 rows)."""
+    charts of at most 40, 42 and 42 rows), ``pair_cap`` bounding the
+    copies' gathers (``pair_inputs``)."""
     if version not in (1, 2, 3, 4):
         raise ValueError(f"unknown kernel version {version}")
     if version != 4:
@@ -281,7 +283,7 @@ def rasterize_pl(geom: SplatGeom, texture: torch.Tensor,
     else:
         # the per-slot copies that v4 does without
         with record_function("gstex.pair_gather"):
-            pairs = pair_inputs(records, texture, bins)
+            pairs = pair_inputs(records, texture, bins, pair_cap)
         with record_function("gstex.fwd_kernel"):
             maps, _ = _RasterizePairs.apply(pairs.records_t, pairs.charts_g,
                                             pairs.counts, info, grid,

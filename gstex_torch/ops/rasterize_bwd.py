@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from .binning import TileGrid
+from .launch_counts import counted
 from .rasterize_fwd import (KFAC_NEAR, NCH, NG, check_inputs, pixel_grid,
                             response, tile_order)
 from .records import F_REC
@@ -318,8 +319,9 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
     return d_rec, d_ch
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_bwd.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_bwd)
 
 
 def launch_smem(tile_h: int, tile_w: int) -> int:

@@ -29,6 +29,7 @@ import torch
 
 from . import rasterize as plain
 from .binning import TileGrid
+from .launch_counts import counted
 from .rasterize_bwd import check_residuals
 from .rasterize_fwd import MAX_TILE_PIXELS, NCH, tile_order
 from .records import F_REC
@@ -197,10 +198,11 @@ def rasterize_dense_bwd(records, ids, counts, charts, cam_info, maps,
     return d_rec, d_ch
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_dense_eval.launches = 0
-rasterize_dense_fwd.launches = 0
-rasterize_dense_bwd.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_dense_eval)
+counted(rasterize_dense_fwd)
+counted(rasterize_dense_bwd)
 
 
 def bwd_launch_smem(tile_h: int, tile_w: int) -> int:

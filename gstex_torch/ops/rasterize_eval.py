@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from .binning import TileGrid
+from .launch_counts import counted
 from .rasterize_fwd import check_inputs, forward_walk, tile_order
 
 
@@ -84,8 +85,9 @@ def rasterize_eval(records, gids, starts, counts, charts, cam_info,
     return out
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_eval.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_eval)
 
 
 def launch_smem() -> int:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .binning import TileGrid
+from .launch_counts import counted
 from .records import F_REC
 from .surfel import (AA_SIGMA2, ALPHA_CLAMP, ALPHA_CUTOFF, EXTENT_SIGMA,
                      REG_FAR, REG_NEAR, T_EPS)
@@ -367,8 +368,9 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
     return out, ncon
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_fwd.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_fwd)
 
 
 def launch_smem() -> int:

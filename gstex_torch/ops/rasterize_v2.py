@@ -23,6 +23,7 @@ import torch
 
 from . import rasterize as plain
 from .binning import TileGrid
+from .launch_counts import counted
 from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
                           launch_fwd)
 from .rasterize_fwd import tile_order
@@ -114,7 +115,8 @@ def rasterize_v2_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
     return out
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_v2_fwd.launches = 0
-rasterize_v2_bwd.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_v2_fwd)
+counted(rasterize_v2_bwd)
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .binning import TileGrid
+from .launch_counts import counted
 from .pair_inputs import (check_bwd_inputs, check_inputs, launch_bwd,
                           launch_fwd)
 from .rasterize_bwd import (direct_terms, record_terms, texel_terms,
@@ -275,6 +276,7 @@ def rasterize_v3_bwd(records_t, charts_g, counts, cam_info, maps, ncontrib,
     return out
 
 
-# kernel launches since the last reset (CPU calls do not count)
-rasterize_v3_fwd.launches = 0
-rasterize_v3_bwd.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(rasterize_v3_fwd)
+counted(rasterize_v3_bwd)

@@ -59,13 +59,15 @@ def assemble_records(geom: SplatGeom, origin: torch.Tensor,
 
 def cam_info(cam: Camera, px_offset=None) -> torch.Tensor:
     """(18,) float32 camera block the kernel reads."""
-    dev = cam.c2w.device
     if px_offset is None:
         px_offset = (0.0, 0.0)
+    # the offset is filled on the device (no host copy, which would sync:
+    # a CUDA graph can hold the call)
+    offset = [torch.full((1,), float(v), dtype=torch.float32,
+                         device=cam.c2w.device) for v in px_offset]
     return torch.cat([
         torch.stack([cam.fx, cam.fy, cam.cx, cam.cy]),
-        torch.as_tensor(px_offset, dtype=torch.float32,
-                        device=dev).reshape(2),
+        *offset,
         cam.c2w[:3, 3].reshape(3),
         camera_rotation_gsplat(cam.c2w).reshape(9),
     ]).to(torch.float32).contiguous()

@@ -63,15 +63,16 @@ def eval_sh_bases(dirs: torch.Tensor) -> torch.Tensor:
     return torch.stack(b, dim=-1)
 
 
-def spherical_harmonics(active_degree: int, dirs: torch.Tensor,
+def spherical_harmonics(active_degree, dirs: torch.Tensor,
                         coeffs: torch.Tensor) -> torch.Tensor:
     """View-dependent color ``(..., 3)`` from SH coefficients
     ``(..., K, 3)`` at unit view directions ``(..., 3)``; bases above
     ``active_degree`` are masked out."""
     k = coeffs.shape[-2]
     bases = eval_sh_bases(dirs)[..., :k]
-    basis_degree = torch.tensor(
-        [d for d in range(MAX_SH_DEGREE + 1) for _ in range(2 * d + 1)],
-        device=dirs.device)[:k]
-    bases = bases * (basis_degree <= int(active_degree)).to(bases.dtype)
+    # basis i has degree floor(sqrt(i)), made on the device (no host
+    # copy); ``active_degree`` is an int or a 0-d tensor (a CUDA graph's
+    # per-step value)
+    basis_degree = torch.arange(k, device=dirs.device).sqrt().floor()
+    bases = bases * (basis_degree <= active_degree).to(bases.dtype)
     return torch.einsum("...k,...kc->...c", bases, coeffs)

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .launch_counts import counted
 from .ssim import gaussian_window, ssim
 
 WIN = 11
@@ -144,8 +145,9 @@ def fused_ssim_value_and_grad(pred, gt, data_range: float = 1.0):
     return loss, grad
 
 
-# kernel launches since the last reset (CPU calls do not count)
-fused_ssim_value_and_grad.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(fused_ssim_value_and_grad)
 
 
 # the window's weights, as the kernel takes them (host memory)

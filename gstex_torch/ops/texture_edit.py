@@ -28,6 +28,7 @@ import torch
 
 from .binning import TileBins, TileGrid
 from .camera import Camera
+from .launch_counts import counted
 from .rasterize_bwd import tile_planes
 from .rasterize_fwd import MAX_TILE_PIXELS, pixel_grid, response, tile_order
 from .records import F_REC, assemble_records, cam_info
@@ -220,8 +221,9 @@ def launch(records, ids, counts, planes, cam_info, accum, order,
                            f"cudaError {rc}")
 
 
-# kernel launches since the last reset (CPU calls do not count)
-scatter_canvas.launches = 0
+# kernel launches since the last reset (CPU calls do not count;
+# ``launch_counts``)
+counted(scatter_canvas)
 
 
 def texture_edit(geom: SplatGeom, texture_shape, texture_hw: torch.Tensor,

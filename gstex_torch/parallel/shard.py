@@ -184,14 +184,16 @@ def band_metrics(cfg: model.GStexConfig, mesh: Mesh, loss: BandLoss,
     the mesh (a mean over its rows): ``loss``, ``main_loss``, ``l1``,
     ``ssim_loss``, ``normal_loss``, ``reg_loss``, ``psnr``; ``overflow``
     summed, ``total_pairs`` and ``max_tile_count`` the largest band's (a
-    band's demand sizes the caps)."""
+    band's demand sizes the caps). All are 0-d device tensors: nothing is
+    read back to the host."""
     dev = loss.sums.device
-    totals = torch.cat([loss.sums.to(torch.float64), torch.tensor(
-        [outputs["overflow"]], dtype=torch.float64, device=dev)])
+    f64 = lambda v: torch.as_tensor(v, device=dev).to(torch.float64)
+    totals = torch.cat([loss.sums.to(torch.float64),
+                        f64(outputs["overflow"]).reshape(1)])
     all_reduce_(totals, mesh.group)
     sums = (totals[:5] / mesh.data).to(torch.float32)
-    peaks = torch.tensor([outputs["total_pairs"], outputs["max_tile_count"]],
-                         dtype=torch.float64, device=dev)
+    peaks = torch.stack([f64(outputs["total_pairs"]),
+                         f64(outputs["max_tile_count"])])
     all_reduce_(peaks, mesh.group, op=torch.distributed.ReduceOp.MAX)
     n_px = height * width
     l1 = sums[0] / (n_px * 3)
@@ -207,8 +209,9 @@ def band_metrics(cfg: model.GStexConfig, mesh: Mesh, loss: BandLoss,
             "normal_loss": normal_loss, "reg_loss": reg_loss,
             "loss": main + normal_loss + reg_loss,
             "psnr": 10.0 * -torch.log10(torch.clamp(mse, min=1e-12)),
-            "overflow": int(totals[5]), "total_pairs": int(peaks[0]),
-            "max_tile_count": int(peaks[1])}
+            "overflow": totals[5].to(torch.int64),
+            "total_pairs": peaks[0].to(torch.int64),
+            "max_tile_count": peaks[1].to(torch.int64)}
 
 
 def make_sharded_train_step(cfg: model.GStexConfig, mesh: Mesh, height: int,
@@ -239,6 +242,30 @@ def make_sharded_train_step_camopt(cfg: model.GStexConfig, mode: str,
                                      [image], [mask],
                                      camopt=(pose, mode, cam_idx))
     return step_fn
+
+
+def make_sharded_train_scan(cfg: model.GStexConfig, mesh: Mesh,
+                            height: int, width: int):
+    """n sharded steps under one call (the counterpart of the JAX
+    package's ``make_sharded_train_scan``): ``(state, cams, images) ->
+    metrics``, the n steps of ``make_sharded_train_step`` in order, their
+    metrics stacked (n,) device tensors, read by the host once, after the
+    chunk. The steps are not captured into a CUDA graph: gloo stages its
+    collectives through the host."""
+    from ..train import step as step_mod
+
+    def scan_fn(state, cams, images):
+        if len(cams) != len(images):
+            raise ValueError(f"{len(cams)} cameras and {len(images)} "
+                             f"images")
+        if any((c.height, c.width) != (height, width) for c in cams):
+            raise ValueError(f"a chunk's cameras must all be "
+                             f"{height}x{width}")
+        rows = [step_mod.sharded_step(cfg, state, mesh, height, width,
+                                      [cam], [image], [None])
+                for cam, image in zip(cams, images)]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    return scan_fn
 
 
 def make_batch_sharded_train_step(cfg: model.GStexConfig, mesh: Mesh,

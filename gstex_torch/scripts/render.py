@@ -63,7 +63,7 @@ from ..data.png import write_png
 from ..data.synthetic import orbit_c2w, orbit_camera
 from ..models import gstex as model
 from ..models.init_io import dump_chart_pad, load_scene_npz
-from ..ops.binning import sorted_pairs, settle_caps
+from ..ops.binning import settle_caps, sorted_pairs, tile_ranges
 from ..ops.camera import make_camera
 from ..ops import pano
 from ..ops.cull import make_pair_cull
@@ -101,9 +101,15 @@ def demand_caps(cfg: model.GStexConfig, params, buffers, cams,
         grid = cfg.grid(cam.height, cam.width)
         cull_fn = (make_pair_cull(prep.geom, cam, grid) if cfg.pair_cull
                    else None)
+        # every pair has a slot: the expansion is sized to the view's
+        # true pair count
+        _, _, _, counts = tile_ranges(prep.centers, prep.extents, grid,
+                                      prep.valid)
+        demand = int(torch.where(prep.depths > 1e-6, counts, 0).sum())
         pairs = sorted_pairs(prep.centers, prep.extents, prep.depths,
-                              prep.valid, grid, 1 << 24, cull_fn)
-        total = max(total, pairs.total)
+                             prep.valid, grid, max(min(demand, 1 << 24), 1),
+                             cull_fn)
+        total = max(total, int(pairs.total))
         hottest = max(hottest, int(pairs.tile_counts.max()))
     return settle_caps(total, hottest)
 
@@ -329,8 +335,8 @@ def main(argv=None) -> list[dict]:
             summary.append({
                 "frame": i, "finite": finite,
                 "alpha_coverage": float((out["alpha"] > 0).float().mean()),
-                "total_pairs": out["total_pairs"],
-                "overflow": out["overflow"],
+                "total_pairs": int(out["total_pairs"]),
+                "overflow": int(out["overflow"]),
             })
     print(f"wrote {len(cams)} frames to {out_dir}")
     return summary

@@ -266,7 +266,12 @@ def parse_args(argv=None):
                    metavar="SECTION.FIELD=VALUE",
                    help="override a config field, e.g. --set "
                         "model.lambda_reg=0.1 (sections: model, optim, "
-                        "trainer; values parsed as JSON, else strings)")
+                        "trainer; values parsed as JSON, else strings). "
+                        "--set trainer.steps_per_sync=N (N >= 1, default "
+                        "8) takes up to N steps a dispatch, chunks ending "
+                        "on each cadence; on the card one captured CUDA "
+                        "graph replayed a step; 1 takes one step at a "
+                        "time")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--load-checkpoint", default=None,
                    help="resume from a .ckpt.pt (this CLI's) or .ckpt.npz "

@@ -127,6 +127,8 @@ class Adam(torch.optim.Optimizer):
         super().__init__(
             [{"params": list(ps), "name": name, "lr": _lr_at(lrs[name], 0)}
              for name, ps in groups], dict(betas=(0.9, 0.999), eps=eps))
+        # the params the last ``step`` with a table updated
+        self._table_updated: set = set()
         for group in self.param_groups:
             if group["name"] in self.every:
                 for p in group["params"]:
@@ -152,8 +154,59 @@ class Adam(torch.optim.Optimizer):
         acc.zero_()
         return grad
 
+    def step_table(self, n: int, device) -> torch.Tensor:
+        """The per-step values of the next ``n`` updates, for ``step`` with
+        a ``table``: (n, groups, 2) float32 rows of √(1 − β₂^t) and
+        −lr / (1 − β₁^t), the numbers the host path passes as Python
+        floats, from each group's count and schedule. Non-accumulating
+        groups only (an accumulating group's count moves with its
+        ``mini_step``)."""
+        b1, b2 = self.defaults["betas"]
+        rows = np.zeros((n, len(self.param_groups), 2), np.float32)
+        for g, group in enumerate(self.param_groups):
+            if group["name"] in self.every:
+                raise ValueError(f"group {group['name']!r} accumulates "
+                                 f"gradients: it takes the per-step path")
+            count = self._count(group)
+            for i in range(n):
+                t = count + i + 1
+                rows[i, g, 0] = math.sqrt(_bias_correction(b2, t))
+                rows[i, g, 1] = (-_lr_at(self.lrs[group["name"]], t - 1)
+                                 / _bias_correction(b1, t))
+        return torch.from_numpy(rows).to(device)
+
+    def _count(self, group) -> int:
+        """The updates a group has made (its params' common count)."""
+        counts = {int(self.state[p]["step"]) if self.state.get(p) else 0
+                  for p in group["params"]}
+        if len(counts) != 1:
+            raise ValueError(f"group {group['name']!r}: its params have made "
+                             f"different numbers of updates {counts}")
+        return counts.pop()
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` updates made by ``step`` with a table (which leaves
+        the host's counts alone) for the params it updated, and set their
+        groups' lr as the host path's last update would have."""
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p in self._table_updated]
+            if not ps:
+                continue
+            count = self._count(group)
+            group["lr"] = _lr_at(self.lrs[group["name"]], count + n - 1)
+            for p in ps:
+                self.state[p]["step"] += n
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, table=None, pos=None):
+        """One update. With ``table`` (``step_table``'s rows on the params'
+        device) and ``pos`` ((1,) int64 on that device), the update reads
+        its per-step values from row ``pos`` on the device and makes no
+        host read or write: a CUDA graph can hold it and replay it with
+        ``pos`` advanced. Every param must then have a gradient, and the
+        counts move by ``advance`` once the graph's updates are made."""
+        if table is not None:
+            return self._table_step(table, pos)
         b1, b2 = self.defaults["betas"]
         params, grads, mus, nus, denom_div, step_size = [], [], [], [], [], []
         for group in self.param_groups:
@@ -188,6 +241,46 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_div_(denom, denom_div)
         torch._foreach_add_(denom, self.defaults["eps"])
         torch._foreach_addcdiv_(params, mus, denom, step_size)
+        return None
+
+
+    def _table_step(self, table, pos):
+        """``step`` from row ``pos`` of ``table``: the same operations as
+        the host path, in the same order, with the two per-group values
+        as 0-d device tensors. The update ``p + v · m / d`` is written out
+        as the CPU's ``addcdiv_`` rounds it, so that on the CPU both paths
+        give the same bits; on the card ``addcdiv_`` may round ``v · (m /
+        d)`` instead, an ulp apart."""
+        b1, b2 = self.defaults["betas"]
+        row = table.index_select(0, pos)[0]           # (groups, 2)
+        params, grads, mus, nus, dds, sss = [], [], [], [], [], []
+        for g, group in enumerate(self.param_groups):
+            for p in group["params"]:
+                if p.grad is None:
+                    # as the host path does; which params have none is
+                    # the graph's structure, the same at every replay
+                    continue
+                st = self.state[p]
+                if not st:
+                    st.update(self._fresh(p))
+                params.append(p)
+                grads.append(p.grad)
+                mus.append(st["exp_avg"])
+                nus.append(st["exp_avg_sq"])
+                dds.append(row[g, 0])
+                sss.append(row[g, 1])
+        self._table_updated = set(params)
+        if not params:
+            return None
+        torch._foreach_lerp_(mus, grads, 1 - b1)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+        denom = torch._foreach_sqrt(nus)
+        for d, dd in zip(denom, dds):
+            d.div_(dd)
+        torch._foreach_add_(denom, self.defaults["eps"])
+        for p, m, d, ss in zip(params, mus, denom, sss):
+            p.add_(ss * m / d)
         return None
 
 

@@ -35,8 +35,16 @@ averages their gradients. Every rank holds the same state, draws the
 same views and backgrounds, re-charts and grows its capacities on the
 same (all-reduced) numbers; only rank 0 writes (the writer, checkpoints,
 pose sidecars, eval images and scalars) and serves the viewer. Every rank
-resumes from the same checkpoint. The scanned multi-step dispatch raises
-``NotImplementedError`` and names its ROADMAP item.
+resumes from the same checkpoint. Steps are taken in chunks of up to
+``steps_per_sync`` (``_chunk_size``: JAX's rules, each chunk ending on
+its cadences), one scan a chunk (``train/step.py:make_train_scan``, on
+the card one captured CUDA graph replayed a step; over the mesh
+``parallel/shard.py:make_sharded_train_scan``), whose metrics the host
+reads once; the NaN gate and the capacity growth look at every step of
+the chunk, the cadences run after its last, and ``history`` keeps one row
+a step. A viewer, pose optimization, a downscaled frame, an accumulating
+group, a masked view, data parallelism and (on the card) the ``xla`` and
+``oracle`` renderers take single steps.
 """
 
 from __future__ import annotations
@@ -85,8 +93,10 @@ class TrainerConfig:
     num_devices: int = 0
     data_parallel: int = 0
     check_finite: bool = True
-    # the port dispatches one step at a time
-    steps_per_sync: int = 1
+    # training steps under one dispatch (``train/step.py:make_train_scan``:
+    # on CUDA one captured step replayed a step), clipped so that a chunk
+    # ends on each cadence; 1 dispatches one step at a time
+    steps_per_sync: int = 8
     # comma-separated metric sinks: tensorboard / wandb / comet (JSONL
     # and the console are always on); a missing sink is skipped with a
     # notice
@@ -94,12 +104,6 @@ class TrainerConfig:
     demand_size_caps: bool = False
     # camera pose optimization: off | SO3xR3 | SE3
     camera_opt: str = "off"
-
-
-def _not_yet(tcfg: TrainerConfig, mcfg: model.GStexConfig):
-    if tcfg.steps_per_sync > 1:
-        raise NotImplementedError(
-            "the scanned multi-step dispatch: ROADMAP Queue 1 item 9")
 
 
 def _check_mesh(tcfg: TrainerConfig, mcfg: model.GStexConfig):
@@ -159,7 +163,9 @@ class Trainer:
                  train_cache: FullImageCache,
                  eval_cache: Optional[FullImageCache] = None,
                  run_config: Optional[dict] = None):
-        _not_yet(tcfg, mcfg)
+        if tcfg.steps_per_sync < 1:
+            raise ValueError(f"steps_per_sync={tcfg.steps_per_sync} (at "
+                             f"least 1)")
         if tcfg.camera_opt not in pose_opt.MODES:
             raise ValueError(f"camera_opt={tcfg.camera_opt!r} (expected "
                              f"one of {pose_opt.MODES})")
@@ -197,6 +203,8 @@ class Trainer:
         self.history: list[dict] = []
         self._eval_counter = 0
         self.viewer = None
+        # the scans by image size (``_scan_for``)
+        self._scans: dict = {}
 
     def _say(self, msg: str) -> None:
         if self.writes:
@@ -233,22 +241,30 @@ class Trainer:
         while st.step < tcfg.max_num_iterations:
             while self.viewer is not None and self.viewer.paused:
                 time.sleep(0.1)
-            step = st.step
             lock = (self.viewer.train_lock if self.viewer is not None
                     else contextlib.nullcontext())
             with profiler.time_section("train_iteration"):
                 with lock:
                     if self.mesh is not None and self.mesh.data > 1:
-                        idx, cam, metrics = self._run_dp()
+                        rows = [self._run_dp()]
                     else:
-                        idx, cam, metrics = self._run_one(step)
-                metrics = {k: float(v) for k, v in metrics.items()}
-            self.history.append(dict(metrics, step=step, camera=idx))
-            since_log += 1
-            if tcfg.check_finite and not math.isfinite(metrics["loss"]):
-                self._nan_abort(step, metrics)
-            if metrics["overflow"] > 0:
-                self._grow_capacities(step, metrics)
+                        rows = self._run_chunk(st.step)
+            for step, idx, cam, metrics in rows:
+                self.history.append(dict(metrics, step=step, camera=idx))
+            since_log += len(rows)
+            # the chunk's last step is the one its cadences run after;
+            # growth and the NaN gate see every step of the chunk
+            step, _, cam, metrics = rows[-1]
+            if tcfg.check_finite:
+                for s, _, _, m in rows:
+                    if not math.isfinite(m["loss"]):
+                        self._nan_abort(s, m)
+            # the growth sizes the caps to the chunk's peak demand; the
+            # logged row stays the last step's own (JAX logs the peaks)
+            peak = {k: max(r[3][k] for r in rows)
+                    for k in step_mod.SCAN_COUNTS}
+            if peak["overflow"] > 0:
+                self._grow_capacities(step, dict(metrics, **peak))
             if (self.mcfg.build_chart_every > 0 and step > 0
                     and step % self.mcfg.build_chart_every == 0):
                 with profiler.time_section("retexture_after"), lock:
@@ -274,36 +290,123 @@ class Trainer:
             if (tcfg.steps_per_save > 0 and step > 0
                     and step % tcfg.steps_per_save == 0):
                 self.save()
+        self._drop_scans()
         self.save()
         self._say(profiler.summary())
         self.writer.close()
         return self.history
 
-    def _run_one(self, step: int):
-        """The next view's step, on this process or over the mesh:
-        (camera index, camera, metrics)."""
+    def _chunk_size(self, step: int) -> int:
+        """Steps that one scan makes from ``step`` (the JAX trainer's
+        ``_chunk_size``): ``steps_per_sync``, clipped so that the chunk
+        ends on the next step of each cadence (an event at step s runs
+        after step s), at ``max_num_iterations`` and before a change of
+        the resolution schedule's factor; 1 with a viewer, pose
+        optimization or a downscaled frame. The port adds two: 1 where a
+        group accumulates gradients (its count moves with its
+        ``mini_step``) and on the card for the renderers without kernels
+        (``xla``, ``oracle``), whose plain versions read counts back to
+        the host."""
+        tcfg, mcfg = self.tcfg, self.mcfg
+        n = tcfg.steps_per_sync
+        if (n <= 1 or self.viewer is not None
+                or self.pose is not None
+                or model.downscale_factor(mcfg, step) > 1
+                or self.state.optimizer.every
+                or (self.state.params.means.device.type == "cuda"
+                    and not mcfg.renderer.startswith("pallas"))):
+            return 1
+        cadences = [c for c in (mcfg.build_chart_every, tcfg.log_every,
+                                tcfg.steps_per_eval_image,
+                                tcfg.steps_per_eval_all_images,
+                                tcfg.steps_per_save) if c and c > 0]
+        for c in cadences:
+            nxt = step if step % c == 0 else step + (c - step % c)
+            n = min(n, nxt - step + 1)
+        n = min(n, tcfg.max_num_iterations - step)
+        # no chunk across a change of the resolution schedule's factor
+        while (n > 1 and model.downscale_factor(mcfg, step + n - 1)
+               != model.downscale_factor(mcfg, step)):
+            n -= 1
+        return max(n, 1)
+
+    def _scan_for(self, height: int, width: int):
+        """The scan for (height, width), made at first use: over the mesh
+        ``parallel.shard.make_sharded_train_scan``, else
+        ``step.make_train_scan`` (whose graph's per-step values come from
+        device tables, so nothing else keys it). Dropped when the
+        capacities grow."""
+        key = (height, width)
+        if key not in self._scans:
+            if self.mesh is not None:
+                from ..parallel.shard import make_sharded_train_scan
+
+                fn = make_sharded_train_scan(self.mcfg, self.mesh, height,
+                                             width)
+                self._scans[key] = lambda cams, imgs: fn(self.state, cams,
+                                                         imgs)
+            else:
+                self._scans[key] = step_mod.make_train_scan(
+                    self.mcfg, self.ocfg, self.state, height, width,
+                    capacity=self.tcfg.steps_per_sync)
+        return self._scans[key]
+
+    def _drop_scans(self) -> None:
+        """Release the scans and their graphs' memory."""
+        self._scans = {}
+        if self.state.params.means.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _run_chunk(self, step: int) -> list:
+        """The next ``_chunk_size(step)`` views' steps: through the scan
+        where they share one size and have no mask, else one at a time.
+        Returns (step, camera index, camera, float metrics) a step, the
+        host's one read of the chunk's metrics."""
+        n = self._chunk_size(step)
+        batch = [self.train_cache.next_train_idx() for _ in range(n)]
+        same_size = len({(c.height, c.width) for _, (c, _, _) in batch}) == 1
+        no_mask = all(m is None for _, (_, _, m) in batch)
+        if n > 1 and same_size and no_mask:
+            cams = [c for _, (c, _, _) in batch]
+            scan = self._scan_for(cams[0].height, cams[0].width)
+            ms = scan(cams, [img for _, (_, img, _) in batch])
+            keys = list(ms)
+            host = torch.stack([ms[k].to(torch.float64)
+                                for k in keys]).cpu().numpy()
+            return [(step + i, idx, cam,
+                     {k: float(host[j, i]) for j, k in enumerate(keys)})
+                    for i, (idx, (cam, _, _)) in enumerate(batch)]
+        return [(step + i, idx, *self._run_one(step + i, idx, cam, img, mask))
+                for i, (idx, (cam, img, mask)) in enumerate(batch)]
+
+    def _run_one(self, step: int, idx: int, cam, img, mask):
+        """One view's step, on this process or over the mesh: (camera,
+        float metrics)."""
         tcfg, st = self.tcfg, self.state
-        idx, (cam, img, mask) = self.train_cache.next_train_idx()
         d = model.downscale_factor(self.mcfg, step)
         if d > 1:
             cam, img, mask = downscale(cam, img, mask, d)
         camopt = (None if self.pose is None
                   else (self.pose, tcfg.camera_opt, idx))
         if self.mesh is not None:
-            return idx, cam, step_mod.sharded_step(
+            metrics = step_mod.sharded_step(
                 self.mcfg, st, self.mesh, cam.height, cam.width, [cam],
                 [img], [mask], camopt)
-        if camopt is None:
-            return idx, cam, step_mod.train_step(self.mcfg, self.ocfg, st,
-                                                 cam, img, mask)
-        return idx, cam, step_mod.train_step_camopt(
-            self.mcfg, self.ocfg, st, self.pose, tcfg.camera_opt, cam, idx,
-            img, mask)
+        elif camopt is None:
+            metrics = step_mod.train_step(self.mcfg, self.ocfg, st, cam, img,
+                                          mask)
+        else:
+            metrics = step_mod.train_step_camopt(
+                self.mcfg, self.ocfg, st, self.pose, tcfg.camera_opt, cam,
+                idx, img, mask)
+        return cam, {k: float(v) for k, v in metrics.items()}
 
     def _run_dp(self):
         """One data-parallel step: the next ``data_parallel`` views, one a
         row of the mesh, one update from the mean of their gradients (the
-        reference DDP's per-iteration semantics)."""
+        reference DDP's per-iteration semantics). Returns (step, camera
+        index, camera, float metrics)."""
+        step = self.state.step
         batch = [self.train_cache.next_train_idx()
                  for _ in range(self.mesh.data)]
         res = {(c.height, c.width) for _, (c, _, _) in batch}
@@ -318,7 +421,8 @@ class Trainer:
         metrics = step_mod.sharded_step(
             self.mcfg, self.state, self.mesh, cams[0].height, cams[0].width,
             cams, [img for _, (_, img, _) in batch], [None] * len(batch))
-        return batch[0][0], cams[0], metrics
+        return step, batch[0][0], cams[0], {k: float(v)
+                                            for k, v in metrics.items()}
 
     def _grow_capacities(self, step: int, metrics: dict) -> None:
         """Overflow-driven capacity growth, sized to the step's measured
@@ -343,6 +447,8 @@ class Trainer:
                   f"growing s_max {mcfg.s_max}->{new_s}, pair_cap "
                   f"{mcfg.pair_cap}->{new_p}")
         self.mcfg = dataclasses.replace(mcfg, s_max=new_s, pair_cap=new_p)
+        # the scans hold the old caps' shapes
+        self._drop_scans()
         if self.viewer is not None:
             self.viewer.cfg = self.mcfg
 

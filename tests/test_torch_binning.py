@@ -111,6 +111,85 @@ def test_flat_bins_with_cull(kind):
                                    atol=5e-5, err_msg=k)
 
 
+def dynamic_bins(centers, extents, depths, valid, grid, pair_cap, cap,
+                 cull_fn, flat):
+    """The lists as the port built them before its binning took static
+    shapes: the true pair count read back to the host, the expansion
+    sized by it, the cull's keep mask applied by a boolean index."""
+    n = centers.shape[0]
+    tx0, ty0, tw, counts = tbin.tile_ranges(centers, extents, grid, valid)
+    counts = torch.where(depths > 1e-6, counts, torch.zeros_like(counts))
+    counts64 = counts.long()
+    offsets = torch.cumsum(counts64, 0) - counts64
+    total = int(counts64.sum())
+    npair = min(total, pair_cap)
+    gid = torch.repeat_interleave(torch.arange(n), counts64,
+                                  output_size=total)[:npair]
+    local = torch.arange(npair) - offsets[gid]
+    w_g = torch.clamp(tw[gid].long(), min=1)
+    ty = ty0[gid].long() + local // w_g
+    tx = tx0[gid].long() + local % w_g
+    if cull_fn is not None:
+        keep = cull_fn(gid, tx, ty)
+        gid, tx, ty = gid[keep], tx[keep], ty[keep]
+    tile = ty * grid.ntx + tx
+    order = torch.sort(depths[gid], stable=True).indices
+    order = order[torch.sort(tile[order], stable=True).indices]
+    tile_s, gid_s = tile[order], gid[order]
+    tile_counts = torch.bincount(tile_s, minlength=grid.num_tiles)
+    rank = torch.arange(tile_s.shape[0]) - (torch.cumsum(tile_counts, 0)
+                                            - tile_counts)[tile_s]
+    overflow = (max(total - pair_cap, 0)
+                + int(torch.clamp(tile_counts - cap, min=0).sum()))
+    keep = rank < cap
+    nt = grid.num_tiles
+    if flat:
+        clamped = torch.clamp(tile_counts, max=cap)
+        padded = -(-clamped // tbin.SLOT_ALIGN) * tbin.SLOT_ALIGN
+        starts = torch.cumsum(padded, 0) - padded
+        slot = (starts[tile_s] + rank)[keep]
+        gids = torch.zeros(tbin.flat_slot_cap(pair_cap, nt), dtype=torch.int32)
+        gids[slot] = gid_s[keep].to(torch.int32)
+        slot_valid = torch.zeros(gids.shape, dtype=torch.bool)
+        slot_valid[slot] = True
+        return dict(gids=gids, slot_valid=slot_valid,
+                    starts=starts.to(torch.int32),
+                    counts=tile_counts.to(torch.int32), num_tiles_hit=counts,
+                    total_pairs=total, overflow=overflow)
+    idx = (tile_s * cap + rank)[keep]
+    ids = torch.zeros(nt * cap, dtype=torch.int32)
+    ids[idx] = gid_s[keep].to(torch.int32)
+    mask = torch.zeros(nt * cap, dtype=torch.bool)
+    mask[idx] = True
+    return dict(ids=ids.reshape(nt, cap), mask=mask.reshape(nt, cap),
+                counts=tile_counts.to(torch.int32), num_tiles_hit=counts,
+                total_pairs=total, overflow=overflow)
+
+
+@pytest.mark.parametrize("pair_cap,cap", [(8192, 64), (8192, 8), (256, 64)],
+                         ids=["fits", "s_cap_overflow", "pair_cap_overflow"])
+@pytest.mark.parametrize("cull", [False, True], ids=["no_cull", "cull"])
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "dense"])
+def test_static_bins_equal_the_dynamic_build(flat, cull, pair_cap, cap):
+    """Every field the kernels read, bit for bit, and the counts."""
+    _, _, tc, _, tp = setup("surface")
+    cull_fn = t_make_cull(tp.geom, tc, TGRID) if cull else None
+    args = (tp.centers, tp.extents, tp.depths, tp.valid, TGRID, pair_cap)
+    want = dynamic_bins(*args, cap, cull_fn, flat)
+    got = (tbin.build_tile_bins_flat(*args, s_cap=cap, cull_fn=cull_fn)
+           if flat else tbin.build_tile_bins(*args, s_max=cap,
+                                             cull_fn=cull_fn))
+    for name, w in want.items():
+        g = getattr(got, name)
+        assert torch.is_tensor(g) and g.device == tp.centers.device
+        if name in ("total_pairs", "overflow"):
+            assert g.dim() == 0 and int(g) == w, name
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    if (pair_cap, cap) != (8192, 64):
+        assert int(got.overflow) > 0
+
+
 def test_cull_table_matches():
     _, jc, tc, jp, tp = setup("surface")
     jt = j_make_cull(jp.geom, jc, JGRID).table
@@ -128,6 +207,42 @@ def test_tile_ranges_exact():
     tr = tbin.tile_ranges(*map(t, inputs), TGRID, t(valid))
     for a, b in zip(tr, jr):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_bands_partition_the_frames_pairs():
+    """A tile-row mesh's bands (7 tile rows each) hold exactly the
+    frame's pairs: their ranges are the frame's less the band's origin in
+    whole tiles. Shifting the centers by the band's pixel offset instead
+    rounds in float32, which moves the edges of the surfels below to the
+    other side of a tile boundary."""
+    rng = np.random.default_rng(4)
+    n = 2000
+    ey = rng.uniform(4, 60, n).astype(np.float32)
+    # lower edges on tile boundaries, as far as float32 rounds them
+    lo = (rng.integers(1, 27, n) * 32).astype(np.float32)
+    cy = (lo + ey).astype(np.float32)
+    centers = torch.tensor(np.stack([rng.uniform(0, 96, n), cy], 1),
+                           dtype=torch.float32)
+    extents = torch.tensor(np.stack([rng.uniform(4, 40, n), ey], 1),
+                           dtype=torch.float32)
+    valid = torch.ones(n, dtype=torch.bool)
+    frame = tbin.TileGrid(height=896, width=96, tile_h=32, tile_w=32)
+    band = tbin.TileGrid(height=224, width=96, tile_h=32, tile_w=32)
+    want = tbin.tile_ranges(centers, extents, frame, valid)[3]
+    got = sum(tbin.tile_ranges(centers, extents, band, valid, (0, 7 * r))[3]
+              for r in range(4))
+    assert torch.equal(got, want)
+    shifted = sum(tbin.tile_ranges(centers - torch.tensor([0.0, 224.0 * r]),
+                                   extents, band, valid)[3]
+                  for r in range(4))
+    assert not torch.equal(shifted, want)
+    bins = [tbin.build_tile_bins_flat(centers, extents, torch.ones(n), valid,
+                                      band, 1 << 15, 256, origin=(0, 7 * r))
+            for r in range(4)]
+    whole = tbin.build_tile_bins_flat(centers, extents, torch.ones(n), valid,
+                                      frame, 1 << 15, 256)
+    assert sum(int(b.total_pairs) for b in bins) == int(whole.total_pairs)
+    assert torch.equal(torch.cat([b.counts for b in bins]), whole.counts)
 
 
 @pytest.mark.parametrize("total,hottest", [(0, 0), (1000, 17),

@@ -6,7 +6,8 @@
   step once in ``events.jsonl``, one checkpoint, the closing eval), and
   the 2-rank run's losses are the one-process run's;
 - the Trainer on one group of 4 ranks (``torch_ranks.trainer_cases``):
-  the tile mesh, a resume from its step-2 checkpoint equal to the unbroken
+  the tile mesh, its steps 1-3 as one chunk of the sharded scan equal to
+  the per-step run bit for bit, a resume from its step-2 checkpoint equal to the unbroken
   run bit for bit, data parallelism, camera pose optimization, a masked
   dataset against the one-process masked run; every run's replicas
   bit-equal; data parallelism on masks refused, as JAX refuses it;
@@ -124,7 +125,7 @@ def rank_runs(data, tmp_path_factory):
                                           tmp_path_factory.mktemp("ranks"))
 
 
-@pytest.mark.parametrize("name", ["tile", "resumed", "dp", "camopt",
+@pytest.mark.parametrize("name", ["tile", "scan", "resumed", "dp", "camopt",
                                   "masked"])
 def test_trainer_replicas_stay_bit_equal(rank_runs, name):
     got = rank_runs[1][name]
@@ -138,6 +139,15 @@ def test_mesh_resume_equals_the_unbroken_run(rank_runs):
     assert [h["loss"] for h in runs["resumed"]["history"]] == \
         [h["loss"] for h in runs["tile"]["history"][2:]]
     assert runs["resumed"]["hashes"] == runs["tile"]["hashes"]
+
+
+def test_mesh_scan_equals_the_per_step_run(rank_runs):
+    """Steps 1-3 as one chunk of the sharded scan: the per-step run's
+    metrics and state."""
+    runs = rank_runs[1]
+    assert [h["step"] for h in runs["scan"]["history"]] == [0, 1, 2, 3]
+    assert runs["scan"]["history"] == runs["tile"]["history"]
+    assert runs["scan"]["hashes"] == runs["tile"]["hashes"]
 
 
 def test_mesh_camopt_writes_one_pose_sidecar(rank_runs):

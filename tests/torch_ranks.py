@@ -188,6 +188,9 @@ def trainer_cases(payload) -> dict:
                      "params": [p.detach().clone() for p in tr.state.params]}
 
     run("tile", trainer(payload, root / "tile", num_devices=4))
+    # steps 1-3 in one chunk: make_sharded_train_scan
+    run("scan", trainer(payload, root / "scan", num_devices=4, log_every=4,
+                        steps_per_save=0, steps_per_sync=4))
     ck = root / "tile" / "checkpoints" / "step-000000002.ckpt.pt"
     run("resumed", trainer(payload, root / "resumed", num_devices=4,
                            load_checkpoint=str(ck)), skip=2)

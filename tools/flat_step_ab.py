@@ -3,15 +3,18 @@
 card, on the flat, the dense or a pair-space tier.
 
     python3 tools/flat_step_ab.py --root DIR
-        [--tier flat|dense|pallas3|pallas2|dtu_pallas1] [--mode step|eval]
-        [--data DIR] [--tag NAME]
+        [--tier flat|dense|pallas3|pallas2|dtu_pallas1]
+        [--mode step|eval|chunk] [--data DIR] [--tag NAME]
 
 Imports ``chip_smoke.py`` and ``gstex_torch`` from ``--root`` (this
 repository, or a checkout of another commit), builds that tree's kernels
 of the tier, and times one ``gstex-blender-nvs`` training step (``--mode
 step``) or one eval frame of the same state (``--mode eval``, the
 forward-only ``models.gstex.render``) as ``chip_smoke.py``'s phase 10
-does: the trained-scene statistics at their auto chart pad, re-charted,
+does, or (``--mode chunk``) runs ``chip_smoke.py``'s phase 5e check
+(``scan_check``: a chunk of 8 steps through the captured graph against
+eager steps, its gates, times and ``kept_graph_cost``) on the state and 8
+views of an orbit, with seeded ground-truth images: the trained-scene statistics at their auto chart pad, re-charted,
 on the 800x800 view of its phase 10, against a seeded ground-truth image.
 ``--tier flat`` takes pixel_num 1e6, pad (40, 80); ``--tier dense``
 pixel_num 4e6, pad (64, 128), which the dispatch sends to the dense
@@ -76,12 +79,21 @@ def dtu_state(cs, data: Path):
     return method.optim, cfg, state, cam, img, mask
 
 
+def smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--tier", choices=("flat", "dense", "pallas3", "pallas2",
                                        "dtu_pallas1"), default="flat")
-    ap.add_argument("--mode", choices=("step", "eval"), default="step")
+    ap.add_argument("--mode", choices=("step", "eval", "chunk"),
+                    default="step")
     ap.add_argument("--data", default=None,
                     help="the DTU-like capture's directory (dtu_pallas1)")
     ap.add_argument("--tag", default=None)
@@ -108,6 +120,7 @@ def main():
     from gstex_torch.ops import rasterize_v1 as rv1
     from gstex_torch.ops import rasterize_v2 as rv2
     from gstex_torch.ops import rasterize_v3 as rv3
+    from gstex_torch.ops import ssim_fused
     from gstex_torch.ops.camera import make_camera
     from gstex_torch.scripts import render as render_cli
     from gstex_torch.train import step as train_step
@@ -147,6 +160,19 @@ def main():
             cfg = dataclasses.replace(cfg, renderer=args.tier)
         gen = torch.Generator(device=cs.DEVICE).manual_seed(0)
         img = torch.rand((cs.H, cs.W, 3), generator=gen, device=cs.DEVICE)
+    if args.mode == "chunk":
+        views = [(make_camera(1.2 * cs.H, 1.2 * cs.H, cs.W / 2, cs.H / 2,
+                              cs.H, cs.W, orbit_c2w(4.0, 0.4 * i),
+                              device=cs.DEVICE),
+                  torch.rand((cs.H, cs.W, 3), generator=gen,
+                             device=cs.DEVICE))
+                 for i in range(cs.SCAN_STEPS)]
+        counters = (*kernels[1:], ssim_fused.fused_ssim_value_and_grad)
+        res = cs.scan_check(cfg, optim, state, views, counters,
+                            tier=args.tier)
+        print(json.dumps({"tag": args.tag or str(root), "card": smi(),
+                          **res}), flush=True)
+        return
     if args.mode == "step":
         timing = cs.step_timing(lambda: train_step.train_step(
             cfg, optim, state, cam, img, mask), kernels[1:],
@@ -167,12 +193,8 @@ def main():
                       launches_per_step={kernels[0].__name__:
                                          kernels[0].launches / 21},
                       trace_stage_ms=trace)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "tag": args.tag or str(root), "card": smi, "tier": args.tier,
+        "tag": args.tag or str(root), "card": smi(), "tier": args.tier,
         "mode": args.mode, "chart_pad": list(cfg.chart_pad),
         # a step's or an eval frame's host ms
         "ms": timing["step_ms"], "ms_min": timing["step_ms_min"],
