@@ -7,33 +7,30 @@ each of its kernels against its plain PyTorch version.
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit (exit 1 without a CUDA card);
-2. build: nvcc builds the fourteen kernels from ``gstex_torch/csrc``, one
-   process each, all at once (ptxas registers, spills, shared memory; the
-   flat kernels', the dense backward's and the three pair-space backwards'
+2. build: nvcc builds the fourteen kernel sources from
+   ``gstex_torch/csrc`` (seventeen kernels: the three flat sources each
+   hold a bf16 chart entry too), one process each, all at once (ptxas
+   registers, spills, shared memory; the flat kernels' and their bf16
+   entries', the dense backward's and the three pair-space backwards'
    shared memory per launch, which no chart pad enters);
 3. kernels vs plain, at 800x800, 32x32 tiles, (8, 8) charts and caps from
    ``settle_caps``, for the trained-scene statistics in ``assets/`` and a
-   50k-surfel ``surface_scene``: the eval kernel (bit for bit); on the
-   trained scene (phase 10 holds the surface scene's at this pad)
-   the forward kernel lean and full (max abs <= 1e-4 on all 14 planes,
-   ncontrib equal), the backward kernel lean and full under seeded
-   cotangents (per record-field group and for the charts, max abs <= 1e-4
-   of the plain version's max abs; texture sign flips <= 1e-5), and the
-   SSIM kernel and its float32 plain version on a render and a noisy copy
+   50k-surfel ``surface_scene``: the eval kernel (bit for bit); phase 10
+   holds both scenes' training kernels, flat and dense, at their
+   training pads, under the gates named here: the forward kernel lean
+   and full (max abs <= 1e-4 on all 14 planes, ncontrib equal), the
+   backward kernel lean and full under seeded cotangents (per
+   record-field group and for the charts, max abs <= 1e-4 of the plain
+   version's max abs; texture sign flips <= 1e-5); the SSIM kernel and
+   its float32 plain version on a render and a noisy copy
    (800x800, and its first 600 rows: the DTU path's 800x600), each
    against a float64 evaluation (|loss| <= 1e-6, gradient max abs
    <= 3e-5 of the float64 max), and to each other (the loss to 1e-6, the
-   gradient to twice 3e-5); then, on the trained scene's dense lists of
-   the same view, the three dense-list kernels against their plain
-   versions and against the flat kernels, under the same gates, and the
-   dense eval, forward and backward under three tile orders (block,
-   longest first, reversed: the eval's planes and the forward's maps and
-   ncontrib bit-equal to their plain versions, the backward within 1e-5
-   of each field group's max); then the pair-space v3, v2 and v1 kernels
+   gradient to twice 3e-5); then the pair-space v3, v2 and v1 kernels
    on per-slot copies of the dense lists of the trained scene at
    pixel_num 1e5, re-charted, at their main path's (16, 24) (there also
-   the dense eval kernel, bit for bit under the three orders): each
-   against its plain
+   the dense eval kernel, bit for bit under three tile orders: block,
+   longest first, reversed): each against its plain
    version, lean and full; the v3, v2 and v1 backwards also under the
    three tile orders (within 1e-5 of each field group's max of their own
    order); v3 and v2, summed per gaussian, against the dense kernels on
@@ -67,6 +64,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    with ``--set model.use_normal_loss=true --set model.lambda_normal=0.05``:
    a finite, non-zero normal term, the flat forward and backward
    launched once a step, in full mode only;
+5f. the bf16 chart stream: ``gstex_torch.scripts.train gstex-blender-nvs
+   --set model.texel_dtype=bf16`` for 40 steps from phase 5's init on
+   its dataset, through the captured chunk: each flat kernel's bf16
+   forward and backward entries launched once a step and the float32
+   flat entries never, the closing eval on the bf16 eval entry, the loss
+   finite and falling, ``texel_dtype`` in the run's ``config.json``; then
+   one ``render spiral --load-config`` frame of the run, one launch of
+   the bf16 eval entry;
 5c. camera pose optimization: a copy of phase 5's dataset whose training
    poses are right-multiplied by the exp map of a seeded SO3xR3 tangent
    (σ 0.02), then ``gstex_torch.scripts.train gstex-blender-nvs --set
@@ -161,7 +166,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    run (the v1 tier, nerfstudio) the same eval, the ``dataset`` and
    ``interpolate`` renders and the exports, on the dense eval kernel;
 9b. the synthetic held-out parity protocol, ``gstex_torch.scripts.parity
-   --synthetic`` at 800², 20000 surfels, 25 views (20 train, 5 held out)
+   --synthetic`` at 800², 20000 surfels, 10 views (8 train, 2 held out)
    and 500 steps on the flat tier, the ground truth from the xla tier
    without the oracle's certification: renderer consistency and the
    trained-state gradcheck pass their gates, the held-out PSNR is
@@ -200,6 +205,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (6 and 12 launches of the run's eval kernel a panorama, PNGs of
    2048x1024 and 2048x2048), each panorama timed, the equirect's centre
    crop within 0.06 of the 90-degree pinhole render at its pose;
+9e. LPIPS and DBSCAN: ``utils/lpips.py`` with seeded random weights of
+   the AlexNet shapes on phase 3's 800x800 render and its noisy copy
+   (finite, zero for identical images, within 1e-4 of the CPU's value,
+   reported by the eval metrics under ``GSTEX_LPIPS_NPZ``, timed), and
+   ``tools/dbscan.py`` on 5000 surfels of phase 5's trained run (the W2
+   distances of 256 rows within 1e-5 of the CPU's, the 5000x5000 matrix,
+   ``estimate_eps`` and ``DBSCAN.fit`` timed, at least one cluster);
 10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
@@ -207,7 +219,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tier), the tier's forward and backward kernels against their plain
    versions, lean and full, with the gates of phase 3, and its eval kernel
    (bit for bit; the dense one under the three tile orders); dense
-   against flat at (40, 80); at
+   against flat at (40, 80), and there the dense forward and backward
+   under the three tile orders (the forward's maps and ncontrib bit-equal
+   to its plain version under each, the backward within 1e-5 of each
+   field group's max) and the flat kernels' bf16 chart entries: each
+   against its plain version on the same bf16 charts, lean and full,
+   under the gates above (eval bit for bit, the chart gradient float32),
+   against the float32 entries (maps within 1e-2 and not equal), and
+   timed beside them, in turns, with their bounds (texels read at 2 B a
+   channel); at
    (64, 128) the three flat kernels timed beside the three dense ones on
    the same view (informational: the dispatch sends that pad to dense);
    then an eval frame of the state served at its training pad and a
@@ -229,7 +249,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against their plain versions, lean and full, under phase 3's gates
    (the last tile row is partial; the forward also under the three tile
    orders, bit for bit), and alone beside their bounds;
-11. the ``kernels`` line (texture_edit's from phase 9c; the v1
+11. the ``kernels`` line (the three bf16 entries from phase 10's (40, 80)
+    pairs and phase 5f's run; texture_edit's from phase 9c; the v1
     kernels' numbers from phase 10's
     nerfstudio view, where their main path runs them; the flat eval
     kernel's ``ms_by_pad`` at (8, 8) and (40, 80), the dense forward's and
@@ -243,6 +264,7 @@ Peak rates for the bounds are the H100 SXM data-sheet numbers: 3.35 TB/s of
 HBM and 67 TFLOP/s fp32 outside the tensor cores.
 """
 
+import copy
 import dataclasses
 import hashlib
 import json
@@ -294,6 +316,17 @@ SSIM_GRAD_TOL = 3e-5
 FRAMES = 8
 VIEWS = 8
 TRAIN_STEPS = 120
+# the bf16 chart stream (GStexConfig.texel_dtype="bf16"): the flat kernels'
+# bf16 entries against their float32 entries on the same pairs. A texel
+# rounds to bf16 by at most 2^-9 of itself, and the maps sum weights of
+# at most 1 over such texels: they move, by less than this
+BF16_VS_F32_TOL = 1e-2
+BF16_TRAIN_STEPS = 40
+BF16_NAMES = ("rasterize_eval_bf16", "rasterize_fwd_bf16",
+              "rasterize_bwd_bf16")
+# bytes of one texel's three channels: float32, and the bf16 table's
+TEXEL_BYTES = 12
+BF16_TEXEL_BYTES = 6
 TEST_VIEWS = 2
 GT_TEXEL_SCALE = 5.0
 STEP = 3000          # a trained scene renders at its full SH degree (3)
@@ -325,14 +358,17 @@ MAPS = {"img": slice(0, 3), "texture_rgb": slice(3, 6), "depth": 6,
 # profiler credits a launch made through ctypes to the op around it, and a
 # gstex.* range is no op
 STAGE_KERNELS = {"eval_kernel": ("rasterize_eval_kernel",
+                                 "rasterize_eval_bf16_kernel",
                                  "rasterize_dense_eval_kernel"),
                  "fwd_kernel": ("rasterize_fwd_kernel",
+                                "rasterize_fwd_bf16_kernel",
                                 "rasterize_dense_fwd_kernel",
                                 "rasterize_v3_fwd_kernel",
                                 "rasterize_v2_fwd_kernel",
                                 "rasterize_v1_fwd_kernel"),
                  "ssim_kernel": ("ssim_fused_kernel",),
                  "bwd_kernel": ("rasterize_bwd_kernel",
+                                "rasterize_bwd_bf16_kernel",
                                 "rasterize_dense_bwd_kernel",
                                 "rasterize_v3_bwd_kernel",
                                 "rasterize_v2_bwd_kernel",
@@ -497,16 +533,20 @@ def scenes(model, init_io):
     yield "surface_scene_50k", cfg, params, buffers
 
 
-def flat_tier():
+def flat_tier(bf16=False):
     """How this script calls the flat pair-list kernels and their plain
     versions: each takes (inputs, grid, s_cap, ...), ``inputs`` being
-    (records, gids, starts, counts, charts, cam_info)."""
+    (records, gids, starts, counts, charts, cam_info). With ``bf16`` the
+    kernels' bf16 chart entries, which the same wrappers launch on
+    bfloat16 charts (``bf16_inputs``) and whose launches count apart."""
     from gstex_torch.ops import rasterize_bwd as rbwd
     from gstex_torch.ops import rasterize_eval as reval
     from gstex_torch.ops import rasterize_fwd as rfwd
 
+    sfx = "_bf16" if bf16 else ""
     return SimpleNamespace(
-        names=("rasterize_eval", "rasterize_fwd", "rasterize_bwd"),
+        names=(f"rasterize_eval{sfx}", f"rasterize_fwd{sfx}",
+               f"rasterize_bwd{sfx}"),
         flat=lambda i: i,
         eval=lambda i, g, s: reval.rasterize_eval(*i, g, s),
         fwd=lambda i, g, s, lean: rfwd.rasterize_fwd(*i, g, s, lean=lean),
@@ -650,11 +690,13 @@ class Frame:
             getattr(self, stage)()
 
 
-def active_bytes(ids, texture_hw, extra=0):
+def active_bytes(ids, texture_hw, extra=0, texel_bytes=TEXEL_BYTES):
     """Record bytes plus active chart texel bytes (one extra row and
-    column with ``extra=1``) of the gaussians ``ids``."""
+    column with ``extra=1``; ``texel_bytes`` a texel) of the gaussians
+    ``ids``."""
     hw = texture_hw[ids].long() + extra
-    return int(ids.numel()) * 32 * 4 + int((hw[:, 0] * hw[:, 1]).sum()) * 12
+    return (int(ids.numel()) * 32 * 4
+            + int((hw[:, 0] * hw[:, 1]).sum()) * texel_bytes)
 
 
 def walked_ids(gids, starts, walked):
@@ -699,9 +741,10 @@ def eval_bound(frame, stats):
 
 
 def fwd_bound(inputs, texture_hw, grid, stats, lean, planes=15,
-              list_arrays=2):
+              list_arrays=2, texel_bytes=TEXEL_BYTES):
     """A forward walk over flat-tier inputs: the records and active texels
-    of the gaussians the walks read, the walked ids, the per-tile list
+    (``texel_bytes`` each: 6 for the bf16 table) of the gaussians the
+    walks read, the walked ids, the per-tile list
     arrays (starts and counts; the dense lists have counts only) and
     cam_info once, and the output planes written once (fourteen and
     ncontrib; eight for the dense eval kernel, which also blends lean);
@@ -709,7 +752,8 @@ def fwd_bound(inputs, texture_hw, grid, stats, lean, planes=15,
     blend."""
     _, gids, starts, _, _, info = inputs
     ids = walked_ids(gids, starts, stats.walked)
-    bytes_once = (active_bytes(ids, texture_hw) + int(stats.walked.sum()) * 4
+    bytes_once = (active_bytes(ids, texture_hw, texel_bytes=texel_bytes)
+                  + int(stats.walked.sum()) * 4
                   + list_arrays * starts.numel() * 4 + info.numel() * 4
                   + planes * grid.height * grid.width * 4)
     ops = (int(stats.evaluated) * RESPONSE_FLOPS + int(stats.blended)
@@ -780,19 +824,21 @@ def pair_bounds(pinputs, ids, texture_hw, grid, stats, ncon, lean,
 
 
 def bwd_bound(inputs, texture_hw, grid, s_cap, ncon, blends, lean,
-              list_arrays=2):
-    """The backward kernel: the records and active texels (plus the row
-    and column the hat weights reach) of the gaussians walked, the walked
+              list_arrays=2, texel_bytes=TEXEL_BYTES):
+    """The backward kernel: the records and active texels (``texel_bytes``
+    each; plus the row and column the hat weights reach) of the gaussians
+    walked, the walked
     gids, starts and counts, three forward planes, ncontrib and the twelve
     cotangent planes read once, and the walked gaussians' record and
-    active texel gradients written once; RESPONSE_FLOPS per (pixel, pair)
-    below the pixel's ncontrib and BWD_FLOPS (BWD_FULL_FLOPS) per pair of
-    weight > 0."""
+    active texel gradients (float32) written once; RESPONSE_FLOPS per
+    (pixel, pair) below the pixel's ncontrib and BWD_FLOPS
+    (BWD_FULL_FLOPS) per pair of weight > 0."""
     _, gids, starts, counts, _, info = inputs
     responses, walk = walk_responses(counts, ncon, grid, s_cap)
     ids = walked_ids(gids, starts, walk)
     hw_px = grid.height * grid.width
-    bytes_once = (active_bytes(ids, texture_hw, extra=1)
+    bytes_once = (active_bytes(ids, texture_hw, extra=1,
+                               texel_bytes=texel_bytes)
                   + active_bytes(ids, texture_hw) + int(walk.sum()) * 4
                   + list_arrays * starts.numel() * 4 + info.numel() * 4
                   + 16 * hw_px * 4)
@@ -1170,6 +1216,254 @@ def time_kernels(frame, lean, **where):
                                                 lean), 20)}
     emit("timing", **{**where, "path": "kernels"}, lean=lean, kernel_ms=ms)
     return ms
+
+
+def bf16_inputs(inputs):
+    """Flat-tier inputs with the charts rounded to bf16, as the flat
+    path's table is (``rasterize_api._table``)."""
+    records, gids, starts, counts, charts, info = inputs
+    return (records, gids, starts, counts,
+            charts.to(torch.bfloat16).contiguous(), info)
+
+
+def bf16_kernel_checks(frame, stats, lean, note, smi, **where):
+    """Phase 10's bf16 chart stream on a flat frame's pairs (the trained
+    scene at (40, 80)): each flat kernel's bf16 entry against its plain
+    version on the same bf16 charts under the float32 rows' gates (eval
+    bit for bit; forward, lean and full, 1e-4 and ncontrib equal;
+    backward 1e-4 of each field group's max), its chart gradient float32;
+    against the float32 entries on the float32 charts (maps within
+    BF16_VS_F32_TOL and not equal); each timed beside its float32 entry,
+    in turns (float32, bf16, bf16, float32), in mode ``lean``; and its
+    bound, the operations the float32 entry's and the texels read at 2 B
+    a channel. Returns, per bf16 entry, its ms, plain ms and bound, and
+    the float32 entry's ms."""
+    tier32, tier16 = frame.tier, flat_tier(bf16=True)
+    grid, s_cap = frame.grid, frame.cfg.s_max
+    i32 = frame.inputs
+    i16 = bf16_inputs(i32)
+    f16 = copy.copy(frame)
+    f16.tier, f16.inputs = tier16, i16
+    eval16, fwd16, bwd16 = tier16.names
+    with torch.no_grad():
+        err, eval_plain_ms, _ = check_eval(f16, **where)
+    note({eval16: (err, eval_plain_ms)})
+    checks = {mode: check_fwd_bwd(tier16, i16, grid, s_cap, mode, **where)
+              for mode in (True, False)}
+    for c in checks.values():
+        note(c)
+
+    g = cotangents(grid.height, grid.width)
+    runs = []
+    for tier, i in ((tier32, i32), (tier16, i16)):
+        maps, ncon = tier.fwd(i, grid, s_cap, lean)
+        runs.append((tier.eval(i, grid, s_cap), maps, ncon,
+                     tier.bwd(i, maps, ncon, g, grid, s_cap, lean)))
+    (e32, m32, n32, d32), (e16, m16, n16, d16) = runs
+    diffs = {eval16: float((e16 - e32).abs().max()),
+             fwd16: float((m16 - m32).abs().max())}
+    bwd_rel, _, _ = bwd_errors(*d16, *d32)
+    emit("bf16_vs_f32", lean=lean, max_abs_diff=diffs, tol=BF16_VS_F32_TOL,
+         ncontrib_equal=bool(torch.equal(n16, n32)),
+         bwd_rel_diff=bwd_rel, chart_grad_dtype=str(d16[1].dtype), **where)
+    require(all(0.0 < d <= BF16_VS_F32_TOL for d in diffs.values()),
+            f"{where}: the bf16 entries' maps against the float32 ones: "
+            f"{diffs} (within {BF16_VS_F32_TOL}, and not equal)")
+    require(d16[1].dtype == torch.float32,
+            f"{where}: the bf16 backward's chart gradient is {d16[1].dtype}")
+
+    ms = {n: [] for n in tier32.names + tier16.names}
+    for tier, i in ((tier32, i32), (tier16, i16), (tier16, i16),
+                    (tier32, i32)):
+        maps, ncon = tier.fwd(i, grid, s_cap, lean)
+        ms[tier.names[0]].append(cuda_ms(lambda: tier.eval(i, grid, s_cap),
+                                         50))
+        ms[tier.names[1]].append(cuda_ms(
+            lambda: tier.fwd(i, grid, s_cap, lean), 20))
+        ms[tier.names[2]].append(cuda_ms(
+            lambda: tier.bwd(i, maps, ncon, g, grid, s_cap, lean), 20))
+    ms = {k: statistics.mean(v) for k, v in ms.items()}
+    tex_hw = frame.buffers.texture_hw
+    blends = int(stats.blended)
+    bounds = {
+        eval16: fwd_bound(i16, tex_hw, grid, stats, True, planes=8,
+                          texel_bytes=BF16_TEXEL_BYTES),
+        fwd16: fwd_bound(i16, tex_hw, grid, stats, lean,
+                         texel_bytes=BF16_TEXEL_BYTES),
+        bwd16: bwd_bound(i16, tex_hw, grid, s_cap, n16, blends, lean,
+                         texel_bytes=BF16_TEXEL_BYTES)}
+    res = {
+        n16_: dict(ms=ms[n16_], f32_ms=ms[n32_],
+                   plain_ms=(eval_plain_ms if n16_ == eval16
+                             else checks[lean][n16_][1]),
+                   **bounds[n16_])
+        for n32_, n16_ in zip(tier32.names, tier16.names)}
+    emit("timing", **{**where, "path": "bf16_kernels"}, card=smi, lean=lean,
+         kernels=res)
+    return res
+
+
+def bf16_main_path(train_cli, render_cli, data, root, counters):
+    """Phase 5f: ``gstex_torch.scripts.train gstex-blender-nvs --set
+    model.texel_dtype=bf16`` for BF16_TRAIN_STEPS steps from phase 5's init
+    on phase 5's dataset, through the captured chunk: each flat kernel's
+    bf16 forward and backward entries launched once a step, the float32
+    flat entries never, the closing eval on the bf16 eval entry, the loss
+    finite and falling, ``texel_dtype`` in the run's ``config.json``; then
+    one ``render spiral --load-config`` frame of the run, one launch of
+    the bf16 eval entry. ``counters`` are the three flat kernels' six
+    entries. Returns the run's launches by entry."""
+    from gstex_torch.train import step as train_step
+
+    for fn in counters:
+        fn.launches = 0
+    train_step.TrainScan.captures = train_step.TrainScan.replays = 0
+    run = root / "run_bf16"
+    t0 = time.perf_counter()
+    with CaptureRecorder("phase 5f") as recorder:
+        res = train_cli.main([
+            "gstex-blender-nvs", "--data", str(data), "--scene-npz",
+            str(STATS), "--seed", "1", "--max-num-iterations",
+            str(BF16_TRAIN_STEPS), "--set", "model.texel_dtype=bf16",
+            "--output-dir", str(run)])
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    scan_runs = dict(captures=train_step.TrainScan.captures,
+                     replays=train_step.TrainScan.replays,
+                     graphs=recorder.graphs)
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = (statistics.mean(losses[:10]),
+                   statistics.mean(losses[-10:]))
+    run_cfg = json.loads((run / "config.json").read_text())
+    emit("main_path", path="train_bf16", steps=len(hist), seconds=seconds,
+         launches=launches, texel_dtype=run_cfg["model"]["texel_dtype"],
+         chart_pad=run_cfg["model"]["chart_pad"], first10_loss=first,
+         last10_loss=last, losses=[round(x, 6) for x in losses[::5]],
+         psnr_first=hist[0]["psnr"], psnr_last=hist[-1]["psnr"],
+         eval=res["eval"], **scan_runs)
+    require(run_cfg["model"]["texel_dtype"] == "bf16",
+            f"the bf16 run's config.json says {run_cfg['model']}")
+    require(len(hist) == BF16_TRAIN_STEPS, f"{len(hist)} bf16 steps ran")
+    require(launches["rasterize_fwd_bf16"] == BF16_TRAIN_STEPS
+            and launches["rasterize_bwd_bf16"] == BF16_TRAIN_STEPS
+            and launches["rasterize_eval_bf16"] >= 1
+            and all(launches[k] == 0 for k in ("rasterize_eval",
+                                                "rasterize_fwd",
+                                                "rasterize_bwd")),
+            f"the bf16 run launched {launches} for {BF16_TRAIN_STEPS} steps")
+    require(scan_runs["captures"] == 1 == len(recorder.graphs)
+            and scan_runs["replays"] >= BF16_TRAIN_STEPS // 2,
+            f"the bf16 run did not go through the captured scan: "
+            f"{scan_runs}")
+    require(all(h["overflow"] == 0 for h in hist), "a bf16 step overflowed")
+    require(all(np.isfinite(x) for x in losses), "a bf16 loss is not finite")
+    require(last < first, f"the bf16 loss did not fall: {first} -> {last}")
+
+    for fn in counters:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as out, torch.no_grad():
+        summary = render_cli.main(["spiral", "--load-config", str(run),
+                                   "--frames", "1", "--output-path", out])
+        pngs = len(list(Path(out).glob("frame_*.png")))
+    served = {fn.__name__: fn.launches for fn in counters}
+    emit("main_path", path="serve_bf16", launches=served, summary=summary)
+    require(served == {k: int(k == "rasterize_eval_bf16") for k in served},
+            f"render --load-config of the bf16 run launched {served}")
+    require(pngs == 1 and summary[0]["finite"]
+            and summary[0]["alpha_coverage"] > 0,
+            f"the bf16 run's frame: {summary}")
+    return launches
+
+
+# phase 9e: LPIPS on the eval images' size and DBSCAN on the trained
+# scene. LPIPS on the card against the same function on the CPU (float32
+# convolutions in another order), and DBSCAN's W2 distances on the card
+# against the CPU's, of their max
+LPIPS_CPU_TOL = 1e-4
+W2_CPU_TOL = 1e-5
+DBSCAN_SURFELS = 5000
+
+
+def tools_main_path(run_dir, pred, noisy, smi):
+    """Phase 9e. LPIPS (``utils/lpips.py``) with seeded random weights of
+    the AlexNet shapes on an 800x800 render and a noisy copy: finite and
+    positive, zero for identical images, within LPIPS_CPU_TOL of the CPU's
+    value, reported by ``utils/metrics.image_metrics`` under
+    ``GSTEX_LPIPS_NPZ``, timed. DBSCAN (``tools/dbscan.py``) on
+    DBSCAN_SURFELS surfels of phase 5's trained run: ``pairwise_w2`` of
+    256 rows against the CPU's (within W2_CPU_TOL of the max), the whole
+    (N, N) matrix, ``estimate_eps`` and ``DBSCAN.fit`` timed, the
+    clusters found."""
+    from gstex_torch.tools import dbscan
+    from gstex_torch.utils import lpips as lpips_mod
+    from gstex_torch.utils import metrics
+
+    rng = np.random.default_rng(0)
+    weights = {}
+    for i, (c, k, *_) in enumerate(lpips_mod._ALEX_CFG):
+        c_in = 3 if i == 0 else lpips_mod.CHANNELS[i - 1]
+        weights[f"conv{i}_w"] = (0.05 * rng.standard_normal(
+            (c, c_in, k, k))).astype(np.float32)
+        weights[f"conv{i}_b"] = (0.1 * rng.standard_normal(c)).astype(
+            np.float32)
+        weights[f"lin{i}_w"] = np.abs(0.01 * rng.standard_normal(c)).astype(
+            np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "lpips_alex.npz"
+        np.savez(path, **weights)
+        metric = lpips_mod.load(path)
+        value = metric(pred, noisy)
+        same = metric(pred, pred)
+        cpu = metric(pred.cpu(), noisy.cpu())
+        lpips_ms = cuda_ms(lambda: metric(pred, noisy), 10)
+        os.environ["GSTEX_LPIPS_NPZ"] = str(path)
+        try:
+            reported = metrics.image_metrics(pred, noisy)["lpips"]
+        finally:
+            del os.environ["GSTEX_LPIPS_NPZ"]
+    emit("main_path", path="lpips", card=smi, shape=list(pred.shape),
+         lpips=value, identical=same, cpu=cpu, reported=reported,
+         ms=lpips_ms, tol=LPIPS_CPU_TOL)
+    require(np.isfinite(value) and value > 0 and abs(same) <= 1e-6
+            and abs(value - cpu) <= LPIPS_CPU_TOL * abs(cpu)
+            and reported is not None and reported > 0,
+            f"LPIPS on the card: {value} (identical {same}, CPU {cpu}, "
+            f"reported {reported})")
+
+    ck = sorted((run_dir / "checkpoints").glob("step-*.ckpt.pt"))[-1]
+    p = torch.load(ck, map_location=DEVICE, weights_only=True)["params"]
+    keep = torch.randperm(p["means"].shape[0], generator=torch.Generator(
+    ).manual_seed(0))[:DBSCAN_SURFELS].to(DEVICE)
+    means, log_scales, quats = (p[k][keep].contiguous() for k in (
+        "means", "log_scales", "quats"))
+    rows = np.arange(256)
+    d_card = dbscan.pairwise_w2(means, log_scales, quats, query_idx=rows)
+    d_cpu = dbscan.pairwise_w2(means.cpu(), log_scales.cpu(), quats.cpu(),
+                               query_idx=rows, device="cpu")
+    w2_err = float(np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max())
+    t0 = time.perf_counter()
+    full = dbscan.pairwise_w2(means, log_scales, quats)
+    w2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eps = dbscan.estimate_eps(means, log_scales, quats)
+    eps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = dbscan.DBSCAN(eps=eps, min_pts=5).fit(means, log_scales, quats)
+    fit_s = time.perf_counter() - t0
+    stats = dbscan.DBSCAN.cluster_stats(labels)
+    emit("main_path", path="dbscan", card=smi, surfels=DBSCAN_SURFELS,
+         w2_rel_err_vs_cpu=w2_err, tol=W2_CPU_TOL, pairwise_w2_s=w2_s,
+         estimate_eps_s=eps_s, fit_s=fit_s, eps=eps,
+         num_clusters=stats["num_clusters"], num_noise=stats["num_noise"],
+         largest=max(stats["sizes"].values(), default=0))
+    require(w2_err <= W2_CPU_TOL and full.shape == (DBSCAN_SURFELS,) * 2
+            and np.isfinite(full).all() and np.isfinite(eps) and eps > 0
+            and stats["num_clusters"] >= 1
+            and labels.shape == (DBSCAN_SURFELS,),
+            f"DBSCAN on the card: W2 against the CPU {w2_err}, eps {eps}, "
+            f"{stats['num_clusters']} clusters")
+    return dict(lpips_ms=lpips_ms, pairwise_w2_s=w2_s, fit_s=fit_s)
 
 
 def recharted_state(cfg, optim, params, buffers, cam):
@@ -2275,18 +2569,19 @@ def scan_main_path(root, counters, smi):
 
 def parity_main_path(out, counters):
     """``gstex_torch.scripts.parity --synthetic`` at full width (800², 20k
-    surfels), 25 views (20 train, 5 held out) and 500 steps, its ground
+    surfels), 10 views (8 train, 2 held out) and 500 steps, its ground
     truth from the xla tier uncertified (``--gt-renderer xla``: the
     oracle's certification, 60 s here, is the CPU tests' and the full
     protocol's): the renderer consistency and the trained-state gradcheck
     under their gates, a finite held-out PSNR; the flat training kernels launched once a step
     and once more by the gradcheck, the SSIM kernel also by its reference
     loss, the eval kernel by the eval pass (a warm-up and each held-out
-    view) and the consistency check (4 views)."""
+    view) and the consistency check (each held-out view, at most 4)."""
     from gstex_torch.scripts import parity
 
     fwd, bwd, ssim, ev = counters
-    iters, views = 500, 25
+    # 10 views: the xla tier's ground truth takes 3-4 s a view on the card
+    iters, views = 500, 10
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2308,7 +2603,7 @@ def parity_main_path(out, counters):
     require(np.isfinite(h["psnr"]) and h["psnr"] > 10,
             f"held-out PSNR {h['psnr']}")
     want = {fwd.__name__: iters + 1, bwd.__name__: iters + 1,
-            ssim.__name__: iters + 2, ev.__name__: 1 + held + 4}
+            ssim.__name__: iters + 2, ev.__name__: 1 + held + min(4, held)}
     require(launches == want, f"parity launches {launches}, not {want}")
 
 
@@ -3417,6 +3712,9 @@ def main():
              "rasterize_eval": reval.launch_smem(),
              "rasterize_fwd": rfwd.launch_smem(),
              "rasterize_bwd_32x32": rbwd.launch_smem(32, 32),
+             "rasterize_eval_bf16": reval.launch_smem(bf16=True),
+             "rasterize_fwd_bf16": rfwd.launch_smem(bf16=True),
+             "rasterize_bwd_bf16_32x32": rbwd.launch_smem(32, 32, bf16=True),
              "rasterize_dense_bwd_32x32": rdense.bwd_launch_smem(32, 32),
              **{f"rasterize_v{v}_bwd_32x32_16x24": bwd_launch_smem(
                  v, 32, 32, 16, 24) for v in (3, 2, 1)},
@@ -3425,7 +3723,7 @@ def main():
     # 3. kernels vs plain, on the bins of each scene's first spiral view
     cam = orbit_camera(H, W, dist=4.0, device=DEVICE)
     frames = {}
-    worst = dict.fromkeys(kernels_src, 0.0)
+    worst = dict.fromkeys(kernels_src + list(BF16_NAMES), 0.0)
 
     def note(checks):
         for k, (err, _) in checks.items():
@@ -3443,29 +3741,9 @@ def main():
             worst["rasterize_eval"] = max(worst["rasterize_eval"], err)
             frames[name] = (frame, stats)
 
-            if name != "trained_scene_stats":
-                # phase 10 holds this scene's flat training kernels to
-                # their plain versions at this pad
-                continue
-            for lean in (True, False):
-                check_fwd_bwd(frame.tier, frame.inputs, frame.grid, s_cap,
-                              lean, scene=name, chart_pad=list(PAD))
-            # the dense-list kernels on the same view's pairs: against
-            # their plain versions, and against the flat kernels
-            where = dict(scene=name, chart_pad=list(PAD))
-            dframe = Frame(cfg, params, buffers, cam, frame.bg, dense=True)
-            dframe.run()
-            worst["rasterize_dense_eval"] = check_eval(dframe, **where)[0]
-            for lean in (True, False):
-                note(check_fwd_bwd(dframe.tier, dframe.inputs, dframe.grid,
-                                   s_cap, lean, **where))
-                check_dense_vs_flat(frame, dframe, lean, **where)
-                check_dense_schedules(dframe, lean, **where)
-            for f in (frame, dframe):
-                time_kernels(f, True, card=smi, **where)
-            # the pair-space kernels are held at their main path's pad
-            # below, not at this one
-            del dframe
+            # phase 10 holds both scenes' training kernels, flat and
+            # dense, to their plain versions at their training pads; the
+            # pair-space kernels are held at their main path's pad below
 
         # the pair-space kernels at their main path's pad: the trained
         # scene at pixel_num 1e5, re-charted so that its charts fill it
@@ -3596,6 +3874,15 @@ def main():
     # sinks, then on with the normal loss
     resumed_main_path(train_cli, rasterize_api, data, Path(res["checkpoint"]),
                       Path(tmp.name), train_counters + (reval.rasterize_eval,))
+    torch.cuda.empty_cache()
+
+    # 5f. the bf16 chart stream: 40 steps of the same command with
+    # --set model.texel_dtype=bf16, and a frame served from the run
+    bf16_counters = (reval.rasterize_eval, rfwd.rasterize_fwd,
+                     rbwd.rasterize_bwd, reval.rasterize_eval_bf16,
+                     rfwd.rasterize_fwd_bf16, rbwd.rasterize_bwd_bf16)
+    bf16_launches = bf16_main_path(train_cli, render_cli, data,
+                                   Path(tmp.name), bf16_counters)
     torch.cuda.empty_cache()
 
     # 5c. camera pose optimization on perturbed poses: 120 steps, resumed
@@ -3828,7 +4115,7 @@ def main():
                     rdense.rasterize_dense_eval, (DTU_VIEWS + 7) // 8)
     torch.cuda.empty_cache()
 
-    # 9b. the synthetic held-out parity protocol, cut to 25 views and 500
+    # 9b. the synthetic held-out parity protocol, cut to 10 views and 500
     # steps
     parity_main_path(Path(tmp.name) / "parity",
                      train_counters + (reval.rasterize_eval,))
@@ -3865,6 +4152,14 @@ def main():
          equirect_ms={k: v["equirectangular"]["ms"]
                       for k, v in panoramas.items()},
          ods_ms={k: v["ods"]["ms"] for k, v in panoramas.items()})
+    torch.cuda.empty_cache()
+
+    # 9e. LPIPS on the 800x800 render and its noisy copy of phase 3, and
+    # DBSCAN on phase 5's trained surfels
+    t9e = time.perf_counter()
+    tools_t = tools_main_path(Path(tmp.name) / "run", pred, noisy, smi)
+    emit("phase_9e", seconds=time.perf_counter() - t9e, nvidia_smi=smi,
+         **tools_t)
     torch.cuda.empty_cache()
 
     # 10. timing: an eval frame, then a training step
@@ -3976,9 +4271,13 @@ def main():
                     getattr(dframe, stage)()
             for mode in (True, False):
                 check_dense_vs_flat(frame, dframe, mode, **where)
+                check_dense_schedules(dframe, mode, **where)
             for f in (frame, dframe):
                 time_kernels(f, lean, card=smi, **where)
             del dframe
+            # the bf16 chart stream's entries on the same pairs
+            bf16_t = bf16_kernel_checks(frame, stats, lean, note, smi,
+                                        **where)
         if name == "trained_scene_4e6":
             # informational, for the flat-or-dense question: the three
             # flat kernels on this view's pairs beside the three dense
@@ -4195,6 +4494,22 @@ def main():
         "bound_ms_by_pad": {pad: t["checks"][0]["bound_ms"]
                             for pad, t in edit_t.items()},
     })
+    # the flat kernels' bf16 chart entries, on phase 10's (40, 80) pairs
+    # and phase 5f's run
+    tpu_lines = {"rasterize_eval_bf16": "gstex_tpu/ops/rasterize_pallas5.py:363",
+                 "rasterize_fwd_bf16": "gstex_tpu/ops/rasterize_pallas5.py:140",
+                 "rasterize_bwd_bf16": "gstex_tpu/ops/rasterize_pallas5.py:561"}
+    for k in BF16_NAMES:
+        t = bf16_t[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"gstex_torch/csrc/{k[:-len('_bf16')]}.cu",
+            "replaces": tpu_lines[k], "launches": bf16_launches[k],
+            "max_abs_err": worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,   # no single PyTorch call computes this
+            "f32_ms": t["f32_ms"], "bytes_ms": t["bytes_ms"],
+            "ops_ms": t["ops_ms"]})
     by_name = {k["name"]: k for k in kernels}
     for k in ("rasterize_dense_fwd", "rasterize_dense_bwd"):
         by_name[k]["ms_by_pad"] = {"64x128": main_t[k]["ms"],

@@ -50,6 +50,11 @@
 // atomics, a persistent grid taking tiles from a counter, 32 records a
 // chunk, and staging without the ring.
 //
+// The chart type: float32, or bfloat16 (the bf16 chart stream,
+// gstex_rasterize_bwd_bf16): a bf16 texel is widened to float as it is
+// read (load_texel); the texel gradients are float32 either way, and do not
+// depend on the texels' values.
+//
 // Precision: no --use_fast_math and --fmad=false, and each pixel's values
 // are computed as the plain version (ops/rasterize_bwd.py) computes them.
 // The order of the sums over pixels and tiles differs (shuffles, atomics),
@@ -62,6 +67,7 @@ namespace {
 constexpr int kChunk = 64;
 constexpr int kIdBufs = 3;  // the ring's ids (IdSlots)
 using Slots = IdSlots<kChunk, kIdBufs>;
+using SlotsBf16 = IdSlots<kChunk, kIdBufs, kThreads, __nv_bfloat16>;
 
 // dynamic shared memory of a launch: the tile's kPlanes per-pixel planes
 size_t dynamic_smem(int tile_h, int tile_w) {
@@ -93,23 +99,87 @@ rasterize_bwd_kernel(const float* __restrict__ records,
       tile_w, height, width, ch, cw, s_cap, lean);
 }
 
+// The same walk on bf16 charts: each texel is widened to float as it is
+// read (load_texel), the rest is the float kernel's; d_charts is float.
+// (A second kernel, not a template of the first, keeps the float kernel's
+// machine code as it was.)
+__global__ void __launch_bounds__(kThreads, 1)
+rasterize_bwd_bf16_kernel(const float* __restrict__ records,
+                          const int* __restrict__ gids,
+                          const int* __restrict__ starts,
+                          const int* __restrict__ counts,
+                          const __nv_bfloat16* __restrict__ charts,
+                          const float* __restrict__ cam_info,
+                          const float* __restrict__ maps,
+                          const int* __restrict__ ncontrib,
+                          const float* __restrict__ gmaps,
+                          float* __restrict__ d_records,
+                          float* __restrict__ d_charts,
+                          const int* __restrict__ order, int ntx, int tile_h,
+                          int tile_w, int height, int width, int ch, int cw,
+                          int s_cap, int lean) {
+  __shared__ int s_id[kIdBufs * kChunk];
+  const int tile = order[blockIdx.x];
+  const SlotsBf16 slots{records, gids + starts[tile], charts, d_records,
+                        d_charts, static_cast<long long>(ch) * cw * 3, s_id};
+  backward_tile<kChunk, SlotsBf16, false, true>(
+      slots, tile, counts, cam_info, maps, ncontrib, gmaps, ntx, tile_h,
+      tile_w, height, width, ch, cw, s_cap, lean);
+}
+
+template <class Kernel>
+int smem(Kernel kernel, int tile_h, int tile_w) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess) return -1;
+  return static_cast<int>(a.sharedSizeBytes + dynamic_smem(tile_h, tile_w));
+}
+
+// TChart: the charts' element type of `kernel`
+template <class TChart, class Kernel>
+int launch(Kernel kernel, const void* records, const void* gids,
+           const void* starts, const void* counts, const void* charts,
+           const void* cam_info, const void* maps, const void* ncontrib,
+           const void* gmaps, void* d_records, void* d_charts,
+           const void* order, int num_tiles, int ntx, int tile_h, int tile_w,
+           int height, int width, int ch, int cw, int s_cap, int lean,
+           void* stream) {
+  const size_t smem = dynamic_smem(tile_h, tile_w);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (num_tiles == 0) return 0;
+  kernel<<<num_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(records), static_cast<const int*>(gids),
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const TChart*>(charts), static_cast<const float*>(cam_info),
+      static_cast<const float*>(maps), static_cast<const int*>(ncontrib),
+      static_cast<const float*>(gmaps), static_cast<float*>(d_records),
+      static_cast<float*>(d_charts), static_cast<const int*>(order), ntx,
+      tile_h, tile_w, height, width, ch, cw, s_cap, lean);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared memory of a launch at tile_h x tile_w tiles, in bytes: the
 // kernel's static arrays and the per-pixel planes. The chart pad does not
 // enter it.
 extern "C" int gstex_rasterize_bwd_smem(int tile_h, int tile_w) {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, rasterize_bwd_kernel) != cudaSuccess)
-    return -1;
-  return static_cast<int>(a.sharedSizeBytes + dynamic_smem(tile_h, tile_w));
+  return smem(rasterize_bwd_kernel, tile_h, tile_w);
+}
+extern "C" int gstex_rasterize_bwd_bf16_smem(int tile_h, int tile_w) {
+  return smem(rasterize_bwd_bf16_kernel, tile_h, tile_w);
 }
 
-// Plain C entry for ctypes. Pointers are device pointers; records must be
-// 16-byte aligned (cp.async); d_records and d_charts must be zeroed;
-// `order` holds the num_tiles tiles in the order blocks take them;
-// `stream` is a cudaStream_t. Returns the cudaError_t of the launch
-// (0 = success).
+// Plain C entries for ctypes, one a chart type: float32 charts, and
+// bfloat16 charts (gstex_rasterize_bwd_bf16; d_charts float32 for both).
+// Pointers are device pointers; records must be 16-byte aligned
+// (cp.async); d_records and d_charts must be zeroed; `order` holds the
+// num_tiles tiles in the order blocks take them; `stream` is a
+// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
 extern "C" int gstex_rasterize_bwd(
     const void* records, const void* gids, const void* starts,
     const void* counts, const void* charts, const void* cam_info,
@@ -117,22 +187,22 @@ extern "C" int gstex_rasterize_bwd(
     void* d_records, void* d_charts, const void* order, int num_tiles,
     int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
     int s_cap, int lean, void* stream) {
-  const size_t smem = dynamic_smem(tile_h, tile_w);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rasterize_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (num_tiles == 0) return 0;
-  rasterize_bwd_kernel<<<num_tiles, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(records), static_cast<const int*>(gids),
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(charts), static_cast<const float*>(cam_info),
-      static_cast<const float*>(maps), static_cast<const int*>(ncontrib),
-      static_cast<const float*>(gmaps), static_cast<float*>(d_records),
-      static_cast<float*>(d_charts), static_cast<const int*>(order), ntx,
-      tile_h, tile_w, height, width, ch, cw, s_cap, lean);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(rasterize_bwd_kernel, records, gids, starts, counts,
+                       charts, cam_info, maps, ncontrib, gmaps, d_records,
+                       d_charts, order, num_tiles, ntx, tile_h, tile_w,
+                       height, width, ch, cw, s_cap, lean, stream);
+}
+
+extern "C" int gstex_rasterize_bwd_bf16(
+    const void* records, const void* gids, const void* starts,
+    const void* counts, const void* charts, const void* cam_info,
+    const void* maps, const void* ncontrib, const void* gmaps,
+    void* d_records, void* d_charts, const void* order, int num_tiles,
+    int ntx, int tile_h, int tile_w, int height, int width, int ch, int cw,
+    int s_cap, int lean, void* stream) {
+  return launch<__nv_bfloat16>(rasterize_bwd_bf16_kernel, records, gids,
+                               starts, counts, charts, cam_info, maps,
+                               ncontrib, gmaps, d_records, d_charts, order,
+                               num_tiles, ntx, tile_h, tile_w, height, width,
+                               ch, cw, s_cap, lean, stream);
 }

@@ -38,6 +38,13 @@
 // Each choice was measured against its alternatives (PERF.md §6): 3
 // blocks an SM and 32 records a chunk.
 //
+// The chart type: float32, or bfloat16 (GStexConfig.texel_dtype = "bf16",
+// the JAX package's bf16 chart table; gstex_rasterize_eval_bf16). A bf16
+// texel is widened to float as it is read, and every operation after that
+// is the float kernel's, so the bf16 entry is bit-equal to the plain
+// version on the widened charts as the float entry is on float charts.
+// It halves the texel bytes; the records and the walk are unchanged.
+//
 // Precision: built without --use_fast_math and with --fmad=false. t_hit is
 // a true division and the exponent is expf: a one-ulp change in t moves the
 // chart fetch by up to h ulps, and the alpha cutoffs are discontinuities.
@@ -52,6 +59,7 @@ namespace {
 constexpr int kChunk = 64;
 constexpr int kIdBufs = 3;  // the ring's ids (IdSlots)
 using Slots = IdSlots<kChunk, kIdBufs>;
+using SlotsBf16 = IdSlots<kChunk, kIdBufs, kThreads, __nv_bfloat16>;
 
 // Block b walks tile order[b].
 __global__ void __launch_bounds__(kThreads, 2)
@@ -73,33 +81,87 @@ rasterize_eval_kernel(const float* __restrict__ records,
       height, width, cw, s_cap, 1);
 }
 
+// The same walk on bf16 charts: each texel is widened to float as it is
+// read (load_texel), the rest is the float kernel's. (A second kernel, not
+// a template of the first, keeps the float kernel's machine code as it
+// was.)
+__global__ void __launch_bounds__(kThreads, 2)
+rasterize_eval_bf16_kernel(const float* __restrict__ records,
+                           const int* __restrict__ gids,
+                           const int* __restrict__ starts,
+                           const int* __restrict__ counts,
+                           const __nv_bfloat16* __restrict__ charts,
+                           const float* __restrict__ cam_info,
+                           float* __restrict__ out,
+                           const int* __restrict__ order, int ntx,
+                           int tile_h, int tile_w, int height, int width,
+                           int ch, int cw, int s_cap) {
+  __shared__ int s_id[kIdBufs * kChunk];
+  const int tile = order[blockIdx.x];
+  const SlotsBf16 slots{records, gids + starts[tile], charts, nullptr,
+                        nullptr, static_cast<long long>(ch) * cw * 3, s_id};
+  forward_tile<kChunk, SlotsBf16, false, true, true>(
+      slots, tile, counts, cam_info, out, nullptr, ntx, tile_h, tile_w,
+      height, width, cw, s_cap, 1);
+}
+
+template <class Kernel>
+int smem(Kernel kernel) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess) return -1;
+  return static_cast<int>(a.sharedSizeBytes);
+}
+
+// TChart: the charts' element type of `kernel`
+template <class TChart, class Kernel>
+int launch(Kernel kernel, const void* records, const void* gids,
+           const void* starts, const void* counts, const void* charts,
+           const void* cam_info, void* out, const void* order,
+           int num_tiles, int ntx, int tile_h, int tile_w, int height,
+           int width, int ch, int cw, int s_cap, void* stream) {
+  if (num_tiles == 0) return 0;
+  kernel<<<num_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(records), static_cast<const int*>(gids),
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const TChart*>(charts), static_cast<const float*>(cam_info),
+      static_cast<float*>(out), static_cast<const int*>(order), ntx, tile_h,
+      tile_w, height, width, ch, cw, s_cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Shared memory of a launch, in bytes: the kernel's static arrays. There
 // is no dynamic part, so it is the same for every tile size and chart pad.
 extern "C" int gstex_rasterize_eval_smem() {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, rasterize_eval_kernel) != cudaSuccess)
-    return -1;
-  return static_cast<int>(a.sharedSizeBytes);
+  return smem(rasterize_eval_kernel);
+}
+extern "C" int gstex_rasterize_eval_bf16_smem() {
+  return smem(rasterize_eval_bf16_kernel);
 }
 
-// Plain C entry for ctypes. Pointers are device pointers; records must be
-// 16-byte aligned (cp.async); `order` holds the num_tiles tiles in the
-// order blocks take them; `stream` is a cudaStream_t. Returns the
-// cudaError_t of the launch (0 = success).
+// Plain C entries for ctypes, one a chart type: float32 charts, and
+// bfloat16 charts (gstex_rasterize_eval_bf16). Pointers are device
+// pointers; records must be 16-byte aligned (cp.async); `order` holds the
+// num_tiles tiles in the order blocks take them; `stream` is a
+// cudaStream_t. Returns the cudaError_t of the launch (0 = success).
 extern "C" int gstex_rasterize_eval(
     const void* records, const void* gids, const void* starts,
     const void* counts, const void* charts, const void* cam_info, void* out,
     const void* order, int num_tiles, int ntx, int tile_h, int tile_w,
     int height, int width, int ch, int cw, int s_cap, void* stream) {
-  if (num_tiles == 0) return 0;
-  rasterize_eval_kernel<<<num_tiles, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(records), static_cast<const int*>(gids),
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(charts), static_cast<const float*>(cam_info),
-      static_cast<float*>(out), static_cast<const int*>(order), ntx, tile_h,
-      tile_w, height, width, ch, cw, s_cap);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(rasterize_eval_kernel, records, gids, starts,
+                       counts, charts, cam_info, out, order, num_tiles, ntx,
+                       tile_h, tile_w, height, width, ch, cw, s_cap, stream);
+}
+
+extern "C" int gstex_rasterize_eval_bf16(
+    const void* records, const void* gids, const void* starts,
+    const void* counts, const void* charts, const void* cam_info, void* out,
+    const void* order, int num_tiles, int ntx, int tile_h, int tile_w,
+    int height, int width, int ch, int cw, int s_cap, void* stream) {
+  return launch<__nv_bfloat16>(rasterize_eval_bf16_kernel, records, gids,
+                               starts, counts, charts, cam_info, out, order,
+                               num_tiles, ntx, tile_h, tile_w, height, width,
+                               ch, cw, s_cap, stream);
 }

@@ -64,11 +64,14 @@
 //   void stage(int base, int n, float* s_rec, int tid): the records of
 //     slots base..base+n-1 into s_rec (n * kRec floats); the caller
 //     synchronises after it.
-//   const float* chart(int s, int k): the chart of chunk entry s, slot k.
+//   const TChart* chart(int s, int k): the chart of chunk entry s, slot k,
+//     TChart float or __nv_bfloat16; each texel is read by load_texel,
+//     which widens a bf16 texel to float, so every sum stays float.
 // backward_tile's Slots adds:
 //   void begin(int base, int n, float* s_rec, float* s_drec, int tid):
 //     stage, zero s_drec and whatever the slots accumulate per chunk.
-//   float* dchart(int s, int k): where slot k's texel gradients are added.
+//   float* dchart(int s, int k): where slot k's texel gradients are added
+//     (float whatever the charts' type).
 //   void end(int base, int n, const float* s_drec, int tid): the chunk's
 //     summed record gradients (and staged chart gradients) out, reading
 //     s_drec[i] for i = tid, tid + kBlock, ... < n * kRec (kBlock: the
@@ -93,6 +96,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -152,6 +156,16 @@ __device__ __forceinline__ float depth_map(float t, float safe_nd, float a_n,
   }
 }
 
+// One texel channel through the read-only path, widened to float: a bf16
+// texel's 16 bits are the upper half of the float it stands for, so the
+// widening is exact and every operation after it is the f32 kernel's.
+__device__ __forceinline__ float load_texel(const float* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ float load_texel(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // 16 bytes from global to shared memory, asynchronously (cp.async.cg: L2
 // only, the records are read once per tile); completion by the commit and
 // wait below.
@@ -193,12 +207,15 @@ __device__ __forceinline__ void warp_fold(const float* in, float* x,
 // other tiles add to as well (the forward leaves those null). s_id holds
 // kIdBufs chunks of ids in shared memory: one for stage/begin, three for
 // the ring's prefetch, where chunk c + 1's ids arrive while chunk c is
-// walked and chunk c - 1's end() may still read its own.
-template <int kChunk, int kIdBufs = 1, int kBlock = kThreads>
+// walked and chunk c - 1's end() may still read its own. TChart is the
+// charts' element type (float, or __nv_bfloat16 for the flat kernels' bf16
+// entries); their gradients are float either way.
+template <int kChunk, int kIdBufs = 1, int kBlock = kThreads,
+          class TChart = float>
 struct IdSlots {
   const float* records;
   const int* tile_ids;
-  const float* charts;
+  const TChart* charts;
   float* d_records;
   float* d_charts;
   long long chw3;
@@ -240,7 +257,7 @@ struct IdSlots {
                  records + static_cast<long long>(g) * kRec + 4 * q);
     }
   }
-  __device__ const float* chart(int s, int k) const {
+  __device__ const TChart* chart(int s, int k) const {
     return charts + static_cast<long long>(ids(k)[s]) * chw3;
   }
   __device__ float* dchart(int s, int k) const {
@@ -484,7 +501,7 @@ __device__ __forceinline__ void forward_tile(
                 q8[i] = p8;
                 if (incl > kTEps) t_fin[0] = fminf(t_fin[0], incl);
                 if (alpha > 0.0f && incl > kTEps) {
-                  const float* chart = slots.chart(s, base + s);
+                  const auto* chart = slots.chart(s, base + s);
                   const float w = alpha * excl;
                   const float b1ud = r[12] * e0 + r[13] * e1 + r[14] * e2;
                   const float b2ud = r[16] * e0 + r[17] * e1 + r[18] * e2;
@@ -504,17 +521,17 @@ __device__ __forceinline__ void forward_tile(
                   const int y0i = static_cast<int>(y0);
                   const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
                   const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
-                  const float* c00 = chart + (x0i * cw + y0i) * 3;
-                  const float* c01 = chart + (x0i * cw + y1i) * 3;
-                  const float* c10 = chart + (x1i * cw + y0i) * 3;
-                  const float* c11 = chart + (x1i * cw + y1i) * 3;
+                  const auto* c00 = chart + (x0i * cw + y0i) * 3;
+                  const auto* c01 = chart + (x0i * cw + y1i) * 3;
+                  const auto* c10 = chart + (x1i * cw + y0i) * 3;
+                  const auto* c11 = chart + (x1i * cw + y1i) * 3;
 #pragma unroll
                   for (int c = 0; c < 3; ++c) {
                     const float tex =
-                        (1.0f - fx) * ((1.0f - fy) * __ldg(c00 + c) +
-                                       fy * __ldg(c01 + c)) +
-                        fx * ((1.0f - fy) * __ldg(c10 + c) +
-                              fy * __ldg(c11 + c));
+                        (1.0f - fx) * ((1.0f - fy) * load_texel(c00 + c) +
+                                       fy * load_texel(c01 + c)) +
+                        fx * ((1.0f - fy) * load_texel(c10 + c) +
+                              fy * load_texel(c11 + c));
                     acc[c][0] = acc[c][0] + w * r[21 + c];
                     acc[3 + c][0] = acc[3 + c][0] + w * tex;
                   }
@@ -550,7 +567,7 @@ __device__ __forceinline__ void forward_tile(
     } else {
       for (int s = 0; s < n; ++s) {
         const float* r = s_rec + s * kRec;
-        const float* chart = kEdit ? nullptr : slots.chart(s, base + s);
+        const auto* chart = kEdit ? nullptr : slots.chart(s, base + s);
 #pragma unroll
         for (int j = 0; j < kPix; ++j) {
           if (!inside[j] || !(T[j] > kTEps)) continue;
@@ -601,16 +618,17 @@ __device__ __forceinline__ void forward_tile(
             const int y0i = static_cast<int>(y0);
             const int x1i = min(x0i + 1, static_cast<int>(hf) - 1);
             const int y1i = min(y0i + 1, static_cast<int>(wf) - 1);
-            const float* c00 = chart + (x0i * cw + y0i) * 3;
-            const float* c01 = chart + (x0i * cw + y1i) * 3;
-            const float* c10 = chart + (x1i * cw + y0i) * 3;
-            const float* c11 = chart + (x1i * cw + y1i) * 3;
+            const auto* c00 = chart + (x0i * cw + y0i) * 3;
+            const auto* c01 = chart + (x0i * cw + y1i) * 3;
+            const auto* c10 = chart + (x1i * cw + y0i) * 3;
+            const auto* c11 = chart + (x1i * cw + y1i) * 3;
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
               const float tex =
-                  (1.0f - fx) *
-                      ((1.0f - fy) * __ldg(c00 + c) + fy * __ldg(c01 + c)) +
-                  fx * ((1.0f - fy) * __ldg(c10 + c) + fy * __ldg(c11 + c));
+                  (1.0f - fx) * ((1.0f - fy) * load_texel(c00 + c) +
+                                 fy * load_texel(c01 + c)) +
+                  fx * ((1.0f - fy) * load_texel(c10 + c) +
+                        fy * load_texel(c11 + c));
               acc[c][j] = acc[c][j] + w * r[21 + c];
               acc[3 + c][j] = acc[3 + c][j] + w * tex;
             }
@@ -785,7 +803,7 @@ __device__ __forceinline__ void backward_tile(
     for (int s = n - 1; s >= 0; --s) {
       const int k = base + s;
       const float* r = s_rec + s * kRec;
-      const float* chart = slots.chart(s, k);
+      const auto* chart = slots.chart(s, k);
       float* dch = slots.dchart(s, k);
       // kShflT pads the fields to a warp's 32 lanes
       float v[kShflT ? 32 : kFields];
@@ -865,8 +883,10 @@ __device__ __forceinline__ void backward_tile(
         float d_x = 0.0f, d_y = 0.0f;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float c00 = __ldg(chart + o00 + c), c01 = __ldg(chart + o01 + c);
-          const float c10 = __ldg(chart + o10 + c), c11 = __ldg(chart + o11 + c);
+          const float c00 = load_texel(chart + o00 + c);
+          const float c01 = load_texel(chart + o01 + c);
+          const float c10 = load_texel(chart + o10 + c);
+          const float c11 = load_texel(chart + o11 + c);
           const float row0 = (1.0f - fy) * c00 + fy * c01;
           const float row1 = (1.0f - fy) * c10 + fy * c11;
           texk[c] = (1.0f - fx) * row0 + fx * row1;
@@ -889,7 +909,7 @@ __device__ __forceinline__ void backward_tile(
         if (fx == 0.0f || fy == 0.0f) {
           const auto texel = [&](int row, int col, int c) {
             return (row >= 0 && row < ch && col >= 0 && col < cw)
-                       ? __ldg(chart + (row * cw + col) * 3 + c)
+                       ? load_texel(chart + (row * cw + col) * 3 + c)
                        : 0.0f;
           };
           if (fx == 0.0f) {

@@ -10,9 +10,9 @@ the flat pair-list kernels, the dense-list kernels (large chart pads,
 forward-only for serving (``eval_only=True``) and differentiable for
 training. With ``use_normal_loss`` the normal loss holds the rendered
 normals against normals estimated from the rendered depth
-(``ops/normals.py``). The bf16 texel stream arrives with a later slice of
-the port and raises ``NotImplementedError`` here, naming its ROADMAP
-item.
+(``ops/normals.py``). ``texel_dtype="bf16"`` streams the albedo charts to
+the flat kernels in bf16 (``_table_dtype``), as the JAX package's flat
+tier does; the parameters, their gradients and every sum stay float32.
 """
 
 from __future__ import annotations
@@ -96,6 +96,13 @@ class GStexConfig:
     def grid(self, height: int, width: int) -> TileGrid:
         return TileGrid(height=height, width=width, tile_h=self.tile_h,
                         tile_w=self.tile_w)
+
+
+def _table_dtype(cfg: GStexConfig):
+    """The flat kernels' chart dtype for the ``texel_dtype`` knob: bf16
+    texel streams (f32 accumulation everywhere), else None (float32). The
+    JAX package passes it to its flat tier only, and so does ``render``."""
+    return torch.bfloat16 if cfg.texel_dtype == "bf16" else None
 
 
 # renderers whose training render takes the pair-space kernels, by version
@@ -385,9 +392,6 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
     renderer = cfg.renderer
     if not (renderer in ("oracle", "xla") or renderer.startswith("pallas")):
         raise ValueError(f"unknown renderer {renderer!r}")
-    if cfg.texel_dtype == "bf16":
-        raise NotImplementedError(
-            "texel_dtype='bf16' (bf16 chart stream): ROADMAP Queue 1 item 6")
     # the "gstex.*" ranges name the stages in a torch.profiler trace
     with record_function("gstex.prepare"):
         prep = prepare_splats(
@@ -447,11 +451,13 @@ def render(cfg: GStexConfig, params: GStexParams, buffers: GStexBuffers,
         if use_flat and eval_only:
             out = rasterize_pl5_eval(prep.geom, texture, hw, bins, cam, grid,
                                      s_cap=cfg.s_max, px_offset=px_offset,
-                                     background=background)
+                                     background=background,
+                                     table_dtype=_table_dtype(cfg))
         elif use_flat:
             out = rasterize_pl5(prep.geom, texture, hw, bins, cam, grid,
                                 s_cap=cfg.s_max, px_offset=px_offset,
-                                lean=lean_losses(cfg), background=background)
+                                lean=lean_losses(cfg), background=background,
+                                table_dtype=_table_dtype(cfg))
         elif kernels and eval_only:
             out = rasterize_pl_eval(prep.geom, texture, hw, bins, cam, grid,
                                     px_offset=px_offset,
@@ -597,6 +603,46 @@ def loss_fn(cfg: GStexConfig, outputs: dict, gt_rgb: torch.Tensor,
     total = main + normal_loss + reg_loss
     return total, {"main_loss": main, "l1": l1, "ssim_loss": simloss,
                    "normal_loss": normal_loss, "reg_loss": reg_loss}
+
+
+def _row_index(mask, like: torch.Tensor) -> torch.Tensor:
+    """The rows a (N,) bool ``mask`` (a tensor, a numpy array or a list)
+    selects of ``like``'s N, as an int64 index tensor on its device."""
+    mask = torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask)
+                           else mask, device=like.device)
+    if mask.dtype != torch.bool or tuple(mask.shape) != (like.shape[0],):
+        raise ValueError(f"the mask must be a ({like.shape[0]},) bool, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    return torch.nonzero(mask).flatten()
+
+
+def _per_gaussian(params: GStexParams, buffers: GStexBuffers, fn):
+    """``fn`` applied to every per-gaussian leaf; ``pixel_scale`` kept."""
+    return (GStexParams(*(fn(x) for x in params)),
+            GStexBuffers(texture_hw=fn(buffers.texture_hw),
+                         mappings=fn(buffers.mappings),
+                         pixel_scale=buffers.pixel_scale,
+                         test_colors=fn(buffers.test_colors)))
+
+
+def cull_gaussians(params: GStexParams, buffers: GStexBuffers, keep_mask):
+    """Remove gaussians (the JAX package's ``cull_gaussians``): the rows
+    of every per-gaussian leaf where the (N,) bool ``keep_mask`` is set.
+    With dense charts this is a row select; it runs on the leaves' device
+    through an index tensor."""
+    keep = _row_index(keep_mask, params.means)
+    return _per_gaussian(params, buffers,
+                         lambda x: x.detach().index_select(0, keep))
+
+
+def duplicate_gaussians(params: GStexParams, buffers: GStexBuffers,
+                        dup_mask):
+    """Append copies of the gaussians where the (N,) bool ``dup_mask`` is
+    set (the JAX package's ``duplicate_gaussians``), after the N rows of
+    every per-gaussian leaf, on the leaves' device."""
+    dup = _row_index(dup_mask, params.means)
+    return _per_gaussian(params, buffers, lambda x: torch.cat(
+        [x.detach(), x.detach().index_select(0, dup)], dim=0))
 
 
 def sample_background(cfg: GStexConfig,

@@ -2,7 +2,8 @@
 
 Each wrapper of a hand-written kernel registers itself here (``counted``)
 and adds one to its ``launches`` where it launches its kernel, and
-nowhere else. A CUDA graph's capture runs the wrappers without running
+nowhere else; an entry that a wrapper of another name launches registers
+an ``EntryCount``. A CUDA graph's capture runs the wrappers without running
 their kernels, and its replays run the kernels without the wrappers, so
 the code that captures a graph takes back the launches its capture
 counted (``take_back``) and adds them once a replay (``add``).
@@ -20,6 +21,20 @@ def counted(fn):
     fn.launches = 0
     WRAPPERS.append(fn)
     return fn
+
+
+class EntryCount:
+    """The launch count of a kernel entry that has no wrapper of its own:
+    a bf16 chart entry, which the float32 entry's wrapper launches when
+    the charts are bfloat16. It carries a wrapper's ``__name__`` and
+    ``launches``, and is not called."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+    def __repr__(self):
+        return f"EntryCount({self.__name__!r})"
 
 
 def snapshot() -> dict:

@@ -4,7 +4,14 @@
 (``rasterize_pl``, ``rasterize_pl_eval``; ``rasterize_pl`` also trains on
 the pair-space v3, v2 and v1 kernels over the same lists) and the rule that
 chooses between flat and dense (``use_flat_path``, ``flat_pad_rule``,
-``dense_pallas_fits``)."""
+``dense_pallas_fits``).
+
+The flat path takes ``table_dtype``: ``torch.bfloat16`` streams the albedo
+charts to its kernels in bf16 (``GStexConfig.texel_dtype="bf16"``, the
+JAX package's bf16 chart table), rounded to nearest even; each texel is
+widened to float32 as it is read, and the weights, the blend, every
+gradient and every sum stay float32. The dense and pair-space paths take
+float32 charts only, as the JAX package's do."""
 
 from __future__ import annotations
 
@@ -101,22 +108,30 @@ def _compose(maps: torch.Tensor, background) -> dict:
     return out
 
 
+def _table(texture: torch.Tensor, table_dtype) -> torch.Tensor:
+    """The charts the flat kernels read: ``texture`` (float32) in
+    ``table_dtype`` (None: float32), contiguous."""
+    return texture.to(table_dtype or torch.float32).contiguous()
+
+
 def rasterize_pl5_eval(geom: SplatGeom, texture: torch.Tensor,
                        texture_hw: torch.Tensor, fbins: FlatBins,
                        cam: Camera, grid: TileGrid, s_cap: int,
-                       px_offset=None, background=None) -> dict:
+                       px_offset=None, background=None,
+                       table_dtype=None) -> dict:
     """Flat-path forward-only render: ``img`` and ``texture_rgb`` (H, W, 3),
     ``depth`` and ``alpha`` (H, W), and, given a ``background`` (3,),
     ``rgb`` = clip(img + tex + (1−α)·bg, 0, 1). The kernel takes the tiles
-    longest first, in an order computed once a frame."""
+    longest first, in an order computed once a frame. ``table_dtype``
+    ``torch.bfloat16`` streams the charts in bf16 (the module's note)."""
     with record_function("gstex.records"):
         records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
         info = cam_info(cam, px_offset)
     with record_function("gstex.eval_kernel"):
         order = tile_order(fbins.counts, s_cap)
         maps = rasterize_eval(records, fbins.gids, fbins.starts,
-                              fbins.counts, texture.contiguous(), info, grid,
-                              s_cap, order=order)
+                              fbins.counts, _table(texture, table_dtype),
+                              info, grid, s_cap, order=order)
     with record_function("gstex.compose"):
         return _compose(maps, background)
 
@@ -125,15 +140,22 @@ class _Rasterize5(torch.autograd.Function):
     """(records, charts) -> (14, H, W) maps, ncontrib; the backward runs
     ``rasterize_bwd`` on the cotangents of the first 12 maps (the
     counterpart of ``_core5``'s custom VJP). Both kernels take the tiles in
-    one order, computed once."""
+    one order, computed once.
+
+    ``charts`` is the float32 albedo. With ``table_dtype`` bf16 the
+    forward makes the bf16 table itself, hands it to both kernels and
+    saves it (half the saved bytes); the backward returns the kernel's
+    float32 chart gradient for the float32 input. Cast before ``apply``,
+    autograd would round that gradient to bf16 on its way back."""
 
     @staticmethod
     def forward(ctx, records, charts, gids, starts, counts, info, grid,
-                s_cap, lean):
+                s_cap, lean, table_dtype=None):
         order = tile_order(counts, s_cap)
-        maps, ncon = rasterize_fwd(records, gids, starts, counts, charts,
+        table = _table(charts, table_dtype)
+        maps, ncon = rasterize_fwd(records, gids, starts, counts, table,
                                    info, grid, s_cap, lean=lean, order=order)
-        ctx.save_for_backward(records, charts, gids, starts, counts, info,
+        ctx.save_for_backward(records, table, gids, starts, counts, info,
                               maps, ncon, order)
         ctx.grid, ctx.s_cap, ctx.lean = grid, s_cap, lean
         ctx.mark_non_differentiable(ncon)
@@ -147,25 +169,28 @@ class _Rasterize5(torch.autograd.Function):
             records, gids, starts, counts, charts, info, maps, ncon,
             g_maps[:NG].contiguous(), ctx.grid, ctx.s_cap, lean=ctx.lean,
             order=order)
-        return d_rec, d_ch, None, None, None, None, None, None, None
+        return d_rec, d_ch, None, None, None, None, None, None, None, None
 
 
 def rasterize_pl5(geom: SplatGeom, texture: torch.Tensor,
                   texture_hw: torch.Tensor, fbins: FlatBins, cam: Camera,
                   grid: TileGrid, s_cap: int, px_offset=None,
-                  lean: bool = False, background=None) -> dict:
+                  lean: bool = False, background=None,
+                  table_dtype=None) -> dict:
     """Flat-path training render, differentiable in ``geom`` and
     ``texture``: the maps of ``rasterize_pl5_eval`` plus ``normal``
     (H, W, 3) and ``reg`` (H, W). ``lean=True`` (only where the reg and
     normal loss terms are statically zero) skips their compute chains in
-    both kernels; those maps come back as zeros."""
+    both kernels; those maps come back as zeros. ``table_dtype``
+    ``torch.bfloat16`` streams the charts in bf16; ``texture``'s gradient
+    stays float32 (``_Rasterize5``)."""
     with record_function("gstex.records"):
         records = assemble_records(geom, cam.c2w[:3, 3], texture_hw)
         info = cam_info(cam, px_offset)
     with record_function("gstex.fwd_kernel"):
         maps, _ = _Rasterize5.apply(records, texture.contiguous(),
                                     fbins.gids, fbins.starts, fbins.counts,
-                                    info, grid, s_cap, lean)
+                                    info, grid, s_cap, lean, table_dtype)
     with record_function("gstex.compose"):
         out = _compose(maps, background)
         out["normal"] = maps[8:11].permute(1, 2, 0)

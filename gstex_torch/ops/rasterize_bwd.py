@@ -19,6 +19,12 @@ form of the bilinear fetch: weights ``max(0, 1 − |x − a|)`` over rows
 zero. The kernel takes the forward's 2 x 2 fetch and its differences,
 which is the same function (two-sided where a sample sits exactly on a
 texel).
+
+The charts are float32 or bfloat16 (the bf16 chart stream); the wrapper
+picks the kernel's entry by their dtype, and bfloat16 charts' launches
+count on ``rasterize_bwd_bf16``. ``d_charts`` is float32 for both: a texel
+gradient does not depend on the texels, and is never rounded to bf16. The
+plain version reads ``charts.float()``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import ctypes
 import torch
 
 from .binning import TileGrid
-from .launch_counts import counted
+from .launch_counts import EntryCount, counted
 from .rasterize_fwd import (KFAC_NEAR, NCH, NG, check_inputs, pixel_grid,
                             response, tile_order)
 from .records import F_REC
@@ -210,7 +216,8 @@ def rasterize_bwd_reference(records, gids, starts, counts, charts,
     dev = records.device
     n = records.shape[0]
     ch, cw = charts.shape[1], charts.shape[2]
-    charts_flat = charts.reshape(-1, 3)
+    # bf16 charts widened as the kernel widens each texel it reads
+    charts_flat = charts.float().reshape(-1, 3)
     gx, gy, (d0, d1, d2), inside = pixel_grid(grid, cam_info)
     g = tile_planes(gmaps, grid)                               # (12, T, P)
     fw = tile_planes(maps[[7, 12, 13]], grid)        # alpha, t_final, m1
@@ -279,8 +286,10 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
     ``maps`` (14, H, W) and ``ncontrib`` (H, W) are ``rasterize_fwd``'s
     outputs for the same inputs, ``gmaps`` (12, H, W) the cotangents of
     its first 12 channels; ``order`` is ``rasterize_fwd.tile_order``'s,
-    computed here if not given. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (and raise if it cannot launch).
+    computed here if not given. ``d_charts`` is float32 whatever the
+    charts' dtype. CPU tensors run the plain version; CUDA tensors launch
+    the kernel's entry for the charts' dtype (and raise if it cannot
+    launch).
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                  s_cap, order)
@@ -295,13 +304,14 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
     from . import _build
 
     lib = _build.load("rasterize_bwd")
-    fn = lib.gstex_rasterize_bwd
+    bf16 = charts.dtype == torch.bfloat16
+    fn = lib.gstex_rasterize_bwd_bf16 if bf16 else lib.gstex_rasterize_bwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ch, cw = charts.shape[1], charts.shape[2]
     d_rec = torch.zeros_like(records)
-    d_ch = torch.zeros_like(charts)
+    d_ch = torch.zeros_like(charts, dtype=torch.float32)
     with torch.cuda.device(dev):
         if order is None:
             order = tile_order(counts, s_cap)
@@ -315,22 +325,27 @@ def rasterize_bwd(records, gids, starts, counts, charts, cam_info, maps,
     if rc != 0:
         raise RuntimeError(f"rasterize_bwd kernel launch failed: "
                            f"cudaError {rc}")
-    rasterize_bwd.launches += 1
+    (rasterize_bwd_bf16 if bf16 else rasterize_bwd).launches += 1
     return d_rec, d_ch
 
 
-# kernel launches since the last reset (CPU calls do not count;
-# ``launch_counts``)
+# kernel launches since the last reset, one count an entry (CPU calls do
+# not count; ``launch_counts``)
 counted(rasterize_bwd)
+# the bf16 chart entry, which ``rasterize_bwd`` launches on bfloat16 charts
+rasterize_bwd_bf16 = counted(EntryCount("rasterize_bwd_bf16"))
 
 
-def launch_smem(tile_h: int, tile_w: int) -> int:
-    """Bytes of shared memory a launch of the backward kernel takes at
-    ``tile_h x tile_w`` tiles: its static arrays and the tile's 14
-    per-pixel planes. The chart pad does not enter it."""
+def launch_smem(tile_h: int, tile_w: int, bf16: bool = False) -> int:
+    """Bytes of shared memory a launch of the backward kernel (its bf16
+    chart entry with ``bf16``) takes at ``tile_h x tile_w`` tiles: its
+    static arrays and the tile's 14 per-pixel planes. The chart pad does
+    not enter it."""
     from . import _build
 
-    fn = _build.load("rasterize_bwd").gstex_rasterize_bwd_smem
+    lib = _build.load("rasterize_bwd")
+    fn = (lib.gstex_rasterize_bwd_bf16_smem if bf16
+          else lib.gstex_rasterize_bwd_smem)
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(tile_h, tile_w)

@@ -9,6 +9,11 @@ training forward's walk (``rasterize_fwd``) without the training outputs:
 records staged in chunks through shared memory, texels read from the
 charts in device memory, so no shared memory grows with the chart pad;
 tiles taken longest first (``rasterize_fwd.tile_order``).
+
+The charts are float32 or bfloat16 (the bf16 chart stream); the wrapper
+picks the kernel's entry by their dtype, and bfloat16 charts' launches
+count on ``rasterize_eval_bf16``. The plain version reads
+``charts.float()``, so either entry is bit-equal to it.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import ctypes
 import torch
 
 from .binning import TileGrid
-from .launch_counts import counted
+from .launch_counts import EntryCount, counted
 from .rasterize_fwd import check_inputs, forward_walk, tile_order
 
 
@@ -41,15 +46,15 @@ def rasterize_eval(records, gids, starts, counts, charts, cam_info,
     Args:
         records: (N, F_REC) float32 per-gaussian records.
         gids, starts, counts: ``FlatBins`` fields (int32).
-        charts: (N, Ch, Cw, 3) float32 albedo charts.
+        charts: (N, Ch, Cw, 3) float32 or bfloat16 albedo charts.
         cam_info: (18,) float32.
         s_cap: per-tile walk clamp.
         order: ``tile_order(counts, s_cap)``, the order in which blocks
             take the tiles; computed here if not given.
 
     ``records`` must be 16-byte aligned. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (and raise if it cannot
-    launch).
+    version; CUDA tensors launch the kernel's entry for the charts' dtype
+    (and raise if it cannot launch).
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                  s_cap, order)
@@ -62,7 +67,8 @@ def rasterize_eval(records, gids, starts, counts, charts, cam_info,
     from . import _build
 
     lib = _build.load("rasterize_eval")
-    fn = lib.gstex_rasterize_eval
+    bf16 = charts.dtype == torch.bfloat16
+    fn = lib.gstex_rasterize_eval_bf16 if bf16 else lib.gstex_rasterize_eval
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -81,21 +87,26 @@ def rasterize_eval(records, gids, starts, counts, charts, cam_info,
     if rc != 0:
         raise RuntimeError(f"rasterize_eval kernel launch failed: "
                            f"cudaError {rc}")
-    rasterize_eval.launches += 1
+    (rasterize_eval_bf16 if bf16 else rasterize_eval).launches += 1
     return out
 
 
-# kernel launches since the last reset (CPU calls do not count;
-# ``launch_counts``)
+# kernel launches since the last reset, one count an entry (CPU calls do
+# not count; ``launch_counts``)
 counted(rasterize_eval)
+# the bf16 chart entry, which ``rasterize_eval`` launches on bfloat16 charts
+rasterize_eval_bf16 = counted(EntryCount("rasterize_eval_bf16"))
 
 
-def launch_smem() -> int:
-    """Bytes of shared memory a launch of the eval kernel takes: its static
-    arrays, the same for every tile size and chart pad."""
+def launch_smem(bf16: bool = False) -> int:
+    """Bytes of shared memory a launch of the eval kernel (its bf16 chart
+    entry with ``bf16``) takes: its static arrays, the same for every tile
+    size and chart pad."""
     from . import _build
 
-    fn = _build.load("rasterize_eval").gstex_rasterize_eval_smem
+    lib = _build.load("rasterize_eval")
+    fn = (lib.gstex_rasterize_eval_bf16_smem if bf16
+          else lib.gstex_rasterize_eval_smem)
     fn.argtypes = []
     fn.restype = ctypes.c_int
     return fn()

@@ -10,6 +10,13 @@ T_EPS, which is not blended, else ``s_cap``). The maps come back as
 ``(14, H, W)`` planes in ``CH_NAMES`` order plus ``ncontrib`` ``(H, W)``
 int32. ``lean=True`` skips the normal and reg chains; their planes stay
 zero.
+
+The charts are float32 or bfloat16 (the bf16 chart stream of
+``GStexConfig.texel_dtype="bf16"``); the wrapper picks the kernel's entry
+by their dtype, and bfloat16 charts' launches count on
+``rasterize_fwd_bf16``. A bf16 texel is widened to float32 as it is read
+and everything after is float32, so the plain version reads
+``charts.float()``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import numpy as np
 import torch
 
 from .binning import TileGrid
-from .launch_counts import counted
+from .launch_counts import EntryCount, counted
 from .records import F_REC
 from .surfel import (AA_SIGMA2, ALPHA_CLAMP, ALPHA_CUTOFF, EXTENT_SIGMA,
                      REG_FAR, REG_NEAR, T_EPS)
@@ -31,6 +38,9 @@ MAX_TILE_PIXELS = THREADS * 4
 CH_NAMES = ("img0", "img1", "img2", "tex0", "tex1", "tex2", "depth",
             "alpha", "n0", "n1", "n2", "reg", "t_final", "m1")
 NCH = len(CH_NAMES)
+# the charts' dtypes the flat kernels take: float32, and bfloat16 for the
+# bf16 chart stream
+CHART_DTYPES = (torch.float32, torch.bfloat16)
 # channels that carry a cotangent (t_final and m1 are residuals)
 NG = 12
 # float32 constants of the depth map m(t) = KFAC·(1 − NEAR/max(t, NEAR)),
@@ -88,7 +98,7 @@ def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
         "gids": (gids, torch.int32, None),
         "starts": (starts, torch.int32, (grid.num_tiles,)),
         "counts": (counts, torch.int32, (grid.num_tiles,)),
-        "charts": (charts, torch.float32, None),
+        "charts": (charts, CHART_DTYPES, None),
         "cam_info": (cam_info, torch.float32, (18,)),
     }
     if order is not None:
@@ -96,7 +106,7 @@ def check_inputs(records, gids, starts, counts, charts, cam_info, grid,
     for name, (x, dtype, shape) in spec.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, records on {dev}")
-        if x.dtype != dtype:
+        if x.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if shape is not None and tuple(x.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
@@ -233,7 +243,8 @@ def forward_walk(records, gids, starts, counts, charts, cam_info,
     nt = grid.num_tiles
     pix = grid.tile_h * grid.tile_w
     ch, cw = charts.shape[1], charts.shape[2]
-    charts_flat = charts.reshape(-1, 3)
+    # bf16 charts widened as the kernels widen each texel they read
+    charts_flat = charts.float().reshape(-1, 3)
     gx, gy, (d0, d1, d2), inside = pixel_grid(grid, cam_info)
     n_walk = torch.clamp(counts.long(), max=s_cap)
     starts = starts.long()
@@ -328,8 +339,8 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
 
     Arguments as ``rasterize_eval.rasterize_eval``; ``order`` is
     ``tile_order(counts, s_cap)``, computed here if not given. CPU tensors
-    run the plain version; CUDA tensors launch the kernel (and raise if it
-    cannot launch).
+    run the plain version; CUDA tensors launch the kernel's entry for the
+    charts' dtype (and raise if it cannot launch).
     """
     check_inputs(records, gids, starts, counts, charts, cam_info, grid,
                  s_cap, order)
@@ -343,7 +354,8 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
     from . import _build
 
     lib = _build.load("rasterize_fwd")
-    fn = lib.gstex_rasterize_fwd
+    bf16 = charts.dtype == torch.bfloat16
+    fn = lib.gstex_rasterize_fwd_bf16 if bf16 else lib.gstex_rasterize_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -364,21 +376,26 @@ def rasterize_fwd(records, gids, starts, counts, charts, cam_info,
     if rc != 0:
         raise RuntimeError(f"rasterize_fwd kernel launch failed: "
                            f"cudaError {rc}")
-    rasterize_fwd.launches += 1
+    (rasterize_fwd_bf16 if bf16 else rasterize_fwd).launches += 1
     return out, ncon
 
 
-# kernel launches since the last reset (CPU calls do not count;
-# ``launch_counts``)
+# kernel launches since the last reset, one count an entry (CPU calls do
+# not count; ``launch_counts``)
 counted(rasterize_fwd)
+# the bf16 chart entry, which ``rasterize_fwd`` launches on bfloat16 charts
+rasterize_fwd_bf16 = counted(EntryCount("rasterize_fwd_bf16"))
 
 
-def launch_smem() -> int:
-    """Bytes of shared memory a launch of the forward kernel takes: its
-    static arrays, the same for every tile size and chart pad."""
+def launch_smem(bf16: bool = False) -> int:
+    """Bytes of shared memory a launch of the forward kernel (its bf16
+    chart entry with ``bf16``) takes: its static arrays, the same for every
+    tile size and chart pad."""
     from . import _build
 
-    fn = _build.load("rasterize_fwd").gstex_rasterize_fwd_smem
+    lib = _build.load("rasterize_fwd")
+    fn = (lib.gstex_rasterize_fwd_bf16_smem if bf16
+          else lib.gstex_rasterize_fwd_smem)
     fn.argtypes = []
     fn.restype = ctypes.c_int
     return fn()

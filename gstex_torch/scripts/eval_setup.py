@@ -9,6 +9,13 @@ the dataset, and the model, optimizer and trainer configs with every
 the config, the train and test image caches through the run's own
 dataparser, and a ``Trainer`` whose state is the latest checkpoint's.
 
+A ``gstex-train`` run of the JAX package serves the same way: its
+``config.json`` (the same method, data and config sections; a field it
+lacks takes the JAX package's default, which is the port's, and an auto
+chart pad is pinned from the checkpoint's charts) and its latest
+``checkpoints/step-*.ckpt.npz``, read with numpy
+(``utils/checkpoint.py:jax_scene`` and ``load_jax_checkpoint``).
+
 The template state takes its leaf shapes from the checkpoint, never from a
 fresh init: a re-chart changes the scene's ``texture_hw``, ``pixel_scale``
 and ``mappings``, which only the checkpoint's buffers hold. The restored
@@ -57,8 +64,9 @@ def _config(cls, saved: dict):
 
 def eval_setup(load_config, device=None):
     """``(trainer, method, config)`` of the run at ``load_config`` (a run
-    directory or its ``config.json``), on ``device`` (default the card).
-    Raises ``FileNotFoundError`` where the run has no checkpoint."""
+    directory or its ``config.json``; the port's, or the JAX package's),
+    on ``device`` (default the card). Raises ``FileNotFoundError`` where
+    the run has no checkpoint."""
     run_dir = run_dir_of(load_config)
     dev = resolve_device(device)
     cfg = json.loads((run_dir / "config.json").read_text())
@@ -69,7 +77,9 @@ def eval_setup(load_config, device=None):
         _config(TrainerConfig, cfg["trainer"]), output_dir=str(run_dir),
         load_checkpoint=None, demand_size_caps=False)
 
-    ck = ckpt_io.latest_checkpoint(run_dir / "checkpoints")
+    # the port's checkpoint, else a JAX run's
+    ck = (ckpt_io.latest_checkpoint(run_dir / "checkpoints")
+          or ckpt_io.latest_checkpoint(run_dir / "checkpoints", ".ckpt.npz"))
     if ck is None:
         raise FileNotFoundError(f"no checkpoint in {run_dir}/checkpoints")
     train_cache = FullImageCache.build(
@@ -83,16 +93,21 @@ def eval_setup(load_config, device=None):
     if eval_parsed is not None and len(eval_parsed.image_filenames) > 0:
         eval_cache = FullImageCache.build(eval_parsed, seed=1, device=dev)
 
-    saved = torch.load(ck, map_location=dev, weights_only=True)
-    params = model.GStexParams(**saved["params"])
-    buffers = model.GStexBuffers(**saved["buffers"])
+    if ck.name.endswith(".ckpt.npz"):
+        params, buffers, step = ckpt_io.jax_scene(ck, dev)
+    else:
+        saved = torch.load(ck, map_location=dev, weights_only=True)
+        params = model.GStexParams(**saved["params"])
+        buffers = model.GStexBuffers(**saved["buffers"])
+        step = int(saved["step"])
     cams = train_cache.cameras + (eval_cache.cameras if eval_cache else [])
     with torch.no_grad():
         pair_cap, s_max = demand_caps(method.model, params, buffers, cams,
-                                      int(saved["step"]))
-    method.model = dataclasses.replace(method.model, pair_cap=pair_cap,
-                                       s_max=s_max)
+                                      step)
+    method.model = dataclasses.replace(
+        method.model, pair_cap=pair_cap, s_max=s_max,
+        chart_pad=tuple(params.texture.shape[1:3]))
     trainer = Trainer(method.trainer, method.model, method.optim, params,
                       buffers, train_cache, eval_cache, cfg)
-    ckpt_io.load_checkpoint(ck, trainer.state)
+    ckpt_io.load_checkpoint(ck, trainer.state, seed=method.trainer.seed)
     return trainer, method, cfg

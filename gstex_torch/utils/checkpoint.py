@@ -47,8 +47,10 @@ def save_checkpoint(ckpt_dir, state, config: dict | None = None,
     return path
 
 
-def latest_checkpoint(ckpt_dir) -> Path | None:
-    ckpts = sorted(Path(ckpt_dir).glob("step-*.ckpt.pt"))
+def latest_checkpoint(ckpt_dir, suffix: str = ".ckpt.pt") -> Path | None:
+    """The newest ``step-*<suffix>`` in ``ckpt_dir`` (the port's
+    ``.ckpt.pt``, or the JAX package's ``.ckpt.npz``), or None."""
+    ckpts = sorted(Path(ckpt_dir).glob(f"step-*{suffix}"))
     return ckpts[-1] if ckpts else None
 
 
@@ -115,6 +117,22 @@ def jax_leaf_paths(accumulated=()) -> list[str]:
         if group in accumulated:
             paths.append(f"{multi}.acc_grads.{leaf}")
     return paths + [".step", ".key"]
+
+
+def jax_scene(path, device):
+    """The params, buffers and step of the JAX package's ``.ckpt.npz``:
+    its first eleven leaves (``jax_leaf_paths``: params, then buffers,
+    whatever the optimizer accumulates) and the step, read with numpy
+    alone, on ``device``; the state a trainer of the run's size is built
+    from before ``load_jax_checkpoint`` restores the rest into it."""
+    n_params = len(model.GStexParams._fields)
+    n_buffers = len(model.GStexBuffers._fields)
+    with np.load(path) as data:
+        leaves = [torch.as_tensor(data[f"leaf_{i}"]).to(device)
+                  for i in range(n_params + n_buffers)]
+        step = int(data[f"leaf_{int(data['n']) - 2}"])
+    return (model.GStexParams(*leaves[:n_params]),
+            model.GStexBuffers(*leaves[n_params:]), step)
 
 
 def _adam_state(count, mu, nu, dev) -> dict:

@@ -45,7 +45,9 @@ def test_sources_found():
             "data/colmap.py", "data/pose_utils.py", "utils/ply.py",
             "data/jpeg.py", "data/undistort.py", "data/fisheye624.py",
             "data/resize.py", "ops/pano.py", "parallel/distributed.py",
-            "parallel/shard.py", "parallel/scaling.py"} <= names
+            "parallel/shard.py", "parallel/scaling.py", "utils/lpips.py",
+            "tools/dbscan.py", "scripts/completions.py",
+            "scripts/dev_test.py"} <= names
 
 
 def test_every_kernel_source_has_a_wrapper():

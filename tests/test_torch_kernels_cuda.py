@@ -52,6 +52,10 @@ plain version under three (the forwards also bit for bit to their own
 output under each): v3 also where its pixels apply slots in three or more
 of its chunks of 16 and where tiles end inside a chunk, and v1 at the
 nerfstudio path's pad and image.
+
+The flat kernels' bf16 chart entries (``texel_dtype="bf16"``) are held to
+their plain versions on the same bf16 charts under the flat gates, at
+every flat case (``-k bf16``).
 """
 
 import pytest
@@ -218,6 +222,61 @@ def test_backward_kernel_matches_plain(cuda, pad, tile, s_cap, lean):
     assert flip <= 1e-5
     assert float(ref_rec.abs().max()) > 0
     assert float(d_rec[:, [12, 13, 14, 16, 17, 18]].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lean", [True, False], ids=["lean", "full"])
+@pytest.mark.parametrize("pad,tile,s_cap", FLAT_CASES, ids=FLAT_IDS)
+def test_bf16_entries_match_plain(cuda, pad, tile, s_cap, lean):
+    """The flat kernels' bf16 chart entries on the charts rounded to bf16,
+    against their plain versions on the same charts: the eval entry bit
+    for bit, the forward within 1e-4 with ncontrib equal, the backward
+    within 1e-4 of each field group's max, its chart gradient float32;
+    each launch counted on its bf16 entry, none on the float32 ones."""
+    inputs, grid, _ = flat_inputs(cuda, pad, tile, s_cap)
+    inputs = (*inputs[:4], inputs[4].to(torch.bfloat16), inputs[5])
+    wrappers = (reval.rasterize_eval, rfwd.rasterize_fwd, rbwd.rasterize_bwd,
+                reval.rasterize_eval_bf16, rfwd.rasterize_fwd_bf16,
+                rbwd.rasterize_bwd_bf16)
+    before = [fn.launches for fn in wrappers]
+    out = reval.rasterize_eval(*inputs, grid, s_cap)
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, s_cap, lean=lean)
+    g = cotangents(cuda)
+    d_rec, d_ch = rbwd.rasterize_bwd(*inputs, maps, ncon, g, grid, s_cap,
+                                     lean=lean)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == [
+        0, 0, 0, 1, 1, 1]
+    assert torch.equal(out, reval.rasterize_eval_reference(
+        *inputs, grid, s_cap)[0])
+    ref, ref_ncon = rfwd.rasterize_fwd_reference(*inputs, grid, s_cap,
+                                                 lean=lean)
+    torch.testing.assert_close(maps, ref, atol=1e-4, rtol=0)
+    assert torch.equal(ncon, ref_ncon)
+    assert d_ch.dtype == torch.float32
+    ref_rec, ref_ch = rbwd.rasterize_bwd_reference(*inputs, maps, ncon, g,
+                                                   grid, s_cap, lean=lean)
+    errs = backward_errors(d_rec, d_ch, ref_rec, ref_ch)
+    flip = errs.pop("texture_flip_frac")
+    assert max(errs.values()) <= 1e-4, errs
+    assert flip <= 1e-5
+
+
+@pytest.mark.cuda
+def test_float32_charts_count_on_the_float32_entries(cuda):
+    """The same wrappers on float32 charts launch the float32 entries:
+    each launch counted there, none on a bf16 entry."""
+    inputs, grid, _ = flat_inputs(cuda, (8, 8), 32, 1024)
+    counts = (reval.rasterize_eval, rfwd.rasterize_fwd, rbwd.rasterize_bwd,
+              reval.rasterize_eval_bf16, rfwd.rasterize_fwd_bf16,
+              rbwd.rasterize_bwd_bf16)
+    before = [c.launches for c in counts]
+    reval.rasterize_eval(*inputs, grid, 1024)
+    maps, ncon = rfwd.rasterize_fwd(*inputs, grid, 1024)
+    rbwd.rasterize_bwd(*inputs, maps, ncon, cotangents(cuda), grid, 1024)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [
+        1, 1, 1, 0, 0, 0]
 
 
 @pytest.mark.cuda

@@ -183,14 +183,15 @@ def test_config_fields_match():
     (dict(renderer="pallas2"), None),
     (dict(renderer="pallas3"), None),
     (dict(renderer="pallas3_interpret", eval_only=False), None),
-    (dict(texel_dtype="bf16"), "Queue 1 item 6"),
+    (dict(texel_dtype="bf16"), None),
     (dict(eval_only=False, use_normal_loss=True), None)])
 def test_unported_requests_raise(change, item):
     """A request of what is still to be ported raises, naming its ROADMAP
-    item; the pair-space tiers and the normal loss (``item`` None), ported
-    since, render: the v1 tier's too, its training render through the v1
-    kernels' plain versions here, and the normal loss's training render
-    with its depth-estimated normals."""
+    item; the pair-space tiers, the normal loss and the bf16 chart stream
+    (``item`` None), ported since, render: the v1 tier's too, its training
+    render through the v1 kernels' plain versions here, the normal loss's
+    training render with its depth-estimated normals, and the flat tier's
+    eval render on bf16 charts."""
     change = dict(change)
     s = scene_np(n=20)
     tp, tb = params_from_jax(*map(to_numpy, jax_params(s)), device="cpu")

@@ -365,6 +365,9 @@ def card_chunk(n=4):
 WRAPPERS = {
     "rasterize_eval": "rasterize_eval", "rasterize_fwd": "rasterize_fwd",
     "rasterize_bwd": "rasterize_bwd",
+    "rasterize_eval_bf16": "rasterize_eval",
+    "rasterize_fwd_bf16": "rasterize_fwd",
+    "rasterize_bwd_bf16": "rasterize_bwd",
     "rasterize_dense_eval": "rasterize_dense",
     "rasterize_dense_fwd": "rasterize_dense",
     "rasterize_dense_bwd": "rasterize_dense",
