@@ -212,6 +212,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``tools/dbscan.py`` on 5000 surfels of phase 5's trained run (the W2
    distances of 256 rows within 1e-5 of the CPU's, the 5000x5000 matrix,
    ``estimate_eps`` and ``DBSCAN.fit`` timed, at least one cluster);
+9f. every JPEG kind PIL decodes and ``--video``: the committed fixtures
+   (``tests/fixtures/jpeg``: progressive, arithmetic-coded sequential and
+   progressive with DAC and restarts, CMYK, YCCK, 4:4:0, 4:1:1,
+   lossless) through the host decoder, each to the sha256 of PIL's bytes
+   in their manifest (the small ones also to ``decode_plain``); the
+   800x800 progressive and arithmetic frames timed (median of 20) beside
+   phase 9d's baseline frame; a Blender capture of them loaded through
+   ``FullImageCache`` to the card; then on phase 5's run ``render spiral
+   --frames 24 --video --fps 24`` (the mp4's boxes parsed: 24 samples,
+   timescale 24, 800x800; its first two VOPs equal to the plain
+   encoder's; 24 eval launches) and a 2-frame equirectangular video at
+   2048x1024 (12 launches), each frame's render and encode ms and luma
+   PSNR printed;
 10. training shapes and timing: for each scene at its training chart pad
    and after a re-chart (the trained scene at (40, 80), the surface scene
    at (8, 8), the trained scene at pixel_num 4e6 at (64, 128), and a
@@ -270,6 +283,7 @@ import hashlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1464,6 +1478,219 @@ def tools_main_path(run_dir, pred, noisy, smi):
             f"DBSCAN on the card: W2 against the CPU {w2_err}, eps {eps}, "
             f"{stats['num_clusters']} clusters")
     return dict(lpips_ms=lpips_ms, pairwise_w2_s=w2_s, fit_s=fit_s)
+
+
+# phase 9f: every JPEG kind PIL decodes (the committed fixtures, through
+# the host decoder), their 800x800 decode times and a capture of them
+# loaded to the card; then gstex-torch-render --video on phase 5's run,
+# perspective and panoramic, the mp4 parsed and its first VOPs held to
+# the encoder's plain version
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+VIDEO_FRAMES = 24
+VIDEO_FPS = 24
+PANO_VIDEO_FRAMES = 2
+
+
+def mp4_boxes(data):
+    """{path of box types: body} of an .mp4's boxes, containers opened."""
+    out = {}
+
+    def walk(pos, stop, prefix):
+        while pos < stop:
+            size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            head = 8
+            if size == 1:
+                size = struct.unpack(">Q", data[pos + 8:pos + 16])[0]
+                head = 16
+            name = prefix + kind.decode()
+            out[name] = data[pos + head:pos + size]
+            if kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+                walk(pos + head, pos + size, name + "/")
+            pos += size
+
+    walk(0, len(data), "")
+    return out
+
+
+def mp4_facts(path):
+    """(samples' bytes in order, mdhd timescale, tkhd width, height)."""
+    b = mp4_boxes(Path(path).read_bytes())
+    stbl = "moov/trak/mdia/minf/stbl/"
+    n = struct.unpack(">I", b[stbl + "stsz"][8:12])[0]
+    sizes = struct.unpack(f">{n}I", b[stbl + "stsz"][12:12 + 4 * n])
+    timescale = struct.unpack(">I", b["moov/trak/mdia/mdhd"][12:16])[0]
+    w, h = struct.unpack(">II", b["moov/trak/tkhd"][-8:])
+    mdat, pos, samples = b["mdat"], 0, []
+    for s in sizes:
+        samples.append(mdat[pos:pos + s])
+        pos += s
+    return samples, timescale, w >> 16, h >> 16
+
+
+def jpeg_fixture_path(root, baseline_decode_ms):
+    """Phase 9f (a)-(c): every committed JPEG fixture through the C++
+    decoder, held to the sha256 of PIL's bytes in the manifest (and the
+    small ones to ``decode_plain``); the 800x800 progressive and
+    arithmetic frames timed (median of 20) beside phase 9d's baseline
+    frame; a Blender capture of those two frames loaded through
+    ``FullImageCache`` to the card."""
+    from gstex_torch.data import jpeg
+    from gstex_torch.data.blender import parse_blender
+    from gstex_torch.data.manager import FullImageCache
+
+    manifest = json.loads((JPEG_FIXTURES / "MANIFEST.json").read_text())
+    checked = {}
+    for name, entry in sorted(manifest.items()):
+        data = (JPEG_FIXTURES / name).read_bytes()
+        require(hashlib.sha256(data).hexdigest() == entry["sha256"],
+                f"jpeg fixture {name}: its bytes are not the manifest's")
+        img = jpeg.decode(data)
+        rgb = np.repeat(img, 3, -1) if img.shape[-1] == 1 else img
+        same = hashlib.sha256(np.ascontiguousarray(rgb).tobytes()
+                              ).hexdigest() == entry["rgb_sha256"]
+        small = img.shape[0] * img.shape[1] <= 64 * 64
+        plain = bool(np.array_equal(jpeg.decode_plain(data), img)) \
+            if small else None
+        checked[name] = {"pil_bytes": same, "plain": plain}
+        require(same and plain is not False,
+                f"jpeg fixture {name}: {checked[name]}")
+    timing = {}
+    for name in ("prog_800.jpg", "arith_800.jpg"):
+        data = (JPEG_FIXTURES / name).read_bytes()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            jpeg.decode(data)
+            times.append(1e3 * (time.perf_counter() - t0))
+        timing[name] = {"decode_ms": statistics.median(times),
+                        "decode_ms_min": min(times), "bytes": len(data)}
+    split = root / "capture_jpeg_kinds"
+    (split / "train").mkdir(parents=True)
+    frames = []
+    for i, name in enumerate(["prog_800.jpg", "arith_800.jpg"] * 4):
+        (split / "train" / f"r_{i}.png").write_bytes(
+            (JPEG_FIXTURES / name).read_bytes())
+        c2w = np.eye(4)
+        c2w[2, 3] = 4.0
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    (split / "transforms_train.json").write_text(json.dumps(
+        {"camera_angle_x": 0.69, "frames": frames}))
+    parsed = parse_blender(split)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = FullImageCache.build(parsed, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = {name: jpeg.decode((JPEG_FIXTURES / name).read_bytes())
+            for name in ("prog_800.jpg", "arith_800.jpg")}
+    loaded = [bool(np.array_equal(
+        np.round(img.cpu().numpy() * 255).astype(np.uint8),
+        want[("prog_800.jpg", "arith_800.jpg")[i % 2]]))
+        for i, img in enumerate(cache.images)]
+    require(len(loaded) == 8 and all(loaded) and all(
+        str(img.device).startswith(DEVICE) for img in cache.images),
+        f"capture of progressive/arithmetic frames: {loaded}")
+    out = dict(fixtures=len(checked), decode=timing,
+               baseline_decode_ms=baseline_decode_ms,
+               capture_load_s=load_s, capture_frames=len(loaded))
+    emit("main_path", path="jpeg_kinds", checked=checked, **out)
+    return out
+
+
+def video_main_path(root, counters, eval_kernel):
+    """Phase 9f (d)-(e) on phase 5's run ``root``: ``gstex_torch.scripts.
+    render spiral --frames 24 --video --fps 24`` (the mp4 parsed: 24
+    samples, timescale 24, 800x800; its first two VOPs equal to
+    ``encode_vop_plain`` of the PNGs; one eval launch a frame), then a
+    2-frame equirectangular video at 2048x1024 (6 launches a frame, its
+    first VOP held to the plain version).
+    Each frame's render (``model.render`` calls, synchronised) and encode
+    ms, and the luma PSNR of the encoder's reconstruction of its PNG
+    (``video.reconstruct``, outside the render CLI, timed: the encode
+    with the reconstruction the writer leaves out)."""
+    from gstex_torch.data import video
+    from gstex_torch.data.png import read_png
+    from gstex_torch.models import gstex as model
+    from gstex_torch.scripts import render as render_cli
+
+    real_render = model.render
+    render_ms = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_render(*args, **kwargs)
+        torch.cuda.synchronize()
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    out = {}
+    for kind, frames, launches, checked, extra in (
+            ("perspective", VIDEO_FRAMES, VIDEO_FRAMES, 2, []),
+            ("equirectangular", PANO_VIDEO_FRAMES, 6 * PANO_VIDEO_FRAMES, 1,
+             ["--camera-type", "equirectangular", "--pano-width",
+              str(PANO_WIDTH)])):
+        for c in counters:
+            c.launches = 0
+        render_ms.clear()
+        out_dir = root / f"video_{kind}"
+        model.render = timed
+        t0 = time.perf_counter()
+        try:
+            summary = render_cli.main([
+                "spiral", "--load-config", str(root), "--frames",
+                str(frames), "--video", "--fps", str(VIDEO_FPS),
+                "--output-path", str(out_dir), *extra])
+        finally:
+            model.render = real_render
+        cli_s = time.perf_counter() - t0
+        got = {c.__name__: c.launches for c in counters}
+        want = {k: (launches if k == eval_kernel.__name__ else 0)
+                for k in got}
+        samples, timescale, w, h = mp4_facts(out_dir / "render.mp4")
+        pngs = sorted(out_dir.glob("frame_*.png"))
+        size = (PANO_WIDTH, PANO_WIDTH // 2) if kind != "perspective" else (
+            W, H)
+        plain_equal, psnr_y, recon_ms = [], [], []
+        for i, png in enumerate(pngs):
+            rgb = read_png(png)
+            luma = video.rgb_to_planes(rgb)[0][:h, :w].astype(np.float64)
+            t1 = time.perf_counter()
+            recon = video.reconstruct(rgb)[0]
+            recon_ms.append(1e3 * (time.perf_counter() - t1))
+            mse = np.mean((recon - luma) ** 2)
+            psnr_y.append(float("inf") if mse == 0
+                          else float(10 * np.log10(255 ** 2 / mse)))
+            if i >= checked:
+                continue
+            data, _ = video.encode_vop_plain(rgb, i, VIDEO_FPS)
+            vop = samples[i][len(video.stream_headers(
+                w, h, VIDEO_FPS)):] if i == 0 else samples[i]
+            plain_equal.append(vop == data)
+        vids = [s["video"] for s in summary]
+        res = dict(frames=frames, samples=len(samples), timescale=timescale,
+                   size=[w, h], launches=got, plain_equal=plain_equal,
+                   encode_ms=statistics.median(v["encode_ms"] for v in vids),
+                   encode_ms_all=[round(v["encode_ms"], 3) for v in vids],
+                   reconstruct_ms=statistics.median(recon_ms),
+                   render_ms=sum(render_ms) / frames,
+                   psnr_y=[round(v, 3) for v in psnr_y],
+                   mp4_bytes=(out_dir / "render.mp4").stat().st_size,
+                   cli_seconds=cli_s)
+        emit("main_path", path=f"video_{kind}", **res)
+        require(len(samples) == frames and len(pngs) == frames
+                and timescale == VIDEO_FPS and (w, h) == size,
+                f"video {kind}: {len(samples)} samples, timescale "
+                f"{timescale}, {w}x{h}")
+        require(got == want, f"video {kind}: launched {got}, not {want}")
+        require(all(plain_equal), f"video {kind}: the C++ VOPs differ from "
+                                  f"the plain version's: {plain_equal}")
+        # an empty view reconstructs exactly: its PSNR is infinite
+        require(all(p > 30 for p in res["psnr_y"]),
+                f"video {kind}: luma PSNR {res['psnr_y']}")
+        out[kind] = res
+    return out
 
 
 def recharted_state(cfg, optim, params, buffers, cam):
@@ -4160,6 +4387,23 @@ def main():
     tools_t = tools_main_path(Path(tmp.name) / "run", pred, noisy, smi)
     emit("phase_9e", seconds=time.perf_counter() - t9e, nvidia_smi=smi,
          **tools_t)
+    torch.cuda.empty_cache()
+
+    # 9f. every JPEG kind PIL decodes, and gstex-torch-render --video on
+    # phase 5's run
+    t9f = time.perf_counter()
+    kinds = jpeg_fixture_path(Path(tmp.name),
+                              capture["timing"]["decode_ms"])
+    videos = video_main_path(Path(tmp.name) / "run", serve_counters,
+                             reval.rasterize_eval)
+    emit("phase_9f", seconds=time.perf_counter() - t9f, nvidia_smi=smi,
+         decode_ms={k: v["decode_ms"] for k, v in kinds["decode"].items()},
+         baseline_decode_ms=kinds["baseline_decode_ms"],
+         capture_load_s=kinds["capture_load_s"],
+         encode_ms={k: v["encode_ms"] for k, v in videos.items()},
+         reconstruct_ms={k: v["reconstruct_ms"] for k, v in videos.items()},
+         render_ms={k: v["render_ms"] for k, v in videos.items()},
+         mp4_bytes={k: v["mp4_bytes"] for k, v in videos.items()})
     torch.cuda.empty_cache()
 
     # 10. timing: an eval frame, then a training step

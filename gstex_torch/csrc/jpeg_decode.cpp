@@ -1,14 +1,21 @@
-// Baseline JPEG decoding on the host, to the bytes of libjpeg-turbo's
-// default decompression (what PIL's Image.open(...).convert("RGB") and
-// cv2.imread return): Huffman entropy decoding of baseline and
-// extended-sequential 8-bit streams (interleaved or one component a scan,
-// restart markers), the integer "islow" inverse DCT of jidctint.c,
-// "fancy" triangular chroma upsampling (h2v1 / h2v2, edges replicated at
-// the component's own size) and jdcolor.c's fixed-point YCbCr->RGB.
-// Grey streams give one channel; 4:4:4, 4:2:2 and 4:2:0 colour give RGB.
-// Progressive, lossless, arithmetic-coded, 12-bit and CMYK streams are
-// refused with a message. The same decoder in Python and numpy is
-// gstex_torch/data/jpeg.py:decode_plain.
+// JPEG decoding on the host, to the bytes of libjpeg-turbo 3's default
+// decompression as PIL's Image.open(...).convert("RGB") returns them:
+// - Huffman streams, baseline and extended-sequential, progressive
+//   (jdphuff.c: DC and AC first and refinement scans, end-of-band runs)
+//   and lossless (jdlossls.c: predictors 1-7, point transform);
+//   arithmetic-coded sequential and progressive streams (jdarith.c: the
+//   QM decoder, DAC conditioning); restart markers throughout;
+// - the integer "islow" inverse DCT of jidctint.c; jdsample.c's
+//   upsampling at every integral factor (fancy h2v1, h1v2, h2v2 where it
+//   applies, box replication otherwise and for lossless streams);
+// - jdcolor.c's fixed-point YCbCr->RGB, and for CMYK / YCCK PIL's
+//   inversion of Adobe CMYK and its CMYK->RGB conversion.
+// Grey streams give one channel, every colour stream RGB. Streams PIL
+// refuses (12-bit, differential, arithmetic lossless, fractional
+// sampling, lossless YCbCr) are refused with a message. A progressive
+// stream whose scans leave low AC coefficients incomplete has its blocks
+// smoothed as jdcoefct.c's decompress_smooth_data does. The same decoder
+// in Python and numpy is gstex_torch/data/jpeg.py:decode_plain.
 //
 // Plain C interface, called through ctypes (which releases the GIL):
 //   gstex_jpeg_info(data, n, hwc[3], err, errlen)   -> 0 or -1
@@ -24,7 +31,101 @@
 
 namespace {
 
-const char* kUnsupported = "ROADMAP Queue 1 item 10";
+const char* kUnsupported =
+    "PIL refuses them too, so the JAX package's loader does";
+constexpr int kMaxBlocksInMcu = 10;
+constexpr int kSmoothedCoefs = 9;
+
+// jdcoefct.c's block smoothing: per zigzag coefficient k (0 the DC), the
+// weights of the 5x5 DC values around a block (rows top to bottom,
+// columns left to right) whose sum, times the DC's quantizer, estimates
+// it. [0] where some AC data was sent (k 1-5 only), [1] where none was.
+const int16_t kSmoothK[2][10][25] = {
+    {
+        {},
+        {0, 0, 0, 0, 0,  // AC01
+         0, 0, 0, 0, 0,
+         -7, 50, 0, -50, 7,
+         0, 0, 0, 0, 0,
+         0, 0, 0, 0, 0},
+        {0, 0, -7, 0, 0,  // AC10
+         0, 0, 50, 0, 0,
+         0, 0, 0, 0, 0,
+         0, 0, -50, 0, 0,
+         0, 0, 7, 0, 0},
+        {0, 0, -1, 0, 0,  // AC20
+         0, 0, 13, 0, 0,
+         0, 0, -24, 0, 0,
+         0, 0, 13, 0, 0,
+         0, 0, -1, 0, 0},
+        {0, -1, 0, 1, 0,  // AC11
+         -1, 10, 0, -10, 1,
+         0, 0, 0, 0, 0,
+         1, -10, 0, 10, -1,
+         0, 1, 0, -1, 0},
+        {0, 0, 0, 0, 0,  // AC02
+         0, 0, 0, 0, 0,
+         -1, 13, -24, 13, -1,
+         0, 0, 0, 0, 0,
+         0, 0, 0, 0, 0},
+        {},
+        {},
+        {},
+        {},
+    },
+    {
+        {-2, -6, -8, -6, -2,  // DC
+         -6, 6, 42, 6, -6,
+         -8, 42, 152, 42, -8,
+         -6, 6, 42, 6, -6,
+         -2, -6, -8, -6, -2},
+        {-1, -1, 0, 1, 1,  // AC01
+         -3, 13, 0, -13, 3,
+         -3, 38, 0, -38, 3,
+         -3, 13, 0, -13, 3,
+         -1, -1, 0, 1, 1},
+        {-1, -3, -3, -3, -1,  // AC10
+         -1, 13, 38, 13, -1,
+         0, 0, 0, 0, 0,
+         1, -13, -38, -13, 1,
+         1, 3, 3, 3, 1},
+        {0, 0, 1, 0, 0,  // AC20
+         0, 2, 7, 2, 0,
+         0, -5, -14, -5, 0,
+         0, 2, 7, 2, 0,
+         0, 0, 1, 0, 0},
+        {-1, 0, 0, 0, 1,  // AC11
+         0, 9, 0, -9, 0,
+         0, 0, 0, 0, 0,
+         0, -9, 0, 9, 0,
+         1, 0, 0, 0, -1},
+        {0, 0, 0, 0, 0,  // AC02
+         0, 2, -5, 2, 0,
+         1, 7, -14, 7, 1,
+         0, 2, -5, 2, 0,
+         0, 0, 0, 0, 0},
+        {0, 0, 0, 0, 0,  // AC03
+         0, 1, 0, -1, 0,
+         0, 2, 0, -2, 0,
+         0, 1, 0, -1, 0,
+         0, 0, 0, 0, 0},
+        {0, 0, 0, 0, 0,  // AC12
+         0, 1, -3, 1, 0,
+         0, 0, 0, 0, 0,
+         0, -1, 3, -1, 0,
+         0, 0, 0, 0, 0},
+        {0, 0, 0, 0, 0,  // AC21
+         0, 1, 0, -1, 0,
+         0, -3, 0, 3, 0,
+         0, 1, 0, -1, 0,
+         0, 0, 0, 0, 0},
+        {0, 0, 0, 0, 0,  // AC30
+         0, 1, 2, 1, 0,
+         0, 0, 0, 0, 0,
+         0, -1, -2, -1, 0,
+         0, 0, 0, 0, 0},
+    },
+};
 
 // zigzag position -> natural index; 16 extra entries keep a corrupt run
 // inside the block, as libjpeg's jpeg_natural_order does
@@ -35,12 +136,66 @@ const int kZigzag[80] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// ITU T.81 Table D.2 as jaricom.c holds it: Qe, next state after an LPS
+// (its MPS switch in bit 7), next state after an MPS; state 113 is the
+// fixed probability 0.5
+struct QeEntry {
+  uint16_t qe;
+  uint8_t nl, nm;
+};
+const QeEntry kQe[114] = {
+    {0x5a1d, 1 | 128, 1},   {0x2586, 14, 2},    {0x1114, 16, 3},
+    {0x080b, 18, 4},        {0x03d8, 20, 5},    {0x01da, 23, 6},
+    {0x00e5, 25, 7},        {0x006f, 28, 8},    {0x0036, 30, 9},
+    {0x001a, 33, 10},       {0x000d, 35, 11},   {0x0006, 9, 12},
+    {0x0003, 10, 13},       {0x0001, 12, 13},   {0x5a7f, 15 | 128, 15},
+    {0x3f25, 36, 16},       {0x2cf2, 38, 17},   {0x207c, 39, 18},
+    {0x17b9, 40, 19},       {0x1182, 42, 20},   {0x0cef, 43, 21},
+    {0x09a1, 45, 22},       {0x072f, 46, 23},   {0x055c, 48, 24},
+    {0x0406, 49, 25},       {0x0303, 51, 26},   {0x0240, 52, 27},
+    {0x01b1, 54, 28},       {0x0144, 56, 29},   {0x00f5, 57, 30},
+    {0x00b7, 59, 31},       {0x008a, 60, 32},   {0x0068, 62, 33},
+    {0x004e, 63, 34},       {0x003b, 32, 35},   {0x002c, 33, 9},
+    {0x5ae1, 37 | 128, 37}, {0x484c, 64, 38},   {0x3a0d, 65, 39},
+    {0x2ef1, 67, 40},       {0x261f, 68, 41},   {0x1f33, 69, 42},
+    {0x19a8, 70, 43},       {0x1518, 72, 44},   {0x1177, 73, 45},
+    {0x0e74, 74, 46},       {0x0bfb, 75, 47},   {0x09f8, 77, 48},
+    {0x0861, 78, 49},       {0x0706, 79, 50},   {0x05cd, 48, 51},
+    {0x04de, 50, 52},       {0x040f, 50, 53},   {0x0363, 51, 54},
+    {0x02d4, 52, 55},       {0x025c, 53, 56},   {0x01f8, 54, 57},
+    {0x01a4, 55, 58},       {0x0160, 56, 59},   {0x0125, 57, 60},
+    {0x00f6, 58, 61},       {0x00cb, 59, 62},   {0x00ab, 61, 63},
+    {0x008f, 61, 32},       {0x5b12, 65 | 128, 65}, {0x4d04, 80, 66},
+    {0x412c, 81, 67},       {0x37d8, 82, 68},   {0x2fe8, 83, 69},
+    {0x293c, 84, 70},       {0x2379, 86, 71},   {0x1edf, 87, 72},
+    {0x1aa9, 87, 73},       {0x174e, 72, 74},   {0x1424, 72, 75},
+    {0x119c, 74, 76},       {0x0f6b, 74, 77},   {0x0d51, 75, 78},
+    {0x0bb6, 77, 79},       {0x0a40, 77, 48},   {0x5832, 80 | 128, 81},
+    {0x4d1c, 88, 82},       {0x438e, 89, 83},   {0x3bdd, 90, 84},
+    {0x34ee, 91, 85},       {0x2eae, 92, 86},   {0x299a, 93, 87},
+    {0x2516, 86, 71},       {0x5570, 88 | 128, 89}, {0x4ca9, 95, 90},
+    {0x44d9, 96, 91},       {0x3e22, 97, 92},   {0x3824, 99, 93},
+    {0x32b4, 99, 94},       {0x2e17, 93, 86},   {0x56a8, 95 | 128, 96},
+    {0x4f46, 101, 97},      {0x47e5, 102, 98},  {0x41cf, 103, 99},
+    {0x3c3d, 104, 100},     {0x375e, 99, 93},   {0x5231, 105, 102},
+    {0x4c0f, 106, 103},     {0x4639, 107, 104}, {0x415e, 103, 99},
+    {0x5627, 105 | 128, 106}, {0x50e7, 108, 107}, {0x4b85, 109, 103},
+    {0x5597, 110, 109},     {0x504f, 111, 107}, {0x5a10, 110 | 128, 111},
+    {0x5522, 112, 109},     {0x59eb, 112 | 128, 111}, {0x5a1d, 113, 113}};
+
 struct Error {
   std::string msg;
 };
 
+[[noreturn]] void fail(const std::string& m) { throw Error{m}; }
+[[noreturn]] void unsupported(const std::string& what) {
+  fail(what + " JPEG streams are not decoded: " + kUnsupported);
+}
+
 struct Huffman {
   bool present = false;
+  bool fits = true;   // no code of all ones: the counts make a prefix code
+  int max_value = 0;  // the greatest symbol
   int mincode[17] = {0};
   int maxcode[18] = {0};
   int valptr[17] = {0};
@@ -50,9 +205,20 @@ struct Huffman {
 
   void build(const uint8_t* bits, const uint8_t* vals, int nvals) {
     present = true;
+    std::memset(values, 0, sizeof(values));
     std::memcpy(values, vals, std::min(nvals, 256));
-    int code = 0, k = 0;
+    max_value = 0;
+    for (int i = 0; i < std::min(nvals, 256); ++i)
+      max_value = std::max(max_value, int(vals[i]));
+    fits = true;
+    for (int len = 1, code = 0; len <= 16; ++len) {
+      code += bits[len - 1];
+      if (code >= (1 << len)) fits = false;
+      code <<= 1;
+    }
     std::memset(look, 0, sizeof(look));
+    if (!fits) return;  // refused where a scan uses it
+    int code = 0, k = 0;
     for (int len = 1; len <= 16; ++len) {
       int n = bits[len - 1];
       valptr[len] = k;
@@ -73,44 +239,56 @@ struct Huffman {
     }
     maxcode[17] = 1 << 30;
   }
+
+  // jdhuff.c's jpeg_make_d_derived_tbl checks, made where a scan uses the
+  // table: a prefix code, and symbols at most `max_symbol` (15 for a DC
+  // table, 16 for a lossless one, 255 for an AC one)
+  bool usable(int max_symbol) const { return fits && max_value <= max_symbol; }
 };
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int rows = 0, cols = 0;    // downsampled_height / downsampled_width
-  int brows = 0, bcols = 0;  // blocks allocated (the MCU grid)
+  int brows = 0, bcols = 0;  // blocks (samples, lossless) of the MCU grid
   std::vector<int16_t> coef;  // brows * bcols * 64, natural order
+  std::vector<uint8_t> samples;  // lossless: rows * cols
+  int coef_bits[64];
 };
 
-// Bit reader over one restart interval's entropy-coded bytes, in place:
-// 0xFF00 is a 0xFF data byte, a marker ends the data (zeros follow).
-struct Bits {
+// Reads one restart interval's entropy-coded bytes in place: 0xFF00 is a
+// 0xFF data byte, a marker ends the data (zeros follow).
+struct Bytes {
   const uint8_t* d;
   long n, pos;
+  bool hit_marker = false;
+
+  unsigned next() {
+    if (hit_marker || pos >= n) return 0;
+    unsigned byte = d[pos];
+    if (byte != 0xFF) {
+      ++pos;
+      return byte;
+    }
+    long p = pos + 1;
+    while (p < n && d[p] == 0xFF) ++p;  // fill bytes
+    if (p < n && d[p] == 0x00) {
+      pos = p + 1;
+      return 0xFF;
+    }
+    hit_marker = true;
+    pos = p - 1;  // at the marker's 0xFF
+    return 0;
+  }
+};
+
+struct Bits {
+  Bytes in;
   uint64_t acc = 0;
   int nacc = 0;
-  bool hit_marker = false;
 
   void fill() {
     while (nacc <= 56) {
-      unsigned byte = 0;
-      if (!hit_marker && pos < n) {
-        byte = d[pos];
-        if (byte == 0xFF) {
-          long p = pos + 1;
-          while (p < n && d[p] == 0xFF) ++p;  // fill bytes
-          if (p < n && d[p] == 0x00) {
-            pos = p + 1;
-          } else {
-            hit_marker = true;
-            pos = p - 1;   // at the marker's 0xFF
-            byte = 0;
-          }
-        } else {
-          ++pos;
-        }
-      }
-      acc |= static_cast<uint64_t>(byte) << (56 - nacc);
+      acc |= static_cast<uint64_t>(in.next()) << (56 - nacc);
       nacc += 8;
     }
   }
@@ -142,14 +320,233 @@ struct Bits {
   }
 };
 
+// jdarith.c's arith_decode: C holds the interval's base and the input
+// bits, CT counts the bits left in it
+struct Arith {
+  Bytes in;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool dead = false;  // a magnitude or spectral overflow ends the interval
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | in.next();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const QeEntry& e = kQe[sv & 0x7F];
+    int64_t qe = e.qe;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ e.nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ e.nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ e.nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ e.nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// one restart interval's arithmetic statistics
+struct ArithStats {
+  uint8_t dc[16][64];
+  uint8_t ac[16][256];
+  uint8_t fixed = 113;
+  int last_dc[4] = {0, 0, 0, 0};
+  int context[4] = {0, 0, 0, 0};
+  ArithStats() {
+    std::memset(dc, 0, sizeof(dc));
+    std::memset(ac, 0, sizeof(ac));
+  }
+};
+
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+inline int16_t s16(int v) { return static_cast<int16_t>(v); }
+
 struct Scan {
-  std::vector<int> comps;
-  std::vector<int> dc, ac;
+  int ns = 0;
+  int comps[4], td[4], ta[4];
+  int ss = 0, se = 63, ah = 0, al = 0;
 };
+
+// ---- Huffman block decoders (jdhuff.c, jdphuff.c) ----
+
+int huff_dc_diff(Bits& b, const Huffman& dc) {
+  int t = b.decode(dc);
+  return t ? extend(b.get(t), t) : 0;
+}
+
+void huff_block(Bits& b, const Huffman& dc, const Huffman& ac, int& pred,
+                int16_t* out) {
+  pred += huff_dc_diff(b, dc);
+  out[0] = s16(pred);
+  for (int k = 1; k < 64;) {
+    int rs = b.decode(ac);
+    int r = rs >> 4, sz = rs & 15;
+    if (sz) {
+      k += r;
+      out[kZigzag[k]] = s16(extend(b.get(sz), sz));
+      ++k;
+    } else if (r == 15) {
+      k += 16;
+    } else {
+      break;
+    }
+  }
+}
+
+void huff_ac_first(Bits& b, const Huffman& ac, int16_t* out, const Scan& s,
+                   int& eobrun) {
+  if (eobrun > 0) {
+    --eobrun;
+    return;
+  }
+  for (int k = s.ss; k <= s.se; ++k) {
+    int rs = b.decode(ac);
+    int r = rs >> 4, sz = rs & 15;
+    if (sz) {
+      k += r;
+      out[kZigzag[k]] =
+          s16(static_cast<int>(static_cast<unsigned>(extend(b.get(sz), sz))
+                               << s.al));
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      eobrun = 1 << r;
+      if (r) eobrun += b.get(r);
+      --eobrun;
+      break;
+    }
+  }
+}
+
+inline void refine(Bits& b, int16_t* coef, int p1, int m1) {
+  if (b.get(1) && (*coef & p1) == 0)
+    *coef = s16(*coef + (*coef >= 0 ? p1 : m1));
+}
+
+void huff_ac_refine(Bits& b, const Huffman& ac, int16_t* out, const Scan& s,
+                    int& eobrun) {
+  const int p1 = 1 << s.al, m1 = -p1;
+  int k = s.ss;
+  if (eobrun == 0) {
+    for (; k <= s.se; ++k) {
+      int rs = b.decode(ac);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        sz = b.get(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = 1 << r;
+        if (r) eobrun += b.get(r);
+        break;
+      }
+      do {
+        int16_t* coef = out + kZigzag[k];
+        if (*coef != 0) {
+          refine(b, coef, p1, m1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= s.se);
+      if (sz) out[kZigzag[k]] = s16(sz);
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= s.se; ++k) {
+      int16_t* coef = out + kZigzag[k];
+      if (*coef != 0) refine(b, coef, p1, m1);
+    }
+    --eobrun;
+  }
+}
+
+// ---- arithmetic block decoders (jdarith.c) ----
+
+// Figure F.23's chain from bin i: m doubles at each 1; returns the bin
+// that ended it (the magnitude bits start 14 further)
+int arith_chain(Arith& ar, uint8_t* st, int& m, int i) {
+  while (ar.decode(st + i)) {
+    if ((m <<= 1) == 0x8000) {
+      ar.dead = true;
+      return i;
+    }
+    ++i;
+  }
+  return i;
+}
+
+int arith_bits(Arith& ar, uint8_t* st, int m, int i) {
+  int v = m;
+  i += 14;
+  while (m >>= 1)
+    if (ar.decode(st + i)) v |= m;
+  return v + 1;
+}
+
+int arith_dc_diff(Arith& ar, ArithStats& stats, int e, int tbl, int lo,
+                  int hi) {
+  uint8_t* st = stats.dc[tbl];
+  int s0 = stats.context[e];
+  if (ar.decode(st + s0) == 0) {
+    stats.context[e] = 0;
+    return 0;
+  }
+  int sign = ar.decode(st + s0 + 1);
+  int i = s0 + 2 + sign;
+  int m = ar.decode(st + i);
+  if (m) {
+    i = arith_chain(ar, st, m, 20);
+    if (ar.dead) return 0;
+  }
+  if (m < static_cast<int>((1L << lo) >> 1))
+    stats.context[e] = 0;
+  else if (m > static_cast<int>((1L << hi) >> 1))
+    stats.context[e] = 12 + sign * 4;
+  else
+    stats.context[e] = 4 + sign * 4;
+  int v = arith_bits(ar, st, m, i);
+  return sign ? -v : v;
+}
+
+// the value of the AC coefficient at zigzag k whose bins start at i (its
+// "nonzero" decision taken)
+int arith_ac_value(Arith& ar, ArithStats& stats, uint8_t* st, int i, int k,
+                   int kx) {
+  int sign = ar.decode(&stats.fixed);
+  i += 2;
+  int m = ar.decode(st + i);
+  if (m && ar.decode(st + i)) {
+    m = 2;
+    i = arith_chain(ar, st, m, k <= kx ? 189 : 217);
+    if (ar.dead) return 0;
+  }
+  int v = arith_bits(ar, st, m, i);
+  return sign ? -v : v;
+}
+
+// ---------------------------------------------------------------------------
 
 struct Decoder {
   const uint8_t* d;
@@ -158,19 +555,19 @@ struct Decoder {
   int restart = 0;
   bool jfif = false;
   int adobe = -1;
-  bool have_frame = false;
+  bool have_frame = false, progressive = false, lossless = false,
+       arith = false;
   std::vector<Component> comps;
   int qt[4][64];
   bool qt_present[4] = {false, false, false, false};
   Huffman huff[2][4];
+  int dac_l[16], dac_u[16], dac_k[16];
   int mcu_rows = 0, mcu_cols = 0;
 
-  Decoder(const uint8_t* data, long len) : d(data), n(len) {}
-
-  [[noreturn]] static void fail(const std::string& m) { throw Error{m}; }
-  [[noreturn]] static void unsupported(const std::string& what) {
-    fail(what + " JPEG streams are not decoded by the port (baseline "
-         "Huffman 8-bit only): " + kUnsupported);
+  Decoder(const uint8_t* data, long len) : d(data), n(len) {
+    std::fill(dac_l, dac_l + 16, 0);
+    std::fill(dac_u, dac_u + 16, 1);
+    std::fill(dac_k, dac_k + 16, 5);
   }
 
   int u16(long p) const {
@@ -185,38 +582,36 @@ struct Decoder {
     width = u16(p + 3);
     int nc = d[p + 5];
     if (precision != 8) unsupported(std::to_string(precision) + "-bit");
-    if (nc == 4) unsupported("CMYK/YCCK (4-component)");
-    if (nc != 1 && nc != 3) unsupported(std::to_string(nc) + "-component");
+    if (nc != 1 && nc != 3 && nc != 4)
+      unsupported(std::to_string(nc) + "-component");
     if (height == 0 || width == 0)
       fail("JPEG frame with a zero size (DNL) is not supported");
     if (len < 6 + 3 * nc) fail("JPEG frame header truncated");
-    comps.clear();
+    comps.assign(nc, Component());
     for (int i = 0; i < nc; ++i) {
-      Component c;
+      Component& c = comps[i];
       c.id = d[p + 6 + 3 * i];
       c.h = d[p + 7 + 3 * i] >> 4;
       c.v = d[p + 7 + 3 * i] & 15;
       c.tq = d[p + 8 + 3 * i] & 3;
-      if (c.h < 1 || c.v < 1) fail("JPEG component with zero sampling");
-      comps.push_back(c);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+        unsupported("sampling " + std::to_string(c.h) + "x" +
+                    std::to_string(c.v));
     }
     hmax = vmax = 1;
     for (auto& c : comps) {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    for (auto& c : comps) {
-      int rh = hmax / c.h, rv = vmax / c.v;
-      bool ok = hmax % c.h == 0 && vmax % c.v == 0 &&
-                ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                 (rh == 2 && rv == 2));
-      if (!ok)
-        unsupported("chroma sampling " + std::to_string(c.h) + "x" +
+    for (auto& c : comps)
+      if (hmax % c.h || vmax % c.v)
+        unsupported("fractional sampling (" + std::to_string(c.h) + "x" +
                     std::to_string(c.v) + " of " + std::to_string(hmax) +
-                    "x" + std::to_string(vmax));
-    }
-    mcu_rows = (height + 8 * vmax - 1) / (8 * vmax);
-    mcu_cols = (width + 8 * hmax - 1) / (8 * hmax);
+                    "x" + std::to_string(vmax) + ")");
+    const int b = lossless ? 1 : 8;
+    mcu_rows = (height + b * vmax - 1) / (b * vmax);
+    mcu_cols = (width + b * hmax - 1) / (b * hmax);
     for (auto& c : comps) {
       c.rows = static_cast<int>((static_cast<long>(height) * c.v + vmax - 1) /
                                 vmax);
@@ -243,11 +638,24 @@ struct Decoder {
     }
   }
 
+  void conditioning(long p, int len) {
+    for (long q = p; q + 1 < p + len; q += 2) {
+      int index = d[q], val = d[q + 1];
+      if (index >= 32) fail("JPEG DAC table index bad");
+      if (index >= 16) {
+        dac_k[index - 16] = val;
+      } else {
+        dac_l[index] = val & 15;
+        dac_u[index] = val >> 4;
+        if (dac_l[index] > dac_u[index]) fail("JPEG DAC value bad");
+      }
+    }
+  }
+
   void quant(long p, int len) {
     long end = p + len;
     while (p < end) {
-      int pq = d[p] >> 4, tq = d[p] & 15;
-      if (tq > 3) fail("JPEG quantization table id out of range");
+      int pq = d[p] >> 4, tq = d[p] & 3;
       int size = pq ? 128 : 64;
       if (p + 1 + size > end) fail("JPEG quantization table truncated");
       for (int i = 0; i < 64; ++i)
@@ -257,99 +665,139 @@ struct Decoder {
     }
   }
 
-  // Decode one scan from its entropy-coded data at `p`; returns the
-  // position of the marker that ends it.
-  long scan(long p, int len) {
+  Scan scan_header(long p, int len) {
     if (!have_frame) fail("JPEG scan before the frame header");
-    int ns = d[p];
-    if (ns < 1 || ns > 4 || len < 4 + 2 * ns) fail("JPEG scan header bad");
     Scan s;
-    for (int i = 0; i < ns; ++i) {
+    s.ns = d[p];
+    if (s.ns < 1 || s.ns > 4 || len < 4 + 2 * s.ns)
+      fail("JPEG scan header bad");
+    int blocks = 0;
+    for (int i = 0; i < s.ns; ++i) {
       int cid = d[p + 1 + 2 * i], t = d[p + 2 + 2 * i];
       int ci = -1;
       for (size_t k = 0; k < comps.size(); ++k)
         if (comps[k].id == cid) ci = static_cast<int>(k);
       if (ci < 0) fail("JPEG scan names an unknown component");
-      if ((t >> 4) > 3 || (t & 15) > 3) fail("JPEG scan table id bad");
-      if (!huff[0][t >> 4].present || !huff[1][t & 15].present)
-        fail("JPEG scan uses an undefined Huffman table");
-      s.comps.push_back(ci);
-      s.dc.push_back(t >> 4);
-      s.ac.push_back(t & 15);
+      s.comps[i] = ci;
+      s.td[i] = t >> 4;
+      s.ta[i] = t & 15;
+      blocks += comps[ci].h * comps[ci].v;
     }
-    int ss = d[p + 1 + 2 * ns], se = d[p + 2 + 2 * ns],
-        ahal = d[p + 3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0)
-      unsupported("progressive (spectral selection)");
-    for (auto& c : comps)
+    s.ss = d[p + 1 + 2 * s.ns];
+    s.se = d[p + 2 + 2 * s.ns];
+    s.ah = d[p + 3 + 2 * s.ns] >> 4;
+    s.al = d[p + 3 + 2 * s.ns] & 15;
+    if (progressive &&
+        (s.ss > s.se || s.se > 63 || (s.ss == 0 && s.se) ||
+         (s.ss && s.ns != 1) || s.ah > 13 || s.al > 13))
+      fail("JPEG progression bad");
+    if (s.ns > 1 && blocks > kMaxBlocksInMcu)
+      unsupported("more than " + std::to_string(kMaxBlocksInMcu) +
+                  " blocks an MCU");
+    if (!arith) {
+      bool dc = lossless || (s.ss == 0 && s.ah == 0);
+      bool ac = !lossless && (progressive ? s.se > 0 : true);
+      for (int i = 0; i < s.ns; ++i)
+        if ((dc && (s.td[i] > 3 || !huff[0][s.td[i]].present)) ||
+            (ac && (s.ta[i] > 3 || !huff[1][s.ta[i]].present)))
+          fail("JPEG scan uses an undefined Huffman table");
+      for (int i = 0; i < s.ns; ++i)
+        if ((dc && !huff[0][s.td[i]].usable(lossless ? 16 : 15)) ||
+            (ac && !huff[1][s.ta[i]].usable(255)))
+          fail("JPEG Huffman table bad");
+    }
+    return s;
+  }
+
+  // skip what is left of a restart interval, past its RSTn marker
+  long to_restart(long q) const {
+    while (q + 1 < n && !(d[q] == 0xFF && d[q + 1] >= 0xD0 &&
+                          d[q + 1] <= 0xD7)) {
+      if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF)
+        return q;  // another marker: the data ends early
+      ++q;
+    }
+    return q + 1 < n ? q + 2 : q;
+  }
+
+  // Decode one scan from its entropy-coded data at `p`; returns the
+  // position of the marker that ends it.
+  long scan(long p, int len) {
+    const Scan s = scan_header(p, len);
+    const long pos = p + len;
+    for (int e = 0; e < s.ns; ++e) {
+      Component& c = comps[s.comps[e]];
+      if (lossless) continue;
       if (c.coef.empty())
         c.coef.assign(static_cast<size_t>(c.brows) * c.bcols * 64, 0);
-
-    long pos = p + len;
-    // units of the scan: MCUs (interleaved) or single blocks
+      if (progressive)
+        for (int k = s.ss; k <= s.se; ++k) c.coef_bits[k] = s.al;
+    }
+    const int b = lossless ? 1 : 8;
+    // units of the scan: MCUs (interleaved) or the component's own blocks
     long units_y, units_x;
-    if (ns == 1) {
+    if (s.ns == 1) {
       const Component& c = comps[s.comps[0]];
-      units_y = (c.rows + 7) / 8;
-      units_x = (c.cols + 7) / 8;
+      units_y = (c.rows + b - 1) / b;
+      units_x = (c.cols + b - 1) / b;
     } else {
       units_y = mcu_rows;
       units_x = mcu_cols;
     }
-    long total = units_y * units_x;
-    long per = restart ? restart : total;
-    int pred[4] = {0, 0, 0, 0};
-    Bits bits{d, n, pos};
-    for (long u = 0; u < total; ++u) {
-      if (u > 0 && u % per == 0) {
-        // to the restart marker: skip what is left of the interval
-        long q = bits.pos;
-        while (q + 1 < n && !(d[q] == 0xFF && d[q + 1] >= 0xD0 &&
-                              d[q + 1] <= 0xD7)) {
-          if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF &&
-              !(d[q + 1] >= 0xD0 && d[q + 1] <= 0xD7))
-            break;   // another marker: the data ends early
-          ++q;
-        }
-        if (q + 1 < n && d[q] == 0xFF && d[q + 1] >= 0xD0 &&
-            d[q + 1] <= 0xD7)
-          q += 2;
-        bits = Bits{d, n, q};
-        std::fill(pred, pred + 4, 0);
+    const long total = units_y * units_x;
+    const long per = restart ? restart : total;
+    std::vector<std::vector<int32_t>> diffs;
+    std::vector<char> reset_row;
+    if (lossless) {
+      if (per % units_x)
+        fail("lossless JPEG restart interval is not a whole number of MCU "
+             "rows");
+      for (int e = 0; e < s.ns; ++e) {
+        const Component& c = comps[s.comps[e]];
+        diffs.emplace_back(static_cast<size_t>(c.brows) * c.bcols, 0);
       }
-      long uy = u / units_x, ux = u % units_x;
-      for (int e = 0; e < ns; ++e) {
+      reset_row.assign(units_y, 0);
+    }
+    Bits bits{Bytes{d, n, pos}};
+    Arith ar{Bytes{d, n, pos}};
+    ArithStats stats;
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    long q = pos;
+    for (long u = 0; u < total; ++u) {
+      if (u % per == 0) {
+        if (u > 0) q = to_restart(arith ? ar.in.pos : bits.in.pos);
+        bits = Bits{Bytes{d, n, q}};
+        ar = Arith{Bytes{d, n, q}};
+        stats = ArithStats();
+        std::fill(pred, pred + 4, 0);
+        eobrun = 0;
+        if (lossless) reset_row[u / units_x] = 1;
+      }
+      const long uy = u / units_x, ux = u % units_x;
+      for (int e = 0; e < s.ns; ++e) {
         Component& c = comps[s.comps[e]];
-        const Huffman& dc = huff[0][s.dc[e]];
-        const Huffman& ac = huff[1][s.ac[e]];
-        int bh = ns == 1 ? 1 : c.v, bw = ns == 1 ? 1 : c.h;
+        const int bh = s.ns == 1 ? 1 : c.v, bw = s.ns == 1 ? 1 : c.h;
         for (int v = 0; v < bh; ++v)
           for (int h = 0; h < bw; ++h) {
-            long by = uy * bh + v, bx = ux * bw + h;
-            int16_t* out = &c.coef[(by * c.bcols + bx) * 64];
-            int t = bits.decode(dc);
-            int diff = t ? extend(bits.get(t), t) : 0;
-            pred[s.comps[e]] += diff;
-            out[0] = static_cast<int16_t>(pred[s.comps[e]]);
-            for (int k = 1; k < 64;) {
-              int rs = bits.decode(ac);
-              int r = rs >> 4, sz = rs & 15;
-              if (sz) {
-                k += r;
-                out[kZigzag[k]] = static_cast<int16_t>(
-                    extend(bits.get(sz), sz));
-                ++k;
-              } else if (r == 15) {
-                k += 16;
-              } else {
-                break;
-              }
+            const long by = uy * bh + v, bx = ux * bw + h;
+            if (lossless) {
+              int t = bits.decode(huff[0][s.td[e]]);
+              diffs[e][by * c.bcols + bx] =
+                  t == 16 ? 32768 : (t ? extend(bits.get(t), t) : 0);
+              continue;
             }
+            int16_t* out = &c.coef[(by * c.bcols + bx) * 64];
+            if (arith)
+              arith_block(ar, stats, s, e, out);
+            else
+              huff_unit(bits, s, e, pred[e], eobrun, out);
           }
       }
     }
+    if (lossless) undifference(s, diffs, reset_row, units_x);
     // the scan ends at the next marker other than RSTn
-    long q = bits.pos;
+    q = arith ? ar.in.pos : bits.in.pos;
     while (q + 1 < n) {
       if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF &&
           !(d[q + 1] >= 0xD0 && d[q + 1] <= 0xD7))
@@ -357,6 +805,140 @@ struct Decoder {
       ++q;
     }
     return n;
+  }
+
+  void huff_unit(Bits& b, const Scan& s, int e, int& pred, int& eobrun,
+                 int16_t* out) {
+    if (!progressive) {
+      huff_block(b, huff[0][s.td[e]], huff[1][s.ta[e]], pred, out);
+    } else if (s.ss == 0 && s.ah == 0) {
+      pred += huff_dc_diff(b, huff[0][s.td[e]]);
+      out[0] = s16(static_cast<int>(static_cast<unsigned>(pred) << s.al));
+    } else if (s.ss == 0) {
+      if (b.get(1)) out[0] = s16(out[0] | (1 << s.al));
+    } else if (s.ah == 0) {
+      huff_ac_first(b, huff[1][s.ta[0]], out, s, eobrun);
+    } else {
+      huff_ac_refine(b, huff[1][s.ta[0]], out, s, eobrun);
+    }
+  }
+
+  void arith_block(Arith& ar, ArithStats& stats, const Scan& s, int e,
+                   int16_t* out) {
+    if (ar.dead) return;
+    const int td = s.td[e], ta = s.ta[e];
+    if (!progressive || (s.ss == 0 && s.ah == 0)) {
+      int diff = arith_dc_diff(ar, stats, e, td, dac_l[td], dac_u[td]);
+      if (ar.dead) return;
+      stats.last_dc[e] = (stats.last_dc[e] + diff) & 0xFFFF;
+      out[0] = s16(stats.last_dc[e] << (progressive ? s.al : 0));
+      if (progressive) return;
+      uint8_t* st = stats.ac[ta];
+      for (int k = 0; k < 63;) {
+        int i = 3 * k;
+        if (ar.decode(st + i)) return;  // EOB
+        for (;;) {
+          ++k;
+          if (ar.decode(st + i + 1)) break;
+          i += 3;
+          if (k >= 63) {
+            ar.dead = true;
+            return;
+          }
+        }
+        int v = arith_ac_value(ar, stats, st, i, k, dac_k[ta]);
+        if (ar.dead) return;
+        out[kZigzag[k]] = s16(v);
+      }
+    } else if (s.ss == 0) {
+      if (ar.decode(&stats.fixed)) out[0] = s16(out[0] | (1 << s.al));
+    } else if (s.ah == 0) {
+      uint8_t* st = stats.ac[ta];
+      for (int k = s.ss; k <= s.se; ++k) {
+        int i = 3 * (k - 1);
+        if (ar.decode(st + i)) return;  // EOB
+        while (ar.decode(st + i + 1) == 0) {
+          i += 3;
+          if (++k > s.se) {
+            ar.dead = true;
+            return;
+          }
+        }
+        int v = arith_ac_value(ar, stats, st, i, k, dac_k[ta]);
+        if (ar.dead) return;
+        out[kZigzag[k]] =
+            s16(static_cast<int>(static_cast<unsigned>(v) << s.al));
+      }
+    } else {
+      uint8_t* st = stats.ac[ta];
+      const int p1 = 1 << s.al, m1 = -p1;
+      int kex = s.se;
+      for (; kex > 0; --kex)
+        if (out[kZigzag[kex]]) break;
+      for (int k = s.ss; k <= s.se; ++k) {
+        int i = 3 * (k - 1);
+        if (k > kex && ar.decode(st + i)) return;  // EOB
+        for (;;) {
+          int16_t* coef = out + kZigzag[k];
+          if (*coef) {
+            if (ar.decode(st + i + 2))
+              *coef = s16(*coef + (*coef < 0 ? m1 : p1));
+            break;
+          }
+          if (ar.decode(st + i + 1)) {
+            *coef = s16(ar.decode(&stats.fixed) ? m1 : p1);
+            break;
+          }
+          i += 3;
+          if (++k > s.se) {
+            ar.dead = true;
+            return;
+          }
+        }
+      }
+    }
+  }
+
+  // jdlossls.c's undifferencing of one scan's components
+  void undifference(const Scan& s,
+                    const std::vector<std::vector<int32_t>>& diffs,
+                    const std::vector<char>& reset_row, long units_x) {
+    (void)units_x;
+    for (int e = 0; e < s.ns; ++e) {
+      Component& c = comps[s.comps[e]];
+      const int v = s.ns > 1 ? c.v : 1;
+      std::vector<int> cur(c.cols), prev(c.cols);
+      c.samples.assign(static_cast<size_t>(c.rows) * c.cols, 0);
+      bool first = true;
+      for (int y = 0; y < c.rows; ++y) {
+        if (y % v == 0 && reset_row[y / v]) first = true;
+        const int32_t* dr = &diffs[e][static_cast<size_t>(y) * c.bcols];
+        for (int x = 0; x < c.cols; ++x) {
+          int p;
+          if (first) {
+            p = x == 0 ? 1 << (7 - s.al) : cur[x - 1];
+          } else if (x == 0) {
+            p = prev[0];
+          } else {
+            int ra = cur[x - 1], rb = prev[x], rc = prev[x - 1];
+            switch (s.ss) {
+              case 1: p = ra; break;
+              case 2: p = rb; break;
+              case 3: p = rc; break;
+              case 4: p = ra + rb - rc; break;
+              case 5: p = ra + ((rb - rc) >> 1); break;
+              case 6: p = rb + ((ra - rc) >> 1); break;
+              default: p = (ra + rb) >> 1; break;
+            }
+          }
+          cur[x] = (dr[x] + p) & 0xFFFF;
+          c.samples[static_cast<size_t>(y) * c.cols + x] =
+              static_cast<uint8_t>(cur[x] << s.al);
+        }
+        first = false;
+        std::swap(cur, prev);
+      }
+    }
   }
 
   void parse(bool decode_scans) {
@@ -377,13 +959,22 @@ struct Decoder {
       int blen = len - 2;
       p += len;
       switch (marker) {
-        case 0xC0: case 0xC1: frame(body, blen); break;
-        case 0xC2: unsupported("progressive");
-        case 0xC3: unsupported("lossless");
-        case 0xC5: case 0xC6: case 0xC7: unsupported("differential");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCC: case 0xCD: case 0xCE:
-        case 0xCF: unsupported("arithmetic-coded");
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
+          progressive = marker == 0xC2 || marker == 0xCA;
+          lossless = marker == 0xC3;
+          arith = marker == 0xC9 || marker == 0xCA;
+          frame(body, blen);
+          break;
+        case 0xC5: unsupported("differential sequential");
+        case 0xC6: unsupported("differential progressive");
+        case 0xC7: unsupported("differential lossless");
+        case 0xCB: unsupported("arithmetic-coded lossless");
+        case 0xCD: unsupported("arithmetic-coded differential sequential");
+        case 0xCE:
+          unsupported("arithmetic-coded differential progressive");
+        case 0xCF: unsupported("arithmetic-coded differential lossless");
         case 0xC4: huffman(body, blen); break;
+        case 0xCC: conditioning(body, blen); break;
         case 0xDB: quant(body, blen); break;
         case 0xDD: if (blen >= 2) restart = u16(body); break;
         case 0xE0:
@@ -411,10 +1002,85 @@ struct Decoder {
 
   int channels() const { return comps.size() == 1 ? 1 : 3; }
 
-  bool rgb_space() const {
-    if (comps.size() == 1 || jfif) return false;
-    if (adobe >= 0) return adobe == 0;
-    return comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66;
+  // 'g'rey, 'y'cc, 'r'gb, 'c'myk or 'k' (ycck), as libjpeg-turbo's
+  // default_decompress_parms decides
+  char color_space() const {
+    if (comps.size() == 1) return 'g';
+    if (comps.size() == 4) return adobe < 0 || adobe == 0 ? 'c' : 'k';
+    if (jfif) return 'y';
+    if (adobe >= 0) return adobe == 0 ? 'r' : 'y';
+    if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66)
+      return 'r';
+    return lossless ? 'r' : 'y';
+  }
+
+  // libjpeg-turbo's smoothing_ok at the output pass: every component has
+  // its DC and the quantizers of its first ten coefficients, and the
+  // scans leave one of the first nine AC coefficients of some component
+  // incomplete (coef_bits: the Al of its last scan, -1 if none sent it)
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const auto& c : comps) {
+      if (!qt_present[c.tq] || c.coef_bits[0] < 0) return false;
+      for (int k = 0; k <= kSmoothedCoefs; ++k)
+        if (qt[c.tq][kZigzag[k]] == 0) return false;
+      for (int k = 1; k <= kSmoothedCoefs; ++k)
+        useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c's decompress_smooth_data on component c's coefficients: in
+  // each block of the image, a first AC coefficient still zero and not
+  // known to be exact is estimated from the 5x5 DC values around the
+  // block (kSmoothK), rounded and held under 2^Al; with no AC data at all
+  // the DC is replaced by their weighted mean too. Rows and columns past
+  // the edge repeat the last, as libjpeg's block-row pointers do: on the
+  // last iMCU row counted in its own block rows, so a dummy row of the
+  // padded grid can stand below a row above it.
+  std::vector<int16_t> smoothed(const Component& c) const {
+    std::vector<int16_t> out = c.coef;
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k <= kSmoothedCoefs; ++k) change_dc &= bits[k] == -1;
+    const int64_t q00 = qt[c.tq][0];
+    const int k0 = change_dc ? 0 : 1, k1 = change_dc ? 10 : 6;
+    const int hib = (c.rows + 7) / 8, wib = (c.cols + 7) / 8;
+    const int t = mcu_rows, v = c.v;
+    for (int r = 0; r < hib; ++r) {
+      const int block_rows = r / v < t - 1 ? v : hib - (t - 1) * v;
+      const int ibr = r / v * block_rows + r % v, n = block_rows * t;
+      int rows[5];
+      rows[1] = ibr > 0 ? r - 1 : r;
+      rows[0] = ibr > 1 ? r - 2 : rows[1];
+      rows[2] = r;
+      rows[3] = ibr < n - 1 ? r + 1 : r;
+      rows[4] = ibr < n - 2 ? r + 2 : rows[3];
+      for (int bx = 0; bx < wib; ++bx) {
+        int dc[25];
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) {
+            const int x = std::min(std::max(bx + j - 2, 0), wib - 1);
+            dc[i * 5 + j] = c.coef[(long(rows[i]) * c.bcols + x) * 64];
+          }
+        int16_t* blk = &out[(long(r) * c.bcols + bx) * 64];
+        for (int k = k0; k < k1; ++k) {
+          const int nat = kZigzag[k];
+          if (k && (bits[k] == 0 || blk[nat] != 0)) continue;
+          int64_t num = 0;
+          for (int i = 0; i < 25; ++i)
+            num += kSmoothK[change_dc][k][i] * dc[i];
+          num *= q00;
+          const int64_t qk = qt[c.tq][nat];
+          int64_t pred = ((qk << 7) + (num < 0 ? -num : num)) / (qk << 8);
+          if (k && bits[k] > 0 && pred >= (1 << bits[k]))
+            pred = (1 << bits[k]) - 1;
+          blk[nat] = s16(static_cast<int>(num < 0 ? -pred : pred));
+        }
+      }
+    }
+    return out;
   }
 };
 
@@ -494,19 +1160,14 @@ void idct_block(const int16_t* coef, const int* q, uint8_t* dst,
 }
 
 // ---------------------------------------------------------------------------
-// fancy upsampling (jdsample.c), one output row at a time
+// upsampling (jdsample.c), one output row at a time
 // ---------------------------------------------------------------------------
 
-// the horizontal triangle filter on (column sums) s[0..cols): output 2c is
-// (3 s[c] + s[c-1] + bl) >> shift, 2c+1 is (3 s[c] + s[c+1] + br) >> shift,
-// edges replicated; `out` holds 2 * cols values
+// the horizontal triangle filter on (column sums) s[0..cols), cols > 1:
+// output 2c is (3 s[c] + s[c-1] + bl) >> shift, 2c+1 is (3 s[c] + s[c+1]
+// + br) >> shift, edges replicated; `out` holds 2 * cols values
 inline void fancy_row(const int* s, int cols, int bl, int br, int shift,
                       uint8_t* out) {
-  if (cols == 1) {
-    out[0] = static_cast<uint8_t>((4 * s[0] + bl) >> shift);
-    out[1] = static_cast<uint8_t>((4 * s[0] + br) >> shift);
-    return;
-  }
   out[0] = static_cast<uint8_t>((4 * s[0] + bl) >> shift);
   out[1] = static_cast<uint8_t>((3 * s[0] + s[1] + br) >> shift);
   for (int c = 1; c < cols - 1; ++c) {
@@ -520,27 +1181,45 @@ inline void fancy_row(const int* s, int cols, int bl, int br, int shift,
 }
 
 struct Plane {
-  std::vector<uint8_t> samples;   // the IDCT output, block-padded
-  long stride;
-  int rows, cols, rh, rv;
+  std::vector<uint8_t> samples;   // the component's samples, padded
+  long stride = 0;
+  int rows = 0, cols = 0, rh = 1, rv = 1;
+  bool fancy = true;
   std::vector<int> sums;
-  std::vector<uint8_t> row;       // one upsampled row (2 * cols)
+  std::vector<uint8_t> row;       // one upsampled row
 
   // row y of the full-size (upsampled) component
   const uint8_t* get(int y) {
     if (rh == 1 && rv == 1) return &samples[y * stride];
-    if (rv == 1) {
+    if (fancy && rh == 2 && rv == 1 && cols > 2) {
       const uint8_t* p = &samples[y * stride];
       for (int c = 0; c < cols; ++c) sums[c] = p[c];
       fancy_row(sums.data(), cols, 1, 2, 2, row.data());
       return row.data();
     }
-    int i = y >> 1;
-    int far = (y & 1) ? std::min(i + 1, rows - 1) : std::max(i - 1, 0);
-    const uint8_t* p = &samples[i * stride];
-    const uint8_t* q = &samples[far * stride];
-    for (int c = 0; c < cols; ++c) sums[c] = 3 * p[c] + q[c];
-    fancy_row(sums.data(), cols, 8, 7, 4, row.data());
+    if (fancy && rh == 1 && rv == 2) {
+      int i = y >> 1;
+      int far = (y & 1) ? std::min(i + 1, rows - 1) : std::max(i - 1, 0);
+      const int bias = (y & 1) ? 2 : 1;
+      const uint8_t* p = &samples[i * stride];
+      const uint8_t* q = &samples[far * stride];
+      for (int c = 0; c < cols; ++c)
+        row[c] = static_cast<uint8_t>((3 * p[c] + q[c] + bias) >> 2);
+      return row.data();
+    }
+    if (fancy && rh == 2 && rv == 2 && cols > 2) {
+      int i = y >> 1;
+      int far = (y & 1) ? std::min(i + 1, rows - 1) : std::max(i - 1, 0);
+      const uint8_t* p = &samples[i * stride];
+      const uint8_t* q = &samples[far * stride];
+      for (int c = 0; c < cols; ++c) sums[c] = 3 * p[c] + q[c];
+      fancy_row(sums.data(), cols, 8, 7, 4, row.data());
+      return row.data();
+    }
+    // box replication (h2v1/h2v2_upsample, int_upsample)
+    const uint8_t* p = &samples[(y / rv) * stride];
+    for (int c = 0; c < cols; ++c)
+      std::memset(&row[static_cast<size_t>(c) * rh], p[c], rh);
     return row.data();
   }
 };
@@ -549,33 +1228,46 @@ inline int fix16(double x) { return static_cast<int>(x * 65536 + 0.5); }
 
 void decode_all(Decoder& dec, uint8_t* out) {
   const int H = dec.height, W = dec.width;
+  const char space = dec.color_space();
+  if (dec.lossless && space != 'g' && space != 'r' && space != 'c')
+    unsupported(space == 'k' ? "lossless YCCK" : "lossless YCbCr");
+  const bool smooth = dec.smoothing_ok();
   std::vector<Plane> planes;
   for (auto& c : dec.comps) {
-    if (!dec.qt_present[c.tq])
-      Decoder::fail("JPEG stream lacks a quantization table it uses");
-    if (c.coef.empty())
-      c.coef.assign(static_cast<size_t>(c.brows) * c.bcols * 64, 0);
     Plane pl;
-    pl.stride = long(c.bcols) * 8;
-    pl.samples.resize(static_cast<size_t>(c.brows) * 8 * pl.stride);
-    for (int by = 0; by < c.brows; ++by)
-      for (int bx = 0; bx < c.bcols; ++bx)
-        idct_block(&c.coef[(long(by) * c.bcols + bx) * 64], dec.qt[c.tq],
-                   &pl.samples[long(by) * 8 * pl.stride + bx * 8], pl.stride);
+    if (dec.lossless) {
+      if (c.samples.empty())
+        fail("JPEG stream leaves a component without a scan");
+      pl.samples = std::move(c.samples);
+      pl.stride = c.cols;
+    } else {
+      if (!dec.qt_present[c.tq])
+        fail("JPEG stream lacks a quantization table it uses");
+      if (c.coef.empty())
+        c.coef.assign(static_cast<size_t>(c.brows) * c.bcols * 64, 0);
+      if (smooth) c.coef = dec.smoothed(c);
+      pl.stride = long(c.bcols) * 8;
+      pl.samples.resize(static_cast<size_t>(c.brows) * 8 * pl.stride);
+      for (int by = 0; by < c.brows; ++by)
+        for (int bx = 0; bx < c.bcols; ++bx)
+          idct_block(&c.coef[(long(by) * c.bcols + bx) * 64], dec.qt[c.tq],
+                     &pl.samples[long(by) * 8 * pl.stride + bx * 8],
+                     pl.stride);
+    }
     pl.rows = c.rows;
     pl.cols = c.cols;
     pl.rh = dec.hmax / c.h;
     pl.rv = dec.vmax / c.v;
+    pl.fancy = !dec.lossless;
     pl.sums.resize(c.cols);
-    pl.row.resize(2 * static_cast<size_t>(c.cols) + 2);
+    pl.row.resize(static_cast<size_t>(c.cols) * pl.rh + 2);
     planes.push_back(std::move(pl));
   }
-  if (planes.size() == 1) {
+  if (space == 'g') {
     for (int y = 0; y < H; ++y)
       std::memcpy(out + long(y) * W, planes[0].get(y), W);
     return;
   }
-  const bool rgb = dec.rgb_space();
   int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
   for (int i = 0; i < 256; ++i) {
     int x = i - 128;
@@ -585,23 +1277,41 @@ void decode_all(Decoder& dec, uint8_t* out) {
     cb_g[i] = -fix16(0.34414) * x + 32768;
   }
   for (int y = 0; y < H; ++y) {
-    const uint8_t* Y = planes[0].get(y);
-    const uint8_t* Cb = planes[1].get(y);
-    const uint8_t* Cr = planes[2].get(y);
+    const uint8_t* A = planes[0].get(y);
+    const uint8_t* B = planes[1].get(y);
+    const uint8_t* C = planes[2].get(y);
+    const uint8_t* K = planes.size() == 4 ? planes[3].get(y) : nullptr;
     uint8_t* o = out + long(y) * W * 3;
-    if (rgb) {
-      for (int x = 0; x < W; ++x) {
-        o[3 * x] = Y[x];
-        o[3 * x + 1] = Cb[x];
-        o[3 * x + 2] = Cr[x];
-      }
-      continue;
-    }
     for (int x = 0; x < W; ++x) {
-      int l = Y[x], cb = Cb[x], cr = Cr[x];
-      o[3 * x] = clamp8(l + cr_r[cr]);
-      o[3 * x + 1] = clamp8(l + ((cb_g[cb] + cr_g[cr]) >> 16));
-      o[3 * x + 2] = clamp8(l + cb_b[cb]);
+      int r, g, b;
+      if (space == 'r') {
+        r = A[x];
+        g = B[x];
+        b = C[x];
+      } else if (space == 'c') {
+        r = 255 - A[x];   // PIL's "CMYK;I": 255 - C, M, Y
+        g = 255 - B[x];
+        b = 255 - C[x];
+      } else {
+        int l = A[x], cb = B[x], cr = C[x];
+        r = clamp8(l + cr_r[cr]);
+        g = clamp8(l + ((cb_g[cb] + cr_g[cr]) >> 16));
+        b = clamp8(l + cb_b[cb]);
+      }
+      if (K) {
+        // PIL's cmyk2rgb: K - K * (255 - C) / 255, rounded as MULDIV255
+        int nk = K[x];
+        int t;
+        t = r * nk + 128;
+        r = nk - (((t >> 8) + t) >> 8);
+        t = g * nk + 128;
+        g = nk - (((t >> 8) + t) >> 8);
+        t = b * nk + 128;
+        b = nk - (((t >> 8) + t) >> 8);
+      }
+      o[3 * x] = clamp8(r);
+      o[3 * x + 1] = clamp8(g);
+      o[3 * x + 2] = clamp8(b);
     }
   }
 }

@@ -5,8 +5,8 @@
 
 The image size comes from the first frame's PNG or JPEG header (a
 frame's name ends in ``.png`` as the format has it, whatever its bytes)
-and images are decoded by ``data/png.py:read_image`` (PNG, or baseline
-JPEG through ``data/jpeg.py``), so no image library is needed.
+and images are decoded by ``data/png.py:read_image`` (PNG, or JPEG
+through ``data/jpeg.py``), so no image library is needed.
 """
 
 from __future__ import annotations

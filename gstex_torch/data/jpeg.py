@@ -1,16 +1,38 @@
-"""Baseline JPEG decoding and encoding with numpy (no image library), to
+"""JPEG decoding and baseline encoding with numpy (no image library), to
 the bytes of libjpeg-turbo, which PIL and cv2 use.
 
-Decoding covers baseline and extended-sequential Huffman streams of 8-bit
-samples: grey, and YCbCr (or Adobe/'RGB'-tagged RGB) at 4:4:4, 4:2:2 and
-4:2:0, restart markers, any image size, APPn and COM segments skipped.
+Decoding covers every 8-bit stream that PIL's ``Image.open(path)
+.convert("RGB")`` decodes through libjpeg-turbo 3:
+
+- baseline and extended-sequential, progressive (``jdphuff.c``: DC and
+  AC first and refinement scans, end-of-band runs) and lossless
+  (``jdlossls.c``: predictors 1-7, point transform) Huffman streams, and
+  arithmetic-coded sequential and progressive ones (``jdarith.c``: the
+  QM decoder, DC statistics conditioned by DAC's L and U, AC by K);
+- grey, YCbCr, RGB (Adobe transform 0 or component ids 'R', 'G', 'B';
+  lossless without JFIF), and CMYK or YCCK (4 components, by the Adobe
+  transform), at every integral sampling factor from 1 to 4;
+- restart markers, any image size, APPn and COM segments skipped.
+
 It mirrors libjpeg-turbo's default decompression: the integer "islow"
-inverse DCT (``jidctint.c``), "fancy" triangular chroma upsampling
-(``h2v1_fancy_upsample`` / ``h2v2_fancy_upsample``, edges replicated at
-the component's own size) and the fixed-point YCbCr->RGB tables
-(``jdcolor.c``), so a frame decodes to the bytes of PIL's
-``Image.open(path).convert("RGB")``. Progressive, lossless,
-arithmetic-coded, 12-bit and CMYK streams raise ``ValueError``.
+inverse DCT (``jidctint.c``); ``jdsample.c``'s upsampling ("fancy"
+triangles for 2x1, 1x2 and 2x2 where the component is more than 2
+samples wide, box replication otherwise, and always for lossless
+streams); the fixed-point YCbCr->RGB tables (``jdcolor.c``); and for
+4 components PIL's inversion of Adobe CMYK and its ``CMYK -> RGB``
+conversion. So a frame decodes to the bytes of PIL's
+``Image.open(path).convert("RGB")``: grey as one channel, every colour
+stream as RGB.
+
+A progressive stream whose scans leave one of the first nine AC
+coefficients of a component incomplete is smoothed block by block as
+libjpeg does (``jdcoefct.c:decompress_smooth_data``); a complete one is
+not.
+
+Streams PIL refuses raise ``ValueError``: 12-bit and 16-bit samples,
+differential (hierarchical) frames, arithmetic-coded lossless ones,
+fractional sampling ratios, lossless YCbCr, and Huffman tables libjpeg
+refuses (a DC symbol past 15, a code of all ones).
 
 ``decode`` is the main path: the whole decode in host C++
 (``csrc/jpeg_decode.cpp``, built at first use by ``ops/_build.py`` and
@@ -35,7 +57,7 @@ import struct
 import numpy as np
 
 SIGNATURE = b"\xff\xd8\xff"
-UNSUPPORTED = "ROADMAP Queue 1 item 10"
+UNSUPPORTED = "PIL refuses them too, so the JAX package's loader does"
 
 # zigzag position -> natural (row-major) index; the 16 extra entries keep
 # a corrupt run inside the block, as libjpeg's jpeg_natural_order does
@@ -45,26 +67,129 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
     + [63] * 16, np.int64)
+_NATURAL = [int(k) for k in ZIGZAG]
 
-_SOF_MODES = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
-    0xC6: "differential progressive", 0xC7: "differential lossless",
-    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
-    0xCB: "arithmetic-coded lossless",
+# frame markers: (progressive, lossless, arithmetic)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, True, False),
+        0xC9: (False, False, True), 0xCA: (True, False, True)}
+_REFUSED_SOF = {
+    0xC5: "differential sequential", 0xC6: "differential progressive",
+    0xC7: "differential lossless", 0xCB: "arithmetic-coded lossless",
     0xCD: "arithmetic-coded differential sequential",
     0xCE: "arithmetic-coded differential progressive",
-    0xCF: "arithmetic-coded differential lossless",
-}
+    0xCF: "arithmetic-coded differential lossless"}
+MAX_BLOCKS_IN_MCU = 10
+# the first AC coefficients (zigzag 1-9) whose incomplete bits make
+# libjpeg smooth a progressive stream's blocks
+_SMOOTHED_COEFS = 9
+# jdcoefct.c's block smoothing: per zigzag coefficient k (0 the DC), the
+# weights of the 5x5 DC values around a block (rows top to bottom,
+# columns left to right) whose sum, times the DC's quantizer, estimates
+# it. [0] where some AC data was sent (k 1-5 only), [1] where none was.
+def _rows(*r):
+    return [list(x) for x in r]
+
+
+_ODD = (-7, 50, 0, -50, 7)
+_EVEN = (-1, 13, -24, 13, -1)
+_SMOOTH_K = np.zeros((2, 10, 5, 5), np.int64)
+_SMOOTH_K[0, 1, 2] = _ODD
+_SMOOTH_K[0, 2, :, 2] = _ODD
+_SMOOTH_K[0, 3, :, 2] = _EVEN
+_SMOOTH_K[0, 4] = _rows((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), (0,) * 5,
+                        (1, -10, 0, 10, -1), (0, 1, 0, -1, 0))
+_SMOOTH_K[0, 5, 2] = _EVEN
+_SMOOTH_K[1, 0] = _rows((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6),
+                        (-8, 42, 152, 42, -8), (-6, 6, 42, 6, -6),
+                        (-2, -6, -8, -6, -2))
+_SMOOTH_K[1, 1] = _rows((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3),
+                        (-3, 38, 0, -38, 3), (-3, 13, 0, -13, 3),
+                        (-1, -1, 0, 1, 1))
+_SMOOTH_K[1, 2] = _SMOOTH_K[1, 1].T
+_SMOOTH_K[1, 3] = _rows((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0),
+                        (0, 2, 7, 2, 0), (0, 0, 1, 0, 0))
+_SMOOTH_K[1, 4] = _rows((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), (0,) * 5,
+                        (0, -9, 0, 9, 0), (1, 0, 0, 0, -1))
+_SMOOTH_K[1, 5] = _SMOOTH_K[1, 3].T
+_SMOOTH_K[1, 6] = _rows((0,) * 5, (0, 1, 0, -1, 0), (0, 2, 0, -2, 0),
+                        (0, 1, 0, -1, 0), (0,) * 5)
+_SMOOTH_K[1, 7] = _rows((0,) * 5, (0, 1, -3, 1, 0), (0,) * 5,
+                        (0, -1, 3, -1, 0), (0,) * 5)
+_SMOOTH_K[1, 8] = _SMOOTH_K[1, 7].T
+_SMOOTH_K[1, 9] = _SMOOTH_K[1, 6].T
+
+# ITU T.81 Table D.2 as libjpeg's jaricom.c holds it: per state, Qe, the
+# next state after an LPS (with the MPS switch in bit 7) and after an MPS;
+# state 113 is the fixed probability 0.5
+_QE_TABLE = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+# (Qe, next state and sense switch after an LPS, next state after an MPS)
+_QE = [(qe, nl | sw << 7, nm) for qe, nl, nm, sw in _QE_TABLE]
 
 
 def _unsupported(what: str) -> ValueError:
-    return ValueError(f"{what} JPEG streams are not decoded by the port "
-                      f"(baseline Huffman 8-bit only): {UNSUPPORTED}")
+    return ValueError(f"{what} JPEG streams are not decoded: {UNSUPPORTED}")
+
+
+def _s16(x: int) -> int:
+    """x as libjpeg's 16-bit JCOEF holds it."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
 
 
 # ---------------------------------------------------------------------------
 # stream structure
 # ---------------------------------------------------------------------------
+
+class _Scan:
+    """One scan: its components (frame indices), the tables, spectral
+    selection and successive approximation as of its SOS, and its
+    entropy-coded segments (split at restart markers)."""
+
+    def __init__(self, comps, td, ta, ss, se, ah, al, restart, huff, dac,
+                 segments):
+        self.comps, self.td, self.ta = comps, td, ta
+        self.ss, self.se, self.ah, self.al = ss, se, ah, al
+        self.restart, self.huff, self.dac = restart, huff, dac
+        self.segments = segments
+
 
 class _Stream:
     """The markers of one JPEG stream, parsed."""
@@ -75,12 +200,14 @@ class _Stream:
         self.data = data
         self.qt = {}                 # id -> (64,) int64, natural order
         self.huff = {}               # (class, id) -> (bits[16], values)
+        self.dac_l, self.dac_u, self.dac_k = [0] * 16, [1] * 16, [5] * 16
         self.comps = []              # dicts: id, h, v, tq
         self.height = self.width = 0
+        self.progressive = self.lossless = self.arith = False
         self.restart = 0
         self.jfif = False
         self.adobe = None            # Adobe APP14 transform flag
-        self.scans = []              # (components, tables, segments)
+        self.scans = []
         pos = 2
         n = len(data)
         while pos < n:
@@ -88,23 +215,28 @@ class _Stream:
                 raise ValueError(f"JPEG stream: no marker at byte {pos}")
             while pos < n and data[pos] == 0xFF:
                 pos += 1
+            if pos >= n:
+                break
             marker = data[pos]
             pos += 1
             if marker == 0xD9:
                 break
             if marker == 0x01 or 0xD0 <= marker <= 0xD7:
                 continue
+            if pos + 2 > n:
+                raise ValueError("JPEG stream truncated")
             (length,) = struct.unpack(">H", data[pos:pos + 2])
             body = data[pos + 2:pos + length]
             pos += length
-            if marker in (0xC0, 0xC1):
+            if marker in _SOF:
+                self.progressive, self.lossless, self.arith = _SOF[marker]
                 self._frame(body)
-            elif marker in _SOF_MODES:
-                raise _unsupported(_SOF_MODES[marker])
-            elif marker == 0xCC:
-                raise _unsupported("arithmetic-coded")
+            elif marker in _REFUSED_SOF:
+                raise _unsupported(_REFUSED_SOF[marker])
             elif marker == 0xC4:
                 self._huffman(body)
+            elif marker == 0xCC:
+                self._dac(body)
             elif marker == 0xDB:
                 self._quant(body)
             elif marker == 0xDD:
@@ -125,9 +257,7 @@ class _Stream:
                                                                body[:6])
         if precision != 8:
             raise _unsupported(f"{precision}-bit")
-        if nc == 4:
-            raise _unsupported("CMYK/YCCK (4-component)")
-        if nc not in (1, 3):
+        if nc not in (1, 3, 4):
             raise _unsupported(f"{nc}-component")
         if self.height == 0 or self.width == 0:
             raise ValueError("JPEG frame with a zero size (DNL) is not "
@@ -135,7 +265,8 @@ class _Stream:
         for i in range(nc):
             cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
             self.comps.append({"id": cid, "h": hv >> 4, "v": hv & 15,
-                               "tq": tq})
+                               "tq": tq & 3})
+        self.check_sampling()
 
     def _huffman(self, body: bytes) -> None:
         pos = 0
@@ -145,6 +276,18 @@ class _Stream:
             values = list(body[pos + 17:pos + 17 + sum(bits)])
             self.huff[(tc_th >> 4, tc_th & 15)] = (bits, values)
             pos += 17 + sum(bits)
+
+    def _dac(self, body: bytes) -> None:
+        for pos in range(0, len(body) - 1, 2):
+            index, val = body[pos], body[pos + 1]
+            if index >= 32:
+                raise ValueError(f"JPEG DAC table index {index} bad")
+            if index >= 16:
+                self.dac_k[index - 16] = val
+            else:
+                self.dac_l[index], self.dac_u[index] = val & 15, val >> 4
+                if val & 15 > val >> 4:
+                    raise ValueError(f"JPEG DAC value {val} bad")
 
     def _quant(self, body: bytes) -> None:
         pos = 0
@@ -158,11 +301,13 @@ class _Stream:
                 pos += 129
             table = np.zeros(64, np.int64)
             table[ZIGZAG[:64]] = zz
-            self.qt[tq] = table
+            self.qt[tq & 3] = table
 
     def _scan(self, body: bytes, pos: int) -> int:
+        if not self.comps:
+            raise ValueError("JPEG scan before the frame header")
         ns = body[0]
-        entries, tables = [], []
+        entries, td, ta = [], [], []
         for i in range(ns):
             cid, tdta = body[1 + 2 * i:3 + 2 * i]
             ci = next((k for k, c in enumerate(self.comps) if c["id"] == cid),
@@ -170,12 +315,36 @@ class _Stream:
             if ci is None:
                 raise ValueError(f"JPEG scan names unknown component {cid}")
             entries.append(ci)
-            tables.append((tdta >> 4, tdta & 15))
+            td.append(tdta >> 4)
+            ta.append(tdta & 15)
         ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
-        if ss != 0 or se != 63 or ahal != 0:
-            raise _unsupported("progressive (spectral selection)")
+        ah, al = ahal >> 4, ahal & 15
+        if self.progressive and (ss > se or se > 63 or (ss == 0 and se)
+                                 or (ss and ns != 1) or ah > 13 or al > 13):
+            raise ValueError(f"JPEG progression bad: Ss {ss} Se {se} "
+                             f"Ah {ah} Al {al} over {ns} components")
+        if ns > 1 and sum(self.comps[ci]["h"] * self.comps[ci]["v"]
+                          for ci in entries) > MAX_BLOCKS_IN_MCU:
+            raise _unsupported(f"more than {MAX_BLOCKS_IN_MCU} blocks an MCU")
+        if not self.arith:
+            for cls, ids in ((0, td), (1, ta)):
+                used = (cls == 0 and (self.lossless or ss == 0 and ah == 0)
+                        or cls == 1 and not self.lossless and (
+                            se > 0 if self.progressive else True))
+                if used and any((cls, t) not in self.huff for t in ids):
+                    raise ValueError("JPEG scan uses an undefined Huffman "
+                                     "table")
+                if used and not all(_huffman_usable(
+                        *self.huff[(cls, t)],
+                        255 if cls else 16 if self.lossless else 15)
+                        for t in ids):
+                    raise ValueError("JPEG Huffman table bad")
         segments, end = _entropy_segments(self.data, pos)
-        self.scans.append((entries, tables, segments))
+        self.scans.append(_Scan(
+            entries, td, ta, ss, se, ah, al, self.restart,
+            {k: _Huffman(*v) for k, v in self.huff.items()},
+            (list(self.dac_l), list(self.dac_u), list(self.dac_k)),
+            segments))
         return end
 
     # geometry --------------------------------------------------------------
@@ -194,29 +363,40 @@ class _Stream:
                 -(-self.width * c["h"] // self.hmax))
 
     def mcus(self) -> tuple[int, int]:
-        return (-(-self.height // (8 * self.vmax)),
-                -(-self.width // (8 * self.hmax)))
+        """The MCU grid of an interleaved scan: one sample an MCU's unit
+        in lossless streams, an 8x8 block otherwise."""
+        b = 1 if self.lossless else 8
+        return (-(-self.height // (b * self.vmax)),
+                -(-self.width // (b * self.hmax)))
 
     def color_space(self) -> str:
-        """'grey', 'ycc' or 'rgb', as libjpeg's default_decompress_parms
-        decides."""
+        """'grey', 'ycc', 'rgb', 'cmyk' or 'ycck', as libjpeg-turbo's
+        default_decompress_parms decides."""
         if len(self.comps) == 1:
             return "grey"
+        if len(self.comps) == 4:
+            return ("cmyk" if self.adobe is None or self.adobe == 0
+                    else "ycck")
         if self.jfif:
             return "ycc"
         if self.adobe is not None:
             return "rgb" if self.adobe == 0 else "ycc"
         ids = [c["id"] for c in self.comps]
-        return "rgb" if ids == [82, 71, 66] else "ycc"
+        if ids == [82, 71, 66]:
+            return "rgb"
+        if self.lossless:
+            return "rgb"
+        return "ycc"
 
     def check_sampling(self) -> None:
+        hmax, vmax = self.hmax, self.vmax
         for c in self.comps:
-            rh, rv = self.hmax // c["h"], self.vmax // c["v"]
-            if (self.hmax % c["h"] or self.vmax % c["v"]
-                    or (rh, rv) not in ((1, 1), (2, 1), (2, 2))):
+            if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
+                raise _unsupported(f"sampling {c['h']}x{c['v']}")
+            if hmax % c["h"] or vmax % c["v"]:
                 raise _unsupported(
-                    f"chroma sampling {c['h']}x{c['v']} of "
-                    f"{self.hmax}x{self.vmax}")
+                    f"fractional sampling ({c['h']}x{c['v']} of "
+                    f"{hmax}x{vmax})")
 
 
 def _entropy_segments(data: bytes, pos: int) -> tuple[list, int]:
@@ -250,6 +430,20 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list, int]:
 # ---------------------------------------------------------------------------
 # entropy decoding (the plain version's Python loop)
 # ---------------------------------------------------------------------------
+
+def _huffman_usable(bits, values, max_symbol: int) -> bool:
+    """jdhuff.c's jpeg_make_d_derived_tbl checks, made where a scan uses
+    a table: the counts make a prefix code (no code of all ones), and no
+    symbol passes ``max_symbol`` (15 for a DC table, 16 for a lossless
+    one, 255 for an AC one)."""
+    code = 0
+    for length, n in enumerate(bits, 1):
+        code += n
+        if code >= 1 << length:
+            return False
+        code <<= 1
+    return max(values, default=0) <= max_symbol
+
 
 class _Huffman:
     """Canonical decoding tables: per code length, the least and greatest
@@ -298,22 +492,74 @@ class _Bits:
         return h.values[h.valptr[length] + code - h.mincode[length]]
 
 
+class _Arith:
+    """libjpeg's arith_decode (``jdarith.c``) over one restart interval's
+    bytes: the C register holds the interval's base and the input bits,
+    zeros follow the data."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+        self.c = self.a = 0
+        self.ct = -16
+        self.dead = False          # a magnitude or spectral overflow
+
+    def decode(self, st: list, i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                byte = (self.data[self.pos] if self.pos < len(self.data)
+                        else 0)
+                self.pos += 1
+                self.c = (self.c << 8) | byte
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = st[i]
+        qe, nl, nm = _QE[sv & 0x7F]
+        temp = self.a - qe
+        self.a = temp
+        temp <<= self.ct
+        if self.c >= temp:
+            self.c -= temp
+            if self.a < qe:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+
 def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
-def _decode_block(bits: _Bits, dc: _Huffman, ac: _Huffman, pred: int,
-                  out: np.ndarray) -> int:
+def _huff_dc_diff(bits: _Bits, dc: _Huffman) -> int:
     s = bits.decode(dc)
-    pred += _extend(bits.bits(s), s) if s else 0
-    out[0] = pred
+    return _extend(bits.bits(s), s) if s else 0
+
+
+def _huff_block(bits: _Bits, dc: _Huffman, ac: _Huffman, pred: int,
+                out: np.ndarray) -> int:
+    pred += _huff_dc_diff(bits, dc)
+    out[0] = _s16(pred)
     k = 1
     while k < 64:
         rs = bits.decode(ac)
         r, s = rs >> 4, rs & 15
         if s:
             k += r
-            out[ZIGZAG[k]] = _extend(bits.bits(s), s)
+            out[_NATURAL[k]] = _extend(bits.bits(s), s)
             k += 1
         elif r == 15:
             k += 16
@@ -322,44 +568,442 @@ def _decode_block(bits: _Bits, dc: _Huffman, ac: _Huffman, pred: int,
     return pred
 
 
+def _huff_ac_first(bits, ac, out, ss, se, al, eobrun) -> int:
+    if eobrun > 0:
+        return eobrun - 1
+    k = ss
+    while k <= se:
+        rs = bits.decode(ac)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            out[_NATURAL[k]] = _s16(_extend(bits.bits(s), s) * (1 << al))
+        elif r == 15:
+            k += 15
+        else:
+            eobrun = 1 << r
+            if r:
+                eobrun += bits.bits(r)
+            return eobrun - 1
+        k += 1
+    return 0
+
+
+def _refine_bit(bits, out, pos, p1, m1) -> None:
+    if bits.bit() and not out[pos] & p1:
+        out[pos] += p1 if out[pos] >= 0 else m1
+
+
+def _huff_ac_refine(bits, ac, out, ss, se, al, eobrun) -> int:
+    """jdphuff.c's decode_mcu_AC_refine on one block."""
+    p1, m1 = 1 << al, -1 << al
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            rs = bits.decode(ac)
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if bits.bit() else m1
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += bits.bits(r)
+                break
+            while k <= se:
+                pos = _NATURAL[k]
+                if out[pos]:
+                    _refine_bit(bits, out, pos, p1, m1)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                out[_NATURAL[k]] = s
+            k += 1
+    if eobrun > 0:
+        while k <= se:
+            pos = _NATURAL[k]
+            if out[pos]:
+                _refine_bit(bits, out, pos, p1, m1)
+            k += 1
+        eobrun -= 1
+    return eobrun
+
+
+class _ArithStats:
+    """The statistics of one scan's restart interval: 64 DC and 256 AC
+    bins a table, the fixed-probability bin, each component's DC
+    prediction and conditioning context."""
+
+    def __init__(self, ncomp: int):
+        self.dc = [[0] * 64 for _ in range(16)]
+        self.ac = [[0] * 256 for _ in range(16)]
+        self.fixed = [113]
+        self.last_dc = [0] * ncomp
+        self.context = [0] * ncomp
+
+
+def _arith_magnitude(dec: _Arith, st: list, m: int, i: int) -> tuple:
+    """Figure F.23's chain of magnitude decisions from bin ``i``, ``m``
+    doubling at each 1: (m, the bin that ended it); the caller's
+    magnitude bits start 14 bins further."""
+    while dec.decode(st, i):
+        m <<= 1
+        if m == 0x8000:
+            dec.dead = True
+            return 0, i
+        i += 1
+    return m, i
+
+
+def _arith_dc_diff(dec: _Arith, stats: _ArithStats, e: int, tbl: int,
+                   lo: int, hi: int) -> int:
+    st = stats.dc[tbl]
+    s0 = stats.context[e]
+    if dec.decode(st, s0) == 0:
+        stats.context[e] = 0
+        return 0
+    sign = dec.decode(st, s0 + 1)
+    i = s0 + 2 + sign
+    m = dec.decode(st, i)
+    if m:
+        m, i = _arith_magnitude(dec, st, 1, 20)
+        if dec.dead:
+            return 0
+    if m < (1 << lo) >> 1:
+        stats.context[e] = 0
+    elif m > (1 << hi) >> 1:
+        stats.context[e] = 12 + sign * 4
+    else:
+        stats.context[e] = 4 + sign * 4
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec.decode(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac_value(dec: _Arith, stats: _ArithStats, st: list, i: int,
+                    k: int, kx: int) -> int:
+    """The value of the AC coefficient at zigzag ``k`` whose bin row
+    starts at ``i`` (its 'nonzero' decision taken)."""
+    sign = dec.decode(stats.fixed, 0)
+    i += 2
+    m = dec.decode(st, i)
+    if m and dec.decode(st, i):
+        m, i = _arith_magnitude(dec, st, 2, 189 if k <= kx else 217)
+        if dec.dead:
+            return 0
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec.decode(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_block(dec, stats, e, scan, ci_tables, out) -> None:
+    """jdarith.c's decode_mcu on one block (sequential)."""
+    td, ta = ci_tables
+    lo, hi, kx = scan.dac[0][td], scan.dac[1][td], scan.dac[2][ta]
+    diff = _arith_dc_diff(dec, stats, e, td, lo, hi)
+    if dec.dead:
+        return
+    stats.last_dc[e] = (stats.last_dc[e] + diff) & 0xFFFF
+    out[0] = _s16(stats.last_dc[e])
+    st = stats.ac[ta]
+    k = 0
+    while k < 63:
+        i = 3 * k
+        if dec.decode(st, i):
+            return
+        while True:
+            k += 1
+            if dec.decode(st, i + 1):
+                break
+            i += 3
+            if k >= 63:
+                dec.dead = True
+                return
+        v = _arith_ac_value(dec, stats, st, i, k, kx)
+        if dec.dead:
+            return
+        out[_NATURAL[k]] = _s16(v)
+
+
+def _arith_ac_first(dec, stats, scan, out) -> None:
+    ta = scan.ta[0]
+    st, kx = stats.ac[ta], scan.dac[2][ta]
+    k = scan.ss
+    while k <= scan.se:
+        i = 3 * (k - 1)
+        if dec.decode(st, i):
+            return
+        while dec.decode(st, i + 1) == 0:
+            i += 3
+            k += 1
+            if k > scan.se:
+                dec.dead = True
+                return
+        v = _arith_ac_value(dec, stats, st, i, k, kx)
+        if dec.dead:
+            return
+        out[_NATURAL[k]] = _s16(v * (1 << scan.al))
+        k += 1
+
+
+def _arith_ac_refine(dec, stats, scan, out) -> None:
+    st = stats.ac[scan.ta[0]]
+    p1, m1 = 1 << scan.al, -1 << scan.al
+    kex = scan.se
+    while kex > 0 and not out[_NATURAL[kex]]:
+        kex -= 1
+    k = scan.ss
+    while k <= scan.se:
+        i = 3 * (k - 1)
+        if k > kex and dec.decode(st, i):
+            return
+        while True:
+            pos = _NATURAL[k]
+            if out[pos]:
+                if dec.decode(st, i + 2):
+                    out[pos] += m1 if out[pos] < 0 else p1
+                break
+            if dec.decode(st, i + 1):
+                out[pos] = m1 if dec.decode(stats.fixed, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k > scan.se:
+                dec.dead = True
+                return
+        k += 1
+
+
+def _units(st: _Stream, scan: _Scan) -> list:
+    """The scan's MCUs in order, each a list of (scan entry, by, bx):
+    an interleaved scan's MCU holds each component's h x v blocks (or
+    samples, lossless); a single component's scan walks the
+    component's own blocks, ceil(cols/8) x ceil(rows/8)."""
+    b = 1 if st.lossless else 8
+    if len(scan.comps) == 1:
+        rows, cols = st.comp_size(st.comps[scan.comps[0]])
+        return [[(0, by, bx)] for by in range(-(-rows // b))
+                for bx in range(-(-cols // b))]
+    my, mx = st.mcus()
+    units = []
+    for my_i in range(my):
+        for mx_i in range(mx):
+            unit = []
+            for e, ci in enumerate(scan.comps):
+                c = st.comps[ci]
+                for v in range(c["v"]):
+                    for h in range(c["h"]):
+                        unit.append((e, my_i * c["v"] + v,
+                                     mx_i * c["h"] + h))
+            units.append(unit)
+    return units
+
+
+def _intervals(scan: _Scan, units: list):
+    """(decoder input, the interval's MCUs) per restart interval."""
+    per = scan.restart or len(units)
+    for s0 in range(0, len(units), per):
+        seg = s0 // per
+        yield (scan.segments[seg] if seg < len(scan.segments) else b"",
+               units[s0:s0 + per])
+
+
 def _coefficients(st: _Stream) -> list[np.ndarray]:
     """Each component's quantized coefficients, (rows, cols, 64) blocks in
-    natural order, decoded by the Python loop."""
+    natural order, decoded by the Python loop from every scan."""
     my, mx = st.mcus()
     coefs = [np.zeros((my * c["v"], mx * c["h"], 64), np.int64)
              for c in st.comps]
-    for entries, tables, segments in st.scans:
-        hufs = [(_Huffman(*st.huff[(0, td)]), _Huffman(*st.huff[(1, ta)]))
-                for td, ta in tables]
-        if len(entries) == 1:
-            c = st.comps[entries[0]]
-            rows, cols = st.comp_size(c)
-            units = [[(entries[0], 0, by, bx)]
-                     for by in range(-(-rows // 8))
-                     for bx in range(-(-cols // 8))]
-        else:
-            units = []
-            for my_i in range(my):
-                for mx_i in range(mx):
-                    unit = []
-                    for e, ci in enumerate(entries):
-                        c = st.comps[ci]
-                        for v in range(c["v"]):
-                            for h in range(c["h"]):
-                                unit.append((ci, e, my_i * c["v"] + v,
-                                             mx_i * c["h"] + h))
-                    units.append(unit)
-        per_segment = st.restart or len(units)
-        for s0 in range(0, len(units), per_segment):
-            seg = s0 // per_segment
-            bits = _Bits(segments[seg] if seg < len(segments) else b"")
-            pred = [0] * len(st.comps)
-            for unit in units[s0:s0 + per_segment]:
-                for ci, e, by, bx in unit:
-                    dc, ac = hufs[0] if len(entries) == 1 else hufs[e]
-                    pred[ci] = _decode_block(bits, dc, ac, pred[ci],
-                                             coefs[ci][by, bx])
+    coef_bits = [[-1] * 64 for _ in st.comps]
+    for scan in st.scans:
+        units = _units(st, scan)
+        blocks = [coefs[ci] for ci in scan.comps]
+        first = scan.ah == 0
+        if st.progressive:
+            for ci in scan.comps:
+                for k in range(scan.ss, scan.se + 1):
+                    coef_bits[ci][k] = scan.al
+        for data, mcus in _intervals(scan, units):
+            if st.arith:
+                dec, stats = _Arith(data), _ArithStats(len(scan.comps))
+            else:
+                dec, pred, eobrun = _Bits(data), [0] * len(scan.comps), 0
+            for unit in mcus:
+                for e, by, bx in unit:
+                    out = blocks[e][by, bx]
+                    if st.arith and dec.dead:
+                        break
+                    if not st.progressive:
+                        if st.arith:
+                            _arith_block(dec, stats, e, scan,
+                                         (scan.td[e], scan.ta[e]), out)
+                        else:
+                            pred[e] = _huff_block(
+                                dec, scan.huff[(0, scan.td[e])],
+                                scan.huff[(1, scan.ta[e])], pred[e], out)
+                    elif scan.ss == 0 and first:
+                        if st.arith:
+                            td = scan.td[e]
+                            diff = _arith_dc_diff(dec, stats, e, td,
+                                                  scan.dac[0][td],
+                                                  scan.dac[1][td])
+                            if dec.dead:
+                                break
+                            stats.last_dc[e] = (stats.last_dc[e]
+                                                + diff) & 0xFFFF
+                            out[0] = _s16(stats.last_dc[e] << scan.al)
+                        else:
+                            pred[e] += _huff_dc_diff(
+                                dec, scan.huff[(0, scan.td[e])])
+                            out[0] = _s16(pred[e] * (1 << scan.al))
+                    elif scan.ss == 0:
+                        bit = (dec.decode(stats.fixed, 0) if st.arith
+                               else dec.bit())
+                        if bit:
+                            out[0] |= 1 << scan.al
+                    elif st.arith:
+                        (_arith_ac_first if first else _arith_ac_refine)(
+                            dec, stats, scan, out)
+                    else:
+                        eobrun = (_huff_ac_first if first
+                                  else _huff_ac_refine)(
+                            dec, scan.huff[(1, scan.ta[0])], out, scan.ss,
+                            scan.se, scan.al, eobrun)
+    if st.progressive and _smoothing_ok(st, coef_bits):
+        coefs = [_smoothed(st, c, co, bits)
+                 for c, co, bits in zip(st.comps, coefs, coef_bits)]
     return coefs
+
+
+def _smoothing_ok(st: _Stream, coef_bits) -> bool:
+    """libjpeg-turbo's smoothing_ok at the output pass: every component
+    has its DC and the quantizers of its first ten coefficients, and the
+    scans leave one of the first nine AC coefficients of some component
+    incomplete (``coef_bits`` per zigzag index: the Al of its last scan,
+    −1 if none sent it)."""
+    for c, bits in zip(st.comps, coef_bits):
+        q = st.qt.get(c["tq"])
+        if (q is None or bits[0] < 0
+                or any(q[_NATURAL[k]] == 0
+                       for k in range(_SMOOTHED_COEFS + 1))):
+            return False
+    return any(bits[k] != 0 for bits in coef_bits
+               for k in range(1, _SMOOTHED_COEFS + 1))
+
+
+def _smoothed(st: _Stream, c: dict, co: np.ndarray, bits) -> np.ndarray:
+    """jdcoefct.c's decompress_smooth_data on one component's (rows,
+    cols, 64) coefficients: in each block of the image, a first AC
+    coefficient still zero and not known to be exact (its ``bits`` not 0)
+    is estimated from the 5x5 DC values around the block (``_SMOOTH_K``),
+    rounded and held under 2^Al; with no AC data at all the DC is
+    replaced by their weighted mean too. Rows and columns past the edge
+    repeat the last, as libjpeg's block-row pointers do: on the last iMCU
+    row counted in its own block rows, so a dummy row of the padded grid
+    can stand below a row above it."""
+    t = st.mcus()[0]
+    v = c["v"]
+    rows, cols = st.comp_size(c)
+    hib, wib = -(-rows // 8), -(-cols // 8)
+    r = np.arange(hib)
+    block_rows = np.where(r // v < t - 1, v, hib - (t - 1) * v)
+    ibr = r // v * block_rows + r % v
+    n = block_rows * t
+    prev = np.where(ibr > 0, r - 1, r)
+    nxt = np.where(ibr < n - 1, r + 1, r)
+    ri = np.stack([np.where(ibr > 1, r - 2, prev), prev, r, nxt,
+                   np.where(ibr < n - 2, r + 2, nxt)], axis=1)
+    ci = np.clip(np.arange(wib)[:, None] + np.arange(-2, 3), 0, wib - 1)
+    dc = co[..., 0][ri[:, None, :, None], ci[None, :, None, :]]
+    change_dc = all(bits[k] == -1 for k in range(1, _SMOOTHED_COEFS + 1))
+    q = st.qt[c["tq"]].astype(np.int64)
+    out = co.copy()
+    blk = out[:hib, :wib]
+    for k in range(0 if change_dc else 1, 10 if change_dc else 6):
+        if k and bits[k] == 0:
+            continue
+        num = q[0] * np.einsum("hwij,ij->hw", dc, _SMOOTH_K[int(change_dc),
+                                                            k])
+        qk = int(q[_NATURAL[k]])
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if k and bits[k] > 0:
+            pred = np.minimum(pred, (1 << bits[k]) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        at = blk[..., _NATURAL[k]]
+        blk[..., _NATURAL[k]] = np.where((at == 0) | (k == 0), pred, at)
+    return out
+
+
+def _lossless_samples(st: _Stream) -> list[np.ndarray]:
+    """Each component's (rows, cols) samples of a lossless stream:
+    jdlhuff.c's differences, undifferenced as jdlossls.c does (the first
+    row of a scan or restart interval from its left neighbour and the
+    first sample from 2^(7 - Pt); the next rows' first column from
+    above, the rest by the scan's predictor), scaled by the point
+    transform."""
+    my, mx = st.mcus()
+    out = [None] * len(st.comps)
+    for scan in st.scans:
+        diffs = [np.zeros((my * st.comps[ci]["v"], mx * st.comps[ci]["h"]),
+                          np.int64) for ci in scan.comps]
+        units = _units(st, scan)
+        per_row = (mx if len(scan.comps) > 1 else
+                   st.comp_size(st.comps[scan.comps[0]])[1])
+        if scan.restart % per_row:
+            raise ValueError("lossless JPEG restart interval is not a "
+                             "whole number of MCU rows")
+        reset_rows = set()
+        mcu_rows = 0
+        for data, mcus in _intervals(scan, units):
+            reset_rows.add(mcu_rows)
+            mcu_rows += len(mcus) // per_row
+            bits = _Bits(data)
+            for unit in mcus:
+                for e, y, x in unit:
+                    s = bits.decode(scan.huff[(0, scan.td[e])])
+                    diffs[e][y, x] = (32768 if s == 16 else
+                                      _extend(bits.bits(s), s) if s else 0)
+        for e, ci in enumerate(scan.comps):
+            c = st.comps[ci]
+            rows, cols = st.comp_size(c)
+            v = c["v"] if len(scan.comps) > 1 else 1
+            d = diffs[e]
+            x = np.zeros((rows, cols), np.int64)
+            for y in range(rows):
+                if y // v in reset_rows and y % v == 0:
+                    prev = None
+                row = x[y]
+                for i in range(cols):
+                    if prev is None:
+                        p = (1 << (7 - scan.al)) if i == 0 else int(row[i - 1])
+                    elif i == 0:
+                        p = int(prev[0])
+                    else:
+                        ra, rb, rc = int(row[i - 1]), int(prev[i]), int(
+                            prev[i - 1])
+                        p = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                             rb + ((ra - rc) >> 1), (ra + rb) >> 1)[
+                                 scan.ss - 1]
+                    row[i] = (int(d[y, i]) + p) & 0xFFFF
+                prev = row
+            out[ci] = (x << scan.al) & 0xFF
+    if any(o is None for o in out):
+        raise ValueError("JPEG stream leaves a component without a scan")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -436,22 +1080,33 @@ def _fancy_h2(p: np.ndarray, width: int, bias_left: int, bias_right: int,
     return out[:, :width]
 
 
-def upsample_fancy(p: np.ndarray, rh: int, rv: int, height: int,
-                   width: int) -> np.ndarray:
+def upsample(p: np.ndarray, rh: int, rv: int, height: int, width: int,
+             fancy: bool = True) -> np.ndarray:
     """A component's (rows, cols) samples upsampled by (rh, rv) as
-    libjpeg-turbo's h2v1_fancy_upsample (2, 1) and h2v2_fancy_upsample
-    (2, 2) do; (1, 1) is the identity. Cropped to (height, width)."""
+    libjpeg-turbo's jdsample.c picks the method: with ``fancy`` (DCT
+    streams), h2v1_fancy_upsample (2, 1) and h2v2_fancy_upsample (2, 2)
+    where the component is more than 2 samples wide, h1v2_fancy_upsample
+    (1, 2); else box replication (h2v1/h2v2_upsample, int_upsample).
+    Cropped to (height, width)."""
     p = p.astype(np.int64)
+    cols = p.shape[1]
     if (rh, rv) == (1, 1):
         return p[:height, :width]
-    if rv == 1:
+    if fancy and (rh, rv) == (2, 1) and cols > 2:
         return _fancy_h2(p, width, 1, 2, 2)[:height]
     above = np.concatenate([p[:1], p[:-1]], axis=0)
     below = np.concatenate([p[1:], p[-1:]], axis=0)
-    out = np.empty((2 * p.shape[0], width), np.int64)
-    out[0::2] = _fancy_h2(3 * p + above, width, 8, 7, 4)
-    out[1::2] = _fancy_h2(3 * p + below, width, 8, 7, 4)
-    return out[:height]
+    if fancy and (rh, rv) == (1, 2):
+        out = np.empty((2 * p.shape[0], cols), np.int64)
+        out[0::2] = (3 * p + above + 1) >> 2
+        out[1::2] = (3 * p + below + 2) >> 2
+        return out[:height, :width]
+    if fancy and (rh, rv) == (2, 2) and cols > 2:
+        out = np.empty((2 * p.shape[0], width), np.int64)
+        out[0::2] = _fancy_h2(3 * p + above, width, 8, 7, 4)
+        out[1::2] = _fancy_h2(3 * p + below, width, 8, 7, 4)
+        return out[:height]
+    return np.repeat(np.repeat(p, rv, axis=0), rh, axis=1)[:height, :width]
 
 
 def _fix(x: float) -> int:
@@ -474,27 +1129,51 @@ def ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(inverted: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """PIL's ``cmyk2rgb`` on what its "CMYK;I" rawmode makes of
+    libjpeg's CMYK output: ``inverted`` (..., 3) is 255 − C, M, Y and
+    ``k`` (...) is libjpeg's K, which the inversion makes PIL's 255 − K.
+    Each channel is K − K·(255 − C)/255, rounded as PIL's MULDIV255."""
+    nk = k.astype(np.int64)[..., None]
+    t = inverted.astype(np.int64) * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def decode_plain(data: bytes) -> np.ndarray:
     """The plain version of ``decode``: (H, W, 1) grey or (H, W, 3) RGB
     uint8, decoded in Python and numpy."""
     st = _Stream(bytes(data))
-    st.check_sampling()
-    coefs = _coefficients(st)
-    planes = []
-    for c, co in zip(st.comps, coefs):
-        if c["tq"] not in st.qt:
+    space = st.color_space()
+    if st.lossless and space not in ("grey", "rgb", "cmyk"):
+        raise _unsupported("lossless YCCK" if space == "ycck"
+                           else "lossless YCbCr")
+    for c in st.comps:
+        if not st.lossless and c["tq"] not in st.qt:
             raise ValueError(f"JPEG stream lacks quantization table "
                              f"{c['tq']}")
-        rows, cols = st.comp_size(c)
-        plane = _plane(idct_islow(co, st.qt[c["tq"]]))[:rows, :cols]
-        planes.append(upsample_fancy(plane, st.hmax // c["h"],
-                                     st.vmax // c["v"], st.height, st.width))
-    space = st.color_space()
+    if st.lossless:
+        samples = _lossless_samples(st)
+    else:
+        samples = []
+        for c, co in zip(st.comps, _coefficients(st)):
+            rows, cols = st.comp_size(c)
+            samples.append(_plane(idct_islow(co, st.qt[c["tq"]]))[
+                :rows, :cols])
+    planes = [upsample(p, st.hmax // c["h"], st.vmax // c["v"], st.height,
+                       st.width, fancy=not st.lossless)
+              for c, p in zip(st.comps, samples)]
     if space == "grey":
         return planes[0].astype(np.uint8)[..., None]
     if space == "rgb":
         return np.stack(planes, axis=-1).astype(np.uint8)
-    return ycc_to_rgb(*planes)
+    if space == "ycc":
+        return ycc_to_rgb(*planes)
+    if space == "cmyk":
+        inverted = 255 - np.stack(planes[:3], axis=-1)
+    else:
+        inverted = ycc_to_rgb(*planes[:3])
+    return cmyk_to_rgb(inverted, planes[3])
+
 
 
 # ---------------------------------------------------------------------------
@@ -523,8 +1202,8 @@ def _library():
 
 
 def decode(data: bytes) -> np.ndarray:
-    """(H, W, 1) grey or (H, W, 3) RGB uint8 samples of a baseline JPEG
-    stream, decoded by ``csrc/jpeg_decode.cpp``."""
+    """(H, W, 1) grey or (H, W, 3) RGB uint8 samples of a JPEG stream
+    of any kind the module decodes, decoded by ``csrc/jpeg_decode.cpp``."""
     lib = _library()
     data = bytes(data)
     err = ctypes.create_string_buffer(256)

@@ -4,7 +4,7 @@ front onto the device, and cameras drawn at random without replacement
 per epoch, from a numpy generator seeded as the JAX package seeds it (so
 both draw the same views).
 
-Frames are PNG or baseline JPEG (``data/png.py:read_image``), decoded
+Frames are PNG or JPEG (``data/png.py:read_image``), decoded
 and undistorted in a thread pool (the C++ JPEG decoder releases the GIL)
 as the JAX package's ``load()`` does: a fisheye624 frame is rectified by
 ``data/fisheye624.py`` and its valid-circle mask joins the dataset's

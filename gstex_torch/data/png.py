@@ -1,6 +1,6 @@
 """8-bit PNG reading and writing with ``zlib`` and numpy (no image
 library): non-interlaced grey, grey-alpha, RGB and RGBA, all five row
-filters. ``read_image`` reads a PNG or a baseline JPEG (``data/jpeg.py``)
+filters. ``read_image`` reads a PNG or a JPEG (``data/jpeg.py``)
 by the file's signature, not its suffix, and masks of either are read as
 PIL's ``convert("L")`` reads them. The card's machine has no image
 library."""
@@ -107,7 +107,7 @@ def to_grey(img: np.ndarray) -> np.ndarray:
 
 
 def read_image(path) -> np.ndarray:
-    """(H, W, C) uint8 samples of a PNG (``read_png``) or a baseline JPEG
+    """(H, W, C) uint8 samples of a PNG (``read_png``) or a JPEG
     (``jpeg.read_jpeg``: C 1 or 3), told apart by the file's signature."""
     with open(path, "rb") as f:
         head = f.read(3)

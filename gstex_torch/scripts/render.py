@@ -39,8 +39,10 @@ the dense-list eval kernel); ``xla`` the pure-torch tier.
 lat-long panorama of ``--pano-width`` x ``--pano-width``/2 from six cube
 faces through the tier's eval path (``ops/pano.py``); ``ods`` the
 omni-directional stereo pair at ``--ipd``, the left eye above the right.
-``--video`` is not offered (the JAX package writes mp4 through cv2's
-``VideoWriter``) and exits with what it needs.
+``--video`` also writes ``render.mp4`` beside the PNGs, one frame a
+written PNG (the panorama for ``--camera-type``) at ``--fps`` frames a
+second, through the port's own MPEG-4 Part 2 writer (``data/video.py``;
+the JAX package uses cv2's ``VideoWriter`` with fourcc ``mp4v``).
 
     python -m gstex_torch.scripts.render interpolate \\
         --load-config outputs/RUN --frames 30
@@ -59,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data import video
 from ..data.png import write_png
 from ..data.synthetic import orbit_c2w, orbit_camera
 from ..models import gstex as model
@@ -196,13 +199,6 @@ def _cameras(args, base, device) -> list:
                         cam.width, pose, device=device) for pose in poses]
 
 
-def _unported(args) -> None:
-    if args.video:
-        raise SystemExit("--video needs an mp4 encoder (cv2's VideoWriter "
-                         "in gstex-render), which the port does not use; "
-                         "the frames are PNGs to encode with another tool")
-
-
 def _eyes(args) -> list[float]:
     """The ipd offsets of each frame's panoramas: one for equirectangular,
     the left and the right eye for ODS."""
@@ -234,7 +230,8 @@ def _scene(args, device):
 
 def main(argv=None) -> list[dict]:
     """Render the frames; returns one summary dict per frame (finite
-    output, alpha coverage, total pairs, overflow)."""
+    output, alpha coverage, total pairs, overflow; with ``--video`` the
+    frame's bytes and encode ms in render.mp4)."""
     p = argparse.ArgumentParser(
         description="Render views of a trained GStex scene to PNG frames.")
     p.add_argument("mode", choices=["dataset", "interpolate", "spiral",
@@ -268,8 +265,9 @@ def main(argv=None) -> list[dict]:
                    choices=["random", "white", "black"],
                    help="eval background (default: the run's, else "
                         "random: the viewer's grey)")
+    p.add_argument("--fps", type=int, default=24)
     p.add_argument("--video", action="store_true",
-                   help="also encode an mp4 (not offered yet)")
+                   help="also write render.mp4 (MPEG-4 Part 2, data/video.py)")
     p.add_argument("--camera-type", default="perspective",
                    choices=["perspective", "equirectangular", "ods"],
                    help="equirectangular / ods: a panorama at each pose "
@@ -281,7 +279,6 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
-    _unported(args)
 
     device = resolve_device(args.device)
     cfg, params, buffers, step, base = _scene(args, device)
@@ -302,42 +299,66 @@ def main(argv=None) -> list[dict]:
     out_dir = Path(args.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
     summary = []
+    writer = None
+
+    def save(i, rgb) -> dict:
+        """Write frame i's PNG (and, with --video, append it to
+        render.mp4: its bytes and encode ms there)."""
+        nonlocal writer
+        frame = rgb.cpu().numpy()
+        write_png(out_dir / f"frame_{i:05d}.png", frame)
+        if not args.video:
+            return {}
+        if writer is None:
+            writer = video.open(out_dir / "render.mp4", args.fps,
+                                (frame.shape[1], frame.shape[0]))
+        writer.write(frame)
+        return {"video": {"bytes": writer.sizes[-1],
+                          "encode_ms": writer.encode_ms[-1]}}
 
     def render_one(cam):
         return model.render(cfg, params, buffers, cam, step, bg,
                             eval_only=True)["rgb"]
 
-    with torch.no_grad():
-        for i, cam in enumerate(cams):
-            if panoramic:
-                w = args.pano_width
-                if args.camera_type == "equirectangular":
-                    img = pano.render_equirect(render_one, cam.c2w, w // 2,
-                                               w, face_res, device=device)
-                else:
-                    img = pano.render_ods(render_one, cam.c2w, w // 2, w,
-                                          ipd=args.ipd, face_res=face_res,
-                                          device=device)
-                rgb = (img.clamp(0, 1) * 255).to(torch.uint8)
-                write_png(out_dir / f"frame_{i:05d}.png", rgb.cpu().numpy())
-                summary.append({"frame": i,
-                                "finite": bool(torch.isfinite(img).all()),
-                                "height": img.shape[0], "width": img.shape[1],
-                                "faces": 6 * len(_eyes(args))})
-                continue
-            out = model.render(cfg, params, buffers, cam, step, bg,
-                               eval_only=True)
-            maps = [out[k] for k in ("rgb", "img", "texture_rgb", "depth",
-                                     "alpha")]
-            finite = all(bool(torch.isfinite(m).all()) for m in maps)
-            rgb = (out["rgb"].clamp(0, 1) * 255).to(torch.uint8)
-            write_png(out_dir / f"frame_{i:05d}.png", rgb.cpu().numpy())
-            summary.append({
-                "frame": i, "finite": finite,
-                "alpha_coverage": float((out["alpha"] > 0).float().mean()),
-                "total_pairs": int(out["total_pairs"]),
-                "overflow": int(out["overflow"]),
-            })
+    try:
+        with torch.no_grad():
+            for i, cam in enumerate(cams):
+                if panoramic:
+                    w = args.pano_width
+                    if args.camera_type == "equirectangular":
+                        img = pano.render_equirect(
+                            render_one, cam.c2w, w // 2, w, face_res,
+                            device=device)
+                    else:
+                        img = pano.render_ods(
+                            render_one, cam.c2w, w // 2, w, ipd=args.ipd,
+                            face_res=face_res, device=device)
+                    vid = save(i, (img.clamp(0, 1) * 255).to(torch.uint8))
+                    summary.append({
+                        "frame": i, "finite": bool(torch.isfinite(img).all()),
+                        "height": img.shape[0], "width": img.shape[1],
+                        "faces": 6 * len(_eyes(args)), **vid})
+                    continue
+                out = model.render(cfg, params, buffers, cam, step, bg,
+                                   eval_only=True)
+                maps = [out[k] for k in ("rgb", "img", "texture_rgb",
+                                         "depth", "alpha")]
+                finite = all(bool(torch.isfinite(m).all()) for m in maps)
+                vid = save(i, (out["rgb"].clamp(0, 1) * 255).to(
+                    torch.uint8))
+                summary.append({
+                    "frame": i, "finite": finite,
+                    "alpha_coverage": float(
+                        (out["alpha"] > 0).float().mean()),
+                    "total_pairs": int(out["total_pairs"]),
+                    "overflow": int(out["overflow"]), **vid,
+                })
+    finally:
+        if writer is not None:
+            writer.close()
+    if writer is not None:
+        print(f"wrote {out_dir / 'render.mp4'} ({len(writer.sizes)} frames "
+              f"at {args.fps} fps)")
     print(f"wrote {len(cams)} frames to {out_dir}")
     return summary
 

@@ -395,8 +395,9 @@ def test_manager_loads_masks_and_refuses_what_it_cannot_load(tmp_path):
         np.asarray(Image.open(jpg).convert("RGB")))
 
     # lens distortion and the other camera models load (their images and
-    # intrinsics against the JAX package: test_torch_undistort.py); what
-    # the port cannot decode still raises, naming the ROADMAP item
+    # intrinsics against the JAX package: test_torch_undistort.py); a
+    # progressive frame loads as PIL reads it, and what PIL refuses too
+    # (a 12-bit stream) still raises
     dist = write_dataset(tmp_path / "dist", meta_extra={"k1": 0.1}.items())
     cache = FullImageCache.build(parse_nerfstudio(dist, eval_mode="all"),
                                  device="cpu")
@@ -410,7 +411,14 @@ def test_manager_loads_masks_and_refuses_what_it_cannot_load(tmp_path):
             cam, eval_mode="all").camera_type
         assert len(FullImageCache.build(parsed, device="cpu")) == len(
             parsed.image_filenames)
-    Image.fromarray(np.zeros((6, 8, 3), np.uint8)).save(
+    Image.fromarray(np.arange(144, dtype=np.uint8).reshape(6, 8, 3)).save(
         jpg, quality=90, progressive=True)
-    with pytest.raises(ValueError, match="progressive.*ROADMAP"):
+    got = FullImageCache.build(jparsed, device="cpu").images[0]
+    np.testing.assert_array_equal(
+        np.round(got.numpy() * 255).astype(np.uint8),
+        np.asarray(Image.open(jpg).convert("RGB")))
+    from jpeg_streams import frame_only
+
+    jpg.write_bytes(frame_only(0xC1, precision=12))
+    with pytest.raises(ValueError, match="12-bit.*PIL refuses"):
         FullImageCache.build(jparsed, device="cpu")

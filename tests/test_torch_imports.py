@@ -72,7 +72,7 @@ NO_IMAGE_LIBRARY = ("ops/texture_edit.py", "models/editing.py",
                     "utils/draw.py", "viewer/server.py", "viewer/page.py",
                     "viewer/render_panel.py", "scripts/viewer.py",
                     "data/png.py", "data/jpeg.py", "data/undistort.py",
-                    "data/fisheye624.py", "data/resize.py",
+                    "data/fisheye624.py", "data/resize.py", "data/video.py",
                     "data/manager.py", "data/blender.py", "ops/pano.py",
                     "scripts/render.py", "train/trainer.py",
                     "chip_smoke.py")

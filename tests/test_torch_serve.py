@@ -221,14 +221,31 @@ def test_render_cli_load_config_modes(run, tmp_path, mode):
     assert all(s["alpha_coverage"] > 0 for s in summary)
 
 
-@pytest.mark.parametrize("flags,what", [(["--video"], "mp4")],
-                         ids=["video"])
+@pytest.mark.parametrize("flags,what", [(["--video", "--fps", "12"],
+                                          "render.mp4")], ids=["video"])
 def test_render_cli_refuses_what_is_not_ported(run, tmp_path, flags, what):
+    """``--video --fps 12`` (once refused) writes render.mp4 beside the
+    PNGs, as gstex-render does: one frame a PNG at 12 frames a second,
+    read back by cv2 (ffmpeg) as its PNGs to the codec's loss."""
+    import cv2
+
+    from gstex_torch.data.png import read_png
+
     out, _, _ = run
-    with pytest.raises(SystemExit, match=what):
-        trender.main(["spiral", "--load-config", str(out), "--device", "cpu",
-                      "--output-path", str(tmp_path), *flags])
-    assert not list(tmp_path.glob("frame_*.png"))
+    summary = trender.main(["spiral", "--load-config", str(out), "--frames",
+                            "3", "--device", "cpu", "--output-path",
+                            str(tmp_path), *flags])
+    pngs = sorted(tmp_path.glob("frame_*.png"))
+    assert len(pngs) == len(summary) == 3
+    cap = cv2.VideoCapture(str(tmp_path / what))
+    assert cap.get(cv2.CAP_PROP_FPS) == 12
+    assert cap.get(cv2.CAP_PROP_FRAME_COUNT) == 3
+    for png, s in zip(pngs, summary):
+        ok, bgr = cap.read()
+        assert ok and bgr.shape == (HW, HW, 3)
+        err = np.abs(bgr[..., ::-1].astype(int) - read_png(png)).mean()
+        assert err < 4 and s["video"]["bytes"] > 0
+    assert not cap.read()[0]
 
 
 @pytest.mark.parametrize("camera_type", ["equirectangular", "ods"])
