@@ -12,7 +12,12 @@
 //   inversion of Adobe CMYK and its CMYK->RGB conversion.
 // Grey streams give one channel, every colour stream RGB. Streams PIL
 // refuses (12-bit, differential, arithmetic lossless, fractional
-// sampling, lossless YCbCr) are refused with a message. A progressive
+// sampling, lossless YCbCr) are refused with a message, and so are
+// streams cut short where PIL's libjpeg runs out of data (Feed,
+// HuffFeed: a cut marker segment it needs, a multi-scan stream without
+// its EOI, a single scan whose Huffman decoder reads ahead past the end,
+// arithmetic-coded data that ends early or crosses one of PIL's 64 KiB
+// reads). A progressive
 // stream whose scans leave low AC coefficients incomplete has its blocks
 // smoothed as jdcoefct.c's decompress_smooth_data does. The same decoder
 // in Python and numpy is gstex_torch/data/jpeg.py:decode_plain.
@@ -191,6 +196,152 @@ struct Error {
 [[noreturn]] void unsupported(const std::string& what) {
   fail(what + " JPEG streams are not decoded: " + kUnsupported);
 }
+std::string truncated(const std::string& where) {
+  return "JPEG stream truncated " + where +
+         ": PIL's libjpeg runs out of data there, and PIL raises";
+}
+const char* kArithAcrossRead =
+    "arithmetic-coded JPEG data across one of PIL's 64 KiB reads is not "
+    "decoded: PIL's libjpeg cannot suspend inside it and raises (a broken "
+    "data stream)";
+
+// How PIL feeds libjpeg-turbo, which decides where a stream cut short
+// raises: ImageFile.load passes the file in reads of 64 KiB
+// (ImageFile.MAXBLOCK), one more each time the decoder suspends for want
+// of data, and raises when there is none. jdhuff.c fills its 64-bit bit
+// buffer to at least 57 bits (MIN_GET_BITS) wherever a check finds fewer
+// bits than it needs, and decodes an MCU on its fast path (6 bytes at a
+// time where 16 bits or fewer are left) where no restart interval is set
+// and at least 512 bytes a block (BUFSIZE) are left in the read.
+constexpr long kRead = 1 << 16;
+constexpr int kMinGetBits = 57;
+constexpr long kFastBytesABlock = 512;
+
+// The stream as PIL feeds it: `extent` bytes read so far. need() is a
+// read that may suspend: PIL reads on, and past the stream's end raises.
+struct Feed {
+  const uint8_t* d;
+  long n, extent;
+  Feed(const uint8_t* data, long len)
+      : d(data), n(len), extent(std::min(kRead, len)) {}
+  void need(long pos) {
+    while (pos >= extent) {
+      if (extent >= n) fail(truncated("in its entropy-coded data"));
+      extent = std::min(extent + kRead, n);
+    }
+  }
+};
+
+// libjpeg-turbo's reads of one Huffman scan (jdhuff.c, jdlhuff.c) fed as
+// Feed feeds them: mcu() replays an MCU's code lengths (> 0) and received
+// bits (< 0, the Bits events) through the bit buffer, on the fast path
+// where jdhuff.c takes it; an MCU that suspends is taken again from its
+// start once PIL has read more.
+struct HuffFeed {
+  Feed* feed;
+  long fast_bytes;  // -1: the slow path only
+  long q = 0;
+  int bits = 0;
+  bool marker = false;
+
+  // a scan's or restart interval's data from `start`: the marker before
+  // it read, the bit buffer empty
+  void segment(long start) {
+    feed->need(start - 1);
+    q = start;
+    bits = 0;
+    marker = false;
+  }
+
+  void mcu(const std::vector<int>& ev) {
+    while (!marker) {
+      const long q0 = q;
+      const int b0 = bits;
+      if (fast_bytes >= 0 && feed->extent - q >= fast_bytes && fast(ev))
+        return;
+      q = q0;
+      bits = b0;
+      if (slow(ev)) return;
+      q = q0;
+      bits = b0;
+      feed->need(feed->extent);
+    }
+  }
+
+  // CHECK_BIT_BUFFER: a fill where fewer than n bits are left; false
+  // where it would read past what PIL has read
+  bool check(int n) {
+    if (bits >= n) return true;
+    const uint8_t* d = feed->d;
+    const long extent = feed->extent;
+    long p = q;
+    while (bits < kMinGetBits) {
+      if (p >= extent) return false;
+      int c = d[p++];
+      if (c == 0xFF) {
+        while (c == 0xFF) {
+          if (p >= extent) return false;
+          c = d[p++];
+        }
+        if (c) {  // a marker: zeros from here
+          q = p;
+          marker = true;
+          return true;
+        }
+      }
+      bits += 8;
+    }
+    q = p;
+    return true;
+  }
+
+  // decode_mcu_slow's checks (HUFF_DECODE, jpeg_huff_decode)
+  bool slow(const std::vector<int>& ev) {
+    for (int e : ev) {
+      if (e > 0) {
+        if (!check(8)) return false;
+        if (e > 8) {
+          if (!check(9)) return false;
+          bits -= 9;
+          for (int i = 9; i < e; ++i) {
+            if (!check(1)) return false;
+            bits -= 1;
+          }
+        } else {
+          bits -= e;
+        }
+      } else {
+        if (!check(-e)) return false;
+        bits += e;
+      }
+      if (marker) return true;
+    }
+    return true;
+  }
+
+  // decode_mcu_fast's fills (FILL_BIT_BUFFER_FAST); false at a marker,
+  // where jdhuff.c takes the MCU again on the slow path
+  bool fast(const std::vector<int>& ev) {
+    const uint8_t* d = feed->d;
+    const long n = feed->n;
+    for (int e : ev) {
+      if (bits <= 16) {
+        long p = q;
+        for (int i = 0; i < 6; ++i) {
+          const int c0 = d[p++];
+          if (c0 == 0xFF) {
+            if (p >= n || d[p]) return false;
+            ++p;
+          }
+        }
+        q = p;
+        bits += 48;
+      }
+      bits -= e > 0 ? e : -e;
+    }
+    return true;
+  }
+};
 
 struct Huffman {
   bool present = false;
@@ -256,14 +407,20 @@ struct Component {
 };
 
 // Reads one restart interval's entropy-coded bytes in place: 0xFF00 is a
-// 0xFF data byte, a marker ends the data (zeros follow).
+// 0xFF data byte, a marker ends the data (zeros follow). A read at or
+// past `stop` (jdarith.c's fetches, which cannot suspend, past what PIL
+// has read) raises `stop_msg`.
 struct Bytes {
   const uint8_t* d;
   long n, pos;
+  long stop = -1;  // -1: no limit
+  std::string stop_msg;
   bool hit_marker = false;
 
   unsigned next() {
-    if (hit_marker || pos >= n) return 0;
+    if (hit_marker) return 0;
+    if (stop >= 0 && pos >= stop) fail(stop_msg);
+    if (pos >= n) return 0;
     unsigned byte = d[pos];
     if (byte != 0xFF) {
       ++pos;
@@ -271,6 +428,7 @@ struct Bytes {
     }
     long p = pos + 1;
     while (p < n && d[p] == 0xFF) ++p;  // fill bytes
+    if (stop >= 0 && p >= stop) fail(stop_msg);
     if (p < n && d[p] == 0x00) {
       pos = p + 1;
       return 0xFF;
@@ -281,10 +439,14 @@ struct Bytes {
   }
 };
 
+// The bits of one restart interval. With `ev` set, each Huffman code
+// appends its length and each run of n received bits appends -n, what
+// HuffFeed replays.
 struct Bits {
   Bytes in;
   uint64_t acc = 0;
   int nacc = 0;
+  std::vector<int>* ev = nullptr;
 
   void fill() {
     while (nacc <= 56) {
@@ -292,13 +454,17 @@ struct Bits {
       nacc += 8;
     }
   }
-  int get(int s) {
+  int take(int s) {
     if (s == 0) return 0;
     if (nacc < s) fill();
     int v = static_cast<int>(acc >> (64 - s));
     acc <<= s;
     nacc -= s;
     return v;
+  }
+  int get(int s) {
+    if (ev && s) ev->push_back(-s);
+    return take(s);
   }
   int decode(const Huffman& h) {
     if (nacc < 16) fill();
@@ -307,14 +473,16 @@ struct Bits {
       int len = look >> 8;
       acc <<= len;
       nacc -= len;
+      if (ev) ev->push_back(len);
       return look & 255;
     }
-    int code = get(1);
+    int code = take(1);
     int len = 1;
     while (len <= 16 && code > h.maxcode[len]) {
-      code = (code << 1) | get(1);
+      code = (code << 1) | take(1);
       ++len;
     }
+    if (ev) ev->push_back(len);
     if (len > 16) return 0;  // corrupt data: libjpeg returns 0
     return h.values[(h.valptr[len] + code - h.mincode[len]) & 255];
   }
@@ -563,8 +731,11 @@ struct Decoder {
   Huffman huff[2][4];
   int dac_l[16], dac_u[16], dac_k[16];
   int mcu_rows = 0, mcu_cols = 0;
+  int first_scan_ns = 0;  // components of the first scan
+  bool eoi = false;       // the EOI marker was reached
+  Feed feed;
 
-  Decoder(const uint8_t* data, long len) : d(data), n(len) {
+  Decoder(const uint8_t* data, long len) : d(data), n(len), feed(data, len) {
     std::fill(dac_l, dac_l + 16, 0);
     std::fill(dac_u, dac_u + 16, 1);
     std::fill(dac_k, dac_k + 16, 5);
@@ -717,7 +888,25 @@ struct Decoder {
         return q;  // another marker: the data ends early
       ++q;
     }
-    return q + 1 < n ? q + 2 : q;
+    // libjpeg reads the restart marker past the stream's end
+    if (q + 1 >= n) fail(truncated("before a restart marker"));
+    return q + 2;
+  }
+
+  // libjpeg's has_multiple_scans: a progressive frame, or a first scan
+  // without every component. Such a stream is read to its EOI before the
+  // first line is output.
+  bool multi_scan() const {
+    return progressive || first_scan_ns < static_cast<int>(comps.size());
+  }
+
+  // where the data from `q` ends: the next marker other than RSTn, or n
+  long data_end(long q) const {
+    for (; q + 1 < n; ++q)
+      if (d[q] == 0xFF && d[q + 1] != 0x00 && d[q + 1] != 0xFF &&
+          !(d[q + 1] >= 0xD0 && d[q + 1] <= 0xD7))
+        return q;
+    return n;
   }
 
   // Decode one scan from its entropy-coded data at `p`; returns the
@@ -725,6 +914,7 @@ struct Decoder {
   long scan(long p, int len) {
     const Scan s = scan_header(p, len);
     const long pos = p + len;
+    if (first_scan_ns == 0) first_scan_ns = s.ns;
     for (int e = 0; e < s.ns; ++e) {
       Component& c = comps[s.comps[e]];
       if (lossless) continue;
@@ -764,16 +954,38 @@ struct Decoder {
     int pred[4] = {0, 0, 0, 0};
     int eobrun = 0;
     long q = pos;
+    // a sequential Huffman scan whose data runs to the stream's end:
+    // PIL's verdict turns on the bytes libjpeg reads ahead (a marker ends
+    // the data of the others, and a multi-scan stream is read to its EOI)
+    const bool model = !arith && !progressive && data_end(pos) == n;
+    long blocks = 0;
+    for (int e = 0; e < s.ns; ++e)
+      blocks += s.ns == 1 ? 1 : comps[s.comps[e]].h * comps[s.comps[e]].v;
+    HuffFeed hf{&feed, restart || lossless ? -1 : kFastBytesABlock * blocks};
+    std::vector<int> ev;
     for (long u = 0; u < total; ++u) {
       if (u % per == 0) {
         if (u > 0) q = to_restart(arith ? ar.in.pos : bits.in.pos);
         bits = Bits{Bytes{d, n, q}};
         ar = Arith{Bytes{d, n, q}};
+        if (arith) {
+          // jdarith.c's fetches cannot suspend: past what PIL has read
+          // they raise
+          feed.need(q - 1);
+          ar.in.stop = feed.extent;
+          ar.in.stop_msg = feed.extent == n
+                               ? truncated("in its arithmetic-coded data")
+                               : kArithAcrossRead;
+        } else if (model) {
+          hf.segment(q);
+          bits.ev = &ev;
+        }
         stats = ArithStats();
         std::fill(pred, pred + 4, 0);
         eobrun = 0;
         if (lossless) reset_row[u / units_x] = 1;
       }
+      ev.clear();
       const long uy = u / units_x, ux = u % units_x;
       for (int e = 0; e < s.ns; ++e) {
         Component& c = comps[s.comps[e]];
@@ -794,6 +1006,7 @@ struct Decoder {
               huff_unit(bits, s, e, pred[e], eobrun, out);
           }
       }
+      if (model) hf.mcu(ev);
     }
     if (lossless) undifference(s, diffs, reset_row, units_x);
     // the scan ends at the next marker other than RSTn
@@ -951,10 +1164,19 @@ struct Decoder {
       while (p < n && d[p] == 0xFF) ++p;
       if (p >= n) break;
       int marker = d[p++];
-      if (marker == 0xD9) break;
+      if (marker == 0xD9) {
+        eoi = true;
+        break;
+      }
       if (marker == 0x01 || (marker >= 0xD0 && marker <= 0xD7)) continue;
+      if (p + 2 > n || p + ((d[p] << 8) | d[p + 1]) > n) {
+        // libjpeg reads on past a single scan's data only at the end,
+        // whose want of data PIL forgives
+        if (any_scan && !multi_scan()) break;
+        fail(truncated("in a marker segment"));
+      }
       int len = u16(p);
-      if (len < 2 || p + len > n) fail("JPEG marker segment truncated");
+      if (len < 2) fail("JPEG marker segment truncated");
       long body = p + 2;
       int blen = len - 2;
       p += len;
@@ -998,6 +1220,8 @@ struct Decoder {
     }
     if (!have_frame) fail("JPEG stream has no frame header");
     if (decode_scans && !any_scan) fail("JPEG stream has no scan");
+    if (decode_scans && !eoi && multi_scan())
+      fail(truncated("before its EOI marker"));
   }
 
   int channels() const { return comps.size() == 1 ? 1 : 3; }

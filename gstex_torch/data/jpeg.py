@@ -32,7 +32,16 @@ not.
 Streams PIL refuses raise ``ValueError``: 12-bit and 16-bit samples,
 differential (hierarchical) frames, arithmetic-coded lossless ones,
 fractional sampling ratios, lossless YCbCr, and Huffman tables libjpeg
-refuses (a DC symbol past 15, a code of all ones).
+refuses (a DC symbol past 15, a code of all ones). So do streams cut
+short where PIL's libjpeg runs out of data (``_Feed``): a cut marker
+segment it needs; a progressive or multi-scan stream without its EOI
+marker (read whole before the first line is output); a single scan
+whose Huffman decoder reads ahead past the stream's end, its 57-bit
+fills replayed from the codes' lengths as jdhuff.c's slow and fast paths
+make them (``_HuffFeed``), so that a stream which lacks only its EOI
+decodes where PIL's does; arithmetic-coded data that ends before its
+last MCU; and arithmetic-coded data across one of PIL's 64 KiB reads,
+inside which that decoder cannot suspend.
 
 ``decode`` is the main path: the whole decode in host C++
 (``csrc/jpeg_decode.cpp``, built at first use by ``ops/_build.py`` and
@@ -169,6 +178,11 @@ def _unsupported(what: str) -> ValueError:
     return ValueError(f"{what} JPEG streams are not decoded: {UNSUPPORTED}")
 
 
+def _truncated(where: str) -> ValueError:
+    return ValueError(f"JPEG stream truncated {where}: PIL's libjpeg runs "
+                      f"out of data there, and PIL raises")
+
+
 def _s16(x: int) -> int:
     """x as libjpeg's 16-bit JCOEF holds it."""
     return ((x + 0x8000) & 0xFFFF) - 0x8000
@@ -181,14 +195,16 @@ def _s16(x: int) -> int:
 class _Scan:
     """One scan: its components (frame indices), the tables, spectral
     selection and successive approximation as of its SOS, and its
-    entropy-coded segments (split at restart markers)."""
+    entropy-coded segments (split at restart markers), each with the
+    stream position of its first byte and of the code byte of the marker
+    that ends it (``None`` where the data runs to the stream's end)."""
 
     def __init__(self, comps, td, ta, ss, se, ah, al, restart, huff, dac,
-                 segments):
+                 segments, starts, markers):
         self.comps, self.td, self.ta = comps, td, ta
         self.ss, self.se, self.ah, self.al = ss, se, ah, al
         self.restart, self.huff, self.dac = restart, huff, dac
-        self.segments = segments
+        self.segments, self.starts, self.markers = segments, starts, markers
 
 
 class _Stream:
@@ -208,6 +224,7 @@ class _Stream:
         self.jfif = False
         self.adobe = None            # Adobe APP14 transform flag
         self.scans = []
+        self.eoi = False             # the EOI marker was reached
         pos = 2
         n = len(data)
         while pos < n:
@@ -220,11 +237,17 @@ class _Stream:
             marker = data[pos]
             pos += 1
             if marker == 0xD9:
+                self.eoi = True
                 break
             if marker == 0x01 or 0xD0 <= marker <= 0xD7:
                 continue
-            if pos + 2 > n:
-                raise ValueError("JPEG stream truncated")
+            if pos + 2 > n or pos + struct.unpack(
+                    ">H", data[pos:pos + 2])[0] > n:
+                # libjpeg reads on past a single scan's data only at the
+                # end, whose want of data PIL forgives
+                if self.scans and not self.multi_scan:
+                    break
+                raise _truncated("in a marker segment")
             (length,) = struct.unpack(">H", data[pos:pos + 2])
             body = data[pos + 2:pos + length]
             pos += length
@@ -251,6 +274,14 @@ class _Stream:
             raise ValueError("JPEG stream has no frame header")
         if not self.scans:
             raise ValueError("JPEG stream has no scan")
+
+    @property
+    def multi_scan(self) -> bool:
+        """libjpeg's has_multiple_scans: a progressive frame, or a first
+        scan without every component. Such a stream is read to its EOI
+        before the first line is output."""
+        return self.progressive or len(self.scans[0].comps) < len(
+            self.comps)
 
     def _frame(self, body: bytes) -> None:
         precision, self.height, self.width, nc = struct.unpack(">BHHB",
@@ -339,12 +370,12 @@ class _Stream:
                         255 if cls else 16 if self.lossless else 15)
                         for t in ids):
                     raise ValueError("JPEG Huffman table bad")
-        segments, end = _entropy_segments(self.data, pos)
+        segments, starts, markers, end = _entropy_segments(self.data, pos)
         self.scans.append(_Scan(
             entries, td, ta, ss, se, ah, al, self.restart,
             {k: _Huffman(*v) for k, v in self.huff.items()},
             (list(self.dac_l), list(self.dac_u), list(self.dac_k)),
-            segments))
+            segments, starts, markers))
         return end
 
     # geometry --------------------------------------------------------------
@@ -399,18 +430,21 @@ class _Stream:
                     f"{hmax}x{vmax})")
 
 
-def _entropy_segments(data: bytes, pos: int) -> tuple[list, int]:
+def _entropy_segments(data: bytes, pos: int) -> tuple:
     """The entropy-coded data of a scan from ``pos``: a list of byte
-    strings split at restart markers, byte stuffing removed; and the
-    position of the marker that ends the scan."""
-    segments, cur = [], bytearray()
+    strings split at restart markers, byte stuffing removed; the stream
+    position where each starts; that of the code byte of the marker
+    that ends each (``None`` for data that runs to the stream's end);
+    and the position of the marker that ends the scan."""
+    segments, starts, markers, cur = [], [pos], [], bytearray()
     n = len(data)
     while True:
         j = data.find(b"\xff", pos)
         if j < 0 or j + 1 >= n:
             cur += data[pos:]
             segments.append(bytes(cur))
-            return segments, n
+            markers.append(None)
+            return segments, starts, markers, n
         cur += data[pos:j]
         nxt = data[j + 1]
         if nxt == 0x00:
@@ -420,11 +454,14 @@ def _entropy_segments(data: bytes, pos: int) -> tuple[list, int]:
             pos = j + 1
         elif 0xD0 <= nxt <= 0xD7:
             segments.append(bytes(cur))
+            markers.append(j + 1)
+            starts.append(j + 2)
             cur = bytearray()
             pos = j + 2
         else:
             segments.append(bytes(cur))
-            return segments, j
+            markers.append(j + 1)
+            return segments, starts, markers, j
 
 
 # ---------------------------------------------------------------------------
@@ -465,8 +502,13 @@ class _Huffman:
 
 
 class _Bits:
-    def __init__(self, data: bytes):
+    """The bits of one restart interval's bytes, zeros after them. With
+    ``events`` (a list) each Huffman code appends its length and each
+    run of n received bits appends −n, what ``_HuffFeed`` replays."""
+
+    def __init__(self, data: bytes, events=None):
         self.data, self.pos = data, 0
+        self.events = events
 
     def bit(self) -> int:
         i = self.pos >> 3
@@ -476,6 +518,8 @@ class _Bits:
         return b
 
     def bits(self, n: int) -> int:
+        if self.events is not None and n:
+            self.events.append(-n)
         v = 0
         for _ in range(n):
             v = (v << 1) | self.bit()
@@ -487,18 +531,174 @@ class _Bits:
         while length <= 16 and code > h.maxcode[length]:
             code = (code << 1) | self.bit()
             length += 1
+        if self.events is not None:
+            self.events.append(length)
         if length > 16:
             return 0               # corrupt data: libjpeg returns 0
         return h.values[h.valptr[length] + code - h.mincode[length]]
 
 
+# How PIL feeds libjpeg-turbo, which decides where a stream cut short
+# raises: ``ImageFile.load`` passes the file in reads of 64 KiB
+# (``ImageFile.MAXBLOCK``), one more each time the decoder suspends for
+# want of data, and raises when there is none. jdhuff.c fills its 64-bit
+# bit buffer to at least 57 bits (MIN_GET_BITS) wherever a check finds
+# fewer bits than it needs, and decodes an MCU on its fast path (6 bytes
+# at a time where 16 bits or fewer are left) where no restart interval
+# is set and at least 512 bytes a block (BUFSIZE) are left in the read.
+_READ = 1 << 16
+_MIN_GET_BITS = 57
+_FAST_BYTES_A_BLOCK = 512
+
+
+class _Feed:
+    """A stream as PIL feeds it to libjpeg: ``extent`` bytes read so
+    far. ``need`` is a read that may suspend: PIL reads on, and past the
+    stream's end raises."""
+
+    def __init__(self, data: bytes):
+        self.data, self.n = data, len(data)
+        self.extent = min(_READ, self.n)
+
+    def need(self, pos: int) -> None:
+        while pos >= self.extent:
+            if self.extent >= self.n:
+                raise _truncated("in its entropy-coded data")
+            self.extent = min(self.extent + _READ, self.n)
+
+    def arith_limit(self, scan: _Scan, seg: int) -> tuple:
+        """How many bytes of segment ``seg`` jdarith.c may fetch (the
+        marker that ends it counts as one past its data), and the error
+        one more raises: its fetches cannot suspend, so one past the
+        bytes read so far is an error in PIL."""
+        data, end = scan.segments[seg], scan.markers[seg]
+        self.need(scan.starts[seg] - 1)
+        if end is not None and end < self.extent:
+            return len(data) + 1, None
+        # the destuffed bytes whose last stream byte was read (an 0xFF
+        # needs the byte after it)
+        raw = self.data[scan.starts[seg]:self.extent]
+        limit = len(raw.replace(b"\xff\x00", b"\xff")) - raw.endswith(
+            b"\xff")
+        return min(limit, len(data)), (
+            _truncated("in its arithmetic-coded data")
+            if self.extent == self.n else ValueError(
+                "arithmetic-coded JPEG data across one of PIL's 64 KiB "
+                "reads is not decoded: PIL's libjpeg cannot suspend inside "
+                "it and raises (a broken data stream)"))
+
+
+class _HuffFeed:
+    """libjpeg-turbo's reads of one Huffman scan (jdhuff.c, jdlhuff.c)
+    fed as ``_Feed`` feeds them: ``mcu`` replays an MCU's code lengths
+    and received bits (``_Bits`` events) through the bit buffer, on the
+    fast path where jdhuff.c takes it; an MCU that suspends is taken
+    again from its start once PIL has read more."""
+
+    def __init__(self, feed: _Feed, blocks: int, fast: bool):
+        self.feed = feed
+        self.fast_bytes = _FAST_BYTES_A_BLOCK * blocks if fast else None
+        self.q = self.bits = 0
+        self.marker = False
+
+    def segment(self, start: int) -> None:
+        """A scan's or restart interval's data from ``start``: the
+        marker before it read, the bit buffer empty."""
+        self.feed.need(start - 1)
+        self.q, self.bits, self.marker = start, 0, False
+
+    def mcu(self, events: list) -> None:
+        feed = self.feed
+        while not self.marker:
+            q, bits = self.q, self.bits
+            if (self.fast_bytes is not None
+                    and feed.extent - q >= self.fast_bytes
+                    and self._fast(events)):
+                return
+            self.q, self.bits = q, bits
+            if self._slow(events):
+                return
+            self.q, self.bits = q, bits
+            feed.need(feed.extent)
+
+    def _check(self, n: int) -> bool:
+        """CHECK_BIT_BUFFER: a fill where fewer than n bits are left;
+        False where it would read past what PIL has read."""
+        if self.bits >= n:
+            return True
+        data, extent, q = self.feed.data, self.feed.extent, self.q
+        while self.bits < _MIN_GET_BITS:
+            if q >= extent:
+                return False
+            c = data[q]
+            q += 1
+            if c == 0xFF:
+                while c == 0xFF:
+                    if q >= extent:
+                        return False
+                    c = data[q]
+                    q += 1
+                if c:                  # a marker: zeros from here
+                    self.q, self.marker = q, True
+                    return True
+            self.bits += 8
+        self.q = q
+        return True
+
+    def _slow(self, events: list) -> bool:
+        """decode_mcu_slow's checks (HUFF_DECODE, jpeg_huff_decode)."""
+        for ev in events:
+            if ev > 0:
+                if not self._check(8):
+                    return False
+                if ev > 8:
+                    if not self._check(9):
+                        return False
+                    self.bits -= 9
+                    for _ in range(ev - 9):
+                        if not self._check(1):
+                            return False
+                        self.bits -= 1
+                else:
+                    self.bits -= ev
+            else:
+                if not self._check(-ev):
+                    return False
+                self.bits += ev
+            if self.marker:
+                return True
+        return True
+
+    def _fast(self, events: list) -> bool:
+        """decode_mcu_fast's fills (FILL_BIT_BUFFER_FAST); False at a
+        marker, where jdhuff.c takes the MCU again on the slow path."""
+        data, n = self.feed.data, self.feed.n
+        for ev in events:
+            if self.bits <= 16:
+                q = self.q
+                for _ in range(6):
+                    c0 = data[q]
+                    q += 1
+                    if c0 == 0xFF:
+                        if q >= n or data[q]:
+                            return False
+                        q += 1
+                self.q = q
+                self.bits += 48
+            self.bits -= abs(ev)
+        return True
+
+
 class _Arith:
     """libjpeg's arith_decode (``jdarith.c``) over one restart interval's
     bytes: the C register holds the interval's base and the input bits,
-    zeros follow the data."""
+    zeros follow the data. A fetch past ``limit`` raises ``stop``
+    (``_Feed.arith_limit``), where PIL's libjpeg raises."""
 
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, limit: int | None = None, stop=None):
         self.data, self.pos = data, 0
+        self.limit = len(data) + 1 if limit is None else limit
+        self.stop = stop
         self.c = self.a = 0
         self.ct = -16
         self.dead = False          # a magnitude or spectral overflow
@@ -507,6 +707,8 @@ class _Arith:
         while self.a < 0x8000:
             self.ct -= 1
             if self.ct < 0:
+                if self.limit <= self.pos <= len(self.data):
+                    raise self.stop
                 byte = (self.data[self.pos] if self.pos < len(self.data)
                         else 0)
                 self.pos += 1
@@ -788,6 +990,17 @@ def _arith_ac_refine(dec, stats, scan, out) -> None:
         k += 1
 
 
+def _huff_feed(st: _Stream, scan: _Scan, feed: _Feed, blocks: int):
+    """The ``_HuffFeed`` of a sequential Huffman scan whose data runs to
+    the stream's end (where PIL's verdict turns on the bytes libjpeg
+    reads ahead), else ``None``: a marker ends the data of the others,
+    and a stream read to its EOI before output (``multi_scan``) has
+    one."""
+    if st.arith or st.progressive or scan.markers[-1] is not None:
+        return None
+    return _HuffFeed(feed, blocks, fast=not (scan.restart or st.lossless))
+
+
 def _units(st: _Stream, scan: _Scan) -> list:
     """The scan's MCUs in order, each a list of (scan entry, by, bx):
     an interleaved scan's MCU holds each component's h x v blocks (or
@@ -818,6 +1031,9 @@ def _intervals(scan: _Scan, units: list):
     per = scan.restart or len(units)
     for s0 in range(0, len(units), per):
         seg = s0 // per
+        if seg >= len(scan.segments) and scan.markers[-1] is None:
+            # libjpeg reads the restart marker past the stream's end
+            raise _truncated("before a restart marker")
         yield (scan.segments[seg] if seg < len(scan.segments) else b"",
                units[s0:s0 + per])
 
@@ -829,6 +1045,7 @@ def _coefficients(st: _Stream) -> list[np.ndarray]:
     coefs = [np.zeros((my * c["v"], mx * c["h"], 64), np.int64)
              for c in st.comps]
     coef_bits = [[-1] * 64 for _ in st.comps]
+    feed = _Feed(st.data)
     for scan in st.scans:
         units = _units(st, scan)
         blocks = [coefs[ci] for ci in scan.comps]
@@ -837,12 +1054,22 @@ def _coefficients(st: _Stream) -> list[np.ndarray]:
             for ci in scan.comps:
                 for k in range(scan.ss, scan.se + 1):
                     coef_bits[ci][k] = scan.al
-        for data, mcus in _intervals(scan, units):
+        hf = _huff_feed(st, scan, feed, len(units[0]))
+        for seg, (data, mcus) in enumerate(_intervals(scan, units)):
+            events = None
             if st.arith:
-                dec, stats = _Arith(data), _ArithStats(len(scan.comps))
+                dec = _Arith(data, *(feed.arith_limit(scan, seg)
+                                     if seg < len(scan.segments) else ()))
+                stats = _ArithStats(len(scan.comps))
             else:
-                dec, pred, eobrun = _Bits(data), [0] * len(scan.comps), 0
+                if hf is not None:
+                    hf.segment(scan.starts[seg])
+                    events = []
+                dec, pred, eobrun = (_Bits(data, events),
+                                     [0] * len(scan.comps), 0)
             for unit in mcus:
+                if events is not None:
+                    events.clear()
                 for e, by, bx in unit:
                     out = blocks[e][by, bx]
                     if st.arith and dec.dead:
@@ -883,6 +1110,8 @@ def _coefficients(st: _Stream) -> list[np.ndarray]:
                                   else _huff_ac_refine)(
                             dec, scan.huff[(1, scan.ta[0])], out, scan.ss,
                             scan.se, scan.al, eobrun)
+                if events is not None:
+                    hf.mcu(events)
     if st.progressive and _smoothing_ok(st, coef_bits):
         coefs = [_smoothed(st, c, co, bits)
                  for c, co, bits in zip(st.comps, coefs, coef_bits)]
@@ -957,6 +1186,7 @@ def _lossless_samples(st: _Stream) -> list[np.ndarray]:
     transform."""
     my, mx = st.mcus()
     out = [None] * len(st.comps)
+    feed = _Feed(st.data)
     for scan in st.scans:
         diffs = [np.zeros((my * st.comps[ci]["v"], mx * st.comps[ci]["h"]),
                           np.int64) for ci in scan.comps]
@@ -968,15 +1198,24 @@ def _lossless_samples(st: _Stream) -> list[np.ndarray]:
                              "whole number of MCU rows")
         reset_rows = set()
         mcu_rows = 0
-        for data, mcus in _intervals(scan, units):
+        hf = _huff_feed(st, scan, feed, len(units[0]))
+        for seg, (data, mcus) in enumerate(_intervals(scan, units)):
             reset_rows.add(mcu_rows)
             mcu_rows += len(mcus) // per_row
-            bits = _Bits(data)
+            events = None
+            if hf is not None:
+                hf.segment(scan.starts[seg])
+                events = []
+            bits = _Bits(data, events)
             for unit in mcus:
+                if events is not None:
+                    events.clear()
                 for e, y, x in unit:
                     s = bits.decode(scan.huff[(0, scan.td[e])])
                     diffs[e][y, x] = (32768 if s == 16 else
                                       _extend(bits.bits(s), s) if s else 0)
+                if events is not None:
+                    hf.mcu(events)
         for e, ci in enumerate(scan.comps):
             c = st.comps[ci]
             rows, cols = st.comp_size(c)
@@ -1143,6 +1382,8 @@ def decode_plain(data: bytes) -> np.ndarray:
     """The plain version of ``decode``: (H, W, 1) grey or (H, W, 3) RGB
     uint8, decoded in Python and numpy."""
     st = _Stream(bytes(data))
+    if st.multi_scan and not st.eoi:
+        raise _truncated("before its EOI marker")
     space = st.color_space()
     if st.lossless and space not in ("grey", "rgb", "cmyk"):
         raise _unsupported("lossless YCCK" if space == "ycck"

@@ -250,6 +250,9 @@ def make_sharded_train_scan(cfg: model.GStexConfig, mesh: Mesh,
     package's ``make_sharded_train_scan``): ``(state, cams, images) ->
     metrics``, the n steps of ``make_sharded_train_step`` in order, their
     metrics stacked (n,) device tensors, read by the host once, after the
+    chunk. The Adam updates read their per-step values from the chunk's
+    table (``optim.Adam.step_table``, accumulating groups too), as the
+    single-device scan's do, and the host counts move once, after the
     chunk. The steps are not captured into a CUDA graph: gloo stages its
     collectives through the host."""
     from ..train import step as step_mod
@@ -261,9 +264,16 @@ def make_sharded_train_scan(cfg: model.GStexConfig, mesh: Mesh,
         if any((c.height, c.width) != (height, width) for c in cams):
             raise ValueError(f"a chunk's cameras must all be "
                              f"{height}x{width}")
-        rows = [step_mod.sharded_step(cfg, state, mesh, height, width,
-                                      [cam], [image], [None])
-                for cam, image in zip(cams, images)]
+        dev = state.params.means.device
+        table = state.optimizer.step_table(len(cams), dev)
+        pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        rows = []
+        for cam, image in zip(cams, images):
+            rows.append(step_mod.sharded_step(
+                cfg, state, mesh, height, width, [cam], [image], [None],
+                table=table, pos=pos))
+            pos += 1
+        state.optimizer.advance(len(cams))
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     return scan_fn
 

@@ -143,59 +143,80 @@ class Adam(torch.optim.Optimizer):
                 "exp_avg_sq": torch.zeros_like(p)}
 
     def _accumulate(self, st: dict, grad, k: int):
-        """The MultiSteps mean; the gradient to update with, or ``None``."""
+        """The MultiSteps mean; the gradient to update with (the mean,
+        zeroed after the update), or ``None``."""
         m, acc = st["mini_step"], st["acc"]
         acc.add_((grad - acc) / (m + 1))
         st["mini_step"] = (m + 1) % k
         if m != k - 1:
             return None
         st["gradient_step"] += 1
-        grad = acc.clone()
-        acc.zero_()
-        return grad
+        return acc
 
     def step_table(self, n: int, device) -> torch.Tensor:
-        """The per-step values of the next ``n`` updates, for ``step`` with
-        a ``table``: (n, groups, 2) float32 rows of √(1 − β₂^t) and
+        """The per-step values of the next ``n`` steps, for ``step`` with
+        a ``table``: (n, groups, 4) float32 rows of √(1 − β₂^t) and
         −lr / (1 − β₁^t), the numbers the host path passes as Python
-        floats, from each group's count and schedule. Non-accumulating
-        groups only (an accumulating group's count moves with its
-        ``mini_step``)."""
+        floats, from each group's count and schedule at the update's
+        count t; then, for an accumulating group, the running mean's
+        divisor m + 1 (``mini_step`` m) and 1 where the step ends the
+        group's k and updates (1 and 1 for the other groups). A step that
+        only accumulates holds the values of the group's next update."""
         b1, b2 = self.defaults["betas"]
-        rows = np.zeros((n, len(self.param_groups), 2), np.float32)
+        rows = np.ones((n, len(self.param_groups), 4), np.float32)
         for g, group in enumerate(self.param_groups):
-            if group["name"] in self.every:
-                raise ValueError(f"group {group['name']!r} accumulates "
-                                 f"gradients: it takes the per-step path")
-            count = self._count(group)
+            k, m = self._cycle(group)
+            t = self._count(group)
             for i in range(n):
-                t = count + i + 1
-                rows[i, g, 0] = math.sqrt(_bias_correction(b2, t))
-                rows[i, g, 1] = (-_lr_at(self.lrs[group["name"]], t - 1)
-                                 / _bias_correction(b1, t))
+                rows[i, g, 0] = math.sqrt(_bias_correction(b2, t + 1))
+                rows[i, g, 1] = (-_lr_at(self.lrs[group["name"]], t)
+                                 / _bias_correction(b1, t + 1))
+                rows[i, g, 2] = (m + i) % k + 1
+                rows[i, g, 3] = apply = (m + i) % k == k - 1
+                t += apply
         return torch.from_numpy(rows).to(device)
+
+    def _cycle(self, group) -> tuple[int, int]:
+        """The group's k and ``mini_step`` (1 and 0 where it updates every
+        step)."""
+        k = self.every.get(group["name"], 1)
+        return k, self._common(group, "mini_step") if k > 1 else 0
+
+    def _common(self, group, key: str) -> int:
+        """A host count of the group's params' state, common to them."""
+        counts = {int(self.state[p][key]) if self.state.get(p) else 0
+                  for p in group["params"]}
+        if len(counts) != 1:
+            raise ValueError(f"group {group['name']!r}: its params' {key} "
+                             f"differ {counts}")
+        return counts.pop()
 
     def _count(self, group) -> int:
         """The updates a group has made (its params' common count)."""
-        counts = {int(self.state[p]["step"]) if self.state.get(p) else 0
-                  for p in group["params"]}
-        if len(counts) != 1:
-            raise ValueError(f"group {group['name']!r}: its params have made "
-                             f"different numbers of updates {counts}")
-        return counts.pop()
+        return self._common(group, "step")
 
     def advance(self, n: int) -> None:
-        """Count ``n`` updates made by ``step`` with a table (which leaves
-        the host's counts alone) for the params it updated, and set their
-        groups' lr as the host path's last update would have."""
+        """Count ``n`` steps made by ``step`` with a table (which leaves
+        the host's counts alone) for the params it updated: their
+        updates, and an accumulating group's ``mini_step`` and
+        ``gradient_step``; and set their groups' lr as the host path's
+        last update would have."""
         for group in self.param_groups:
             ps = [p for p in group["params"] if p in self._table_updated]
             if not ps:
                 continue
-            count = self._count(group)
-            group["lr"] = _lr_at(self.lrs[group["name"]], count + n - 1)
+            k, m = self._cycle(group)
+            # the steps whose mini_step is k - 1
+            updates = (m + n) // k - m // k
+            if updates:
+                group["lr"] = _lr_at(self.lrs[group["name"]],
+                                     self._count(group) + updates - 1)
             for p in ps:
-                self.state[p]["step"] += n
+                st = self.state[p]
+                st["step"] += updates
+                if k > 1:
+                    st["mini_step"] = (st["mini_step"] + n) % k
+                    st["gradient_step"] += updates
 
     @torch.no_grad()
     def step(self, closure=None, table=None, pos=None):
@@ -209,6 +230,7 @@ class Adam(torch.optim.Optimizer):
             return self._table_step(table, pos)
         b1, b2 = self.defaults["betas"]
         params, grads, mus, nus, denom_div, step_size = [], [], [], [], [], []
+        accs = []
         for group in self.param_groups:
             k = self.every.get(group["name"], 1)
             for p in group["params"]:
@@ -222,6 +244,7 @@ class Adam(torch.optim.Optimizer):
                     grad = self._accumulate(st, grad, k)
                     if grad is None:
                         continue
+                    accs.append(grad)
                 count = int(st["step"])
                 group["lr"] = _lr_at(self.lrs[group["name"]], count)
                 st["step"] += 1
@@ -241,19 +264,30 @@ class Adam(torch.optim.Optimizer):
         torch._foreach_div_(denom, denom_div)
         torch._foreach_add_(denom, self.defaults["eps"])
         torch._foreach_addcdiv_(params, mus, denom, step_size)
+        for acc in accs:
+            acc.zero_()
         return None
 
 
     def _table_step(self, table, pos):
         """``step`` from row ``pos`` of ``table``: the same operations as
-        the host path, in the same order, with the two per-group values
-        as 0-d device tensors. The update ``p + v · m / d`` is written out
+        the host path, in the same order, with the per-group values as
+        0-d device tensors. The update ``p + v · m / d`` is written out
         as the CPU's ``addcdiv_`` rounds it, so that on the CPU both paths
         give the same bits; on the card ``addcdiv_`` may round ``v · (m /
-        d)`` instead, an ulp apart."""
+        d)`` instead, an ulp apart.
+
+        An accumulating param adds its gradient to the running mean
+        (``acc + (g − acc) / (m + 1)``, the divisor from the table), and
+        every step computes the mean's update out of place, the same
+        arithmetic, which ``torch.where`` writes over the param and its
+        moments where the row's flag says the step ends the group's k;
+        the mean is zeroed there. So every step runs the same operations,
+        and nothing on the host reads the flag."""
         b1, b2 = self.defaults["betas"]
-        row = table.index_select(0, pos)[0]           # (groups, 2)
+        row = table.index_select(0, pos)[0]           # (groups, 4)
         params, grads, mus, nus, dds, sss = [], [], [], [], [], []
+        accs = []
         for g, group in enumerate(self.param_groups):
             for p in group["params"]:
                 if p.grad is None:
@@ -263,24 +297,44 @@ class Adam(torch.optim.Optimizer):
                 st = self.state[p]
                 if not st:
                     st.update(self._fresh(p))
+                if group["name"] in self.every:
+                    st["acc"].add_((p.grad - st["acc"]) / row[g, 2])
+                    accs.append((p, st, row[g, 0], row[g, 1], row[g, 3] != 0))
+                    continue
                 params.append(p)
                 grads.append(p.grad)
                 mus.append(st["exp_avg"])
                 nus.append(st["exp_avg_sq"])
                 dds.append(row[g, 0])
                 sss.append(row[g, 1])
-        self._table_updated = set(params)
-        if not params:
-            return None
-        torch._foreach_lerp_(mus, grads, 1 - b1)
-        torch._foreach_mul_(nus, b2)
-        torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
-        denom = torch._foreach_sqrt(nus)
-        for d, dd in zip(denom, dds):
-            d.div_(dd)
-        torch._foreach_add_(denom, self.defaults["eps"])
-        for p, m, d, ss in zip(params, mus, denom, sss):
-            p.add_(ss * m / d)
+        self._table_updated = set(params) | {a[0] for a in accs}
+        if params:
+            torch._foreach_lerp_(mus, grads, 1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+            denom = torch._foreach_sqrt(nus)
+            for d, dd in zip(denom, dds):
+                d.div_(dd)
+            torch._foreach_add_(denom, self.defaults["eps"])
+            for p, m, d, ss in zip(params, mus, denom, sss):
+                p.add_(ss * m / d)
+        if accs:
+            ps, sts, dds, sss, ons = zip(*accs)
+            means = [st["acc"] for st in sts]
+            mus = torch._foreach_lerp([st["exp_avg"] for st in sts], means,
+                                      1 - b1)
+            nus = torch._foreach_mul([st["exp_avg_sq"] for st in sts], b2)
+            torch._foreach_addcmul_(nus, means, means, 1 - b2)
+            denom = torch._foreach_sqrt(nus)
+            for d, dd in zip(denom, dds):
+                d.div_(dd)
+            torch._foreach_add_(denom, self.defaults["eps"])
+            for p, st, m, v, d, ss, on in zip(ps, sts, mus, nus, denom, sss,
+                                              ons):
+                torch.where(on, p + ss * m / d, p, out=p)
+                torch.where(on, m, st["exp_avg"], out=st["exp_avg"])
+                torch.where(on, v, st["exp_avg_sq"], out=st["exp_avg_sq"])
+                st["acc"].masked_fill_(on, 0.0)
         return None
 
 

@@ -91,7 +91,7 @@ class _ChunkTables:
                            zeros(capacity, 3, 4))
         self.images = torch.zeros((capacity, *image_shape), **f32)
         self.backgrounds = torch.zeros((capacity, 3), **f32)
-        self.adam = torch.zeros((capacity, groups, 2), **f32)
+        self.adam = torch.zeros((capacity, groups, 4), **f32)
         # float32 metrics and int counts, all exact in float64
         self.metrics = torch.zeros(
             (capacity, len(SCAN_METRICS) + len(SCAN_COUNTS)),
@@ -266,7 +266,8 @@ def make_train_scan(cfg: model.GStexConfig, ocfg: optim.OptimConfig,
     cameras, the images, the n backgrounds (drawn from ``state.generator``
     in the single steps' order), the step numbers (the SH degree and the
     loss schedules follow them on the device) and the Adam updates' rows
-    (``optim.Adam.step_table``). On CUDA the first call runs one step
+    (``optim.Adam.step_table``; an accumulating group's divisor and
+    update flag among them). On CUDA the first call runs one step
     eagerly on a side stream under ``torch.cuda.set_sync_debug_mode
     ("error")``, then captures one whole step (background, ground truth,
     prepare, cull, binning, records, the forward, SSIM and backward
@@ -279,8 +280,7 @@ def make_train_scan(cfg: model.GStexConfig, ocfg: optim.OptimConfig,
     no masks. The graph holds the addresses of the state's tensors:
     anything that replaces one (a checkpoint loaded, capacities grown)
     needs a new scan; ``rechart_step`` updates them in place.
-    ``ocfg`` is the config ``state.optimizer`` was made from; its groups
-    must not accumulate gradients."""
+    ``ocfg`` is the config ``state.optimizer`` was made from."""
     return TrainScan(cfg, state, height, width, capacity)
 
 
@@ -378,12 +378,13 @@ def _corrected(camopt, cam: Camera) -> Camera:
 
 def sharded_step(cfg: model.GStexConfig, state: TrainState, mesh: Mesh,
                  height: int, width: int, cams, images, masks,
-                 camopt=None) -> dict:
+                 camopt=None, table=None, pos=None) -> dict:
     """``_step`` over ``mesh``: one (camera, image, mask) a data row of
     the mesh, each row's ranks a band of its view. Every rank holds the
     whole state and ends the step with the same one. Returns the
     single-device step's metrics, the loss's as the mean over the rows
-    (``shard.band_metrics``)."""
+    (``shard.band_metrics``). ``table`` and ``pos``, given, are the Adam
+    updates' per-step rows (``optim.Adam.step``)."""
     dev = state.params.means.device
     row = mesh.data_rank
     with record_function("gstex.background_gt"):
@@ -414,7 +415,7 @@ def sharded_step(cfg: model.GStexConfig, state: TrainState, mesh: Mesh,
     with record_function("gstex.allreduce"):
         shard.reduce_gradients(mesh, leaves)
     with record_function("gstex.adam"):
-        state.optimizer.step()
+        state.optimizer.step(table=table, pos=pos)
         if camopt is not None:
             camopt[0].optimizer.step()
     step = state.step

@@ -42,9 +42,12 @@ the card one captured CUDA graph replayed a step; over the mesh
 ``parallel/shard.py:make_sharded_train_scan``), whose metrics the host
 reads once; the NaN gate and the capacity growth look at every step of
 the chunk, the cadences run after its last, and ``history`` keeps one row
-a step. A viewer, pose optimization, a downscaled frame, an accumulating
-group, a masked view, data parallelism and (on the card) the ``xla`` and
-``oracle`` renderers take single steps.
+a step. A viewer, pose optimization, a downscaled frame, a masked view,
+data parallelism and (on the card) the ``xla`` and ``oracle`` renderers
+take single steps; a group that accumulates gradients chunks like any
+other (its ``mini_step`` moves in the chunk's Adam table). A chunk's
+logged row carries its steps' largest ``overflow``, ``total_pairs`` and
+``max_tile_count``, as the JAX trainer's does.
 """
 
 from __future__ import annotations
@@ -246,9 +249,9 @@ class Trainer:
             with profiler.time_section("train_iteration"):
                 with lock:
                     if self.mesh is not None and self.mesh.data > 1:
-                        rows = [self._run_dp()]
+                        rows, scanned = [self._run_dp()], False
                     else:
-                        rows = self._run_chunk(st.step)
+                        rows, scanned = self._run_chunk(st.step)
             for step, idx, cam, metrics in rows:
                 self.history.append(dict(metrics, step=step, camera=idx))
             since_log += len(rows)
@@ -259,12 +262,14 @@ class Trainer:
                 for s, _, _, m in rows:
                     if not math.isfinite(m["loss"]):
                         self._nan_abort(s, m)
-            # the growth sizes the caps to the chunk's peak demand; the
-            # logged row stays the last step's own (JAX logs the peaks)
+            # the growth sizes the caps to the chunk's peak demand, and a
+            # scanned chunk's row carries the peaks, as JAX's does
             peak = {k: max(r[3][k] for r in rows)
                     for k in step_mod.SCAN_COUNTS}
             if peak["overflow"] > 0:
                 self._grow_capacities(step, dict(metrics, **peak))
+            if scanned:
+                metrics = dict(metrics, **peak)
             if (self.mcfg.build_chart_every > 0 and step > 0
                     and step % self.mcfg.build_chart_every == 0):
                 with profiler.time_section("retexture_after"), lock:
@@ -302,17 +307,14 @@ class Trainer:
         ends on the next step of each cadence (an event at step s runs
         after step s), at ``max_num_iterations`` and before a change of
         the resolution schedule's factor; 1 with a viewer, pose
-        optimization or a downscaled frame. The port adds two: 1 where a
-        group accumulates gradients (its count moves with its
-        ``mini_step``) and on the card for the renderers without kernels
-        (``xla``, ``oracle``), whose plain versions read counts back to
-        the host."""
+        optimization or a downscaled frame. The port adds one: 1 on the
+        card for the renderers without kernels (``xla``, ``oracle``),
+        whose plain versions read counts back to the host."""
         tcfg, mcfg = self.tcfg, self.mcfg
         n = tcfg.steps_per_sync
         if (n <= 1 or self.viewer is not None
                 or self.pose is not None
                 or model.downscale_factor(mcfg, step) > 1
-                or self.state.optimizer.every
                 or (self.state.params.means.device.type == "cuda"
                     and not mcfg.renderer.startswith("pallas"))):
             return 1
@@ -357,11 +359,12 @@ class Trainer:
         if self.state.params.means.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def _run_chunk(self, step: int) -> list:
+    def _run_chunk(self, step: int) -> tuple[list, bool]:
         """The next ``_chunk_size(step)`` views' steps: through the scan
-        where they share one size and have no mask, else one at a time.
-        Returns (step, camera index, camera, float metrics) a step, the
-        host's one read of the chunk's metrics."""
+        where they are more than one, share one size and have no mask,
+        else one at a time. Returns (step, camera index, camera, float
+        metrics) a step, the host's one read of the chunk's metrics, and
+        whether the scan took them."""
         n = self._chunk_size(step)
         batch = [self.train_cache.next_train_idx() for _ in range(n)]
         same_size = len({(c.height, c.width) for _, (c, _, _) in batch}) == 1
@@ -375,9 +378,9 @@ class Trainer:
                                 for k in keys]).cpu().numpy()
             return [(step + i, idx, cam,
                      {k: float(host[j, i]) for j, k in enumerate(keys)})
-                    for i, (idx, (cam, _, _)) in enumerate(batch)]
+                    for i, (idx, (cam, _, _)) in enumerate(batch)], True
         return [(step + i, idx, *self._run_one(step + i, idx, cam, img, mask))
-                for i, (idx, (cam, img, mask)) in enumerate(batch)]
+                for i, (idx, (cam, img, mask)) in enumerate(batch)], False
 
     def _run_one(self, step: int, idx: int, cam, img, mask):
         """One view's step, on this process or over the mesh: (camera,

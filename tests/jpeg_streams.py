@@ -39,27 +39,39 @@ def _predict(x, y, c, sel, pt):
 
 
 def lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0,
-                  app: bytes = b"", ids=None) -> bytes:
+                  app: bytes = b"", ids=None, sampling=None) -> bytes:
     """An 8-bit lossless JPEG of an (H, W) or (H, W, C) uint8 image: one
-    interleaved scan, every component sampled 1x1, predictor ``predictor``
-    (1-7) and point transform ``pt``; ``app`` goes after SOI."""
+    interleaved scan, predictor ``predictor`` (1-7) and point transform
+    ``pt``; ``app`` goes after SOI. Every component is sampled 1x1, or
+    at its (h, v) of ``sampling``: its plane takes every (hmax / h)-th
+    column and (vmax / v)-th row of the image, whose size must be a
+    multiple of (vmax, hmax)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, nc = img.shape
-    x = img.astype(np.int64) >> pt
+    sampling = sampling or [(1, 1)] * nc
+    hmax = max(sh for sh, _ in sampling)
+    vmax = max(sv for _, sv in sampling)
+    assert h % vmax == 0 and w % hmax == 0
+    planes = [img[::vmax // sv, ::hmax // sh, c].astype(np.int64) >> pt
+              for c, (sh, sv) in enumerate(sampling)]
+    diffs = [[[(int(x[yy, xx]) - _predict(x, yy, xx, predictor, pt))
+               & 0xFFFF for xx in range(x.shape[1])]
+              for yy in range(x.shape[0])] for x in planes]
     codes, bits = _codes(), []
-    for yy in range(h):
-        for xx in range(w):
-            for c in range(nc):
-                d = (int(x[yy, xx, c])
-                     - _predict(x[..., c], yy, xx, predictor, pt)) & 0xFFFF
-                d = d - 65536 if d > 32768 else d
-                s = abs(d).bit_length() if d != 32768 else 16
-                bits.append(codes[s])
-                if 0 < s < 16:
-                    bits.append(((d if d >= 0 else d - 1) & ((1 << s) - 1),
-                                 s))
+    for my in range(h // vmax):
+        for mx in range(w // hmax):
+            for c, (sh, sv) in enumerate(sampling):
+                for v in range(sv):
+                    for u in range(sh):
+                        d = diffs[c][my * sv + v][mx * sh + u]
+                        d = d - 65536 if d > 32768 else d
+                        s = abs(d).bit_length() if d != 32768 else 16
+                        bits.append(codes[s])
+                        if 0 < s < 16:
+                            bits.append(((d if d >= 0 else d - 1)
+                                         & ((1 << s) - 1), s))
     acc = "".join(format(v, f"0{n}b") for v, n in bits)
     acc += "1" * (-len(acc) % 8)
     data = bytearray()
@@ -69,7 +81,8 @@ def lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0,
             data.append(0)
     ids = ids or list(range(1, nc + 1))
     sof = struct.pack(">BHHB", 8, h, w, nc) + b"".join(
-        bytes([ids[i], 0x11, 0]) for i in range(nc))
+        bytes([ids[i], sh << 4 | sv, 0])
+        for i, (sh, sv) in enumerate(sampling))
     sos = bytes([nc]) + b"".join(bytes([ids[i], 0]) for i in range(nc))
     return (b"\xff\xd8" + app + marker(0xC3, sof)
             + marker(0xC4, bytes([0]) + bytes(LOSSLESS_BITS)

@@ -2,8 +2,11 @@
 ``csrc/jpeg_decode.cpp``) on every kind of stream PIL decodes beyond the
 baseline ones of ``test_torch_jpeg.py``: progressive and arithmetic-coded
 (sequential and progressive, DAC conditioning, restart intervals),
-CMYK and YCCK, 4:4:0 and 4:1:1 sampling, lossless; and the streams PIL
-refuses.
+CMYK and YCCK, 4:4:0 and 4:1:1 sampling, lossless, also with a
+subsampled component; the streams PIL refuses; and every fixture cut
+short (to half, to 90 % and to all but its EOI marker), which each
+decoder refuses exactly where PIL does, else decoding to PIL's bytes,
+and a capture with a cut frame, which fails to load naming it.
 
 The fixtures in ``tests/fixtures/jpeg/`` were written by
 ``make_fixtures.py`` there (cv2, PIL and a libjpeg transcoder); their
@@ -248,3 +251,179 @@ def test_captures_of_every_kind_load_like_the_jax_package(tmp_path):
     for got, want in zip(cache.images, jcache.images):
         np.testing.assert_array_equal(
             np.round(got.numpy() * 255).astype(np.uint8), want)
+
+
+def pil_or_error(data: bytes):
+    """PIL's ``convert("RGB")`` bytes of ``data``, or ``None`` where it
+    raises."""
+    try:
+        return pil_rgb(data)
+    except Exception:
+        return None
+
+
+def cuts(data: bytes) -> dict:
+    return {"half": data[:len(data) // 2],
+            "90%": data[:len(data) * 9 // 10],
+            "no EOI": data[:-2]}
+
+
+@pytest.mark.parametrize("name", sorted(MANIFEST))
+def test_cut_fixtures_raise_where_pil_raises(name):
+    """Both decoders raise ``ValueError`` on a cut stream exactly where
+    PIL raises, read live; where PIL decodes one (a lossless stream
+    without its EOI, whose last bit-buffer fill ends at the data's last
+    byte), they give its bytes. The plain decoder takes the 800x800
+    fixtures at their half only."""
+    data = (FIXTURES / name).read_bytes()
+    for cut, part in cuts(data).items():
+        want = pil_or_error(part)
+        fns = [jpeg.decode]
+        if name in SMALL or cut == "half":
+            fns.append(jpeg.decode_plain)
+        for fn in fns:
+            if want is None:
+                with pytest.raises(ValueError, match="truncated"):
+                    fn(part)
+            else:
+                np.testing.assert_array_equal(as_rgb(fn(part)), want)
+    assert pil_or_error(cuts(data)["no EOI"]) is None or name.startswith(
+        "lossless")
+
+
+def test_cut_baseline_streams_at_every_length():
+    """A baseline 4:2:0 stream (one scan, Huffman) and a 4:4:4 one with
+    restart markers cut at each of their last 80 lengths, and two
+    earlier: where libjpeg-turbo's bit buffer, filled 57 bits ahead,
+    runs past the cut, PIL raises; where it does not, PIL decodes. Both
+    decoders follow it at every length. The baseline stream is the first
+    crop of a fixture's frame whose stream PIL decodes without its EOI
+    (its last fill ends at the data's last byte; about one crop in 25)."""
+    import cv2
+
+    img = np.asarray(Image.open(FIXTURES / "prog_pil.jpg").convert("RGB"))
+
+    def baseline(crop, quality):
+        buf = io.BytesIO()
+        Image.fromarray(crop).save(buf, format="JPEG", quality=quality)
+        return buf.getvalue()
+
+    data = next(d for d in (baseline(img[:h, :w], q)
+                            for h in range(16, 46, 3)
+                            for w in range(16, 62, 5) for q in (75, 85, 95))
+                if pil_or_error(d[:-2]) is not None)
+    ok, rst = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
+    decoded = 0
+    for data in (data, rst.tobytes()):
+        n = len(data)
+        for length in list(range(n - 80, n + 1)) + [n // 3, n // 2]:
+            want = pil_or_error(data[:length])
+            decoded += want is not None
+            for fn in (jpeg.decode, jpeg.decode_plain):
+                if want is None:
+                    with pytest.raises(ValueError, match="truncated"):
+                        fn(data[:length])
+                else:
+                    np.testing.assert_array_equal(fn(data[:length]), want)
+    # the whole streams, and one at least that lacks its EOI
+    assert decoded > 2
+
+
+@pytest.mark.parametrize("sampling", [(2, 2), (2, 1), (1, 2)])
+def test_lossless_subsampled_component(sampling):
+    """Three-component lossless streams at 16x24, the first component
+    sampled (h, v) and the others 1x1, predictors 1 and 5: RGB (no JFIF
+    marker) decodes to PIL's bytes in both decoders; with a JFIF marker
+    (YCbCr) PIL refuses them, and so do both decoders."""
+    rng = np.random.default_rng(sampling[0] * 3 + sampling[1])
+    img = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    for predictor in (1, 5):
+        data = lossless_jpeg(img, predictor, 0,
+                             sampling=[sampling, (1, 1), (1, 1)])
+        want = pil_rgb(data)
+        np.testing.assert_array_equal(jpeg.decode(data), want)
+        np.testing.assert_array_equal(jpeg.decode_plain(data), want)
+        ycc = lossless_jpeg(img, predictor, 0, JFIF,
+                            sampling=[sampling, (1, 1), (1, 1)])
+        assert pil_or_error(ycc) is None
+        for fn in (jpeg.decode, jpeg.decode_plain):
+            with pytest.raises(ValueError, match="lossless YCbCr"):
+                fn(ycc)
+
+
+def test_capture_with_a_cut_frame_fails_naming_it(tmp_path):
+    """A Blender split whose second frame is cut to 90 %: the port's
+    ``FullImageCache`` raises ``ValueError`` naming that frame, where the
+    JAX package's PIL loader raises too; with the frame whole both
+    load."""
+    from gstex_torch.data.blender import parse_blender
+    from gstex_torch.data.manager import FullImageCache
+    from gstex_tpu.data.blender import parse_blender as jparse_blender
+    from gstex_tpu.data.manager import FullImageCache as JCache
+
+    names = ["prog_cv2.jpg", "s411_cv2.jpg", "cmyk_pil.jpg"]
+    (tmp_path / "train").mkdir()
+    frames = []
+    for i, name in enumerate(names):
+        c2w = np.eye(4)
+        c2w[2, 3] = 3.0 + i
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    (tmp_path / "transforms_train.json").write_text(json.dumps(
+        {"camera_angle_x": 0.7, "frames": frames}))
+    for cut in (True, False):
+        for i, name in enumerate(names):
+            data = (FIXTURES / name).read_bytes()
+            if cut and i == 1:
+                data = data[:len(data) * 9 // 10]
+            (tmp_path / "train" / f"r_{i}.png").write_bytes(data)
+        if cut:
+            with pytest.raises(ValueError, match=r"r_1\.png: JPEG stream "
+                                                 r"truncated"):
+                FullImageCache.build(parse_blender(tmp_path), device="cpu",
+                                     max_workers=2)
+            with pytest.raises(OSError):
+                JCache.build(jparse_blender(tmp_path), max_workers=2)
+        else:
+            cache = FullImageCache.build(parse_blender(tmp_path),
+                                         device="cpu", max_workers=2)
+            assert len(cache.images) == len(names)
+
+
+def comment(n: int) -> bytes:
+    """A COM segment of n zero bytes."""
+    return b"\xff\xfe" + struct.pack(">H", n + 2) + bytes(n)
+
+
+def test_arithmetic_data_across_a_64_kib_read():
+    """PIL feeds libjpeg 64 KiB at a time, and jdarith.c cannot suspend
+    inside entropy-coded data: an arithmetic-coded stream whose data
+    crosses a read raises there ("broken data stream"), where a Huffman
+    one suspends and decodes. A COM segment after SOI moves the data
+    across 64 KiB: the sequential 800x800 fixture decodes with 27000
+    bytes of it and raises with 30000; the progressive one with restart
+    markers, swept across the boundary, decodes where the crossing falls
+    between its scans' reads and raises elsewhere. Both decoders follow
+    PIL at each."""
+    seq = (FIXTURES / "arith_800.jpg").read_bytes()
+    prog = (FIXTURES / "arith_prog_rst.jpg").read_bytes()
+    streams = [seq[:2] + comment(pad) + seq[2:] for pad in (27000, 30000)]
+    streams += [prog[:2] + comment(pad) + prog[2:]
+                for pad in range(63700, 65500, 11)]
+    verdicts = []
+    for i, data in enumerate(streams):
+        want = pil_or_error(data)
+        verdicts.append(want is not None)
+        fns = [jpeg.decode] + ([jpeg.decode_plain] if i >= 2 else [])
+        for fn in fns:
+            if want is None:
+                with pytest.raises(ValueError, match="64 KiB"):
+                    fn(data)
+            else:
+                np.testing.assert_array_equal(as_rgb(fn(data)), want)
+    assert verdicts[:2] == [True, False]
+    assert 0 < sum(verdicts[2:]) < len(verdicts) - 2
+    # a Huffman stream with the same padding decodes
+    huff = (FIXTURES / "prog_800.jpg").read_bytes()
+    padded = huff[:2] + comment(30000) + huff[2:]
+    np.testing.assert_array_equal(jpeg.decode(padded), pil_rgb(padded))

@@ -519,6 +519,34 @@ def test_port_reads_an_accumulated_jax_checkpoint(scene, jax_accum_run,
         tckpt.load_checkpoint(ck, plain.state)
 
 
+def test_mid_cycle_jax_checkpoint_chunks_from_its_mini_step(
+        scene, jax_accum_run, tmp_path):
+    """JAX's step-6 checkpoint (the texture group's ``mini_step`` 2 of 4)
+    read by a port trainer that saves and logs only at the end: steps
+    6-7 go through the scan in one chunk, whose Adam table starts from
+    the checkpoint's ``mini_step`` and updates the group at step 7, as
+    JAX's run did."""
+    jlosses, jtr, out = jax_accum_run
+    ck = out / "checkpoints" / "step-000000006.ckpt.npz"
+    tr = port_trainer(scene, tmp_path, accumulate=ACCUM,
+                      load_checkpoint=str(ck), steps_per_save=0, log_every=0)
+    assert tr._chunk_size(6) == 2
+    before = tr.state.params.texture.detach().clone()
+    for _ in range(6):
+        tr.train_cache.next_train_idx()
+    hist = tr.train()
+    assert [h["step"] for h in hist] == [6, 7]
+    for h in hist:
+        assert h["loss"] == pytest.approx(jlosses[h["step"]], rel=1e-5)
+    assert_params_agree(tr.state, jtr.state.params, 2)
+    assert not torch.equal(tr.state.params.texture, before)
+    st = tr.state.optimizer.state[tr.state.params.texture]
+    jst = jtr.state.opt_state.inner_states["texture_dc"].inner_state
+    assert (st["mini_step"], st["gradient_step"], int(st["step"])) == (
+        int(jst.mini_step), int(jst.gradient_step),
+        int(jst.inner_opt_state[0].count)) == (0, 2, 2)
+
+
 def test_train_cli_camopt(tmp_path):
     """``gstex-torch-train --set trainer.camera_opt=SE3``: the camopt rows
     in ``events.jsonl``, a pose sidecar beside the checkpoint."""

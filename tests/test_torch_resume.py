@@ -8,7 +8,8 @@ JAX checkpoint's leaf order as the port writes it down; a JAX
 ``.ckpt.npz`` read by the port (params, buffers, step and every group's
 Adam moments equal to JAX's own reading of it), then trained on to agree
 with JAX's run; and a port run resumed from its own checkpoint equal to
-an unbroken run bit for bit."""
+an unbroken run bit for bit, also where groups accumulate gradients and
+the checkpoint, written after a chunk of 5 steps, is mid-cycle."""
 
 import json
 
@@ -68,7 +69,7 @@ def scene():
     return views, to_np(p0), to_np(b)
 
 
-def port_trainer(scene, out, random_bg=False, **tkw):
+def port_trainer(scene, out, random_bg=False, accumulate=(), **tkw):
     views, p0, b = scene
     cfg = tmodel.GStexConfig(**{**CFG, **(
         {"background_color": "random"} if random_bg else {})})
@@ -82,8 +83,9 @@ def port_trainer(scene, out, random_bg=False, **tkw):
         "log_every": 1, "output_dir": str(out), **tkw})
     params = tmodel.GStexParams(*(torch.as_tensor(x) for x in p0))
     buffers = tmodel.GStexBuffers(*(torch.as_tensor(x) for x in b))
-    return TTrainer(tcfg, cfg, toptim.OptimConfig(max_steps=STEPS), params,
-                    buffers, cache)
+    return TTrainer(tcfg, cfg, toptim.OptimConfig(
+        max_steps=STEPS, gradient_accumulation=accumulate), params, buffers,
+        cache)
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +209,44 @@ def test_resume_equals_an_unbroken_run(scene, tmp_path):
     for (_, a), (_, b) in zip(part.state.optimizer.state.items(),
                               whole.state.optimizer.state.items()):
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_accumulating_resume_mid_cycle_equals_an_unbroken_run(scene,
+                                                              tmp_path):
+    """``texture_dc`` accumulating 4 steps an update and ``xyz`` 5, a
+    save every 5 steps and no log: steps 1-5 go through the scan in one
+    chunk, and the checkpoint after it holds the counts ``advance`` left
+    there, mid-cycle; a run resumed from it takes steps 6-7 in one chunk,
+    bit-equal to the unbroken run."""
+    kw = dict(random_bg=True, accumulate=(("texture_dc", 4), ("xyz", 5)),
+              steps_per_save=5, log_every=0)
+    whole = port_trainer(scene, tmp_path / "whole", **kw)
+    assert [whole._chunk_size(s) for s in (0, 1, 6)] == [1, 5, 2]
+    hist = whole.train()
+    ck = tmp_path / "whole" / "checkpoints" / "step-000000006.ckpt.pt"
+    saved = torch.load(ck, weights_only=True)["optimizer"]["state"]
+    groups = list(toptim.GROUP_OF_LEAF)
+    for group, k in (("xyz", 5), ("texture_dc", 4)):
+        st = saved[groups.index(group)]
+        assert (st["mini_step"], st["gradient_step"], int(st["step"])) == (
+            6 % k, 1, 1), group
+        assert float(st["acc"].abs().max()) > 0, group
+    part = port_trainer(scene, tmp_path / "part", load_checkpoint=str(ck),
+                        **kw)
+    for _ in range(6):
+        part.train_cache.next_train_idx()
+    rest = part.train()
+    assert [h["step"] for h in rest] == [6, 7]
+    assert [h["loss"] for h in rest] == [h["loss"] for h in hist[6:]]
+    for a, b in zip(part.state.params, whole.state.params):
+        assert torch.equal(a, b)
+    for (_, a), (_, b) in zip(part.state.optimizer.state.items(),
+                              whole.state.optimizer.state.items()):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                   for k in a)
+    st = part.state.optimizer.state[part.state.params.texture]
+    assert (st["mini_step"], st["gradient_step"]) == (0, 2)
 
 
 def test_load_checkpoint_takes_both_suffixes_only(scene, tmp_path):

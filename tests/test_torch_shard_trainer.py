@@ -7,7 +7,8 @@
   the 2-rank run's losses are the one-process run's;
 - the Trainer on one group of 4 ranks (``torch_ranks.trainer_cases``):
   the tile mesh, its steps 1-3 as one chunk of the sharded scan equal to
-  the per-step run bit for bit, a resume from its step-2 checkpoint equal to the unbroken
+  the per-step run bit for bit (also with groups accumulating
+  gradients), a resume from its step-2 checkpoint equal to the unbroken
   run bit for bit, data parallelism, camera pose optimization, a masked
   dataset against the one-process masked run; every run's replicas
   bit-equal; data parallelism on masks refused, as JAX refuses it;
@@ -126,7 +127,7 @@ def rank_runs(data, tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", ["tile", "scan", "resumed", "dp", "camopt",
-                                  "masked"])
+                                  "masked", "scan_accum"])
 def test_trainer_replicas_stay_bit_equal(rank_runs, name):
     got = rank_runs[1][name]
     assert len(set(got["hashes"])) == 1, got["hashes"]
@@ -148,6 +149,20 @@ def test_mesh_scan_equals_the_per_step_run(rank_runs):
     assert [h["step"] for h in runs["scan"]["history"]] == [0, 1, 2, 3]
     assert runs["scan"]["history"] == runs["tile"]["history"]
     assert runs["scan"]["hashes"] == runs["tile"]["hashes"]
+
+
+def test_mesh_scan_with_accumulating_groups_equals_the_per_step_run(
+        rank_runs):
+    """``texture_dc`` and ``xyz`` accumulating: steps 1-3 as one chunk of
+    the sharded scan, its Adam updates from the chunk's table, give the
+    per-step run's metrics and state (moments, means and host counts),
+    and a state other than the plain runs'."""
+    runs = rank_runs[1]
+    assert [h["step"] for h in runs["scan_accum"]["history"]] == [
+        0, 1, 2, 3]
+    assert runs["scan_accum"]["history"] == runs["tile_accum"]["history"]
+    assert runs["scan_accum"]["hashes"] == runs["tile_accum"]["hashes"]
+    assert runs["scan_accum"]["hashes"] != runs["scan"]["hashes"]
 
 
 def test_mesh_camopt_writes_one_pose_sidecar(rank_runs):

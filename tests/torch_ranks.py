@@ -42,11 +42,14 @@ def _rank(rank, world, module, name, payload, tmp):
 
 def state_hash(state, pose=None) -> str:
     """A digest of a state's parameters, buffers, optimizer moments and
-    step (and a pose's deltas): equal on bit-equal replicas."""
+    host counts and step (and a pose's deltas): equal on bit-equal
+    replicas."""
     h = hashlib.sha256()
     leaves = list(state.params) + list(state.buffers)
     for st in state.optimizer.state.values():
         leaves += [v for v in st.values() if torch.is_tensor(v)]
+        h.update(repr([(k, v) for k, v in st.items()
+                       if not torch.is_tensor(v)]).encode())
     if pose is not None:
         leaves.append(pose.delta)
     for x in leaves:
@@ -147,8 +150,9 @@ def shard_cases(payload) -> dict:
 # --- tests/test_torch_shard_trainer.py's cases: the Trainer on a group of
 # 4 ranks --------------------------------------------------------------
 
-def trainer(payload, out, cache=None, **tkw):
-    """The port's Trainer on the payload's dataset (its masks, given)."""
+def trainer(payload, out, cache=None, accumulate=(), **tkw):
+    """The port's Trainer on the payload's dataset (its masks, given),
+    its groups ``accumulate`` accumulating gradients."""
     from gstex_torch.data.blender import parse_blender
     from gstex_torch.data.manager import FullImageCache
     from gstex_torch.models import gstex as model
@@ -166,7 +170,8 @@ def trainer(payload, out, cache=None, **tkw):
                             "steps_per_eval_image": 0, "log_every": 1,
                             "save_only_latest_checkpoint": False,
                             "vis": "wandb", "output_dir": str(out), **tkw})
-    return Trainer(tcfg, cfg, optim.OptimConfig(max_steps=4),
+    return Trainer(tcfg, cfg, optim.OptimConfig(
+        max_steps=4, gradient_accumulation=accumulate),
                    model.GStexParams(*(p.clone() for p in params)),
                    model.GStexBuffers(*(b.clone() for b in buffers)), cache)
 
@@ -191,6 +196,14 @@ def trainer_cases(payload) -> dict:
     # steps 1-3 in one chunk: make_sharded_train_scan
     run("scan", trainer(payload, root / "scan", num_devices=4, log_every=4,
                         steps_per_save=0, steps_per_sync=4))
+    # the same with texture_dc and xyz accumulating 3 and 2 steps an
+    # update: the scan's chunk reads the Adam table, the steps the host
+    accum = (("texture_dc", 3), ("xyz", 2))
+    run("tile_accum", trainer(payload, root / "tile_accum", num_devices=4,
+                              accumulate=accum))
+    run("scan_accum", trainer(payload, root / "scan_accum", num_devices=4,
+                              log_every=4, steps_per_save=0,
+                              steps_per_sync=4, accumulate=accum))
     ck = root / "tile" / "checkpoints" / "step-000000002.ckpt.pt"
     run("resumed", trainer(payload, root / "resumed", num_devices=4,
                            load_checkpoint=str(ck)), skip=2)

@@ -13,7 +13,9 @@ step``) or one eval frame of the same state (``--mode eval``, the
 forward-only ``models.gstex.render``) as ``chip_smoke.py``'s phase 10
 does, or (``--mode chunk``) runs ``chip_smoke.py``'s phase 5e check
 (``scan_check``: a chunk of 8 steps through the captured graph against
-eager steps, its gates, times and ``kept_graph_cost``) on the state and 8
+eager steps, its gates, times and ``kept_graph_cost``; then, where that
+tree has it, ``accum_scan_check``, the same with groups accumulating
+gradients) on the state and 8
 views of an orbit, with seeded ground-truth images: the trained-scene statistics at their auto chart pad, re-charted,
 on the 800x800 view of its phase 10, against a seeded ground-truth image.
 ``--tier flat`` takes pixel_num 1e6, pad (40, 80); ``--tier dense``
@@ -172,6 +174,12 @@ def main():
                             tier=args.tier)
         print(json.dumps({"tag": args.tag or str(root), "card": smi(),
                           **res}), flush=True)
+        if hasattr(cs, "accum_scan_check"):
+            res = cs.accum_scan_check(cfg, optim, state, views, counters,
+                                      res, tier=args.tier)
+            print(json.dumps({"tag": args.tag or str(root), "card": smi(),
+                              "path": "scan_accumulating", **res}),
+                  flush=True)
         return
     if args.mode == "step":
         timing = cs.step_timing(lambda: train_step.train_step(
