@@ -1,0 +1,7 @@
+"""Share of the traced window in which no kernel, copy or set ran on the card."""
+
+
+def read(ctx):
+    if ctx["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["trace"]["busy_s"] / ctx["window_s"])
